@@ -13,7 +13,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from edtr_torch.models.layers import Conv2d
+from edtr_torch.models.layers import Conv2d, to_conv_layout
 from edtr_torch.models.unet import _Encoder, run_block
 
 
@@ -38,7 +38,7 @@ class ControlNet(_Encoder):
     def forward(self, x: torch.Tensor, hint: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         emb = self.embed(timesteps)
-        h = torch.cat([x, hint], dim=1).to(self.dtype or x.dtype)
+        h = to_conv_layout(torch.cat([x, hint], dim=1).to(self.dtype or x.dtype))
         if context is not None:
             context = context.to(self.dtype or context.dtype)
         outs = []

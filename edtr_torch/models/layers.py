@@ -9,7 +9,12 @@ Counterpart of ``edtr_tpu/models/layers.py``:
 * ``Linear``/``Conv2d``: fp32 params, computed like flax ``Dense``/``Conv``
   with a ``dtype``: input and weight cast to the compute dtype, product
   accumulated in fp32 and rounded, then the bias added in the compute dtype;
-* ``norm_silu_conv``: the ResBlock half of ``edtr_tpu/ops/gn_conv.py:_ref``.
+* ``norm_silu_conv`` / ``upsample_conv3x3``: the ResBlock half and the
+  nearest-2x conv of ``edtr_tpu/ops/gn_conv.py``, as stock PyTorch ops (the
+  plain versions) or, inside a :func:`fused_conv` block, through the port's
+  conv kernels (``edtr_torch/ops/gn_conv.py``), which read channels-last
+  activations (:func:`to_conv_layout`) and the bf16 weight copy
+  ``Conv2d.packed_weight`` caches.
 
 Parameter names follow the reference torch state dicts (``weight``/
 ``bias``, OIHW conv kernels, (out, in) linear kernels).
@@ -17,14 +22,34 @@ Parameter names follow the reference torch state dicts (``weight``/
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from edtr_torch.ops import gn_conv
 from edtr_torch.ops._norms import fold_from_moments, gn_stats, ln_f32
+
+_fused_conv = False
+
+
+@contextlib.contextmanager
+def fused_conv(on: bool = True) -> Iterator[None]:
+    """The conv configuration of every call inside the block (JAX's
+    ``ResBlock.fused`` with the gn_conv families forced on, for all blocks at
+    once): on, :func:`norm_silu_conv` and :func:`upsample_conv3x3` run
+    through the port's conv kernels and the networks keep their activations
+    channels-last (:func:`to_conv_layout`); off, and outside any block, they
+    are stock PyTorch ops. ``EDTRPipeline`` sets it around each stage."""
+    global _fused_conv
+    prev, _fused_conv = _fused_conv, bool(on)
+    try:
+        yield
+    finally:
+        _fused_conv = prev
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -78,6 +103,19 @@ class Conv2d(nn.Module):
         nn.init.normal_(self.weight, std=(in_channels * kernel_size ** 2) ** -0.5)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+        self._packed: Optional[torch.Tensor] = None
+        self._packed_key: Optional[tuple] = None
+
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight as the conv kernels read it (``gn_conv.pack_weight``:
+        (kh, kw, out, in) in ``dtype``), made once and kept until the weight
+        is changed in place (its version) or replaced (its storage)."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device, dtype)
+        if self._packed_key != key:
+            self._packed = gn_conv.pack_weight(w, dtype)
+            self._packed_key = key
+        return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
@@ -124,23 +162,30 @@ def norm_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: Conv2d,
                    res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``conv3x3(silu(GN(x))) + b [+ emb] [+ res]`` with the casts of
     ``gn_conv._ref``: affine in fp32, cast to x's dtype, SiLU and conv in
-    that dtype, bias/emb/res added in that dtype."""
-    cdt = x.dtype
+    that dtype, bias/emb/res added in that dtype. GroupNorm statistics are
+    stock ops either way; under :func:`fused_conv` the rest is one kernel."""
     mul, add = norm.fold(x)
-    a = x.float() * mul[:, :, None, None] + add[:, :, None, None]
-    h = F.silu(a.to(cdt))
-    o = F.conv2d(h, conv.weight.to(cdt), None, conv.stride, conv.padding)
-    o = o + conv.bias.to(cdt)[:, None, None]
-    if emb is not None:
-        o = o + emb[:, :, None, None].to(cdt)
-    if res is not None:
-        o = o + res
-    return o
+    if _fused_conv:
+        return gn_conv.gn_silu_conv(x, mul, add, conv.weight, conv.bias, emb, res,
+                                    w_packed=conv.packed_weight(x.dtype))
+    return gn_conv.plain_gn_silu_conv(x, mul, add, conv.weight, conv.bias, emb, res)
 
 
-def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, 2H, 2W), nearest neighbour."""
-    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+def upsample_conv3x3(x: torch.Tensor, conv: Conv2d,
+                     act: Optional[str] = None) -> torch.Tensor:
+    """``act(conv3x3(nearest2x(x)) + b)`` in x's dtype (act None or
+    "lrelu"); under :func:`fused_conv`, one kernel."""
+    if _fused_conv:
+        return gn_conv.upsample_conv(x, conv.weight, conv.bias, act,
+                                     w_packed=conv.packed_weight(x.dtype))
+    return gn_conv.plain_upsample_conv(x, conv.weight, conv.bias, act)
+
+
+def to_conv_layout(x: torch.Tensor) -> torch.Tensor:
+    """Channels-last memory under :func:`fused_conv`, kept from a network's
+    first layer on (convs, adds and the token views preserve it); the stock
+    path's tensors are left as they are."""
+    return x.contiguous(memory_format=torch.channels_last) if _fused_conv else x
 
 
 @torch.no_grad()

@@ -3,7 +3,9 @@
 Counterpart of ``edtr_tpu/models/swinir.py`` in its EDTR form: reflect pad
 to the window multiple, pixel-unshuffle x``sf`` before ``conv_first``, RSTB
 groups of shifted-window blocks over (B, N, C) tokens, then the
-``nearest+conv`` tail (three nearest-2x + conv3x3 + LeakyReLU 0.2). Window
+``nearest+conv`` tail (three nearest-2x + conv3x3 + LeakyReLU 0.2; inside a
+``layers.fused_conv`` block, each one launch of the port's upsample-conv
+kernel on channels-last activations). Window
 attention is the plain math of ``edtr_tpu/ops/window_attention.py:
 _xla_reference`` (fp32 logits, relative-position bias, shift mask, fp32
 softmax), which is what the JAX package runs by default.
@@ -30,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edtr_torch.models.layers import Conv2d, LayerNorm, Linear, nearest_upsample_2x
+from edtr_torch.models.layers import (Conv2d, LayerNorm, Linear, to_conv_layout,
+                                      upsample_conv3x3)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
@@ -230,9 +233,10 @@ class SwinIR(nn.Module):
         feat = feat + self.conv_after_body(t.transpose(1, 2).reshape(b, c, h, w))
 
         feat = F.leaky_relu(self.conv_before_upsample[0](feat), 0.01)
+        feat = to_conv_layout(feat)
         for name in ("conv_up1", "conv_up2", "conv_up3"):
             if hasattr(self, name):
-                feat = F.leaky_relu(getattr(self, name)(nearest_upsample_2x(feat)), 0.2)
+                feat = upsample_conv3x3(feat, getattr(self, name), "lrelu")
         feat = F.leaky_relu(self.conv_hr(feat), 0.2)
         out = self.conv_last(feat).float() + self.mean
         return out[:, :, :H * self.sf, :W * self.sf]

@@ -1,12 +1,14 @@
 """SD2.1 LDM UNet (NCHW) with ControlNet residual injection.
 
 Counterpart of ``edtr_tpu/models/unet.py``. The ResBlock halves follow
-``edtr_tpu/ops/gn_conv.py:_ref`` (the math the JAX package runs with its
-fused conv family off): GroupNorm affine in fp32, cast to the compute
-dtype, SiLU and conv3x3 in the compute dtype, bias/emb/residual added in the
-compute dtype. The Upsample is nearest-2x then conv3x3, the function both
-of JAX's formulations (``_ups_ref`` and the phase-folded ``_ups_subpixel``)
-compute.
+``edtr_tpu/ops/gn_conv.py:_ref``: GroupNorm affine in fp32, cast to the
+compute dtype, SiLU and conv3x3 in the compute dtype, bias/emb/residual
+added in the compute dtype. The Upsample is nearest-2x then conv3x3, the
+function both of JAX's formulations (``_ups_ref`` and the phase-folded
+``_ups_subpixel``) compute. Inside a ``layers.fused_conv`` block (JAX's
+``ResBlock.fused`` with the gn_conv families forced on) both run through the
+port's conv kernels on channels-last activations; otherwise they are stock
+PyTorch ops, as the JAX package leaves them to XLA by default.
 
 Parameter names are the reference LDM state-dict keys (``time_embed.0``,
 ``input_blocks.1.0.in_layers.0``, ``middle_block.1.proj_in``, ``out.2``, ...),
@@ -23,9 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from edtr_torch.models.attention import SpatialTransformer
-from edtr_torch.models.layers import (Conv2d, GroupNorm32, Linear,
-                                      nearest_upsample_2x, norm_silu_conv,
-                                      timestep_embedding)
+from edtr_torch.models.layers import (Conv2d, GroupNorm32, Linear, norm_silu_conv,
+                                      timestep_embedding, to_conv_layout,
+                                      upsample_conv3x3)
 
 
 class ResBlock(nn.Module):
@@ -80,7 +82,7 @@ class Upsample(nn.Module):
         self.conv = Conv2d(channels, out_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(nearest_upsample_2x(x.to(self.dtype or x.dtype)))
+        return upsample_conv3x3(x.to(self.dtype or x.dtype), self.conv)
 
 
 def heads_for(ch: int, num_head_channels: int, num_heads: int) -> Tuple[int, int]:
@@ -188,7 +190,7 @@ class UNetModel(_Encoder):
                 control: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         emb = self.embed(timesteps)
         cdt = self.dtype or x.dtype
-        h = x.to(cdt)
+        h = to_conv_layout(x.to(cdt))
         if context is not None:
             context = context.to(cdt)
         hs = []

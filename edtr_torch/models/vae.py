@@ -3,9 +3,13 @@
 Counterpart of ``edtr_tpu/models/vae.py``. GroupNorms use eps 1e-6 with fp32
 statistics; the ResnetBlock halves follow ``gn_conv._ref`` (the skip add in
 the second half's epilogue); Upsample is nearest-2x then conv3x3; Downsample
-pads (0, 1, 0, 1) then convolves with stride 2. The mid-block ``AttnBlock``
-is single-head attention over the H*W tokens at D = channels, which at 512²
-input (64² x 512) is the shape of the streamed-KV flash kernel.
+pads (0, 1, 0, 1) then convolves with stride 2. Inside a
+``layers.fused_conv`` block the ResnetBlock halves and the Upsample convs
+run through the port's conv kernels (``edtr_torch/ops/gn_conv.py``) on
+channels-last activations. The
+mid-block ``AttnBlock`` is single-head attention over the H*W tokens at
+D = channels, which at 512² input (64² x 512) is the shape of the
+streamed-KV flash kernel.
 
 Parameter names are the reference state-dict keys (``encoder.down.0.block.1
 .norm1``, ``encoder.mid.attn_1.q``, ``decoder.up.3.upsample.conv``,
@@ -21,8 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from edtr_torch.models.distributions import DiagonalGaussianDistribution
-from edtr_torch.models.layers import (Conv2d, GroupNorm32, nearest_upsample_2x,
-                                      norm_silu_conv)
+from edtr_torch.models.layers import (Conv2d, GroupNorm32, norm_silu_conv,
+                                      to_conv_layout, upsample_conv3x3)
 from edtr_torch.ops.attention import dot_product_attention
 
 
@@ -84,7 +88,7 @@ class Upsample(nn.Module):
         self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(nearest_upsample_2x(x.to(self.dtype or x.dtype)))
+        return upsample_conv3x3(x.to(self.dtype or x.dtype), self.conv)
 
 
 class _Mid(nn.Module):
@@ -140,7 +144,7 @@ class Encoder(nn.Module):
                                padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv_in(x.to(self.dtype or x.dtype))
+        h = self.conv_in(to_conv_layout(x.to(self.dtype or x.dtype)))
         for level in self.down:
             h = level(h)
         h = self.mid(h)
@@ -168,7 +172,7 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, dtype=dtype)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid(self.conv_in(z.to(self.dtype or z.dtype)))
+        h = self.mid(self.conv_in(to_conv_layout(z.to(self.dtype or z.dtype))))
         for level in reversed(self.up):
             h = level(h)
         return self.conv_out(F.silu(self.norm_out(h))).float()

@@ -3,8 +3,10 @@
 Each ``edtr_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``edtr_torch/_build/<name>-<hash>.so``
 at first use, then loaded with ``ctypes``. The file name carries a hash of
-the source and flags, so an edited kernel is rebuilt and a stale library is
-never loaded. Nothing is compiled when a module is imported.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel or header is rebuilt and a stale library is never loaded. Nothing is
+compiled when a module is imported; :func:`build_all` runs one ``nvcc`` per
+source, all at once.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import os
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -38,9 +41,11 @@ def _nvcc() -> str:
 
 
 def so_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> float:
@@ -62,6 +67,12 @@ def build(name: str) -> float:
                            + proc.stdout.decode(errors="replace"))
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     return time.perf_counter() - t0
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """:func:`build` of each source, the ``nvcc`` runs started together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

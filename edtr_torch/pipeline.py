@@ -13,10 +13,21 @@ Counterpart of ``edtr_tpu/pipeline.py`` (``EDTRPipeline.restore``) and of
 noise. The stage methods (``pre_restore``, ``encode``, ``denoise``,
 ``decode``) are NCHW. The pipeline runs on CUDA unless it is built with
 ``device="cpu"``; with no card and no explicit device it raises.
+
+The pipeline (and :func:`build_flagship`) takes ``fused_conv``, the conv
+configuration it runs its stages in (``models.layers.fused_conv``): True
+runs every ResBlock half (GroupNorm affine + SiLU + conv3x3 +
+bias/emb/residual) and every nearest-2x + conv3x3 (UNet, VAE, SwinIR tail)
+through the port's conv kernels (``edtr_torch/ops/gn_conv.py``), the JAX
+package's configuration ``EDTR_GNCONV_FUSED=force EDTR_UPSCONV_FUSED=force
+EDTR_UPS_SUBPIX=0``; False runs them as stock PyTorch ops, as JAX's default
+leaves them to XLA. The modules are the same either way, so both load the
+same state dicts.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -25,8 +36,14 @@ from torch import nn
 from edtr_torch.diffusion.sampler import make_spaced_schedule, sample_loop
 from edtr_torch.diffusion.schedule import Diffusion
 from edtr_torch.models.cldm import ControlLDM
+from edtr_torch.models.layers import fused_conv as conv_config
 from edtr_torch.models.swinir import SwinIR
 from edtr_torch.utils.image import wavelet_reconstruction
+
+# the conv configuration chip_smoke.py measured faster end to end on the
+# card (interleaved restores: a clear majority of pairs and a win beyond
+# the ~5% drift; PERF.md); chip_smoke.py reports whether its run agrees
+FUSED_CONV_DEFAULT = True
 
 
 def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
@@ -53,14 +70,26 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _in_conv_config(stage):
+    """Runs a pipeline stage in the pipeline's conv configuration."""
+    @functools.wraps(stage)
+    def run(self, *args, **kwargs):
+        with conv_config(self.fused_conv):
+            return stage(self, *args, **kwargs)
+    return run
+
+
 class EDTRPipeline(nn.Module):
-    """SwinIR + ControlLDM + diffusion tables, on one device."""
+    """SwinIR + ControlLDM + diffusion tables, on one device, run in the
+    conv configuration ``fused_conv`` (module docstring)."""
 
     def __init__(self, swinir: SwinIR, cldm: ControlLDM, diffusion: Diffusion,
                  start_timestep: int = 200, num_timesteps: int = 4,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 fused_conv: bool = FUSED_CONV_DEFAULT):
         super().__init__()
         self.device = resolve_device(device)
+        self.fused_conv = bool(fused_conv)
         self.swinir = swinir.to(self.device)
         self.cldm = cldm.to(self.device)
         self.diffusion = diffusion
@@ -70,14 +99,17 @@ class EDTRPipeline(nn.Module):
                                              self.device)
 
     @torch.no_grad()
+    @_in_conv_config
     def pre_restore(self, lq: torch.Tensor) -> torch.Tensor:
         return self.swinir(lq)
 
     @torch.no_grad()
+    @_in_conv_config
     def encode(self, pre_res: torch.Tensor) -> torch.Tensor:
         return self.cldm.vae_encode(pre_res * 2 - 1)
 
     @torch.no_grad()
+    @_in_conv_config
     def denoise(self, z_pre: torch.Tensor, c_txt: torch.Tensor, noise: torch.Tensor,
                 step_noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -88,6 +120,7 @@ class EDTRPipeline(nn.Module):
         return sample_loop(self.cldm, self.schedule, z_t, cond, step_noise, generator)
 
     @torch.no_grad()
+    @_in_conv_config
     def decode(self, z: torch.Tensor, pre_res: torch.Tensor) -> torch.Tensor:
         return wavelet_reconstruction((self.cldm.vae_decode(z) + 1) / 2, pre_res)
 
@@ -148,9 +181,11 @@ def flagship_configs(tiny: bool = False) -> Dict[str, Any]:
 
 
 def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bfloat16,
-                   device: Optional[torch.device | str] = None) -> EDTRPipeline:
+                   device: Optional[torch.device | str] = None,
+                   fused_conv: bool = FUSED_CONV_DEFAULT) -> EDTRPipeline:
     """The EDTR-s4 restore pipeline (start t=200, 4 steps), weights as
-    initialised by the constructors: load a state dict or randomise them."""
+    initialised by the constructors: load a state dict or randomise them.
+    ``fused_conv``: the conv configuration (module docstring)."""
     device = resolve_device(device)
     cfg = flagship_configs(tiny)
     with torch.device(device):
@@ -160,4 +195,4 @@ def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bflo
     diffusion = Diffusion.create(1000, linear_start=0.00085, linear_end=0.0120,
                                  device=device)
     return EDTRPipeline(swinir, cldm, diffusion, start_timestep=200, num_timesteps=4,
-                        device=device)
+                        device=device, fused_conv=fused_conv)

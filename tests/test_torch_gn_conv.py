@@ -1,0 +1,383 @@
+"""edtr_torch/ops/gn_conv.py and the fused-conv configuration against
+edtr_tpu/ops/gn_conv.py, on the CPU in fp32 with numpy-seeded inputs.
+
+* Ops: the port's ``gn_silu_conv`` / ``upsample_conv`` (their plain
+  versions on CPU tensors) against JAX's reference math (``_ref``,
+  ``_ups_ref``, ``_ups_subpixel``) and its Pallas kernels in interpret mode
+  (``_FORCE_KERNEL``; the whole-image tier with the band budget zeroed, the
+  band tier with the whole-image budget zeroed), at JAX's own tolerance
+  2e-5. JAX runs at float32 matmul precision: this platform's default CPU
+  conv is reduced-precision (tests/test_gn_conv_fused.py).
+* Modules: a VAE ResnetBlock and a UNet ResBlock run inside
+  ``layers.fused_conv()`` against the JAX blocks with ``fused=True`` and
+  the kernels forced, at 3e-3 (tests/test_torch_modules.py); the switch
+  routes every conv of a block and of a pipeline stage, and only there.
+* The slice: the tiny restore with ``fused_conv=True`` against the JAX
+  tiny restore with ``_FORCE_KERNEL`` and ``EDTR_UPS_SUBPIX=0``, at the
+  tolerances of tests/test_torch_pipeline.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from edtr_tpu.ops import gn_conv as JG
+
+from edtr_torch.models.layers import Conv2d, fused_conv
+from edtr_torch.ops import gn_conv as G
+from torch_port_helpers import CTX, IMAGE, jax_tiny, load_port, nchw, nhwc, port_tiny, t2n
+
+OP_TOL = dict(rtol=0, atol=2e-5)
+MOD_TOL = dict(rtol=3e-3, atol=3e-3)
+
+
+def _args(b=2, h=16, w=8, cin=64, cout=128, emb=True, res=True, seed=0):
+    """JAX's test inputs (tests/test_gn_conv_fused.py:_args), as numpy."""
+    g = np.random.default_rng(seed)
+    f32 = np.float32
+    x = g.standard_normal((b, h, w, cin)).astype(f32)
+    mul = (g.standard_normal((b, cin)) * 0.5 + 1.0).astype(f32)
+    add = (g.standard_normal((b, cin)) * 0.1).astype(f32)
+    wk = (g.standard_normal((3, 3, cin, cout)) * 0.05).astype(f32)
+    bk = (g.standard_normal(cout) * 0.1).astype(f32)
+    e = (g.standard_normal((b, cout)) * 0.2).astype(f32) if emb else None
+    r = g.standard_normal((b, h, w, cout)).astype(f32) if res else None
+    return x, mul, add, wk, bk, e, r
+
+
+def _oihw(wk):  # HWIO -> OIHW
+    return torch.from_numpy(np.ascontiguousarray(wk.transpose(3, 2, 0, 1)))
+
+
+def _port_gn(x, mul, add, wk, bk, e, r):
+    out = G.gn_silu_conv(nchw(x), torch.from_numpy(mul), torch.from_numpy(add), _oihw(wk),
+                         torch.from_numpy(bk), None if e is None else torch.from_numpy(e),
+                         None if r is None else nchw(r))
+    return nhwc(out)
+
+
+def _jax_pair(fn, args, monkeypatch, **budgets):
+    """(reference, Pallas kernel in interpret mode) of a JAX gn_conv op."""
+    jargs = [None if a is None else jnp.asarray(a) for a in args]
+    with jax.default_matmul_precision("float32"):
+        ref = np.asarray(fn(*jargs, force=False))
+        for name, value in budgets.items():
+            monkeypatch.setattr(JG, name, value)
+        monkeypatch.setattr(JG, "_FORCE_KERNEL", True)
+        kern = np.asarray(fn(*jargs, force=True))
+    return ref, kern
+
+
+def _jax_gn(*args, force):
+    return (JG.gn_silu_conv if force else JG._ref)(*args)
+
+
+@pytest.mark.parametrize("tier", ["whole", "band"])
+@pytest.mark.parametrize("emb,res", [(True, True), (True, False), (False, True),
+                                     (False, False)])
+def test_gn_silu_conv_matches_jax(monkeypatch, tier, emb, res):
+    # the band tier's halo rows are the risk: h spans 4 row blocks there
+    h = 16 if tier == "whole" else 32
+    args = _args(h=h, emb=emb, res=res, seed=6)
+    budgets = {"_BAND_BUDGET": 100} if tier == "whole" else {"_BUDGET": 100}
+    plan = (JG._plan if tier == "whole" else JG._band_plan)(h, 8, 64, 128, res, es=4)
+    assert plan is not None
+    ref, kern = _jax_pair(_jax_gn, args, monkeypatch, **budgets)
+    got = _port_gn(*args)
+    np.testing.assert_allclose(got, ref, **OP_TOL)
+    np.testing.assert_allclose(got, kern, **OP_TOL)
+
+
+def test_gn_silu_conv_nonsquare(monkeypatch):
+    args = _args(h=8, w=24, cin=32, cout=64, seed=2)
+    ref, kern = _jax_pair(_jax_gn, args, monkeypatch)
+    got = _port_gn(*args)
+    np.testing.assert_allclose(got, ref, **OP_TOL)
+    np.testing.assert_allclose(got, kern, **OP_TOL)
+
+
+@pytest.mark.parametrize("act", [None, "lrelu"])
+def test_upsample_conv_matches_jax(monkeypatch, act):
+    g = np.random.default_rng(11)
+    x = g.standard_normal((2, 16, 8, 32)).astype(np.float32)
+    wk = (g.standard_normal((3, 3, 32, 64)) * 0.05).astype(np.float32)
+    bk = (g.standard_normal(64) * 0.1).astype(np.float32)
+    assert JG._ups_plan(32, 16, 32, 64, es=4, strict_lanes=False) is not None
+    monkeypatch.setenv("EDTR_UPS_SUBPIX", "0")
+
+    def ups(x, w, b, force):
+        return JG.upsample_conv(x, w, b, act) if force else JG._ups_ref(x, w, b, act)
+    ref, kern = _jax_pair(ups, (x, wk, bk), monkeypatch)
+    with jax.default_matmul_precision("float32"):
+        sub = np.asarray(JG._ups_subpixel(jnp.asarray(x), jnp.asarray(wk), jnp.asarray(bk),
+                                          act))
+    got = nhwc(G.upsample_conv(nchw(x), _oihw(wk), torch.from_numpy(bk), act))
+    assert got.shape == (2, 32, 16, 64)
+    for other in (ref, kern, sub):
+        np.testing.assert_allclose(got, other, **OP_TOL)
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    """On CPU tensors the wrappers compute the plain versions and launch
+    nothing; the tier follows ``_call``'s rule (h >= 16: row bands)."""
+    assert (G.tier(8), G.tier(15), G.tier(16)) == ("gn_conv_whole", "gn_conv_whole",
+                                                   "gn_conv_band")
+    x, mul, add, wk, bk, e, r = (None if a is None else torch.from_numpy(a)
+                                 for a in _args(seed=3))
+    x, r = x.permute(0, 3, 1, 2), r.permute(0, 3, 1, 2)
+    before = dict(G.launches)
+    torch.testing.assert_close(G.gn_silu_conv(x, mul, add, _oihw(wk.numpy()), bk, e, r),
+                               G.plain_gn_silu_conv(x, mul, add, _oihw(wk.numpy()), bk, e, r),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(G.upsample_conv(x, _oihw(wk.numpy()), bk, "lrelu"),
+                               G.plain_upsample_conv(x, _oihw(wk.numpy()), bk, "lrelu"),
+                               rtol=0, atol=0)
+    assert G.launches == before
+
+
+@pytest.mark.parametrize("h", [8, 16])  # JAX's whole-image and band tiers
+def test_unet_resblock_fused_matches_jax(monkeypatch, h):
+    from edtr_tpu.models.unet import ResBlock as JResBlock
+
+    from edtr_torch.models.unet import ResBlock
+
+    _, params = jax_tiny()
+    src = port_tiny().cldm.unet.input_blocks[3][0]  # 32 -> 64 ch, 1x1 skip
+    blk = ResBlock(32, 128, 64)
+    blk.load_state_dict(src.state_dict(), strict=True)
+    g = np.random.default_rng(12)
+    x = g.standard_normal((2, h, 8, 32)).astype(np.float32)
+    emb = g.standard_normal((2, 128)).astype(np.float32)
+    monkeypatch.setattr(JG, "_FORCE_KERNEL", True)
+    with jax.default_matmul_precision("float32"):
+        y_j = JResBlock(out_channels=64, fused=True).apply(
+            {"params": params["unet"]["input_blocks_3_0"]}, jnp.asarray(x), jnp.asarray(emb))
+    with torch.no_grad(), fused_conv():
+        y_t = blk(nchw(x), torch.from_numpy(emb))
+    np.testing.assert_allclose(nhwc(y_t), np.asarray(y_j), **MOD_TOL)
+
+
+@pytest.mark.parametrize("h", [8, 16])
+def test_vae_resnetblock_fused_matches_jax(monkeypatch, h):
+    from edtr_tpu.models.vae import ResnetBlock as JResnetBlock
+
+    from edtr_torch.models.vae import ResnetBlock
+
+    _, params = jax_tiny()
+    src = port_tiny().cldm.vae.encoder.down[1].block[0]  # 32 -> 64 ch, nin_shortcut
+    blk = ResnetBlock(32, 64)
+    blk.load_state_dict(src.state_dict(), strict=True)
+    x = np.random.default_rng(13).standard_normal((2, h, 8, 32)).astype(np.float32)
+    monkeypatch.setattr(JG, "_FORCE_KERNEL", True)
+    with jax.default_matmul_precision("float32"):
+        y_j = JResnetBlock(out_channels=64, fused=True).apply(
+            {"params": params["vae"]["encoder"]["down_1_block_0"]}, jnp.asarray(x))
+    with torch.no_grad(), fused_conv():
+        y_t = blk(nchw(x))
+    np.testing.assert_allclose(nhwc(y_t), np.asarray(y_j), **MOD_TOL)
+
+
+def test_tiny_restore_fused_matches_jax(monkeypatch):
+    """The slice as a whole: JAX with every gn_conv call on its Pallas
+    kernels (interpret mode) and the nearest-2x upsample form, the port in
+    the fused-conv configuration; every ResBlock half and upsample of the
+    port keeps channels-last activations (no layout copy on the card)."""
+    from edtr_torch.pipeline import build_flagship
+    from test_torch_pipeline import _replay_noise
+
+    pipe, params = jax_tiny()
+    port = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=True)
+    load_port(port, params)
+    port.eval()
+    g = np.random.default_rng(21)
+    lq = g.random((1, IMAGE, IMAGE, 3)).astype(np.float32)
+    c_txt = g.standard_normal((1,) + CTX).astype(np.float32)
+    rng = jax.random.PRNGKey(231)
+    monkeypatch.setenv("EDTR_UPS_SUBPIX", "0")
+    monkeypatch.setattr(JG, "_FORCE_KERNEL", True)
+    out_j = pipe.restore(params, jnp.asarray(lq), rng, c_txt=jnp.asarray(c_txt))
+
+    calls = []
+    plain_gn, plain_up = G.plain_gn_silu_conv, G.plain_upsample_conv
+
+    def rec_gn(x, mul, add, w, b, emb=None, res=None):
+        calls.append((G.tier(x.shape[2]), x, res))
+        return plain_gn(x, mul, add, w, b, emb, res)
+
+    def rec_up(x, w, b, act=None):
+        calls.append(("upsample_conv", x, None))
+        return plain_up(x, w, b, act)
+    monkeypatch.setattr(G, "plain_gn_silu_conv", rec_gn)
+    monkeypatch.setattr(G, "plain_upsample_conv", rec_up)
+    hw = IMAGE // 8
+    noise, step_noise = _replay_noise(rng, (1, hw, hw, 4), len(pipe.used_timesteps))
+    out_t = port.restore(torch.from_numpy(lq), torch.from_numpy(c_txt),
+                         noise=torch.from_numpy(noise), step_noise=torch.from_numpy(step_noise))
+
+    for name, tol in (("pre_restored", 2e-3), ("z", 5e-3), ("restored", 1e-2)):
+        a, b = t2n(out_t[name]), np.asarray(out_j[name])
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
+    # the tiny restore at 64²: latents 8² (whole-image tier), VAE 8²-64²,
+    # SwinIR tail 16²-64²; every call on channels-last memory
+    tiers = {t for t, _, _ in calls}
+    assert tiers == {"gn_conv_whole", "gn_conv_band", "upsample_conv"}, tiers
+    for t, x, res in calls:
+        assert x.is_contiguous(memory_format=torch.channels_last), (t, tuple(x.shape))
+        assert res is None or res.is_contiguous(memory_format=torch.channels_last), t
+
+
+def test_tiny_restore_stock_matches_fused():
+    """Both conv configurations load the same state dict and, on the CPU
+    (the same plain math, NCHW against channels-last memory), restore the
+    same image."""
+    from edtr_torch.pipeline import build_flagship
+
+    _, params = jax_tiny()
+    g = np.random.default_rng(22)
+    args = (torch.from_numpy(g.random((1, IMAGE, IMAGE, 3)).astype(np.float32)),
+            torch.from_numpy(g.standard_normal((1,) + CTX).astype(np.float32)),
+            torch.from_numpy(g.standard_normal((1, IMAGE // 8, IMAGE // 8, 4))
+                             .astype(np.float32)),
+            torch.from_numpy(g.standard_normal((4, 1, IMAGE // 8, IMAGE // 8, 4))
+                             .astype(np.float32)))
+    outs = []
+    for fused in (False, True):
+        pipe = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=fused)
+        load_port(pipe, params)
+        assert pipe.fused_conv is fused
+        outs.append(pipe.eval().restore(*args))
+    for name in ("pre_restored", "z", "restored"):
+        np.testing.assert_allclose(t2n(outs[1][name]), t2n(outs[0][name]), rtol=0, atol=1e-5,
+                                   err_msg=name)
+
+
+def _record_wrappers(monkeypatch):
+    """Counts the calls that reach the kernel wrappers (the fused path);
+    the stock path calls the plain versions directly."""
+    calls = []
+    gn, up = G.gn_silu_conv, G.upsample_conv
+
+    def rec_gn(x, *args, **kwargs):
+        calls.append(("gn", x.is_contiguous(memory_format=torch.channels_last)))
+        return gn(x, *args, **kwargs)
+
+    def rec_up(x, *args, **kwargs):
+        calls.append(("up", x.is_contiguous(memory_format=torch.channels_last)))
+        return up(x, *args, **kwargs)
+    monkeypatch.setattr(G, "gn_silu_conv", rec_gn)
+    monkeypatch.setattr(G, "upsample_conv", rec_up)
+    return calls
+
+
+def test_fused_conv_switch_routes_a_block(monkeypatch):
+    """Inside ``fused_conv()`` both halves of a ResBlock reach the kernel
+    wrapper; outside any block, or in a nested ``fused_conv(False)``, none
+    does, and leaving a block restores the configuration around it."""
+    from edtr_torch.models import layers
+    from edtr_torch.models.unet import ResBlock
+
+    calls = _record_wrappers(monkeypatch)
+    blk = ResBlock(32, 128, 64)
+    g = np.random.default_rng(14)
+    x = torch.from_numpy(g.standard_normal((1, 32, 8, 8)).astype(np.float32))
+    emb = torch.from_numpy(g.standard_normal((1, 128)).astype(np.float32))
+    with torch.no_grad():
+        y_stock = blk(x, emb)
+        assert calls == []
+        with fused_conv():
+            y_fused = blk(x, emb)
+            assert [k for k, _ in calls] == ["gn", "gn"]
+            with fused_conv(False):
+                blk(x, emb)
+                assert not layers._fused_conv
+            assert layers._fused_conv
+        assert not layers._fused_conv
+    assert len(calls) == 2
+    torch.testing.assert_close(y_fused, y_stock, rtol=0, atol=1e-5)
+    assert layers.to_conv_layout(x) is x  # the stock layout is left alone
+    with fused_conv():
+        assert layers.to_conv_layout(x).is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_pipeline_stages_run_in_its_configuration(monkeypatch, fused):
+    """``EDTRPipeline(fused_conv=)`` sets the configuration around each
+    stage and only there: the SwinIR tail's three upsample convs reach the
+    wrapper (on channels-last memory) only in the fused pipeline, and the
+    module-level default is stock again afterwards."""
+    from edtr_torch.models import layers
+    from edtr_torch.pipeline import EDTRPipeline
+
+    base = port_tiny()
+    pipe = EDTRPipeline(base.swinir, base.cldm, base.diffusion, device="cpu",
+                        fused_conv=fused)
+    calls = _record_wrappers(monkeypatch)
+    lq = np.random.default_rng(15).random((1, 3, IMAGE, IMAGE)).astype(np.float32)
+    out = pipe.pre_restore(torch.from_numpy(lq))
+    assert out.shape == (1, 3, IMAGE, IMAGE)
+    assert calls == ([("up", True)] * 3 if fused else [])
+    assert not layers._fused_conv
+
+
+def test_packed_weight_follows_the_weight():
+    conv = Conv2d(32, 64, 3, padding=1)
+    p1 = conv.packed_weight(torch.bfloat16)
+    assert p1.shape == (3, 3, 64, 32) and p1.dtype == torch.bfloat16
+    assert conv.packed_weight(torch.bfloat16) is p1  # cached
+    torch.testing.assert_close(p1, conv.weight.detach().to(torch.bfloat16).permute(2, 3, 0, 1),
+                               rtol=0, atol=0)
+    with torch.no_grad():
+        conv.weight.mul_(2.0)  # in place: the version moves
+    p2 = conv.packed_weight(torch.bfloat16)
+    assert p2 is not p1
+    torch.testing.assert_close(p2.float(), (conv.weight.detach().to(torch.bfloat16)
+                                            .permute(2, 3, 0, 1).float()), rtol=0, atol=0)
+    conv.load_state_dict({"weight": torch.zeros(64, 32, 3, 3), "bias": torch.zeros(64)})
+    assert not conv.packed_weight(torch.bfloat16).any()
+
+
+# (B, H, W, Cin, Cout, bm) of the fused 512² restore's launches: the 8²
+# latents (whole-image tier), UNet/ControlNet 16²-64², VAE 64²-512²,
+# upsamples (output sizes)
+@pytest.mark.parametrize("b,h,w,cin,cout,bm", [
+    (1, 8, 8, 2560, 1280, 64), (1, 8, 8, 1280, 1280, 64), (1, 16, 16, 1920, 1280, 128),
+    (1, 32, 32, 960, 640, 128), (1, 64, 64, 320, 320, 128), (1, 512, 512, 256, 128, 128),
+    (1, 256, 256, 512, 512, 128), (1, 128, 128, 64, 64, 128), (2, 24, 40, 64, 128, 128)])
+def test_plan_covers_k_once(b, h, w, cin, cout, bm):
+    bn, tw, splits, per = G.plan(b, h, w, cin, cout, bm)
+    chunks = cin // G.BK
+    assert cout % bn == 0 and bn in (64, 128) and tw in (8, 16) and bm % tw == 0
+    assert (splits - 1) * per < chunks <= splits * per  # no empty split
+    tiles = b * -(-h // (bm // tw)) * -(-w // tw) * (cout // bn)
+    assert splits == 1 or tiles * splits <= G.SMS
+    assert splits == 1 or tiles < G.SMS  # the counters cover every tile
+
+
+def test_chip_smoke_lists_every_kernel():
+    """chip_smoke.py's ``kernels`` line has one row per kernel wrapper of the
+    port, the ones off the 512² path included (it once listed only the
+    kernels on that path)."""
+    import chip_smoke
+    from edtr_torch.ops import flash_attention as FA
+
+    listed = list(chip_smoke.KERNELS) + list(chip_smoke.CONV_KERNELS)
+    assert sorted(listed) == sorted(list(FA.launches) + list(G.launches))
+    assert chip_smoke.KERNELS["flash_fwd"][2] is None  # held, not launched at 512²
+    assert [n for _, n in chip_smoke.CONV_KERNELS.values()] == [88, 216, 18]
+
+
+def test_so_path_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header gives a new library name, so a stale
+    build is never loaded."""
+    from edtr_torch.ops import _cuda
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    first = _cuda.so_path("k")
+    assert _cuda.so_path("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _cuda.so_path("k") != first

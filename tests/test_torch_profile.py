@@ -41,6 +41,9 @@ def test_summarise_attributes_kernels_to_the_launching_stage():
 
 def test_kernel_families():
     assert _family("flash_fwd_d512_kernel(...)") == "flash (edtr_torch)"
+    # the port's conv kernel, not cuDNN, though its name holds "conv"
+    assert (_family("void (anonymous namespace)::conv3x3_kernel<128, 128, 0>(Conv3x3Args)")
+            == "gn_conv (edtr_torch)")
     assert _family("sm90_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"
     assert _family("ampere_bf16_s16816gemm_bf16_128x64") == "gemm (cuBLAS)"
     assert _family("void at::native::reduce_kernel<512>") == "norm / reduce"
