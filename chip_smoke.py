@@ -8,28 +8,38 @@ no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the hand-written kernels, one ``nvcc`` per source, started
-   together: ``edtr_torch/csrc/flash_attention.cu`` and
-   ``edtr_torch/csrc/gn_conv.cu`` (ptxas register and spill lines printed);
+   together: ``edtr_torch/csrc/{flash_attention,gn_conv,ln_matmul,geglu}.cu``
+   (ptxas register and spill lines printed);
 3. each flash kernel against its plain PyTorch version at the 512² bs-1
    main-path shapes, in bf16: O and lse errors, kernel / plain / SDPA
    (``library_ms``, a yardstick the port never calls) times and the bound;
 4. the full-width EDTR-s4 ``EDTRPipeline.restore`` at 512², bs 1, bf16,
-   seeded random weights, in both conv configurations (the pipeline's
-   ``fused_conv`` False: stock PyTorch convs; True: the gn_conv kernels) on
-   the same weights, input and noise. Each is counted once (launch counts
-   set to 0 just before it, read just after, and held to their exact
-   values), the fused ``restored`` is held against the stock one, then the
-   stage times and end-to-end ms/img of both, in turns (with the count of
-   pairs each configuration won and whether the run agrees with
-   ``pipeline.FUSED_CONV_DEFAULT``), and a ``torch.profiler`` trace of each
-   (device-busy ms, idle share, kernel families);
+   seeded random weights, in three configurations on the same weights,
+   input and noise: stock (the pipeline's ``fused_conv`` and ``fused_proj``
+   False), fused (the gn_conv kernels) and fused+proj (also the projection
+   kernels). Each is counted once (launch counts set to 0 just before it,
+   read just after, and held to their exact values; no layout copies in
+   the fused ones), the fused outputs are held against the stock ones,
+   then the stage times and end-to-end ms/img of all three, in turns (the
+   pairs won, stock vs fused against ``pipeline.FUSED_CONV_DEFAULT`` and
+   fused vs fused+proj against ``pipeline.FUSED_PROJ_DEFAULT``), and a
+   ``torch.profiler`` trace of each (device-busy ms, idle share, kernel
+   families);
 5. each conv kernel against its plain version at every shape the fused
    restore launched it with: errors, kernel / plain / ``F.conv2d``
    (``library_ms``: the cuDNN conv alone, on the activated or upsampled
    bf16 input, never called by the fused path) times and the bound;
-6. one full-width ControlLDM eps forward through the flash kernels and
-   through the plain attention (test hook), and fused-conv against stock;
-7. a ``{"kernels": [...]}`` line with every ported kernel, then the result
+6. each projection kernel against its plain version at every shape the
+   fused+proj restore launched it with (and ``geglu_proj``, which it does
+   not launch, at the 4096-token shape): errors, device times of kernel /
+   plain / ``F.linear`` (``library_ms``: the cuBLAS GEMM alone on the
+   already-normalised bf16 tokens, never called by the port) and the bound;
+7. the GroupNorm statistics at every shape of the fused restore, in
+   channels-last memory and on an NCHW copy: equal, and device ms of each;
+8. one full-width ControlLDM eps forward through the flash kernels and
+   through the plain attention (test hook), and fused and fused+proj
+   against stock;
+9. a ``{"kernels": [...]}`` line with every ported kernel, then the result
    line.
 
 Needs one CUDA card and ``nvcc`` (``CUDA_HOME``); imports nothing of JAX.
@@ -54,6 +64,7 @@ PEAK_BYTES = 3.35e12
 
 FA_SOURCE = "edtr_torch/csrc/flash_attention.cu"
 CONV_SOURCE = "edtr_torch/csrc/gn_conv.cu"
+SOURCES = ("flash_attention", "gn_conv", "ln_matmul", "geglu")
 # wrapper -> (flat (BH, N, D) at 512² bs 1, the TPU kernel it replaces,
 #             launches in one 512² restore; None: not on that path)
 KERNELS = {
@@ -73,6 +84,20 @@ CONV_KERNELS = {
     "gn_conv_band": ("edtr_tpu/ops/gn_conv.py:526", 216),
     "upsample_conv": ("edtr_tpu/ops/gn_conv.py:841", 18),
 }
+# projection wrapper -> (source, the TPU kernel it replaces, launches in one
+# fused+proj 512² restore; None: not on that path). 4 steps x (UNet 5 +
+# ControlNet 2) transformer blocks at 4096, 1024 and 256 tokens = 28 x 3 =
+# 84 blocks, each one affine_matmul (proj_in), two ln_matmuls (K = 3 q/k/v,
+# K = 1 cross query) and one ln_geglu_proj; the 64-token mid blocks stay on
+# the plain math, as in JAX. geglu_proj (no LN) is held at the 4096-token
+# shape and not launched by the restore.
+PROJ_KERNELS = {
+    "ln_matmuls": ("edtr_torch/csrc/ln_matmul.cu", "edtr_tpu/ops/ln_matmul.py:120", 168),
+    "affine_matmul": ("edtr_torch/csrc/ln_matmul.cu", "edtr_tpu/ops/ln_matmul.py:201", 84),
+    "geglu_proj": ("edtr_torch/csrc/geglu.cu", "edtr_tpu/ops/geglu.py:159", None),
+    "ln_geglu_proj": ("edtr_torch/csrc/geglu.cu", "edtr_tpu/ops/geglu.py:218", 84),
+}
+GEGLU_HELD = ("geglu_proj", 1, 4096, 320, 1280)
 # O is small here: randn q, k, v with scale D^-0.5 give unit-variance
 # logits, so O has std sqrt(e/N) (0.026 at N = 4096, 0.05 at 1024, 0.018 at
 # 8192) and max |O| ~0.13-0.5. Both sides round O to bf16 (one ulp is 2^-8
@@ -97,6 +122,15 @@ TOL_LSE = 1e-4
 # or channel block moves whole pixels by O(|out|) and fails both.
 TOL_CONV_MAX = 2.0 ** -6
 TOL_CONV_L2 = 1e-2
+# Projection kernels vs plain: the same LN / affine in fp32 (the kernel's
+# row statistics in another summation order and rsqrtf, ~1e-6 relative),
+# rounded to bf16 where the plain version rounds, products accumulated in
+# fp32 in another order, outputs rounded once (K8b: twice, around the bf16
+# bias add; K7: erff GELU in fp32, as F.gelu). A right kernel differs by a
+# bf16 ulp where a rounding flips; a wrong row, chunk or column block moves
+# whole outputs by O(|out|). The same limits as the conv kernels.
+TOL_PROJ_MAX = 2.0 ** -6
+TOL_PROJ_L2 = 1e-2
 # ControlLDM eps, kernels vs plain attention: the two paths round P at
 # different places in 14 attention calls, and the difference passes through
 # ~50 bf16 layers; relative L2 error of the whole eps tensor (measured
@@ -108,14 +142,19 @@ TOL_EPS_REL = 5e-2
 # layers with random weights and the 4-step walk; the same bound as the
 # attention comparison above, for eps and for the restored image.
 TOL_FUSED_REL = 5e-2
+# GroupNorm statistics, channels-last (Welford) vs two-pass on NCHW: both
+# fp32 over the same bf16 values, in other orders (~1e-7 relative), over
+# up to 2^21 elements a group; a dropped or doubled row moves them by
+# more than 1e-4
+TOL_GN_STATS = 1e-5
 IMAGE = 512
 # restores per configuration in the interleaved timing (single host times
 # of one configuration spread over 300-550 ms on the card's machine), and
 # traced
 TIME_ITERS = 21
 TRACE_ITERS = 3
-# the pipeline's fused_conv in each conv configuration
-CONFIGS = {"stock": False, "fused": True}
+# the pipeline's (fused_conv, fused_proj) in each configuration
+CONFIGS = {"stock": (False, False), "fused": (True, False), "fused+proj": (True, True)}
 # a configuration wins end to end beyond the ~5% drift between runs
 # (edtr_tpu/ops/dispatch.py) only if it also wins a clear majority of the
 # interleaved pairs: a one-sided sign test at this level
@@ -148,6 +187,41 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device ms per call: the kernels' time in a ``torch.profiler`` trace of
+    ``iters`` back-to-back calls, over ``iters``. Unlike :func:`time_ms` it
+    leaves out the host's time to launch, which sets CUDA-event times of
+    calls shorter than the wrapper's Python."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # a trace now and then holds no kernel at all (seen once in ~40 traces
+    # on the H100): trace again, and after three such traces take the
+    # CUDA-event time
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        us = sum(e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+        if us > 0:
+            return us / 1e3 / iters
+    return time_ms(fn, iters, 0)
+
+
 def host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -175,7 +249,7 @@ def build() -> None:
     from edtr_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    nvcc_s = _cuda.build_all(["flash_attention", "gn_conv"])
+    nvcc_s = _cuda.build_all(list(SOURCES))
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc in parallel: {nvcc_s})", flush=True)
     for name in nvcc_s:
         log = _cuda.so_path(name).with_suffix(".log")
@@ -333,28 +407,218 @@ def conv_kernel_phase(device, shape_counts: dict) -> dict:
     return rows
 
 
+def proj_case(device, key, gen) -> dict:
+    """One projection kernel against its plain version at one shape ``key``
+    (``ln_matmul.shapes``' or ``geglu.shapes``' key): errors, times and the
+    bound. ``library_ms``: ``F.linear`` alone on the already-transformed
+    bf16 tokens with the same bf16 weight (all K*O or 2*inner rows), a
+    yardstick the port never calls."""
+    from edtr_torch.ops import geglu as GG
+    from edtr_torch.ops import ln_matmul as LM
+    from edtr_torch.ops._norms import ln_f32
+    from edtr_torch.ops._proj import plan
+
+    name, b, n, c = key[:4]
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device).mul_(scale)
+
+    # tokens with a mean and a spread per row, as a residual stream has
+    x = (randn(b, n, c, scale=2.0) + 0.5).to(bf16)
+    ln_s, ln_b = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+    if name in ("ln_matmuls", "affine_matmul"):
+        o, k = key[4], key[5]
+        ws = [randn(o, c, scale=c ** -0.5) for _ in range(k)]
+        wp = torch.cat([w.to(bf16) for w in ws])
+        slab = k * o
+        if name == "ln_matmuls":
+            def kern():
+                return LM.ln_matmuls(x, ln_s, ln_b, ws, w_packed=wp)
+
+            def plain():
+                return LM.plain_ln_matmuls(x, ln_s, ln_b, ws)
+            lib_in = ln_f32(x, ln_s, ln_b).to(bf16)
+            small_bytes = 2 * c * 4
+        else:
+            mul, add = 1.0 + randn(b, c, scale=0.1), randn(b, c, scale=0.1)
+            bias = randn(o, scale=0.05)
+
+            def kern():
+                return LM.affine_matmul(x, mul, add, ws[0], bias, w_packed=wp)
+
+            def plain():
+                return LM.plain_affine_matmul(x, mul, add, ws[0], bias)
+            lib_in = (x.float() * mul[:, None] + add[:, None]).to(bf16)
+            small_bytes = (2 * b * c + o) * 4
+        out_cols = slab
+        launched = LM.launches
+    else:
+        inner = key[4]
+        w = randn(2 * inner, c, scale=c ** -0.5)
+        bias = randn(2 * inner, scale=0.05)
+        wp = w.to(bf16)
+        slab, out_cols = 2 * inner, inner
+        if name == "ln_geglu_proj":
+            def kern():
+                return GG.ln_geglu_proj(x, ln_s, ln_b, w, bias, w_packed=wp)
+
+            def plain():
+                return GG.plain_ln_geglu_proj(x, ln_s, ln_b, w, bias)
+            lib_in = ln_f32(x, ln_s, ln_b).to(bf16)
+            small_bytes = (2 * c + 2 * inner) * 4
+        else:
+            def kern():
+                return GG.geglu_proj(x, w, bias, w_packed=wp)
+
+            def plain():
+                return GG.plain_geglu_proj(x, w, bias)
+            lib_in = x
+            small_bytes = 2 * inner * 4
+        launched = GG.launches
+    before = launched[name]
+    out_k = kern()
+    check(launched[name] == before + 1, f"{name} launched its kernel")
+    out_p = plain()
+    if name == "ln_matmuls":  # the K outputs side by side, outside the timed calls
+        out_k, out_p = torch.cat(out_k, -1), torch.cat(out_p, -1)
+    torch.cuda.synchronize()
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    o_max = out_p.float().abs().max().item()
+    rel = rel_l2(out_k, out_p)
+    m = b * n
+    flops = 2.0 * m * c * slab
+    # device time from a trace: these calls (15-100 us) are shorter than
+    # the wrapper's host-side launch, which CUDA events would time instead
+    iters = 20
+    ms = device_ms(kern, iters)
+    plain_ms = device_ms(plain, 3, 1)
+    library_ms = device_ms(lambda: F.linear(lib_in, wp), iters)
+    event_ms = time_ms(kern, iters)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    # bf16 tokens, outputs and weight; fp32 LN / affine vectors and biases
+    t_bytes = ((m * c + m * out_cols + slab * c) * 2 + small_bytes) / PEAK_BYTES * 1e3
+    bm, bn = plan(m, slab)
+    row = dict(name=name, shape=dict(b=b, n=n, c=c, cols=out_cols, k=key[5] if len(key) > 5
+                                     else 1),
+               tile=dict(bm=bm, bn=bn, blocks=(m // bm) * (slab // bn)),
+               max_abs_err=err, out_max=o_max, rel_l2=rel, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, event_ms=event_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, mb=t_bytes * PEAK_BYTES / 1e9,
+               ok=bool(err <= TOL_PROJ_MAX * o_max and rel <= TOL_PROJ_L2))
+    row["bound_share"] = row["bound_ms"] / ms
+    print("proj kernel:", json.dumps(row), flush=True)
+    check(row["ok"], f"{key} vs plain: max abs {err} (tol {TOL_PROJ_MAX * o_max}), "
+                     f"rel L2 {rel} (tol {TOL_PROJ_L2})")
+    return row
+
+
+def proj_kernel_phase(device, shape_counts: dict) -> dict:
+    """Each projection kernel at every shape of ``shape_counts`` (shape key
+    -> launches in one fused+proj restore), plus ``geglu_proj`` at
+    :data:`GEGLU_HELD`; per kernel the launch-weighted sums over its shapes,
+    as :func:`conv_kernel_phase` computes them (one call for a kernel the
+    restore does not launch)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows = {}
+    cases = dict(shape_counts)
+    cases.setdefault(GEGLU_HELD, 0)
+    for key, count in sorted(cases.items(), key=str):
+        r = proj_case(device, key, gen)
+        source, replaces, expected = PROJ_KERNELS[key[0]]
+        agg = rows.setdefault(key[0], dict(
+            name=key[0], route="cuda", source=source, replaces=replaces, launches=None,
+            on_path=expected is not None,
+            scope=("per restore: launch-weighted sum over its shapes" if expected is not None
+                   else "one call at " + "x".join(map(str, key[1:])))
+            + "; ms, plain_ms, library_ms: device time (profiler), event_ms: CUDA events",
+            max_abs_err=0.0, max_err_share=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+            library_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, gflop=0.0, mb=0.0,
+            shapes=0))
+        weight = count if expected is not None else 1
+        agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
+        agg["max_err_share"] = max(agg["max_err_share"], r["max_abs_err"] / r["out_max"])
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms", "event_ms", "gflop", "mb"):
+            agg[k] = agg.get(k, 0.0) + weight * r[k]
+        agg["ops_bound_ms" if r["bound_by"] == "operations" else "bytes_bound_ms"] += (
+            weight * r["bound_ms"])
+        agg["shapes"] += 1
+    for agg in rows.values():
+        agg["bound_by"] = ("operations" if agg["ops_bound_ms"] >= agg["bytes_bound_ms"]
+                           else "bytes")
+        agg["bound_share"] = agg["bound_ms"] / agg["ms"]
+    return rows
+
+
 def counted_restore(pipe, args) -> tuple:
     """One restore with every launch count set to 0 just before it and read
-    just after: (outputs, launches, conv shapes, layout copies, host ms)."""
+    just after: (outputs, launches, shapes per kernel module, layout copies
+    (conv, proj), host ms)."""
     from edtr_torch.ops import flash_attention as FA
     from edtr_torch.ops import gn_conv as GC
+    from edtr_torch.ops import geglu as GG
+    from edtr_torch.ops import ln_matmul as LM
 
-    for counts in (FA.launches, GC.launches):
+    for counts in (FA.launches, GC.launches, LM.launches, GG.launches):
         for key in counts:
             counts[key] = 0
-    GC.shapes.clear()
-    GC.layout_copies["count"] = 0
+    for shapes in (GC.shapes, LM.shapes, GG.shapes):
+        shapes.clear()
+    GC.layout_copies["count"] = LM.layout_copies["count"] = 0
     out = {}
     ms = host_ms(lambda: out.update(pipe.restore(*args)))
-    launches = {**FA.launches, **GC.launches}
-    return out, launches, dict(GC.shapes), GC.layout_copies["count"], ms
+    launches = {**FA.launches, **GC.launches, **LM.launches, **GG.launches}
+    shapes = dict(conv=dict(GC.shapes), proj={**LM.shapes, **GG.shapes})
+    copies = dict(conv=GC.layout_copies["count"], proj=LM.layout_copies["count"])
+    return out, launches, shapes, copies, ms
+
+
+def expected_launches(cfg: str) -> dict:
+    fused_conv, fused_proj = CONFIGS[cfg]
+    want = {name: expected or 0 for name, (_, _, expected) in KERNELS.items()}
+    want.update({name: expected if fused_conv else 0
+                 for name, (_, expected) in CONV_KERNELS.items()})
+    want.update({name: (expected or 0) if fused_proj else 0
+                 for name, (_, _, expected) in PROJ_KERNELS.items()})
+    return want
+
+
+def verdict(base_runs: list, new_runs: list, default: bool) -> dict:
+    """``edtr_tpu/ops/dispatch.py``'s rule on interleaved pairs (base, new):
+    the new configuration is the default only when it wins a clear majority
+    of pairs and its median is more than 5% (the drift between runs) below;
+    the base when the base wins a clear majority; else unresolved."""
+    n = len(base_runs)
+    wins = sum(nw < bs for bs, nw in zip(base_runs, new_runs))
+    need = sign_test_wins(n)
+    ratio = statistics.median(new_runs) / statistics.median(base_runs)
+    if wins >= need and ratio < 0.95:
+        word = "new"
+    elif n - wins >= need:
+        word = "base"
+    else:
+        word = "unresolved"
+    return dict(ratio=ratio, wins=wins, pairs=n, wins_needed=need, verdict=word,
+                default_by_rule=word == "new", default_in_code=default,
+                default_agrees=(word == "new") == default)
+
+
+def restore_args(device) -> tuple:
+    """The restore's seeded inputs: (lq, c_txt, noise, step_noise)."""
+    g = torch.Generator(device=device).manual_seed(1)
+    lat = IMAGE // 8
+    return (torch.rand((1, IMAGE, IMAGE, 3), generator=g, device=device),
+            torch.randn((1, 77, 1024), generator=g, device=device),
+            torch.randn((1, lat, lat, 4), generator=g, device=device),
+            torch.randn((4, 1, lat, lat, 4), generator=g, device=device))
 
 
 def restore_phase(device) -> tuple:
     from torch.profiler import record_function
 
     from edtr_torch.models.layers import randomize_
-    from edtr_torch.pipeline import FUSED_CONV_DEFAULT, build_flagship
+    from edtr_torch.pipeline import FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, build_flagship
     from edtr_torch.profile_restore import STAGES, trace_restores
 
     t0 = time.perf_counter()
@@ -364,19 +628,15 @@ def restore_phase(device) -> tuple:
     n_params = sum(p.numel() for p in pipe.parameters())
     print(f"pipeline: EDTR-s4 full width, {n_params} params (fp32), bf16 compute, "
           f"built + randomised in {time.perf_counter() - t0:.1f} s; configurations "
-          f"{CONFIGS} (pipeline.fused_conv)", flush=True)
+          f"{CONFIGS} (pipeline.fused_conv, pipeline.fused_proj)", flush=True)
 
     def configured(cfg):
-        pipe.fused_conv = CONFIGS[cfg]
+        pipe.fused_conv, pipe.fused_proj = CONFIGS[cfg]
         return pipe
 
-    g = torch.Generator(device=device).manual_seed(1)
+    args = restore_args(device)
+    lq, c_txt, noise, step_noise = args
     lat = IMAGE // 8
-    lq = torch.rand((1, IMAGE, IMAGE, 3), generator=g, device=device)
-    c_txt = torch.randn((1, 77, 1024), generator=g, device=device)
-    noise = torch.randn((1, lat, lat, 4), generator=g, device=device)
-    step_noise = torch.randn((4, 1, lat, lat, 4), generator=g, device=device)
-    args = (lq, c_txt, noise, step_noise)
 
     # the main paths: counts set to 0 just before each, read just after
     counted = {}
@@ -385,24 +645,32 @@ def restore_phase(device) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         out, launches, shapes, copies, ms = counted_restore(configured(cfg), args)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        counted[cfg] = dict(out=out, launches=launches, shapes=shapes)
+        counted[cfg] = dict(out=out, launches=launches, shapes=shapes, copies=copies)
         print(f"restore {cfg}: first call {first_ms:.1f} ms, counted call {ms:.1f} ms, "
-              f"launches {launches}, conv layout copies {copies}, peak memory "
+              f"launches {launches}, layout copies {copies}, peak memory "
               f"{peak:.2f} GiB", flush=True)
         for name in ("restored", "pre_restored"):
             check(tuple(out[name].shape) == (1, IMAGE, IMAGE, 3), f"{cfg} {name} shape")
         check(tuple(out["z"].shape) == (1, lat, lat, 4), f"{cfg} z shape")
         for name, t in out.items():
             check(bool(torch.isfinite(t).all()), f"{cfg} {name} finite")
-        want = {name: expected or 0 for name, (_, _, expected) in KERNELS.items()}
-        want.update({name: expected if cfg == "fused" else 0
-                     for name, (_, expected) in CONV_KERNELS.items()})
+        want = expected_launches(cfg)
         check(launches == want, f"{cfg} launches {launches}, want {want}")
-    fused_vs_stock = {name: rel_l2(counted["fused"]["out"][name], counted["stock"]["out"][name])
+        fused_conv, fused_proj = CONFIGS[cfg]
+        if fused_conv:
+            check(copies == dict(conv=0, proj=0), f"{cfg} layout copies {copies}")
+        if fused_proj:
+            by_k = {k: sum(n for key, n in shapes["proj"].items()
+                           if key[0] == "ln_matmuls" and key[5] == k) for k in (1, 3)}
+            check(by_k == {1: 84, 3: 84}, f"{cfg} ln_matmuls launches by K {by_k}")
+    vs_stock = {cfg: {name: rel_l2(counted[cfg]["out"][name], counted["stock"]["out"][name])
                       for name in ("pre_restored", "z", "restored")}
-    print("restore fused vs stock, relative L2:", json.dumps(fused_vs_stock), flush=True)
-    for name, rel in fused_vs_stock.items():
-        check(rel <= TOL_FUSED_REL, f"fused vs stock {name}: relative L2 {rel} > {TOL_FUSED_REL}")
+                for cfg in CONFIGS if cfg != "stock"}
+    print("restore vs stock, relative L2:", json.dumps(vs_stock), flush=True)
+    for cfg, rels in vs_stock.items():
+        for name, rel in rels.items():
+            check(rel <= TOL_FUSED_REL, f"{cfg} vs stock {name}: relative L2 {rel} > "
+                                        f"{TOL_FUSED_REL}")
 
     # stage breakdown, named as bench.py:_run_split names them; each stage
     # under its own profiler range for the traced passes below
@@ -426,8 +694,9 @@ def restore_phase(device) -> tuple:
         return run
 
     e2e = {cfg: [] for cfg in CONFIGS}
-    for i in range(TIME_ITERS):  # in turns: stock, fused, fused, stock, ...
-        for cfg in (("stock", "fused") if i % 2 == 0 else ("fused", "stock")):
+    order = list(CONFIGS)
+    for i in range(TIME_ITERS):  # in turns, the order reversed every other round
+        for cfg in (order if i % 2 == 0 else order[::-1]):
             chain(cfg)()
             e2e[cfg].append(host_ms(lambda: configured(cfg).restore(*args)))
     timing = {}
@@ -443,37 +712,71 @@ def restore_phase(device) -> tuple:
               json.dumps(trace), flush=True)
         timing[cfg] = dict(stage_ms=stage_ms, e2e_ms=e2e_ms, e2e_runs_ms=e2e[cfg],
                            trace=trace)
-    # pair i: the i-th restore of each configuration, run back to back
-    fused_wins = sum(f < s for s, f in zip(e2e["stock"], e2e["fused"]))
-    need = sign_test_wins(TIME_ITERS)
-    ratio = timing["fused"]["e2e_ms"] / timing["stock"]["e2e_ms"]
-    # edtr_tpu/ops/dispatch.py's rule: a fused family is the default only on
-    # an interleaved end-to-end win beyond the ~5% drift; else stock
-    if fused_wins >= need and ratio < 0.95:
-        verdict = "fused"
-    elif TIME_ITERS - fused_wins >= need:
-        verdict = "stock"  # stock clearly faster
-    else:
-        verdict = "unresolved"
-    by_rule = "fused" if verdict == "fused" else "stock"
-    in_code = "fused" if FUSED_CONV_DEFAULT else "stock"
-    # reported, not a failed check: host timing on a shared machine is not
-    # a correctness result, and PERF.md weighs the runs together
-    print(f"end to end: fused/stock {ratio:.4f} ({timing['stock']['e2e_ms']:.2f} stock vs "
-          f"{timing['fused']['e2e_ms']:.2f} fused ms/img); fused won {fused_wins} of "
-          f"{TIME_ITERS} pairs (a clear majority: {need}); verdict {verdict}, default by "
-          f"the rule {by_rule}, in the code {in_code}"
-          f"{'' if by_rule == in_code else ' -- THIS RUN DISAGREES WITH THE DEFAULT'}",
-          flush=True)
-    timing.update(fused_over_stock=ratio, fused_wins=fused_wins, pairs=TIME_ITERS,
-                  wins_needed=need, verdict=verdict, default_by_rule=by_rule,
-                  default_in_code=in_code, default_agrees=by_rule == in_code,
-                  fused_vs_stock_rel_l2=fused_vs_stock)
+    # pair i: the i-th restore of each configuration, run next to each other;
+    # reported, not a failed check: host timing on a shared machine is not a
+    # correctness result, and PERF.md weighs the runs together
+    for what, base, new, default in (("conv", "stock", "fused", FUSED_CONV_DEFAULT),
+                                     ("proj", "fused", "fused+proj", FUSED_PROJ_DEFAULT)):
+        v = verdict(e2e[base], e2e[new], default)
+        print(f"end to end, {what}: {new}/{base} {v['ratio']:.4f} "
+              f"({timing[base]['e2e_ms']:.2f} {base} vs {timing[new]['e2e_ms']:.2f} {new} "
+              f"ms/img); {new} won {v['wins']} of {v['pairs']} pairs (a clear majority: "
+              f"{v['wins_needed']}); verdict {v['verdict']} ({new} is new), on by the rule "
+              f"{v['default_by_rule']}, in the code {default}"
+              f"{'' if v['default_agrees'] else ' -- THIS RUN DISAGREES WITH THE DEFAULT'}",
+              flush=True)
+        timing[f"verdict_{what}"] = dict(base=base, new=new, **v)
+    timing["vs_stock_rel_l2"] = vs_stock
     return pipe, counted, timing
 
 
+def norm_phase(pipe, device) -> dict:
+    """The GroupNorm statistics of the fused configurations (channels-last
+    activations): every ``gn_stats`` shape of one fused restore, recorded
+    around ``GroupNorm32.fold``; at each, ``gn_stats`` on channels-last
+    memory (the one-pass Welford form) against the two-pass form on the
+    same memory (strided reductions) and on an NCHW copy (the stock path):
+    equal to fp32 rounding, and the device ms of each, summed per restore."""
+    from edtr_torch.models import layers
+    from edtr_torch.ops._norms import gn_stats, gn_stats_two_pass
+
+    calls = {}
+
+    def rec(x, num_groups=32):
+        if x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous():
+            key = (tuple(x.shape), num_groups)
+            calls[key] = calls.get(key, 0) + 1
+        return gn_stats(x, num_groups)
+    pipe.fused_conv, pipe.fused_proj = CONFIGS["fused"]
+    layers.gn_stats = rec
+    try:
+        pipe.restore(*restore_args(device))
+    finally:
+        layers.gn_stats = gn_stats
+    gen = torch.Generator(device=device).manual_seed(9)
+    forms = {"channels_last": lambda x, xn, g: gn_stats(x, g),
+             "two_pass_channels_last": lambda x, xn, g: gn_stats_two_pass(x, g),
+             "two_pass_nchw": lambda x, xn, g: gn_stats_two_pass(xn, g)}
+    per_restore = {name: 0.0 for name in forms}
+    err = 0.0
+    for (shape, groups), n in sorted(calls.items()):
+        xn = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(torch.bfloat16)
+        x = xn.contiguous(memory_format=torch.channels_last)
+        want = gn_stats_two_pass(xn, groups)
+        for got, ref in zip(gn_stats(x, groups), want):
+            err = max(err, ((got - ref).abs() / (ref.abs() + 1e-3)).max().item())
+        for name, fn in forms.items():
+            per_restore[name] += n * device_ms(lambda: fn(x, xn, groups), 10)
+    res = dict(calls_per_restore=sum(calls.values()), shapes=len(calls),
+               device_ms_per_restore=per_restore, max_rel_err_vs_nchw=err,
+               tol_rel=TOL_GN_STATS)
+    print("gn_stats (fused restore's shapes, channels-last bf16):", json.dumps(res), flush=True)
+    check(err <= TOL_GN_STATS, f"gn_stats channels-last vs NCHW: {err} > {TOL_GN_STATS}")
+    return res
+
+
 def cldm_phase(pipe, device) -> dict:
-    from edtr_torch.models.layers import fused_conv
+    from edtr_torch.models.layers import fused_conv, fused_proj
     from edtr_torch.ops.attention import force_plain
 
     g = torch.Generator(device=device).manual_seed(3)
@@ -489,19 +792,23 @@ def cldm_phase(pipe, device) -> dict:
                 eps_p = pipe.cldm(x, t, cond)
         with fused_conv(True):
             eps_f = pipe.cldm(x, t, cond)
-    for name, eps in (("flash", eps_k), ("fused", eps_f)):
+            with fused_proj(True):
+                eps_fp = pipe.cldm(x, t, cond)
+    for name, eps in (("flash", eps_k), ("fused", eps_f), ("fused+proj", eps_fp)):
         check(bool(torch.isfinite(eps).all()), f"{name} eps finite")
         check(tuple(eps.shape) == lat, f"{name} eps shape")
     res = dict(rel_l2=rel_l2(eps_k, eps_p), max_abs=(eps_k - eps_p).abs().max().item(),
                eps_rms=eps_p.pow(2).mean().sqrt().item(), tol_rel_l2=TOL_EPS_REL,
                fused_vs_stock_rel_l2=rel_l2(eps_f, eps_k),
                fused_vs_stock_max_abs=(eps_f - eps_k).abs().max().item(),
+               fused_proj_vs_stock_rel_l2=rel_l2(eps_fp, eps_k),
+               fused_proj_vs_stock_max_abs=(eps_fp - eps_k).abs().max().item(),
                tol_fused_rel_l2=TOL_FUSED_REL)
-    print("cldm_eps kernels vs plain attention, fused vs stock conv:", json.dumps(res),
-          flush=True)
+    print("cldm_eps kernels vs plain attention, fused and fused+proj vs stock:",
+          json.dumps(res), flush=True)
     check(res["rel_l2"] <= TOL_EPS_REL, f"eps relative L2 {res['rel_l2']} > {TOL_EPS_REL}")
-    check(res["fused_vs_stock_rel_l2"] <= TOL_FUSED_REL,
-          f"fused eps relative L2 {res['fused_vs_stock_rel_l2']} > {TOL_FUSED_REL}")
+    for k in ("fused_vs_stock_rel_l2", "fused_proj_vs_stock_rel_l2"):
+        check(res[k] <= TOL_FUSED_REL, f"{k} {res[k]} > {TOL_FUSED_REL}")
     return res
 
 
@@ -521,19 +828,28 @@ def main() -> int:
     build()
     rows = kernel_phase(device)
     pipe, counted, timing = restore_phase(device)
-    conv_rows = conv_kernel_phase(device, counted["fused"]["shapes"])
+    conv_rows = conv_kernel_phase(device, counted["fused"]["shapes"]["conv"])
+    proj_rows = proj_kernel_phase(device, counted["fused+proj"]["shapes"]["proj"])
+    norms = norm_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
 
-    launches = counted["fused"]["launches"]
-    for name, row in {**rows, **conv_rows}.items():
+    launches = counted["fused+proj"]["launches"]
+    all_rows = {**rows, **conv_rows, **proj_rows}
+    for name, row in all_rows.items():
         row["launches"] = launches[name]
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
-    print(json.dumps({"card": card, "restore": timing, "cldm_eps": cldm,
+    check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
+    print(json.dumps({"card": card, "restore": timing, "cldm_eps": cldm, "gn_stats": norms,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
+                      "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},
                       "conv_shapes": [dict(key=list(k), launches=n) for k, n in
-                                      sorted(counted["fused"]["shapes"].items(), key=str)]}),
+                                      sorted(counted["fused"]["shapes"]["conv"].items(),
+                                             key=str)],
+                      "proj_shapes": [dict(key=list(k), launches=n) for k, n in
+                                      sorted(counted["fused+proj"]["shapes"]["proj"].items(),
+                                             key=str)]}),
           flush=True)
-    print(json.dumps({"kernels": list(rows.values()) + list(conv_rows.values())}), flush=True)
+    print(json.dumps({"kernels": list(all_rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,62 @@
+// LayerNorm + bias-free projections and folded-GroupNorm + projection for
+// Hopper (sm_90a): the proj_gemm_kernel of proj_gemm.cuh (see its header for
+// the design) with an LN or an affine prologue.
+//
+// Replaces the Pallas TPU kernels of edtr_tpu/ops/ln_matmul.py:
+//
+//   proj_gemm_kernel<.., PRO_LN, EPI_STORE>  <- _kernel (ln_matmuls):
+//       (LN(x) @ w_k for k < K), K = 3 (self-attention q/k/v from one
+//       concatenated (3*O, C) weight, three (M, O) outputs) or K = 1 (the
+//       cross-attention query); each output rounded to bf16 once
+//   proj_gemm_kernel<.., PRO_AFF, EPI_BIAS>  <- _aff_kernel (affine_matmul):
+//       ((x * mul + add) @ w) + b, the SpatialTransformer's GroupNorm folded
+//       to a per-(batch, C) affine in front of proj_in; bias added in bf16
+
+#include "proj_gemm.cuh"
+
+using namespace edtr_proj;
+
+// Plain C interface (loaded with ctypes). x (M, C) bf16; w (K*O, C) bf16;
+// ln_s/ln_b (C) fp32; out0..out{K-1} (M, O) bf16 (unused ones null). bm, bn
+// in {64, 128}; M % bm == 0, K*O % bn == 0, C % 32 == 0, O even, all
+// pointers 16-byte aligned (the Python wrapper checks). Launches on
+// `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for a tile
+// or shape the kernel does not take.
+extern "C" int edtr_ln_matmul(int bm, int bn, const void* x, const void* ln_s, const void* ln_b,
+                              const void* w, void* out0, void* out1, void* out2, int k, int M,
+                              int C, int O, float eps, void* stream) {
+  if (k < 1 || k > 3 || O % 2) return (int)cudaErrorInvalidValue;
+  ProjArgs a = {};
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.ln_s = static_cast<const float*>(ln_s);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.out0 = static_cast<bf16*>(out0);
+  a.out1 = static_cast<bf16*>(out1);
+  a.out2 = static_cast<bf16*>(out2);
+  a.M = M;
+  a.C = C;
+  a.O = O;
+  a.eps = eps;
+  return launch_tile<PRO_LN, EPI_STORE>(bm, bn, a, k * O, static_cast<cudaStream_t>(stream));
+}
+
+// x (M, C) bf16, n_tok tokens per batch element; mul/add (M / n_tok, C)
+// fp32; w (O, C) bf16; bias (O) fp32; out (M, O) bf16. Same conditions.
+extern "C" int edtr_affine_matmul(int bm, int bn, const void* x, const void* mul,
+                                  const void* add, const void* w, const void* bias, void* out,
+                                  int M, int C, int O, int n_tok, void* stream) {
+  if (O % 2 || n_tok <= 0 || M % n_tok) return (int)cudaErrorInvalidValue;
+  ProjArgs a = {};
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.mul = static_cast<const float*>(mul);
+  a.add = static_cast<const float*>(add);
+  a.bias = static_cast<const float*>(bias);
+  a.out0 = static_cast<bf16*>(out);
+  a.M = M;
+  a.C = C;
+  a.O = O;
+  a.n_tok = n_tok;
+  return launch_tile<PRO_AFF, EPI_BIAS>(bm, bn, a, O, static_cast<cudaStream_t>(stream));
+}

@@ -1,14 +1,21 @@
 """Spatial/cross-attention transformer of the LDM UNet and ControlNet.
 
-Counterpart of ``edtr_tpu/models/attention.py`` with the JAX package's
-fused families off, as its dispatch leaves them (``ln_matmul``/``geglu``
-run their ``_ref`` math): LayerNorm in fp32 then cast to the compute dtype
-before the bias-free q/k/v projections; exact-erf GEGLU; the
-SpatialTransformer's GroupNorm folded to a per-(B, C) fp32 affine applied
-before ``proj_in`` (``use_linear_in_transformer``, the only SD2.1 form).
-Attention runs through :func:`edtr_torch.ops.attention.dot_product_attention`
-in ``(B, N, H, D)`` layout, so self-attention at the shapes the flash
-kernels take launches them on the card.
+Counterpart of ``edtr_tpu/models/attention.py``: LayerNorm in fp32 then
+cast to the compute dtype before the bias-free q/k/v projections;
+exact-erf GEGLU; the SpatialTransformer's GroupNorm folded to a per-(B, C)
+fp32 affine applied before ``proj_in`` (``use_linear_in_transformer``, the
+only SD2.1 form). As in JAX, ``BasicTransformerBlock`` hands its norms to
+``CrossAttention`` and ``FeedForward`` (``pre_norm``). Outside a
+``layers.fused_proj`` block they apply them and run stock PyTorch ops (JAX's
+dispatch with the ``ln_matmul``/``geglu`` families off: their ``_ref``
+math). Inside one, at the token counts the kernels take
+(``ln_matmul.supported``, ``geglu.supported``), they run through the
+projection kernels (JAX with both families forced): LN+q/k/v and LN+query
+(``ln_matmuls``), LN+GEGLU (``ln_geglu_proj``, the split-halves form) and
+GroupNorm-affine+``proj_in`` (``affine_matmul``). Attention runs through
+:func:`edtr_torch.ops.attention.dot_product_attention` in ``(B, N, H, D)``
+layout, so self-attention at the shapes the flash kernels take launches
+them on the card.
 
 Parameter names are the reference LDM state-dict keys (``attn1.to_q``,
 ``attn1.to_out.0``, ``ff.net.0.proj``, ``ff.net.2``, ``transformer_blocks.0``).
@@ -22,13 +29,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edtr_torch.models.layers import GroupNorm32, LayerNorm, Linear
+from edtr_torch.models.layers import (DerivedWeight, GroupNorm32, LayerNorm, Linear,
+                                      concat_weights, fused_proj_on)
+from edtr_torch.ops import geglu, ln_matmul
 from edtr_torch.ops.attention import dot_product_attention
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention over already-normalised tokens; self-attention
-    when ``context`` is None."""
+    """Multi-head attention; self-attention when ``context`` is None.
+    ``pre_norm``: the block's LayerNorm, and ``x`` the pre-norm residual
+    stream (else ``x`` is already normalised)."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64,
@@ -41,11 +51,32 @@ class CrossAttention(nn.Module):
         self.to_k = Linear(ctx, inner, bias=False, dtype=dtype)
         self.to_v = Linear(ctx, inner, bias=False, dtype=dtype)
         self.to_out = nn.Sequential(Linear(inner, query_dim, dtype=dtype))
+        self._qkv = DerivedWeight()
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        ctx = x if context is None else context
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+    def qkv_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The (3*inner, C) concatenation of the q/k/v weights in ``dtype``,
+        kept until one of them changes."""
+        return self._qkv.get((self.to_q.weight, self.to_k.weight, self.to_v.weight), dtype,
+                             concat_weights)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                pre_norm: Optional[LayerNorm] = None) -> torch.Tensor:
+        if pre_norm is not None and fused_proj_on() and ln_matmul.supported(x.shape[1]):
+            xc = x.to(self.to_q.dtype or x.dtype)
+            norm = (pre_norm.weight, pre_norm.bias)
+            if context is None:
+                q, k, v = ln_matmul.ln_matmuls(
+                    xc, *norm, (self.to_q.weight, self.to_k.weight, self.to_v.weight),
+                    pre_norm.eps, w_packed=self.qkv_weight(xc.dtype))
+            else:
+                (q,) = ln_matmul.ln_matmuls(xc, *norm, (self.to_q.weight,), pre_norm.eps,
+                                            w_packed=self.to_q.packed_weight(xc.dtype))
+                k, v = self.to_k(context), self.to_v(context)
+        else:
+            if pre_norm is not None:
+                x = pre_norm(x)
+            ctx = x if context is None else context
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         b, n, _ = q.shape
         m = k.shape[1]
         out = dot_product_attention(
@@ -67,14 +98,33 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
+    """GEGLU feed-forward. ``pre_norm``: the block's norm3, and ``x`` the
+    pre-norm residual stream. Inside ``fused_proj``, where
+    ``geglu.supported`` holds (``geglu.will_fuse`` with the family forced),
+    the split-halves form through the GEGLU kernels: both biases added in
+    fp32 before the GELU; elsewhere the packed form: one projection rounded
+    with its bias added in the compute dtype, then GELU on the rounded gate."""
+
     def __init__(self, dim: int, mult: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        inner = dim * mult
+        self.inner = dim * mult
         # net.1 is the reference's Dropout(0): no parameters, no effect
-        self.net = nn.Sequential(GEGLU(dim, inner, dtype), nn.Identity(),
-                                 Linear(inner, dim, dtype=dtype))
+        self.net = nn.Sequential(GEGLU(dim, self.inner, dtype), nn.Identity(),
+                                 Linear(self.inner, dim, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pre_norm: Optional[LayerNorm] = None) -> torch.Tensor:
+        if fused_proj_on() and geglu.supported(x.shape[1], x.shape[2], self.inner):
+            proj = self.net[0].proj
+            xc = x.to(proj.dtype or x.dtype)
+            wp = proj.packed_weight(xc.dtype)
+            if pre_norm is not None:
+                h = geglu.ln_geglu_proj(xc, pre_norm.weight, pre_norm.bias, proj.weight,
+                                        proj.bias, pre_norm.eps, w_packed=wp)
+            else:
+                h = geglu.geglu_proj(xc, proj.weight, proj.bias, w_packed=wp)
+            return self.net[2](h)
+        if pre_norm is not None:
+            x = pre_norm(x)
         return self.net(x)
 
 
@@ -92,9 +142,9 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        x = x + self.attn1(x, pre_norm=self.norm1)
+        x = x + self.attn2(x, context, pre_norm=self.norm2)
+        return x + self.ff(x, pre_norm=self.norm3)
 
 
 class SpatialTransformer(nn.Module):
@@ -118,9 +168,16 @@ class SpatialTransformer(nn.Module):
         b, c, h, w = x.shape
         xc = x.to(self.dtype or x.dtype)
         mul, add = self.norm.fold(xc)
-        t = xc.flatten(2).transpose(1, 2)  # (B, HW, C)
-        t = (t.float() * mul[:, None] + add[:, None]).to(xc.dtype)
-        t = self.proj_in(t)
+        t = xc.flatten(2).transpose(1, 2)  # (B, HW, C), contiguous on channels-last memory
+        if fused_proj_on() and ln_matmul.supported(h * w):
+            if not t.is_contiguous():  # the kernel reads C-contiguous token rows
+                t = t.contiguous()
+                ln_matmul.layout_copies["count"] += 1
+            t = ln_matmul.affine_matmul(t, mul, add, self.proj_in.weight, self.proj_in.bias,
+                                        w_packed=self.proj_in.packed_weight(xc.dtype))
+        else:
+            t = (t.float() * mul[:, None] + add[:, None]).to(xc.dtype)
+            t = self.proj_in(t)
         for blk in self.transformer_blocks:
             t = blk(t, context)
         t = self.proj_out(t)

@@ -14,7 +14,12 @@ Counterpart of ``edtr_tpu/models/layers.py``:
   plain versions) or, inside a :func:`fused_conv` block, through the port's
   conv kernels (``edtr_torch/ops/gn_conv.py``), which read channels-last
   activations (:func:`to_conv_layout`) and the bf16 weight copy
-  ``Conv2d.packed_weight`` caches.
+  ``Conv2d.packed_weight`` caches;
+* :func:`fused_proj`: the projection configuration, read by
+  ``models/attention.py``: inside the block the transformer blocks' LN+q/k/v,
+  LN+GEGLU and GroupNorm-affine+``proj_in`` run through the port's
+  projection kernels (``edtr_torch/ops/{ln_matmul,geglu}.py``) on the bf16
+  weight copies ``Linear.packed_weight`` caches.
 
 Parameter names follow the reference torch state dicts (``weight``/
 ``bias``, OIHW conv kernels, (out, in) linear kernels).
@@ -24,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +39,7 @@ from edtr_torch.ops import gn_conv
 from edtr_torch.ops._norms import fold_from_moments, gn_stats, ln_f32
 
 _fused_conv = False
+_fused_proj = False
 
 
 @contextlib.contextmanager
@@ -50,6 +56,48 @@ def fused_conv(on: bool = True) -> Iterator[None]:
         yield
     finally:
         _fused_conv = prev
+
+
+@contextlib.contextmanager
+def fused_proj(on: bool = True) -> Iterator[None]:
+    """The projection configuration of every call inside the block (JAX's
+    transformer blocks with the geglu and ln_matmul families forced on): on,
+    each transformer block at a token count the kernels take runs its
+    LN+q/k/v, LN+query, LN+GEGLU and GroupNorm-affine+``proj_in`` through
+    the port's projection kernels; off, and outside any block, they are
+    stock PyTorch ops. ``EDTRPipeline`` sets it around each stage."""
+    global _fused_proj
+    prev, _fused_proj = _fused_proj, bool(on)
+    try:
+        yield
+    finally:
+        _fused_proj = prev
+
+
+def fused_proj_on() -> bool:
+    """Whether the call runs inside a :func:`fused_proj` block."""
+    return _fused_proj
+
+
+class DerivedWeight:
+    """A tensor made from some parameters (a cast, a packing, a
+    concatenation), made once and made again when one of them is changed
+    in place (its version) or replaced (its storage)."""
+
+    def __init__(self):
+        self.key: Optional[tuple] = None
+        self.value: Optional[torch.Tensor] = None
+
+    def get(self, params: Sequence[torch.Tensor], dtype: torch.dtype,
+            make: Callable[[Sequence[torch.Tensor], torch.dtype], torch.Tensor]
+            ) -> torch.Tensor:
+        """``make(params, dtype)``, from the cache while no param changed."""
+        key = tuple((p.data_ptr(), p._version, p.device) for p in params) + (dtype,)
+        if self.key != key:
+            with torch.no_grad():
+                self.value = make([p.detach() for p in params], dtype)
+            self.key = key
+        return self.value
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -71,6 +119,16 @@ def _compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor,
     return dtype or torch.promote_types(x.dtype, w.dtype)
 
 
+def concat_weights(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """Linear weights of one input width stacked, (sum of outs, in), in
+    ``dtype``: the operand of the projection kernels."""
+    return torch.cat([w.to(dtype) for w in ws])
+
+
+def _pack_conv(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    return gn_conv.pack_weight(ws[0], dtype)
+
+
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -81,6 +139,12 @@ class Linear(nn.Module):
         nn.init.normal_(self.weight, std=in_features ** -0.5)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+        self._packed = DerivedWeight()
+
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight in ``dtype`` as the projection kernels read it ((out,
+        in), contiguous), kept until the weight changes."""
+        return self._packed.get((self.weight,), dtype, concat_weights)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
@@ -103,19 +167,13 @@ class Conv2d(nn.Module):
         nn.init.normal_(self.weight, std=(in_channels * kernel_size ** 2) ** -0.5)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
-        self._packed: Optional[torch.Tensor] = None
-        self._packed_key: Optional[tuple] = None
+        self._packed = DerivedWeight()
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The weight as the conv kernels read it (``gn_conv.pack_weight``:
         (kh, kw, out, in) in ``dtype``), made once and kept until the weight
         is changed in place (its version) or replaced (its storage)."""
-        w = self.weight
-        key = (w.data_ptr(), w._version, w.device, dtype)
-        if self._packed_key != key:
-            self._packed = gn_conv.pack_weight(w, dtype)
-            self._packed_key = key
-        return self._packed
+        return self._packed.get((self.weight,), dtype, _pack_conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)

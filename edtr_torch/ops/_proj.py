@@ -1,0 +1,76 @@
+"""Host side shared by the transformer-projection kernels
+(``ops/ln_matmul.py``, ``ops/geglu.py``; ``csrc/proj_gemm.cuh``): the tile
+plan, the operand checks, the launch's error check, and the fp32-accumulated
+product of the plain versions."""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+BK = 32   # channels per chunk of the kernel's K walk
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def dot32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w.T`` of ``a`` and ``w`` rounded to ``a``'s dtype, accumulated
+    and returned in fp32 (``jnp.dot(..., preferred_element_type=f32)``).
+    ``w`` is in nn.Linear layout (out, in)."""
+    return F.linear(a.float(), w.to(a.dtype).float())
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, slab_rows: int) -> Tuple[int, int]:
+    """``(bm, bn)`` of a launch over ``m`` token rows and ``slab_rows``
+    weight rows: 128 x 128 tiles where the shapes allow, halved (columns
+    first, then rows) while the grid would leave SMs idle. No split over C:
+    the smallest main-path grid (256 tokens, 1280 -> 1280) gets 80 blocks."""
+    bm = 128 if m % 128 == 0 else 64
+    bn = 128 if slab_rows % 128 == 0 else 64
+    while (m // bm) * (slab_rows // bn) < SMS and (bn > 64 or bm > 64):
+        if bn > 64:
+            bn = 64
+        else:
+            bm = 64
+    return bm, bn
+
+
+def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{what} must be {dtype} {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} data is not 16-byte aligned")
+
+
+def check_tokens(name: str, x: torch.Tensor, seq_ok: bool) -> None:
+    """The kernels' token operand: (B, N, C) bf16, contiguous (unit stride
+    along C), N a size the TPU kernel takes, C a multiple of 32."""
+    if x.dtype != torch.bfloat16 or x.ndim != 3:
+        raise ValueError(f"{name}: x must be (B, N, C) bf16, got {x.dtype} {tuple(x.shape)}")
+    if not seq_ok:
+        raise ValueError(f"{name}: {x.shape[1]} tokens is not a size the kernel takes")
+    if x.shape[2] % BK or x.shape[2] == 0:
+        raise ValueError(f"{name}: C must be a multiple of {BK}, got {x.shape[2]}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be contiguous and 16-byte aligned")
+
+
+def raise_on_error(name: str, err: int) -> None:
+    """The C interface returns ``cudaGetLastError()``: raise unless 0."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def on_device(dev: torch.device):
+    """The launch goes to the current device: make ``dev`` current for it."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -1,0 +1,169 @@
+"""LayerNorm + bias-free projections and folded-GroupNorm + projection:
+Hopper kernels and their plain PyTorch versions.
+
+Counterpart of ``edtr_tpu/ops/ln_matmul.py``. Each JAX Pallas kernel has one
+wrapper here, with its own launch count:
+
+  =============  ====================================  =====================
+  wrapper        replaces (edtr_tpu/ops/ln_matmul.py)  CUDA kernel
+  =============  ====================================  =====================
+  ln_matmuls     ``ln_matmuls`` (``_kernel``)          proj_gemm_kernel
+                                                       <PRO_LN, EPI_STORE>
+  affine_matmul  ``affine_matmul`` (``_aff_kernel``)   proj_gemm_kernel
+                                                       <PRO_AFF, EPI_BIAS>
+  =============  ====================================  =====================
+
+The kernels live in ``edtr_torch/csrc/ln_matmul.cu`` on the GEMM of
+``csrc/proj_gemm.cuh`` (see its header for the design). Tokens are (B, N, C)
+with C contiguous, weights in nn.Linear layout (out, in): the module's fp32
+weights for the plain versions, and for the kernels ``w_packed``, a bf16
+copy (for K = 3 the (3*O, C) concatenation of q/k/v) that the modules cache
+until a weight changes (``models/layers.py``).
+
+A wrapper given CPU tensors computes the plain version; given CUDA tensors
+it launches its kernel or raises. The kernels take bf16 tokens with N a
+multiple of :data:`SEQ_TILE` (:func:`supported`, JAX's rule), C a multiple
+of 32 and O a multiple of 64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from edtr_torch.ops import _cuda
+from edtr_torch.ops._norms import ln_f32
+from edtr_torch.ops._proj import (check, check_tokens, dot32, on_device, plan,
+                                  raise_on_error)
+
+# the token counts the kernels take: a copy of edtr_tpu/ops/ln_matmul.py's
+# ``_SEQ_TILE`` rule, so the port fuses exactly where JAX does
+SEQ_TILE = 256
+
+# kernel launches per wrapper; chip_smoke.py zeroes these around a run
+launches: Dict[str, int] = {"ln_matmuls": 0, "affine_matmul": 0}
+# launches per (wrapper, B, N, C, O, K)
+shapes: Counter = Counter()
+# token views the SpatialTransformer had to copy to make them contiguous
+# before a fused projection (strided on NCHW activations, none on
+# channels-last ones)
+layout_copies: Dict[str, int] = {"count": 0}
+
+
+def supported(n: int) -> bool:
+    """``ln_matmul.supported``: N tokens the kernels take."""
+    return n % SEQ_TILE == 0
+
+
+def plain_ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
+                     ws: Sequence[torch.Tensor], eps: float = 1e-5
+                     ) -> Tuple[torch.Tensor, ...]:
+    """``tuple(LN(x) @ w.T for w in ws)`` with the casts of ``_ref``: LN in
+    fp32, rounded to x's dtype, products accumulated in fp32, each output
+    rounded once. x (B, N, C); ln_s/ln_b (C,); ws (O, C) each."""
+    cdt = x.dtype
+    xln = ln_f32(x, ln_s, ln_b, eps).to(cdt)
+    return tuple(dot32(xln, w).to(cdt) for w in ws)
+
+
+def plain_affine_matmul(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                        w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``((x*mul + add) @ w.T) + b`` with the casts of ``_aff_ref``: the
+    affine in fp32, rounded to x's dtype, the product accumulated in fp32
+    and rounded, then the bias added in x's dtype. x (B, N, C); mul/add
+    (B, C) fp32; w (O, C); b (O,)."""
+    cdt = x.dtype
+    xa = (x.float() * mul[:, None] + add[:, None]).to(cdt)
+    return dot32(xa, w).to(cdt) + b.to(cdt)
+
+
+@functools.lru_cache(maxsize=None)
+def _symbol(name: str):
+    lib = _cuda.load("ln_matmul")
+    if name == "ln_matmuls":
+        fn = lib.edtr_ln_matmul
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+    else:
+        fn = lib.edtr_affine_matmul
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
+               ws: Sequence[torch.Tensor], eps: float = 1e-5, *,
+               w_packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """``tuple(LN(x) @ w.T for w in ws)``, K = len(ws) in 1..3 weights of
+    the same (O, C): the ``ln_matmuls`` kernel on CUDA tensors (K contiguous
+    (B, N, O) outputs), :func:`plain_ln_matmuls` on CPU tensors.
+    ``w_packed``: the (K*O, C) bf16 concatenation of ``ws`` (made here, per
+    call, when not given)."""
+    if x.device.type == "cpu":
+        return plain_ln_matmuls(x, ln_s, ln_b, ws, eps)
+    b, n, c = x.shape
+    k, o = len(ws), ws[0].shape[0]
+    if not 1 <= k <= 3 or any(tuple(w.shape) != (o, c) for w in ws) or o % 64:
+        raise ValueError(f"ln_matmuls: 1-3 weights of one (O, C), O % 64 == 0, C = {c}; "
+                         f"got {[tuple(w.shape) for w in ws]}")
+    check_tokens("ln_matmuls", x, supported(n))
+    dev = x.device
+    with torch.no_grad():
+        wp = (torch.cat([w.detach().to(torch.bfloat16) for w in ws])
+              if w_packed is None else w_packed)
+    check(wp, "ln_matmuls: w_packed", torch.bfloat16, (k * o, c), dev)
+    s, sh = ln_s.float().contiguous(), ln_b.float().contiguous()
+    check(s, "ln_matmuls: ln_s", torch.float32, (c,), dev)
+    check(sh, "ln_matmuls: ln_b", torch.float32, (c,), dev)
+    outs = tuple(torch.empty((b, n, o), device=dev, dtype=torch.bfloat16) for _ in range(k))
+    bm, bn = plan(b * n, k * o)
+    ptrs = [t.data_ptr() for t in outs] + [None] * (3 - k)
+    with on_device(dev):
+        err = _symbol("ln_matmuls")(bm, bn, x.data_ptr(), s.data_ptr(), sh.data_ptr(),
+                                    wp.data_ptr(), *ptrs, k, b * n, c, o, float(eps),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error("ln_matmuls", err)
+    launches["ln_matmuls"] += 1
+    shapes[("ln_matmuls", b, n, c, o, k)] += 1
+    return outs
+
+
+def affine_matmul(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                  w: torch.Tensor, b: torch.Tensor, *,
+                  w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``((x*mul + add) @ w.T) + b``: the ``affine_matmul`` kernel on CUDA
+    tensors, :func:`plain_affine_matmul` on CPU tensors. ``w_packed``: the
+    bf16 copy of ``w`` (made here, per call, when not given)."""
+    if x.device.type == "cpu":
+        return plain_affine_matmul(x, mul, add, w, b)
+    bsz, n, c = x.shape
+    o = w.shape[0]
+    if tuple(w.shape) != (o, c) or o % 64:
+        raise ValueError(f"affine_matmul: w must be (O, {c}) with O % 64 == 0, "
+                         f"got {tuple(w.shape)}")
+    check_tokens("affine_matmul", x, supported(n))
+    dev = x.device
+    with torch.no_grad():
+        wp = w.detach().to(torch.bfloat16).contiguous() if w_packed is None else w_packed
+    check(wp, "affine_matmul: w_packed", torch.bfloat16, (o, c), dev)
+    m, a = mul.float().contiguous(), add.float().contiguous()
+    bias = b.float().contiguous()
+    check(m, "affine_matmul: mul", torch.float32, (bsz, c), dev)
+    check(a, "affine_matmul: add", torch.float32, (bsz, c), dev)
+    check(bias, "affine_matmul: bias", torch.float32, (o,), dev)
+    out = torch.empty((bsz, n, o), device=dev, dtype=torch.bfloat16)
+    bm, bn = plan(bsz * n, o)
+    with on_device(dev):
+        err = _symbol("affine_matmul")(bm, bn, x.data_ptr(), m.data_ptr(), a.data_ptr(),
+                                       wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                       bsz * n, c, o, n,
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error("affine_matmul", err)
+    launches["affine_matmul"] += 1
+    shapes[("affine_matmul", bsz, n, c, o, 1)] += 1
+    return out

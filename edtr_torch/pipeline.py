@@ -21,8 +21,14 @@ bias/emb/residual) and every nearest-2x + conv3x3 (UNet, VAE, SwinIR tail)
 through the port's conv kernels (``edtr_torch/ops/gn_conv.py``), the JAX
 package's configuration ``EDTR_GNCONV_FUSED=force EDTR_UPSCONV_FUSED=force
 EDTR_UPS_SUBPIX=0``; False runs them as stock PyTorch ops, as JAX's default
-leaves them to XLA. The modules are the same either way, so both load the
-same state dicts.
+leaves them to XLA. It also takes ``fused_proj``, the projection
+configuration (``models.layers.fused_proj``): True runs the transformer
+blocks' LN+q/k/v, LN+query, LN+GEGLU and GroupNorm-affine+``proj_in`` at
+256 tokens and more through the port's projection kernels
+(``edtr_torch/ops/{ln_matmul,geglu}.py``), JAX's ``EDTR_GEGLU_FUSED=force
+EDTR_LNMM_FUSED=force``; False runs them as stock PyTorch ops, as JAX's
+default does. The modules are the same in every configuration, so all load
+the same state dicts.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from edtr_torch.diffusion.sampler import make_spaced_schedule, sample_loop
 from edtr_torch.diffusion.schedule import Diffusion
 from edtr_torch.models.cldm import ControlLDM
 from edtr_torch.models.layers import fused_conv as conv_config
+from edtr_torch.models.layers import fused_proj as proj_config
 from edtr_torch.models.swinir import SwinIR
 from edtr_torch.utils.image import wavelet_reconstruction
 
@@ -44,6 +51,9 @@ from edtr_torch.utils.image import wavelet_reconstruction
 # card (interleaved restores: a clear majority of pairs and a win beyond
 # the ~5% drift; PERF.md); chip_smoke.py reports whether its run agrees
 FUSED_CONV_DEFAULT = True
+# the projection configuration, by the same rule on the fused-conv vs
+# fused-conv+proj pairs (chip_smoke.py, PERF.md)
+FUSED_PROJ_DEFAULT = False
 
 
 def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
@@ -70,26 +80,30 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _in_conv_config(stage):
-    """Runs a pipeline stage in the pipeline's conv configuration."""
+def _in_config(stage):
+    """Runs a pipeline stage in the pipeline's conv and projection
+    configurations."""
     @functools.wraps(stage)
     def run(self, *args, **kwargs):
-        with conv_config(self.fused_conv):
+        with conv_config(self.fused_conv), proj_config(self.fused_proj):
             return stage(self, *args, **kwargs)
     return run
 
 
 class EDTRPipeline(nn.Module):
     """SwinIR + ControlLDM + diffusion tables, on one device, run in the
-    conv configuration ``fused_conv`` (module docstring)."""
+    conv configuration ``fused_conv`` and the projection configuration
+    ``fused_proj`` (module docstring)."""
 
     def __init__(self, swinir: SwinIR, cldm: ControlLDM, diffusion: Diffusion,
                  start_timestep: int = 200, num_timesteps: int = 4,
                  device: Optional[torch.device | str] = None,
-                 fused_conv: bool = FUSED_CONV_DEFAULT):
+                 fused_conv: bool = FUSED_CONV_DEFAULT,
+                 fused_proj: bool = FUSED_PROJ_DEFAULT):
         super().__init__()
         self.device = resolve_device(device)
         self.fused_conv = bool(fused_conv)
+        self.fused_proj = bool(fused_proj)
         self.swinir = swinir.to(self.device)
         self.cldm = cldm.to(self.device)
         self.diffusion = diffusion
@@ -99,17 +113,17 @@ class EDTRPipeline(nn.Module):
                                              self.device)
 
     @torch.no_grad()
-    @_in_conv_config
+    @_in_config
     def pre_restore(self, lq: torch.Tensor) -> torch.Tensor:
         return self.swinir(lq)
 
     @torch.no_grad()
-    @_in_conv_config
+    @_in_config
     def encode(self, pre_res: torch.Tensor) -> torch.Tensor:
         return self.cldm.vae_encode(pre_res * 2 - 1)
 
     @torch.no_grad()
-    @_in_conv_config
+    @_in_config
     def denoise(self, z_pre: torch.Tensor, c_txt: torch.Tensor, noise: torch.Tensor,
                 step_noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -120,7 +134,7 @@ class EDTRPipeline(nn.Module):
         return sample_loop(self.cldm, self.schedule, z_t, cond, step_noise, generator)
 
     @torch.no_grad()
-    @_in_conv_config
+    @_in_config
     def decode(self, z: torch.Tensor, pre_res: torch.Tensor) -> torch.Tensor:
         return wavelet_reconstruction((self.cldm.vae_decode(z) + 1) / 2, pre_res)
 
@@ -182,10 +196,11 @@ def flagship_configs(tiny: bool = False) -> Dict[str, Any]:
 
 def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bfloat16,
                    device: Optional[torch.device | str] = None,
-                   fused_conv: bool = FUSED_CONV_DEFAULT) -> EDTRPipeline:
+                   fused_conv: bool = FUSED_CONV_DEFAULT,
+                   fused_proj: bool = FUSED_PROJ_DEFAULT) -> EDTRPipeline:
     """The EDTR-s4 restore pipeline (start t=200, 4 steps), weights as
     initialised by the constructors: load a state dict or randomise them.
-    ``fused_conv``: the conv configuration (module docstring)."""
+    ``fused_conv``, ``fused_proj``: the configurations (module docstring)."""
     device = resolve_device(device)
     cfg = flagship_configs(tiny)
     with torch.device(device):
@@ -195,4 +210,4 @@ def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bflo
     diffusion = Diffusion.create(1000, linear_start=0.00085, linear_end=0.0120,
                                  device=device)
     return EDTRPipeline(swinir, cldm, diffusion, start_timestep=200, num_timesteps=4,
-                        device=device, fused_conv=fused_conv)
+                        device=device, fused_conv=fused_conv, fused_proj=fused_proj)

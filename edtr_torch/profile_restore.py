@@ -21,11 +21,13 @@ from typing import Callable
 STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # kernel family by substring of the kernel name, first match wins: the
 # port's own kernels first, so "conv3x3_kernel" is not booked as cuDNN's
+# nor "proj_gemm_kernel" as cuBLAS's
 FAMILIES = (
     ("flash (edtr_torch)", ("flash_fwd_d64", "flash_fwd_d512")),
     ("gn_conv (edtr_torch)", ("conv3x3_kernel",)),
+    ("proj (edtr_torch)", ("proj_gemm_kernel",)),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "nhwc", "nchw")),
-    ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma")),
+    ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("norm / reduce", ("reduce", "norm", "softmax")),
     ("elementwise / copy", ("elementwise", "vectorized", "copy", "cat", "index",
                             "upsample", "fill", "pad")),

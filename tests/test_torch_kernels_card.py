@@ -14,7 +14,9 @@ import torch
 
 from edtr_torch.ops import attention as A
 from edtr_torch.ops import flash_attention as F
+from edtr_torch.ops import geglu as GG
 from edtr_torch.ops import gn_conv as G
+from edtr_torch.ops import ln_matmul as LM
 
 
 @pytest.mark.cuda
@@ -67,3 +69,49 @@ def test_conv_unsupported_raises():
         G.gn_silu_conv(x[:, :48], mul[:, :48], add[:, :48], w[:, :48], b)
     with pytest.raises(ValueError):  # Cout 96: not a multiple of 64
         G.upsample_conv(x, torch.cat([w, w[:32]]), torch.cat([b, b[:32]]))
+
+
+def _proj_args(n=256, c=64, o=128):
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda") * scale
+    x = rnd(2, n, c).to(torch.bfloat16)
+    return x, 1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(o, c, scale=c ** -0.5), rnd(o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ln_matmuls_1", "ln_matmuls_3", "affine_matmul", "geglu_proj",
+                                  "ln_geglu_proj"])
+def test_proj_call_launches(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, s, sh, w, b = _proj_args()
+    key = name[:-2] if name[-1].isdigit() else name
+    mod = GG if "geglu" in key else LM
+    before = mod.launches[key]
+    if key == "ln_matmuls":
+        k = int(name[-1])
+        outs = LM.ln_matmuls(x, s, sh, [w] * k)
+        assert len(outs) == k and all(o.shape == (2, 256, 128) for o in outs)
+    elif key == "affine_matmul":
+        mul, add = s.expand(2, -1).contiguous(), sh.expand(2, -1).contiguous()
+        assert LM.affine_matmul(x, mul, add, w, b).shape == (2, 256, 128)
+    elif key == "geglu_proj":
+        assert GG.geglu_proj(x, w, b).shape == (2, 256, 64)
+    else:
+        assert GG.ln_geglu_proj(x, s, sh, w, b).shape == (2, 256, 64)
+    torch.cuda.synchronize()
+    assert mod.launches[key] == before + 1
+
+
+@pytest.mark.cuda
+def test_proj_unsupported_raises():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, s, sh, w, b = _proj_args()
+    with pytest.raises(ValueError):  # fp32 tokens: no kernel takes them
+        LM.ln_matmuls(x.float(), s, sh, [w])
+    with pytest.raises(ValueError):  # 64 tokens: not a size the kernels take
+        GG.ln_geglu_proj(x[:, :64], s, sh, w, b)
+    with pytest.raises(ValueError):  # strided tokens
+        LM.affine_matmul(x.transpose(1, 2).contiguous().transpose(1, 2), s[None].expand(2, -1),
+                         sh[None].expand(2, -1), w, b)
