@@ -8,22 +8,27 @@ no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the hand-written kernels, one ``nvcc`` per source, started
-   together: ``edtr_torch/csrc/{flash_attention,gn_conv,ln_matmul,geglu}.cu``
-   (ptxas register and spill lines printed);
+   together: ``edtr_torch/csrc/{flash_attention,gn_conv,ln_matmul,geglu,
+   window_attention,swin_block}.cu`` (ptxas register and spill lines
+   printed);
 3. each flash kernel against its plain PyTorch version at the 512² bs-1
    main-path shapes, in bf16: O and lse errors, kernel / plain / SDPA
    (``library_ms``, a yardstick the port never calls) times and the bound;
 4. the full-width EDTR-s4 ``EDTRPipeline.restore`` at 512², bs 1, bf16,
-   seeded random weights, in three configurations on the same weights,
-   input and noise: stock (the pipeline's ``fused_conv`` and ``fused_proj``
-   False), fused (the gn_conv kernels) and fused+proj (also the projection
-   kernels). Each is counted once (launch counts set to 0 just before it,
-   read just after, and held to their exact values; no layout copies in
-   the fused ones), the fused outputs are held against the stock ones,
-   then the stage times and end-to-end ms/img of all three, in turns (the
-   pairs won, stock vs fused against ``pipeline.FUSED_CONV_DEFAULT`` and
-   fused vs fused+proj against ``pipeline.FUSED_PROJ_DEFAULT``), and a
-   ``torch.profiler`` trace of each (device-busy ms, idle share, kernel
+   seeded random weights, in four configurations on the same weights,
+   input and noise: stock (the pipeline's ``fused_conv``, ``fused_proj``
+   and ``fused_swin`` False), fused (the gn_conv kernels), fused+proj (also
+   the projection kernels) and fused+swin (the gn_conv and Swin kernels,
+   the projections as ``pipeline.FUSED_PROJ_DEFAULT``). Each is counted
+   once (launch counts set to 0 just before it, read just after, and held
+   to their exact values; no layout copies in the fused ones), the fused
+   outputs are held against the stock ones, then the stage times and
+   end-to-end ms/img of all four, in turns (the pairs won: stock vs fused
+   against ``pipeline.FUSED_CONV_DEFAULT``, fused vs fused+proj against
+   ``FUSED_PROJ_DEFAULT``, and fused vs fused+swin on the ``swinir``
+   stage, the only one the switch changes, against ``FUSED_SWIN_DEFAULT``),
+   and a ``torch.profiler`` trace of each (device-busy ms, idle share,
+   host-to-device copies, none allowed in the ``swinir`` stage, kernel
    families);
 5. each conv kernel against its plain version at every shape the fused
    restore launched it with: errors, kernel / plain / ``F.conv2d``
@@ -34,12 +39,17 @@ no result line):
    not launch, at the 4096-token shape): errors, device times of kernel /
    plain / ``F.linear`` (``library_ms``: the cuBLAS GEMM alone on the
    already-normalised bf16 tokens, never called by the port) and the bound;
-7. the GroupNorm statistics at every shape of the fused restore, in
+7. each Swin kernel (window attention, swin_pre, swin_post) against its
+   plain version at every shape the fused+swin restore launched it with:
+   errors, device times of kernel / plain / library (``library_ms``, never
+   called by the port: SDPA with the bias and mask as one additive mask;
+   the ``F.linear`` GEMMs on already-normalised bf16 tokens) and the bound;
+8. the GroupNorm statistics at every shape of the fused restore, in
    channels-last memory and on an NCHW copy: equal, and device ms of each;
-8. one full-width ControlLDM eps forward through the flash kernels and
+9. one full-width ControlLDM eps forward through the flash kernels and
    through the plain attention (test hook), and fused and fused+proj
    against stock;
-9. a ``{"kernels": [...]}`` line with every ported kernel, then the result
+10. a ``{"kernels": [...]}`` line with every ported kernel, then the result
    line.
 
 Needs one CUDA card and ``nvcc`` (``CUDA_HOME``); imports nothing of JAX.
@@ -64,7 +74,7 @@ PEAK_BYTES = 3.35e12
 
 FA_SOURCE = "edtr_torch/csrc/flash_attention.cu"
 CONV_SOURCE = "edtr_torch/csrc/gn_conv.cu"
-SOURCES = ("flash_attention", "gn_conv", "ln_matmul", "geglu")
+SOURCES = ("flash_attention", "gn_conv", "ln_matmul", "geglu", "window_attention", "swin_block")
 # wrapper -> (flat (BH, N, D) at 512² bs 1, the TPU kernel it replaces,
 #             launches in one 512² restore; None: not on that path)
 KERNELS = {
@@ -98,6 +108,16 @@ PROJ_KERNELS = {
     "ln_geglu_proj": ("edtr_torch/csrc/geglu.cu", "edtr_tpu/ops/geglu.py:218", 84),
 }
 GEGLU_HELD = ("geglu_proj", 1, 4096, 320, 1280)
+# Swin wrapper -> (source, the TPU kernel it replaces, launches in one
+# fused+swin 512² restore): 8 RSTBs x 6 blocks, each one swin_pre, one
+# window attention (masked in the 24 shifted blocks) and one swin_post
+SWIN_KERNELS = {
+    "window_attention": ("edtr_torch/csrc/window_attention.cu",
+                         "edtr_tpu/ops/window_attention.py:76", 48),
+    "swin_pre": ("edtr_torch/csrc/swin_block.cu", "edtr_tpu/ops/swin_block.py:168", 48),
+    "swin_post": ("edtr_torch/csrc/swin_block.cu", "edtr_tpu/ops/swin_block.py:297", 48),
+}
+SWIN_MASKED = 24
 # O is small here: randn q, k, v with scale D^-0.5 give unit-variance
 # logits, so O has std sqrt(e/N) (0.026 at N = 4096, 0.05 at 1024, 0.018 at
 # 8192) and max |O| ~0.13-0.5. Both sides round O to bf16 (one ulp is 2^-8
@@ -131,6 +151,16 @@ TOL_CONV_L2 = 1e-2
 # whole outputs by O(|out|). The same limits as the conv kernels.
 TOL_PROJ_MAX = 2.0 ** -6
 TOL_PROJ_L2 = 1e-2
+# Swin kernels vs plain: the same fp32 LN, biases, softmax and GELU (erff;
+# rsqrtf, expf and other summation orders, ~1e-6 relative), rounded to
+# bf16 where the plain versions round (P after its normalisation, each
+# projection once after its fp32 bias, the residuals), products in fp32.
+# A right kernel differs by a bf16 ulp where a rounding flips, and a flip
+# in x1 or the hidden reaches the output through one more GEMM; a wrong
+# roll, window, head or column block moves whole outputs by O(|out|). The
+# limits of the conv and projection kernels.
+TOL_SWIN_MAX = 2.0 ** -6
+TOL_SWIN_L2 = 1e-2
 # ControlLDM eps, kernels vs plain attention: the two paths round P at
 # different places in 14 attention calls, and the difference passes through
 # ~50 bf16 layers; relative L2 error of the whole eps tensor (measured
@@ -153,12 +183,21 @@ IMAGE = 512
 # traced
 TIME_ITERS = 21
 TRACE_ITERS = 3
-# the pipeline's (fused_conv, fused_proj) in each configuration
-CONFIGS = {"stock": (False, False), "fused": (True, False), "fused+proj": (True, True)}
 # a configuration wins end to end beyond the ~5% drift between runs
 # (edtr_tpu/ops/dispatch.py) only if it also wins a clear majority of the
 # interleaved pairs: a one-sided sign test at this level
 SIGN_TEST_ALPHA = 0.05
+
+
+def configs() -> dict:
+    """The pipeline's (fused_conv, fused_proj, fused_swin) in each
+    configuration; fused+swin keeps the projections as the pipeline's
+    default does, so that it differs from one of the others in the Swin
+    switch alone."""
+    from edtr_torch.pipeline import FUSED_PROJ_DEFAULT
+
+    return {"stock": (False, False, False), "fused": (True, False, False),
+            "fused+proj": (True, True, False), "fused+swin": (True, FUSED_PROJ_DEFAULT, True)}
 
 
 def card_line() -> str:
@@ -551,6 +590,156 @@ def proj_kernel_phase(device, shape_counts: dict) -> dict:
     return rows
 
 
+def swin_case(device, key, gen) -> dict:
+    """One Swin kernel against its plain version at one shape ``key``
+    (``window_attention.shapes``' or ``swin_block.shapes``' key): errors,
+    device times, the bound. ``library_ms``: for the window attention, SDPA
+    on contiguous (BW, H, N, D) copies with bias + mask as one bf16 additive
+    mask; for the block halves, ``F.linear`` alone on already-normalised
+    bf16 tokens (qkv; proj + fc1 + fc2), yardsticks the port never calls."""
+    from edtr_torch.models.swinir import shift_mask
+    from edtr_torch.ops import swin_block as SB
+    from edtr_torch.ops import window_attention as WA
+    from edtr_torch.ops._norms import ln_f32
+
+    name = key[0]
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device).mul_(scale)
+
+    if name == "window_attention":
+        _, bw, n, heads, d, nw = key
+        c = heads * d
+        # q/k/v as the block hands them over: slices of the packed windows
+        q, k, v = randn(bw, n, 3 * c).to(bf16).view(bw, n, 3, heads, d).unbind(2)
+        bias = randn(heads, n, n, scale=0.5)
+        side = round(nw ** 0.5) * 8
+        mask = shift_mask(side, side, 8, 4, device) if nw else None
+        scale = d ** -0.5
+
+        def kern():
+            return WA.window_attention(q, k, v, bias, mask, scale)
+
+        def plain():
+            return WA.plain_window_attention(q, k, v, bias, mask, scale)
+        q4, k4, v4 = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+        am = bias[None] + (mask.repeat(bw // nw, 1, 1)[:, None] if nw else 0.0)
+        am = am.to(bf16).expand(bw, heads, n, n).contiguous()
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=am, scale=scale)
+        flops = 4.0 * bw * heads * n * n * d
+        nbytes = 4 * bw * n * c * 2 + heads * n * n * 4 + nw * n * n * 4
+        shape = dict(bw=bw, n=n, heads=heads, d=d, mask_windows=nw)
+        launched = WA.launches
+    else:
+        _, b, hh, ww, c, win, extra = key
+        l, nw = hh * ww, (hh // win) * (ww // win)
+        x = (randn(b, l, c, scale=2.0) + 0.5).to(bf16)
+        if name == "swin_pre":
+            d = extra
+            ln_s, ln_b = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+            w, bias = randn(3 * c, c, scale=c ** -0.5), randn(3 * c, scale=0.05)
+            wp = w.to(bf16)
+
+            def kern():
+                return SB.swin_pre(x, ln_s, ln_b, w, bias, hh, ww, win, d, w_packed=wp)
+
+            def plain():
+                return SB.plain_swin_pre(x, ln_s, ln_b, w, bias, hh, ww, win, d)
+            xln = ln_f32(x, ln_s, ln_b).to(bf16)
+
+            def lib():
+                return F.linear(xln, wp)
+            flops = 2.0 * b * l * c * 3 * c
+            nbytes = (5 * b * l * c + 3 * c * c) * 2 + 5 * c * 4
+            shape = dict(b=b, h=hh, w=ww, c=c, win=win, d=d)
+        else:
+            hidden = extra
+            attn = randn(b, nw, win * win, c).to(bf16)
+            ws = [randn(c, c, scale=c ** -0.5), randn(c, scale=0.05),
+                  1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+                  randn(hidden, c, scale=c ** -0.5), randn(hidden, scale=0.05),
+                  randn(c, hidden, scale=hidden ** -0.5), randn(c, scale=0.05)]
+            packed = [ws[i].to(bf16) for i in (0, 4, 6)]
+
+            def kern():
+                return SB.swin_post(attn, x, *ws, hh, ww, win, packed=packed)
+
+            def plain():
+                return SB.plain_swin_post(attn, x, *ws, hh, ww, win)
+            a2 = attn.reshape(b, l, c)
+            hid = randn(b, l, hidden).to(bf16)
+
+            def lib():
+                return (F.linear(a2, packed[0]), F.linear(x, packed[1]),
+                        F.linear(hid, packed[2]))
+            flops = 2.0 * b * l * (c * c + 2 * c * hidden)
+            nbytes = (3 * b * l * c + c * c + 2 * c * hidden) * 2 + (4 * c + hidden) * 4
+            shape = dict(b=b, h=hh, w=ww, c=c, win=win, hidden=hidden)
+        launched = SB.launches
+    before = launched[name]
+    out_k = kern()
+    check(launched[name] == before + 1, f"{name} launched its kernel")
+    out_p = plain()
+    if name == "swin_pre":  # both outputs, outside the timed calls
+        out_k, out_p = (torch.cat([o.flatten() for o in outs]) for outs in (out_k, out_p))
+    torch.cuda.synchronize()
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    o_max = out_p.float().abs().max().item()
+    rel = rel_l2(out_k, out_p)
+    iters = 20
+    ms = device_ms(kern, iters)
+    plain_ms = device_ms(plain, 3, 1)
+    library_ms = device_ms(lib, iters)
+    event_ms = time_ms(kern, iters)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    row = dict(name=name, shape=shape, max_abs_err=err, out_max=o_max, rel_l2=rel, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, event_ms=event_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, mb=nbytes / 1e6,
+               ok=bool(err <= TOL_SWIN_MAX * o_max and rel <= TOL_SWIN_L2))
+    row["bound_share"] = row["bound_ms"] / ms
+    print("swin kernel:", json.dumps(row), flush=True)
+    check(row["ok"], f"{key} vs plain: max abs {err} (tol {TOL_SWIN_MAX * o_max}), "
+                     f"rel L2 {rel} (tol {TOL_SWIN_L2})")
+    return row
+
+
+def swin_kernel_phase(device, shape_counts: dict) -> dict:
+    """Each Swin kernel at every shape of ``shape_counts`` (shape key ->
+    launches in one fused+swin restore); per kernel the launch-weighted sums
+    over its shapes, as :func:`conv_kernel_phase` computes them."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows = {}
+    for key, count in sorted(shape_counts.items(), key=str):
+        r = swin_case(device, key, gen)
+        source, replaces, _ = SWIN_KERNELS[key[0]]
+        agg = rows.setdefault(key[0], dict(
+            name=key[0], route="cuda", source=source, replaces=replaces, launches=None,
+            on_path=True,
+            scope="per restore: launch-weighted sum over its shapes; ms, plain_ms, "
+                  "library_ms: device time (profiler), event_ms: CUDA events",
+            max_abs_err=0.0, max_err_share=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+            library_ms=0.0, event_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, gflop=0.0,
+            mb=0.0, shapes=0))
+        agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
+        agg["max_err_share"] = max(agg["max_err_share"], r["max_abs_err"] / r["out_max"])
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms", "event_ms", "gflop", "mb"):
+            agg[k] += count * r[k]
+        agg["ops_bound_ms" if r["bound_by"] == "operations" else "bytes_bound_ms"] += (
+            count * r["bound_ms"])
+        agg["shapes"] += 1
+    for agg in rows.values():
+        agg["bound_by"] = ("operations" if agg["ops_bound_ms"] >= agg["bytes_bound_ms"]
+                           else "bytes")
+        agg["bound_share"] = agg["bound_ms"] / agg["ms"]
+    return rows
+
+
 def counted_restore(pipe, args) -> tuple:
     """One restore with every launch count set to 0 just before it and read
     just after: (outputs, launches, shapes per kernel module, layout copies
@@ -559,28 +748,34 @@ def counted_restore(pipe, args) -> tuple:
     from edtr_torch.ops import gn_conv as GC
     from edtr_torch.ops import geglu as GG
     from edtr_torch.ops import ln_matmul as LM
+    from edtr_torch.ops import swin_block as SB
+    from edtr_torch.ops import window_attention as WA
 
-    for counts in (FA.launches, GC.launches, LM.launches, GG.launches):
+    counters = (FA.launches, GC.launches, LM.launches, GG.launches, WA.launches, SB.launches)
+    for counts in counters:
         for key in counts:
             counts[key] = 0
-    for shapes in (GC.shapes, LM.shapes, GG.shapes):
+    for shapes in (GC.shapes, LM.shapes, GG.shapes, WA.shapes, SB.shapes):
         shapes.clear()
     GC.layout_copies["count"] = LM.layout_copies["count"] = 0
     out = {}
     ms = host_ms(lambda: out.update(pipe.restore(*args)))
-    launches = {**FA.launches, **GC.launches, **LM.launches, **GG.launches}
-    shapes = dict(conv=dict(GC.shapes), proj={**LM.shapes, **GG.shapes})
+    launches = {k: n for counts in counters for k, n in counts.items()}
+    shapes = dict(conv=dict(GC.shapes), proj={**LM.shapes, **GG.shapes},
+                  swin={**WA.shapes, **SB.shapes})
     copies = dict(conv=GC.layout_copies["count"], proj=LM.layout_copies["count"])
     return out, launches, shapes, copies, ms
 
 
-def expected_launches(cfg: str) -> dict:
-    fused_conv, fused_proj = CONFIGS[cfg]
+def expected_launches(flags: tuple) -> dict:
+    fused_conv, fused_proj, fused_swin = flags
     want = {name: expected or 0 for name, (_, _, expected) in KERNELS.items()}
     want.update({name: expected if fused_conv else 0
                  for name, (_, expected) in CONV_KERNELS.items()})
     want.update({name: (expected or 0) if fused_proj else 0
                  for name, (_, _, expected) in PROJ_KERNELS.items()})
+    want.update({name: expected if fused_swin else 0
+                 for name, (_, _, expected) in SWIN_KERNELS.items()})
     return want
 
 
@@ -618,9 +813,11 @@ def restore_phase(device) -> tuple:
     from torch.profiler import record_function
 
     from edtr_torch.models.layers import randomize_
-    from edtr_torch.pipeline import FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, build_flagship
+    from edtr_torch.pipeline import (FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT,
+                                     FUSED_SWIN_DEFAULT, build_flagship)
     from edtr_torch.profile_restore import STAGES, trace_restores
 
+    cfgs = configs()
     t0 = time.perf_counter()
     pipe = build_flagship(tiny=False, dtype=torch.bfloat16, device=device)
     randomize_(pipe, torch.Generator(device=device).manual_seed(0)).eval()
@@ -628,10 +825,11 @@ def restore_phase(device) -> tuple:
     n_params = sum(p.numel() for p in pipe.parameters())
     print(f"pipeline: EDTR-s4 full width, {n_params} params (fp32), bf16 compute, "
           f"built + randomised in {time.perf_counter() - t0:.1f} s; configurations "
-          f"{CONFIGS} (pipeline.fused_conv, pipeline.fused_proj)", flush=True)
+          f"{cfgs} (pipeline.fused_conv, pipeline.fused_proj, pipeline.fused_swin)",
+          flush=True)
 
     def configured(cfg):
-        pipe.fused_conv, pipe.fused_proj = CONFIGS[cfg]
+        pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = cfgs[cfg]
         return pipe
 
     args = restore_args(device)
@@ -640,7 +838,7 @@ def restore_phase(device) -> tuple:
 
     # the main paths: counts set to 0 just before each, read just after
     counted = {}
-    for cfg in CONFIGS:
+    for cfg in cfgs:
         first_ms = host_ms(lambda: configured(cfg).restore(*args))
         torch.cuda.reset_peak_memory_stats()
         out, launches, shapes, copies, ms = counted_restore(configured(cfg), args)
@@ -654,18 +852,22 @@ def restore_phase(device) -> tuple:
         check(tuple(out["z"].shape) == (1, lat, lat, 4), f"{cfg} z shape")
         for name, t in out.items():
             check(bool(torch.isfinite(t).all()), f"{cfg} {name} finite")
-        want = expected_launches(cfg)
+        want = expected_launches(cfgs[cfg])
         check(launches == want, f"{cfg} launches {launches}, want {want}")
-        fused_conv, fused_proj = CONFIGS[cfg]
+        fused_conv, fused_proj, fused_swin = cfgs[cfg]
         if fused_conv:
             check(copies == dict(conv=0, proj=0), f"{cfg} layout copies {copies}")
         if fused_proj:
             by_k = {k: sum(n for key, n in shapes["proj"].items()
                            if key[0] == "ln_matmuls" and key[5] == k) for k in (1, 3)}
             check(by_k == {1: 84, 3: 84}, f"{cfg} ln_matmuls launches by K {by_k}")
+        if fused_swin:
+            masked = sum(n for key, n in shapes["swin"].items()
+                         if key[0] == "window_attention" and key[5])
+            check(masked == SWIN_MASKED, f"{cfg} masked window attention launches {masked}")
     vs_stock = {cfg: {name: rel_l2(counted[cfg]["out"][name], counted["stock"]["out"][name])
                       for name in ("pre_restored", "z", "restored")}
-                for cfg in CONFIGS if cfg != "stock"}
+                for cfg in cfgs if cfg != "stock"}
     print("restore vs stock, relative L2:", json.dumps(vs_stock), flush=True)
     for cfg, rels in vs_stock.items():
         for name, rel in rels.items():
@@ -675,7 +877,7 @@ def restore_phase(device) -> tuple:
     # stage breakdown, named as bench.py:_run_split names them; each stage
     # under its own profiler range for the traced passes below
     x = lq.permute(0, 3, 1, 2)
-    stages = {cfg: {s: [] for s in STAGES} for cfg in CONFIGS}
+    stages = {cfg: {s: [] for s in STAGES} for cfg in cfgs}
     res = {}
 
     def chain(cfg):
@@ -693,14 +895,14 @@ def restore_phase(device) -> tuple:
             timed("decode+wavelet", lambda: pipe.decode(z0, pre))
         return run
 
-    e2e = {cfg: [] for cfg in CONFIGS}
-    order = list(CONFIGS)
+    e2e = {cfg: [] for cfg in cfgs}
+    order = list(cfgs)
     for i in range(TIME_ITERS):  # in turns, the order reversed every other round
         for cfg in (order if i % 2 == 0 else order[::-1]):
             chain(cfg)()
             e2e[cfg].append(host_ms(lambda: configured(cfg).restore(*args)))
     timing = {}
-    for cfg in CONFIGS:
+    for cfg in cfgs:
         stage_ms = {s: statistics.median(v) for s, v in stages[cfg].items()}
         e2e_ms = statistics.median(e2e[cfg])
         print(f"stages_ms {cfg}:", json.dumps(stage_ms), flush=True)
@@ -710,22 +912,36 @@ def restore_phase(device) -> tuple:
         trace = trace_restores(chain(cfg), TRACE_ITERS)
         print(f"trace {cfg} of {TRACE_ITERS} restores ({time.perf_counter() - t0:.1f} s):",
               json.dumps(trace), flush=True)
+        htod = trace["stages"]["swinir"]["htod_memcpy"]
+        check(htod == 0, f"{cfg}: {htod} host-to-device copies per swinir stage")
         timing[cfg] = dict(stage_ms=stage_ms, e2e_ms=e2e_ms, e2e_runs_ms=e2e[cfg],
                            trace=trace)
     # pair i: the i-th restore of each configuration, run next to each other;
     # reported, not a failed check: host timing on a shared machine is not a
     # correctness result, and PERF.md weighs the runs together
-    for what, base, new, default in (("conv", "stock", "fused", FUSED_CONV_DEFAULT),
-                                     ("proj", "fused", "fused+proj", FUSED_PROJ_DEFAULT)):
-        v = verdict(e2e[base], e2e[new], default)
-        print(f"end to end, {what}: {new}/{base} {v['ratio']:.4f} "
-              f"({timing[base]['e2e_ms']:.2f} {base} vs {timing[new]['e2e_ms']:.2f} {new} "
-              f"ms/img); {new} won {v['wins']} of {v['pairs']} pairs (a clear majority: "
-              f"{v['wins_needed']}); verdict {v['verdict']} ({new} is new), on by the rule "
-              f"{v['default_by_rule']}, in the code {default}"
+    # the Swin switch changes the swinir stage alone: its verdict reads that
+    # stage's pairs, with the end-to-end pairs printed beside them
+    for what, base, new, default, runs in (
+            ("conv", "stock", "fused", FUSED_CONV_DEFAULT, e2e),
+            ("proj", "fused", "fused+proj", FUSED_PROJ_DEFAULT, e2e),
+            ("swin", "fused", "fused+swin", FUSED_SWIN_DEFAULT,
+             {cfg: stages[cfg]["swinir"][:TIME_ITERS] for cfg in cfgs})):  # not the traced
+        v = verdict(runs[base], runs[new], default)
+        scope = "end to end" if runs is e2e else "swinir stage"
+        print(f"{scope}, {what}: {new}/{base} {v['ratio']:.4f} "
+              f"({statistics.median(runs[base]):.2f} {base} vs "
+              f"{statistics.median(runs[new]):.2f} {new} ms); {new} won {v['wins']} of "
+              f"{v['pairs']} pairs (a clear majority: {v['wins_needed']}); verdict "
+              f"{v['verdict']} ({new} is new), on by the rule {v['default_by_rule']}, in the "
+              f"code {default}"
               f"{'' if v['default_agrees'] else ' -- THIS RUN DISAGREES WITH THE DEFAULT'}",
               flush=True)
-        timing[f"verdict_{what}"] = dict(base=base, new=new, **v)
+        if runs is not e2e:
+            ve = verdict(e2e[base], e2e[new], default)
+            print(f"  beside it, end to end: {new}/{base} {ve['ratio']:.4f}, {new} won "
+                  f"{ve['wins']} of {ve['pairs']} pairs", flush=True)
+            v["e2e"] = ve
+        timing[f"verdict_{what}"] = dict(base=base, new=new, scope=scope, **v)
     timing["vs_stock_rel_l2"] = vs_stock
     return pipe, counted, timing
 
@@ -747,7 +963,7 @@ def norm_phase(pipe, device) -> dict:
             key = (tuple(x.shape), num_groups)
             calls[key] = calls.get(key, 0) + 1
         return gn_stats(x, num_groups)
-    pipe.fused_conv, pipe.fused_proj = CONFIGS["fused"]
+    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = configs()["fused"]
     layers.gn_stats = rec
     try:
         pipe.restore(*restore_args(device))
@@ -830,15 +1046,17 @@ def main() -> int:
     pipe, counted, timing = restore_phase(device)
     conv_rows = conv_kernel_phase(device, counted["fused"]["shapes"]["conv"])
     proj_rows = proj_kernel_phase(device, counted["fused+proj"]["shapes"]["proj"])
+    swin_rows = swin_kernel_phase(device, counted["fused+swin"]["shapes"]["swin"])
     norms = norm_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
 
-    launches = counted["fused+proj"]["launches"]
-    all_rows = {**rows, **conv_rows, **proj_rows}
-    for name, row in all_rows.items():
-        row["launches"] = launches[name]
+    all_rows = {**rows, **conv_rows, **proj_rows, **swin_rows}
+    for name, row in all_rows.items():  # from the configuration that runs it
+        row["launches"] = max(c["launches"][name] for c in counted.values())
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
     check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
+    check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")
+    check(len(all_rows) == 14, f"kernels line: {sorted(all_rows)}")
     print(json.dumps({"card": card, "restore": timing, "cldm_eps": cldm, "gn_stats": norms,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},
@@ -847,6 +1065,9 @@ def main() -> int:
                                              key=str)],
                       "proj_shapes": [dict(key=list(k), launches=n) for k, n in
                                       sorted(counted["fused+proj"]["shapes"]["proj"].items(),
+                                             key=str)],
+                      "swin_shapes": [dict(key=list(k), launches=n) for k, n in
+                                      sorted(counted["fused+swin"]["shapes"]["swin"].items(),
                                              key=str)]}),
           flush=True)
     print(json.dumps({"kernels": list(all_rows.values())}), flush=True)

@@ -19,7 +19,11 @@ Counterpart of ``edtr_tpu/models/layers.py``:
   ``models/attention.py``: inside the block the transformer blocks' LN+q/k/v,
   LN+GEGLU and GroupNorm-affine+``proj_in`` run through the port's
   projection kernels (``edtr_torch/ops/{ln_matmul,geglu}.py``) on the bf16
-  weight copies ``Linear.packed_weight`` caches.
+  weight copies ``Linear.packed_weight`` caches;
+* :func:`fused_swin`: the Swin configuration, read by ``models/swinir.py``:
+  inside the block every SwinIR transformer block runs as the port's three
+  Swin kernels (``edtr_torch/ops/{swin_block,window_attention}.py``) in
+  rolled token space.
 
 Parameter names follow the reference torch state dicts (``weight``/
 ``bias``, OIHW conv kernels, (out, in) linear kernels).
@@ -40,6 +44,7 @@ from edtr_torch.ops._norms import fold_from_moments, gn_stats, ln_f32
 
 _fused_conv = False
 _fused_proj = False
+_fused_swin = False
 
 
 @contextlib.contextmanager
@@ -77,6 +82,27 @@ def fused_proj(on: bool = True) -> Iterator[None]:
 def fused_proj_on() -> bool:
     """Whether the call runs inside a :func:`fused_proj` block."""
     return _fused_proj
+
+
+@contextlib.contextmanager
+def fused_swin(on: bool = True) -> Iterator[None]:
+    """The Swin configuration of every call inside the block (JAX's SwinIR
+    with ``swin_block._FORCE_KERNEL`` and ``EDTR_WINDOW_ATTN=pallas``): on,
+    each SwinIR transformer block on a token grid the kernels take runs as
+    ``swin_pre`` + ``window_attention`` + ``swin_post`` in rolled token
+    space; off, and outside any block, as stock PyTorch ops.
+    ``EDTRPipeline`` sets it around each stage."""
+    global _fused_swin
+    prev, _fused_swin = _fused_swin, bool(on)
+    try:
+        yield
+    finally:
+        _fused_swin = prev
+
+
+def fused_swin_on() -> bool:
+    """Whether the call runs inside a :func:`fused_swin` block."""
+    return _fused_swin
 
 
 class DerivedWeight:

@@ -5,10 +5,17 @@ to the window multiple, pixel-unshuffle x``sf`` before ``conv_first``, RSTB
 groups of shifted-window blocks over (B, N, C) tokens, then the
 ``nearest+conv`` tail (three nearest-2x + conv3x3 + LeakyReLU 0.2; inside a
 ``layers.fused_conv`` block, each one launch of the port's upsample-conv
-kernel on channels-last activations). Window
-attention is the plain math of ``edtr_tpu/ops/window_attention.py:
-_xla_reference`` (fp32 logits, relative-position bias, shift mask, fp32
-softmax), which is what the JAX package runs by default.
+kernel on channels-last activations). Stock, a block is the module path of
+JAX's ``SwinTransformerBlock`` with the plain window attention of
+``edtr_torch/ops/window_attention.py`` (JAX's ``_xla_reference``, its
+default). Inside a ``layers.fused_swin`` block it is JAX's fused branch:
+``swin_pre`` (LN1 + roll + qkv + partition), ``window_attention`` on the
+q/k/v slices of the packed windows and ``swin_post`` (reverse + proj + LN2
++ MLP, both residuals), tokens kept rolled from block to block and
+un-rolled once before each RSTB's conv (``edtr_torch/ops/swin_block.py``).
+The relative-position bias and the shift masks are made on the device once
+(the bias again when its table changes), so a forward copies nothing from
+the host.
 
 The port is unpadded (C = 180, head dim 30): the JAX flagship's
 ``lane_pad`` is a TPU lane artefact; a lane-padded JAX tree loads through
@@ -32,25 +39,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edtr_torch.models.layers import (Conv2d, LayerNorm, Linear, to_conv_layout,
-                                      upsample_conv3x3)
+from edtr_torch.models.layers import (Conv2d, DerivedWeight, LayerNorm, Linear,
+                                      fused_swin_on, to_conv_layout, upsample_conv3x3)
+from edtr_torch.ops import swin_block
+from edtr_torch.ops.swin_block import roll2d, window_partition, window_reverse
+from edtr_torch.ops.window_attention import plain_window_attention, window_attention
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
-
-
-def window_partition(x: torch.Tensor, win: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B*nW, win*win, C)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // win, win, w // win, win, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, win * win, c)
-
-
-def window_reverse(windows: torch.Tensor, win: int, h: int, w: int) -> torch.Tensor:
-    """(B*nW, win*win, C) -> (B, H, W, C)."""
-    c = windows.shape[-1]
-    b = windows.shape[0] // ((h // win) * (w // win))
-    x = windows.reshape(b, h // win, w // win, win, win, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, w, c)
 
 
 @lru_cache(maxsize=8)
@@ -80,17 +75,22 @@ def shift_attention_mask(h: int, w: int, win: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, mask: Optional[torch.Tensor],
-                     scale: float) -> torch.Tensor:
-    """softmax(q kᵀ·scale + bias [+ mask]) v over (BW, N, H, D) windows;
-    window ``w`` takes mask row ``w mod nW``. Returns v's dtype."""
-    s = torch.einsum("wnhd,wmhd->whnm", q.float(), k.float()) * scale + bias[None]
-    if mask is not None:
-        nw = mask.shape[0]
-        s = (s.reshape(-1, nw, *s.shape[1:]) + mask[None, :, None]).reshape(s.shape)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("whnm,wmhd->wnhd", p.float(), v.float()).to(v.dtype)
+@lru_cache(maxsize=16)
+def shift_mask(h: int, w: int, win: int, shift: int, device: torch.device) -> torch.Tensor:
+    """:func:`shift_attention_mask` on ``device``, made once per shape."""
+    return torch.as_tensor(shift_attention_mask(h, w, win, shift), device=device)
+
+
+@lru_cache(maxsize=16)
+def _rel_index(win: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(relative_position_index(win).reshape(-1), device=device)
+
+
+def rel_pos_bias(table: torch.Tensor, win: int) -> torch.Tensor:
+    """(H, win², win²) fp32 additive logit bias from the ((2 win - 1)², H)
+    table."""
+    n = win * win
+    return table[_rel_index(win, table.device)].reshape(n, n, -1).permute(2, 0, 1).float()
 
 
 class WindowAttention(nn.Module):
@@ -102,15 +102,22 @@ class WindowAttention(nn.Module):
         self.relative_position_bias_table = nn.Parameter(
             torch.randn((2 * win - 1) ** 2, num_heads) * 0.02)
         self.proj = Linear(dim, dim, dtype=dtype)
+        self._bias = DerivedWeight()
+
+    def bias(self) -> torch.Tensor:
+        """:func:`rel_pos_bias` of the table, contiguous, kept until the
+        table changes (made anew on every call that differentiates it)."""
+        table = self.relative_position_bias_table
+        if torch.is_grad_enabled() and table.requires_grad:
+            return rel_pos_bias(table, self.win)
+        return self._bias.get((table,), torch.float32,
+                              lambda ps, _: rel_pos_bias(ps[0], self.win).contiguous())
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         bw, n, c = x.shape
         d = c // self.num_heads
         q, k, v = self.qkv(x).reshape(bw, n, 3, self.num_heads, d).unbind(2)
-        idx = torch.as_tensor(relative_position_index(self.win).reshape(-1),
-                              device=x.device)
-        bias = self.relative_position_bias_table[idx].reshape(n, n, -1).permute(2, 0, 1)
-        out = window_attention(q, k, v, bias.float(), mask, d ** -0.5)
+        out = plain_window_attention(q, k, v, self.bias(), mask, d ** -0.5)
         return self.proj(out.reshape(bw, n, c))
 
 
@@ -134,21 +141,54 @@ class SwinTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
-    def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+    def out_offset(self, h: int, w: int) -> int:
+        """The roll of this block's output tokens in the fused path: its
+        shift, which applies only where the grid is larger than a window."""
+        return self.shift if min(h, w) > self.win else 0
+
+    def forward(self, x: torch.Tensor, x_size: Tuple[int, int],
+                in_offset: int = 0) -> torch.Tensor:
+        """(B, h*w, C) tokens, rolled by ``in_offset`` (fused path only), to
+        the block's output: un-rolled on the stock path, rolled by
+        :meth:`out_offset` on the fused one."""
         h, w = x_size
+        shift = self.out_offset(h, w)
+        if fused_swin_on() and swin_block.supported(h, w, self.win):
+            return self._fused(x, h, w, shift, in_offset)
+        if in_offset:
+            raise ValueError("the stock Swin block takes un-rolled tokens")
         b, n, c = x.shape
-        shift = self.shift if min(h, w) > self.win else 0
         y = self.norm1(x).reshape(b, h, w, c)
         mask = None
         if shift:
             y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-            mask = torch.as_tensor(shift_attention_mask(h, w, self.win, shift),
-                                   device=x.device)
+            mask = shift_mask(h, w, self.win, shift, x.device)
         y = window_reverse(self.attn(window_partition(y, self.win), mask), self.win, h, w)
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         x = x + y.reshape(b, n, c)
         return x + self.mlp(self.norm2(x))
+
+    def _fused(self, x: torch.Tensor, h: int, w: int, shift: int,
+               in_offset: int) -> torch.Tensor:
+        """JAX's fused branch (``edtr_tpu/models/swinir.py``
+        ``SwinTransformerBlock``): three kernels on CUDA tensors, their plain
+        versions on CPU tensors."""
+        attn, mlp, dt = self.attn, self.mlp, x.dtype
+        b, _, c = x.shape
+        n, heads = self.win * self.win, attn.num_heads
+        qkv, xr = swin_block.swin_pre(x, self.norm1.weight, self.norm1.bias, attn.qkv.weight,
+                                      attn.qkv.bias, h, w, self.win, shift - in_offset,
+                                      self.norm1.eps, w_packed=attn.qkv.packed_weight(dt))
+        q, k, v = qkv.view(-1, n, 3, heads, c // heads).unbind(2)
+        out = window_attention(q, k, v, attn.bias(),
+                               shift_mask(h, w, self.win, shift, x.device) if shift else None,
+                               (c // heads) ** -0.5)
+        lins = (attn.proj, mlp.fc1, mlp.fc2)
+        return swin_block.swin_post(
+            out.reshape(b, -1, n, c), xr, attn.proj.weight, attn.proj.bias, self.norm2.weight,
+            self.norm2.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias, h, w,
+            self.win, self.norm2.eps, packed=[lin.packed_weight(dt) for lin in lins])
 
 
 class _ResidualGroup(nn.Module):
@@ -167,14 +207,24 @@ class RSTB(nn.Module):
             SwinTransformerBlock(dim, num_heads, win, 0 if j % 2 == 0 else win // 2,
                                  mlp_ratio, dtype) for j in range(depth))
         self.conv = Conv2d(dim, dim, 3, padding=1, dtype=dtype)
+        self.win = win
 
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
-        res = x
+        """The blocks, all on the stock or all on the fused path (the same
+        rule for each), then the conv; on the fused path each block takes its
+        predecessor's rolled tokens and the last roll is undone here."""
+        h, w = x_size
+        fused = fused_swin_on() and swin_block.supported(h, w, self.win)
+        res, off = x, 0
+        if fused:  # the kernels read contiguous tokens; a strided view is copied once
+            x = x.contiguous()
         for blk in self.residual_group.blocks:
-            x = blk(x, x_size)
+            x = blk(x, x_size, off)
+            off = blk.out_offset(h, w) if fused else 0
+        x = roll2d(x, -off, h, w)
         b, n, c = x.shape
         y = self.conv(x.transpose(1, 2).reshape(b, c, *x_size))
-        return y.flatten(2).transpose(1, 2) + res
+        return res + y.flatten(2).transpose(1, 2)  # in res's memory layout
 
 
 class _PatchEmbed(nn.Module):

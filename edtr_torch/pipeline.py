@@ -27,8 +27,13 @@ blocks' LN+q/k/v, LN+query, LN+GEGLU and GroupNorm-affine+``proj_in`` at
 256 tokens and more through the port's projection kernels
 (``edtr_torch/ops/{ln_matmul,geglu}.py``), JAX's ``EDTR_GEGLU_FUSED=force
 EDTR_LNMM_FUSED=force``; False runs them as stock PyTorch ops, as JAX's
-default does. The modules are the same in every configuration, so all load
-the same state dicts.
+default does. And it takes ``fused_swin``, the Swin configuration
+(``models.layers.fused_swin``): True runs every SwinIR transformer block as
+the port's three Swin kernels in rolled token space
+(``edtr_torch/ops/{swin_block,window_attention}.py``), JAX's SwinIR with
+``swin_block._FORCE_KERNEL`` and ``EDTR_WINDOW_ATTN=pallas``; False runs
+the module path. The modules are the same in every configuration, so all
+load the same state dicts.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from edtr_torch.diffusion.schedule import Diffusion
 from edtr_torch.models.cldm import ControlLDM
 from edtr_torch.models.layers import fused_conv as conv_config
 from edtr_torch.models.layers import fused_proj as proj_config
+from edtr_torch.models.layers import fused_swin as swin_config
 from edtr_torch.models.swinir import SwinIR
 from edtr_torch.utils.image import wavelet_reconstruction
 
@@ -54,6 +60,9 @@ FUSED_CONV_DEFAULT = True
 # the projection configuration, by the same rule on the fused-conv vs
 # fused-conv+proj pairs (chip_smoke.py, PERF.md)
 FUSED_PROJ_DEFAULT = False
+# the Swin configuration, by the same rule on the SwinIR stage's pairs of
+# fused vs fused+swin, the only stage it changes (chip_smoke.py, PERF.md)
+FUSED_SWIN_DEFAULT = True
 
 
 def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
@@ -81,29 +90,33 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _in_config(stage):
-    """Runs a pipeline stage in the pipeline's conv and projection
+    """Runs a pipeline stage in the pipeline's conv, projection and Swin
     configurations."""
     @functools.wraps(stage)
     def run(self, *args, **kwargs):
-        with conv_config(self.fused_conv), proj_config(self.fused_proj):
+        with (conv_config(self.fused_conv), proj_config(self.fused_proj),
+              swin_config(self.fused_swin)):
             return stage(self, *args, **kwargs)
     return run
 
 
 class EDTRPipeline(nn.Module):
     """SwinIR + ControlLDM + diffusion tables, on one device, run in the
-    conv configuration ``fused_conv`` and the projection configuration
-    ``fused_proj`` (module docstring)."""
+    conv configuration ``fused_conv``, the projection configuration
+    ``fused_proj`` and the Swin configuration ``fused_swin`` (module
+    docstring)."""
 
     def __init__(self, swinir: SwinIR, cldm: ControlLDM, diffusion: Diffusion,
                  start_timestep: int = 200, num_timesteps: int = 4,
                  device: Optional[torch.device | str] = None,
                  fused_conv: bool = FUSED_CONV_DEFAULT,
-                 fused_proj: bool = FUSED_PROJ_DEFAULT):
+                 fused_proj: bool = FUSED_PROJ_DEFAULT,
+                 fused_swin: bool = FUSED_SWIN_DEFAULT):
         super().__init__()
         self.device = resolve_device(device)
         self.fused_conv = bool(fused_conv)
         self.fused_proj = bool(fused_proj)
+        self.fused_swin = bool(fused_swin)
         self.swinir = swinir.to(self.device)
         self.cldm = cldm.to(self.device)
         self.diffusion = diffusion
@@ -197,10 +210,12 @@ def flagship_configs(tiny: bool = False) -> Dict[str, Any]:
 def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bfloat16,
                    device: Optional[torch.device | str] = None,
                    fused_conv: bool = FUSED_CONV_DEFAULT,
-                   fused_proj: bool = FUSED_PROJ_DEFAULT) -> EDTRPipeline:
+                   fused_proj: bool = FUSED_PROJ_DEFAULT,
+                   fused_swin: bool = FUSED_SWIN_DEFAULT) -> EDTRPipeline:
     """The EDTR-s4 restore pipeline (start t=200, 4 steps), weights as
     initialised by the constructors: load a state dict or randomise them.
-    ``fused_conv``, ``fused_proj``: the configurations (module docstring)."""
+    ``fused_conv``, ``fused_proj``, ``fused_swin``: the configurations
+    (module docstring)."""
     device = resolve_device(device)
     cfg = flagship_configs(tiny)
     with torch.device(device):
@@ -210,4 +225,5 @@ def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bflo
     diffusion = Diffusion.create(1000, linear_start=0.00085, linear_end=0.0120,
                                  device=device)
     return EDTRPipeline(swinir, cldm, diffusion, start_timestep=200, num_timesteps=4,
-                        device=device, fused_conv=fused_conv, fused_proj=fused_proj)
+                        device=device, fused_conv=fused_conv, fused_proj=fused_proj,
+                        fused_swin=fused_swin)

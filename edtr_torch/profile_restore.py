@@ -5,8 +5,10 @@ summarised per stage.
 chain puts each stage under a ``record_function`` range named as
 ``bench.py:_run_split`` names them (:data:`STAGES`). :func:`summarise`
 reads the Chrome trace: per stage the host ms, the device-busy ms (union of
-kernel intervals), the idle share and the kernel count; the device time by
-kernel family; and the top kernels by device time. ``chip_smoke.py`` prints
+kernel intervals), the idle share, the kernel count and the host-to-device
+copies (each one a stall of the host: a copy from pageable memory
+synchronises the stream); the device time by kernel family; and the top
+kernels by device time. ``chip_smoke.py`` prints
 it for the full-width 512² restore.
 """
 
@@ -23,6 +25,7 @@ STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # port's own kernels first, so "conv3x3_kernel" is not booked as cuDNN's
 # nor "proj_gemm_kernel" as cuBLAS's
 FAMILIES = (
+    ("swin (edtr_torch)", ("window_attention_kernel", "swin_pre_kernel", "swin_post_kernel")),
     ("flash (edtr_torch)", ("flash_fwd_d64", "flash_fwd_d512")),
     ("gn_conv (edtr_torch)", ("conv3x3_kernel",)),
     ("proj (edtr_torch)", ("proj_gemm_kernel",)),
@@ -57,6 +60,7 @@ def summarise(trace: dict) -> dict:
     ranges = [e for e in events if e.get("cat") == "user_annotation"
               and e.get("name") in STAGES]
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
     # host timestamp of the runtime call that launched each kernel
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
@@ -64,15 +68,17 @@ def summarise(trace: dict) -> dict:
     stages = {}
     for stage in STAGES:
         wins = [(r["ts"], r["ts"] + r["dur"]) for r in ranges if r["name"] == stage]
-        # a kernel belongs to the stage whose host range launched it
-        ks = [k for k in kernels
-              if any(a <= launch_ts.get(k["args"].get("correlation"), k["ts"]) <= b
-                     for a, b in wins)]
+        # a kernel or copy belongs to the stage whose host range issued it
+        def issued(e):
+            ts = launch_ts.get(e.get("args", {}).get("correlation"), e["ts"])
+            return any(a <= ts <= b for a, b in wins)
+        ks = [k for k in kernels if issued(k)]
         wall = sum(b - a for a, b in wins) / 1e3
         busy = _union_ms((k["ts"], k["ts"] + k["dur"]) for k in ks)
         stages[stage] = dict(host_ms=wall / n_runs, device_busy_ms=busy / n_runs,
                              idle_share=1 - busy / wall if wall else None,
-                             kernels=len(ks) // n_runs)
+                             kernels=len(ks) // n_runs,
+                             htod_memcpy=sum(issued(e) for e in htod) / n_runs)
     by_family, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for k in kernels:
         by_family[_family(k["name"])] += k["dur"] / 1e3 / n_runs

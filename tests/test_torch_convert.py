@@ -110,7 +110,9 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     for mod in ("edtr_torch.pipeline", "edtr_torch.models.unet", "edtr_torch.models.swinir",
                 "edtr_torch.ops.flash_attention", "edtr_torch.ops.gn_conv",
-                "edtr_torch.ops.ln_matmul", "edtr_torch.ops.geglu", "edtr_torch.utils.convert"):
+                "edtr_torch.ops.ln_matmul", "edtr_torch.ops.geglu",
+                "edtr_torch.ops.window_attention", "edtr_torch.ops.swin_block",
+                "edtr_torch.utils.convert"):
         assert mod in res.stdout
 
 

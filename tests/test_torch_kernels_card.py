@@ -17,6 +17,8 @@ from edtr_torch.ops import flash_attention as F
 from edtr_torch.ops import geglu as GG
 from edtr_torch.ops import gn_conv as G
 from edtr_torch.ops import ln_matmul as LM
+from edtr_torch.ops import swin_block as SB
+from edtr_torch.ops import window_attention as WA
 
 
 @pytest.mark.cuda
@@ -115,3 +117,60 @@ def test_proj_unsupported_raises():
     with pytest.raises(ValueError):  # strided tokens
         LM.affine_matmul(x.transpose(1, 2).contiguous().transpose(1, 2), s[None].expand(2, -1),
                          sh[None].expand(2, -1), w, b)
+
+
+def _swin_args(h=16, w=16, c=60, hidden=120):
+    """Tokens and weights of one Swin block at window 8, SwinIR's odd widths
+    scaled down (2 heads x 30)."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda") * scale
+    x = rnd(2, h * w, c).to(torch.bfloat16)
+    pre = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(3 * c, c, scale=c ** -0.5),
+           rnd(3 * c, scale=0.1))
+    post = (rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1),
+            rnd(c, scale=0.1), rnd(hidden, c, scale=c ** -0.5), rnd(hidden, scale=0.1),
+            rnd(c, hidden, scale=hidden ** -0.5), rnd(c, scale=0.1))
+    return x, pre, post
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0, 4, -4])
+def test_swin_calls_launch(d):
+    """A fused block's three wrappers at a supported shape launch their
+    kernels: swin_pre, window_attention on the strided q/k/v slices of its
+    windows (masked when the block is shifted), swin_post."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, pre, post = _swin_args()
+    before = {**SB.launches, **WA.launches}
+    qkv, xr = SB.swin_pre(x, *pre, 16, 16, 8, d)
+    assert qkv.shape == (2, 4, 64, 180) and xr.shape == x.shape
+    q, k, v = qkv.view(8, 64, 3, 2, 30).unbind(2)
+    bias = torch.randn((2, 64, 64), device="cuda")
+    mask = torch.zeros((4, 64, 64), device="cuda") if d else None
+    out = WA.window_attention(q, k, v, bias, mask)
+    assert out.shape == (8, 64, 2, 30) and out.is_contiguous()
+    y = SB.swin_post(out.view(2, 4, 64, 60), xr, *post, 16, 16, 8)
+    assert y.shape == x.shape
+    torch.cuda.synchronize()
+    assert {**SB.launches, **WA.launches} == {k: n + 1 for k, n in before.items()}
+
+
+@pytest.mark.cuda
+def test_swin_unsupported_raises():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, pre, post = _swin_args()
+    with pytest.raises(ValueError):  # fp32 tokens: no kernel takes them
+        SB.swin_pre(x.float(), *pre, 16, 16, 8, 0)
+    with pytest.raises(ValueError):  # h % win != 0
+        SB.swin_pre(x[:, :12 * 16], *pre, 12, 16, 8, 0)
+    qkv, xr = SB.swin_pre(x, *pre, 16, 16, 8, 0)
+    with pytest.raises(ValueError):  # h % win != 0
+        SB.swin_post(qkv[..., :60].contiguous(), xr[:, :12 * 16].contiguous(), *post, 12, 16, 8)
+    q, k, v = qkv.view(8, 64, 3, 2, 30).unbind(2)
+    bias = torch.randn((2, 64, 64), device="cuda")
+    with pytest.raises(ValueError):  # fp32 q/k/v
+        WA.window_attention(q.float(), k.float(), v.float(), bias)
+    with pytest.raises(ValueError):  # 16 tokens a window (window 4)
+        WA.window_attention(q[:, :16], k[:, :16], v[:, :16], bias[:, :16, :16])

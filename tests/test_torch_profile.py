@@ -1,6 +1,6 @@
 """The trace summary of ``edtr_torch.profile_restore`` on a synthetic
 Chrome trace: stage attribution by launch time, device-busy union, idle
-share and kernel families."""
+share, host-to-device copies and kernel families."""
 
 from edtr_torch.profile_restore import _family, summarise
 
@@ -48,3 +48,30 @@ def test_kernel_families():
     assert _family("ampere_bf16_s16816gemm_bf16_128x64") == "gemm (cuBLAS)"
     assert _family("void at::native::reduce_kernel<512>") == "norm / reduce"
     assert _family("something_else") == "other"
+
+
+def test_profile_books_the_swin_kernels_and_counts_host_copies():
+    for name in ("void (anonymous namespace)::window_attention_kernel(...)",
+                 "void (anonymous namespace)::swin_pre_kernel((anonymous namespace)::PreArgs)",
+                 "void (anonymous namespace)::swin_post_kernel<32>((anonymous namespace)::"
+                 "PostArgs)"):
+        assert _family(name) == "swin (edtr_torch)", name
+
+    def ev(cat, name, ts, dur, corr):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "args": {"correlation": corr}}
+    events = [ev("user_annotation", s, 100 * i, 100, None)
+              for i, s in enumerate(("swinir", "vae_encode", "scan", "decode+wavelet"))]
+    events += [ev("cuda_runtime", "cudaMemcpyAsync", 10, 1, 1),
+               ev("cuda_runtime", "cudaLaunchKernel", 20, 1, 2),
+               ev("cuda_runtime", "cudaMemcpyAsync", 210, 1, 3),
+               ev("cuda_runtime", "cudaMemcpyAsync", 220, 1, 4),
+               ev("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 30, 5, 1),
+               ev("kernel", "swin_pre_kernel", 40, 5, 2),
+               # issued in scan, runs after its range: still scan's
+               ev("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 305, 5, 3),
+               ev("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 310, 5, 4)]
+    stages = summarise({"traceEvents": events})["stages"]
+    assert {s: v["htod_memcpy"] for s, v in stages.items()} == {
+        "swinir": 1, "vae_encode": 0, "scan": 1, "decode+wavelet": 0}
+    assert stages["swinir"]["kernels"] == 1

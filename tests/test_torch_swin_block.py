@@ -1,0 +1,294 @@
+"""edtr_torch/ops/{window_attention,swin_block}.py and the fused-Swin
+configuration against edtr_tpu, on the CPU with numpy-seeded inputs.
+
+* Ops: the port's ``window_attention`` (its plain version on CPU tensors)
+  against JAX's Pallas ``_win_fwd`` in interpret mode at (16, 64, 3, 30) with
+  mask periods None, 4 and 16 (fp32 at 2e-5; bf16 within 2 bf16 ulps of
+  max|out|); ``swin_pre`` / ``swin_post`` against JAX's with
+  ``_FORCE_KERNEL`` (Pallas interpret) at SwinIR's odd widths scaled down
+  (C 60 = 2 heads x 30, hidden 120, 16 x 16 tokens, window 8, B 2), roll
+  d in {0, 4, -4}, fp32 at 2e-5 (bf16 within 2 ulps).
+* Modules: one fused block (with and without an input roll) and one RSTB
+  inside ``layers.fused_swin()`` against JAX's fused modules at 3e-3.
+* The slice: the tiny SwinIR in the fused-Swin configuration against JAX's
+  ``SwinIR(fused=True)`` with ``_FORCE_KERNEL`` (fp32 3e-3; bf16 within
+  JAX's own 3e-2 between its fused and module paths); the switch through
+  ``EDTRPipeline(fused_swin=)``, with the CPU wrappers on the plain
+  versions; the device caches of the relative-position bias and the shift
+  masks.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from edtr_tpu.models import swinir as JS
+from edtr_tpu.ops import swin_block as JSB
+from edtr_tpu.ops import window_attention as JWA
+
+from edtr_torch.models.layers import fused_swin
+from edtr_torch.models.swinir import (RSTB, SwinIR, SwinTransformerBlock, WindowAttention,
+                                      shift_attention_mask, shift_mask)
+from edtr_torch.ops import swin_block as SB
+from edtr_torch.ops import window_attention as WA
+from edtr_torch.pipeline import flagship_configs
+from edtr_torch.utils.convert import from_jax
+from torch_port_helpers import IMAGE, jax_tiny, nchw, nhwc, port_tiny, t2n
+
+OP_TOL = dict(rtol=0, atol=2e-5)
+MOD_TOL = dict(rtol=3e-3, atol=3e-3)
+TINY = dict(dim=32, heads=2, win=4, hw=(IMAGE // 8, IMAGE // 8))  # tiny SwinIR blocks
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at magnitude ``v`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def _close(got: torch.Tensor, want, dtype) -> None:
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    if dtype == "bf16":
+        assert got.dtype == torch.bfloat16
+        tol = dict(rtol=0, atol=2 * bf16_ulp(np.abs(want).max()))
+    else:
+        tol = OP_TOL
+    np.testing.assert_allclose(t2n(got), want, **tol)
+
+
+def _cast(arrays, dtype):
+    """numpy fp32 -> (JAX arrays, torch tensors) in the test's token dtype."""
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
+                                                                       torch.float32)
+    return [jnp.asarray(a, jdt) for a in arrays], [_t(a).to(tdt) for a in arrays]
+
+
+def _tokens(g, *shape):
+    # a mean and a spread per row, as a residual stream has
+    return (g.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+
+
+def _vec(g, n, scale=0.1, mean=0.0):
+    return (mean + scale * g.standard_normal(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("nw_mask", [None, 4, 16])
+def test_window_attention_matches_jax_kernel(nw_mask, dtype):
+    bw, n, h, d = 16, 64, 3, 30
+    g = np.random.default_rng(40 + (nw_mask or 0))
+    (q, k, v), (qt, kt, vt) = _cast([g.standard_normal((bw, n, h, d)) for _ in range(3)], dtype)
+    bias = (0.1 * g.standard_normal((h, n, n))).astype(np.float32)
+    mask = (None if nw_mask is None else
+            np.where(g.random((nw_mask, n, n)) > 0.7, -100.0, 0.0).astype(np.float32))
+    with jax.default_matmul_precision("float32"):
+        want = JWA._win_fwd(q, k, v, jnp.asarray(bias),
+                            None if mask is None else jnp.asarray(mask), d ** -0.5)
+    got = WA.window_attention(qt, kt, vt, _t(bias), None if mask is None else _t(mask))
+    assert got.shape == (bw, n, h, d)
+    _close(got, want, dtype)
+
+
+def _pre_args(g, b, h, w, c):
+    return (_tokens(g, b, h * w, c), _vec(g, c, mean=1.0), _vec(g, c),
+            (g.standard_normal((c, 3 * c)) * c ** -0.5).astype(np.float32), _vec(g, 3 * c))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("d", [0, 4, -4])
+def test_swin_pre_matches_jax_kernel(monkeypatch, d, dtype):
+    b, h, w, win, c = 2, 16, 16, 8, 60
+    x, s, sh, wqkv, bqkv = _pre_args(np.random.default_rng(41), b, h, w, c)
+    (xj,), (xt,) = _cast([x], dtype)
+    jargs = [jnp.asarray(a) for a in (s, sh, wqkv, bqkv)]
+    monkeypatch.setattr(JSB, "_FORCE_KERNEL", True)
+    with jax.default_matmul_precision("float32"):
+        want = JSB.swin_pre(xj, *jargs, h, w, win, d)
+    got = SB.swin_pre(xt, _t(s), _t(sh), _t(wqkv.T), _t(bqkv), h, w, win, d)
+    assert got[0].shape == (b, 4, win * win, 3 * c) and got[1].shape == (b, h * w, c)
+    for gt, wt in zip(got, want):
+        _close(gt, wt, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_swin_post_matches_jax_kernel(monkeypatch, dtype):
+    b, h, w, win, c, hidden = 2, 16, 16, 8, 60, 120
+    g = np.random.default_rng(42)
+    attn, xr = g.standard_normal((b, 4, win * win, c)), _tokens(g, b, h * w, c)
+    ws = [(g.standard_normal((c, c)) * c ** -0.5).astype(np.float32), _vec(g, c),
+          _vec(g, c, mean=1.0), _vec(g, c),
+          (g.standard_normal((c, hidden)) * c ** -0.5).astype(np.float32), _vec(g, hidden),
+          (g.standard_normal((hidden, c)) * hidden ** -0.5).astype(np.float32), _vec(g, c)]
+    (aj, xj), (at, xt) = _cast([attn, xr], dtype)
+    monkeypatch.setattr(JSB, "_FORCE_KERNEL", True)
+    with jax.default_matmul_precision("float32"):
+        want = JSB.swin_post(aj, xj, *[jnp.asarray(a) for a in ws], h, w, win)
+    tw = [_t(a.T) if a.ndim == 2 else _t(a) for a in ws]  # nn.Linear layout
+    got = SB.swin_post(at, xt, *tw, h, w, win)
+    assert got.shape == (b, h * w, c)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d", [0, 4, -4, 13])
+def test_roll2d_matches_jax(d):
+    from edtr_tpu.ops.swin_block import _roll2d
+
+    h, w = 16, 24
+    x = np.random.default_rng(43).standard_normal((h * w, 5)).astype(np.float32)
+    got = SB.roll2d(_t(x)[None], d, h, w)[0]
+    np.testing.assert_array_equal(t2n(got), np.asarray(_roll2d(jnp.asarray(x), d, h, w)))
+
+
+def test_supported_is_jax_rule_without_vmem():
+    for h, w, win in ((64, 64, 8), (16, 24, 8), (8, 8, 4), (12, 16, 8), (4, 8, 8), (8, 8, 8)):
+        assert SB.supported(h, w, win) == JSB.supported(h, w, win), (h, w, win)
+
+
+def _jax_block(j):
+    dim, heads, win = TINY["dim"], TINY["heads"], TINY["win"]
+    return JS.SwinTransformerBlock(dim=dim, num_heads=heads, win=win,
+                                   shift=0 if j % 2 == 0 else win // 2, mlp_ratio=2.0,
+                                   fused=True)
+
+
+@pytest.mark.parametrize("j,in_offset", [(0, 0), (1, 0), (0, 2)])
+def test_fused_block_matches_jax(monkeypatch, j, in_offset):
+    _, params = jax_tiny()
+    src = port_tiny().swinir.layers[0].residual_group.blocks[j]
+    blk = SwinTransformerBlock(TINY["dim"], TINY["heads"], TINY["win"], src.shift, 2.0)
+    blk.load_state_dict(src.state_dict(), strict=True)
+    h, w = TINY["hw"]
+    x = _tokens(np.random.default_rng(44 + j), 2, h * w, TINY["dim"])
+    monkeypatch.setattr(JSB, "_FORCE_KERNEL", True)
+    with jax.default_matmul_precision("float32"):
+        want = _jax_block(j).apply({"params": params["swinir"]["layers_0"][f"blocks_{j}"]},
+                                   jnp.asarray(x), (h, w), in_offset=in_offset)
+    with torch.no_grad(), fused_swin():
+        got = blk(_t(x), (h, w), in_offset)
+    np.testing.assert_allclose(t2n(got), np.asarray(want), **MOD_TOL)
+
+
+def test_fused_rstb_matches_jax(monkeypatch):
+    _, params = jax_tiny()
+    dim, heads, win = TINY["dim"], TINY["heads"], TINY["win"]
+    rstb = RSTB(dim, 2, heads, win, 2.0)
+    rstb.load_state_dict(port_tiny().swinir.layers[0].state_dict(), strict=True)
+    h, w = TINY["hw"]
+    x = _tokens(np.random.default_rng(45), 2, h * w, dim)
+    monkeypatch.setattr(JSB, "_FORCE_KERNEL", True)
+    with jax.default_matmul_precision("float32"):
+        want = JS.RSTB(dim=dim, depth=2, num_heads=heads, win=win, mlp_ratio=2.0,
+                       fused=True).apply({"params": params["swinir"]["layers_0"]},
+                                         jnp.asarray(x), (h, w))
+    with torch.no_grad():
+        stock = rstb(_t(x), (h, w))
+        with fused_swin():
+            got = rstb(_t(x), (h, w))
+    np.testing.assert_allclose(t2n(got), np.asarray(want), **MOD_TOL)
+    # the last block's roll is undone before the conv: the same image as stock
+    np.testing.assert_allclose(t2n(got), t2n(stock), rtol=0, atol=1e-5)
+
+
+def _record_plain(monkeypatch):
+    """Records the calls that reach the three wrappers' plain versions (on
+    CPU tensors: the fused path; the stock path runs stock modules)."""
+    calls = []
+    for mod, name in ((SB, "plain_swin_pre"), (WA, "plain_window_attention"),
+                      (SB, "plain_swin_post")):
+        fn = getattr(mod, name)
+
+        def rec(*args, _fn=fn, _name=name, **kwargs):
+            calls.append(_name[len("plain_"):])
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, rec)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_tiny_swinir_fused_swin_matches_jax(monkeypatch, dtype):
+    """The slice as a whole: JAX's tiny SwinIR with its swin_pre/swin_post
+    Pallas kernels (interpret mode) against the port's in the fused-Swin
+    configuration, on the same weights; each of the port's three wrappers
+    is reached once per block."""
+    import jax.experimental.pallas as pl
+
+    _, params = jax_tiny()
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (None, None)
+    lq = np.random.default_rng(46).random((1, IMAGE, IMAGE, 3)).astype(np.float32)
+    monkeypatch.setattr(JSB, "_FORCE_KERNEL", True)
+    kernels = set()
+    pallas_call = pl.pallas_call
+
+    def rec_pallas(kernel, *args, **kwargs):
+        fn = getattr(kernel, "func", kernel)
+        kernels.add(f"{fn.__module__}.{fn.__name__}")
+        return pallas_call(kernel, *args, **kwargs)
+    monkeypatch.setattr(pl, "pallas_call", rec_pallas)
+    net_j = JS.SwinIR(embed_dim=32, depths=(2,), num_heads=(2,), window_size=4, mlp_ratio=2,
+                      sf=8, upsampler="nearest+conv", unshuffle=True, unshuffle_scale=8,
+                      dtype=jdt, fused=True)
+    with jax.default_matmul_precision("float32"):
+        want = net_j.apply({"params": params["swinir"]}, jnp.asarray(lq))
+    assert {"edtr_tpu.ops.swin_block._pre_kernel",
+            "edtr_tpu.ops.swin_block._post_kernel"} <= kernels, kernels
+
+    net = SwinIR(dtype=tdt, **flagship_configs(tiny=True)["swinir"])
+    net.load_state_dict(from_jax(params["swinir"], "swinir"), strict=True)
+    calls = _record_plain(monkeypatch)
+    with torch.no_grad(), fused_swin():
+        got = net(nchw(lq))
+    assert calls == ["swin_pre", "window_attention", "swin_post"] * 2
+    tol = 3e-2 if dtype == "bf16" else 3e-3
+    np.testing.assert_allclose(nhwc(got), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_pipeline_runs_swinir_in_its_swin_configuration(monkeypatch, fused):
+    """``EDTRPipeline(fused_swin=)`` sets the configuration around the
+    pre-restoration stage and only there; on the CPU both configurations
+    restore the same image (the same math in fp32)."""
+    from edtr_torch.models import layers
+    from edtr_torch.pipeline import EDTRPipeline
+
+    base = port_tiny()
+    pipe = EDTRPipeline(base.swinir, base.cldm, base.diffusion, device="cpu",
+                        fused_swin=fused)
+    assert pipe.fused_swin is fused
+    lq = nchw(np.random.default_rng(47).random((1, IMAGE, IMAGE, 3)).astype(np.float32))
+    with torch.no_grad():
+        stock = base.swinir(lq)  # a module called outside any block: stock
+    calls = _record_plain(monkeypatch)
+    out = pipe.pre_restore(lq)
+    assert calls == (["swin_pre", "window_attention", "swin_post"] * 2 if fused else [])
+    assert not layers.fused_swin_on()
+    np.testing.assert_allclose(t2n(out), t2n(stock), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):  # rolled tokens reach a block outside the configuration
+        base.swinir.layers[0].residual_group.blocks[0](torch.zeros(1, 64, 32), (8, 8), 2)
+
+
+def test_bias_and_masks_are_made_once_on_the_device():
+    attn = WindowAttention(32, 4, 2)
+    with torch.no_grad():
+        attn.relative_position_bias_table.normal_()
+        b1 = attn.bias()
+        assert b1.shape == (2, 16, 16) and b1.dtype == torch.float32 and b1.is_contiguous()
+        assert attn.bias() is b1
+        want = JS._rel_pos_bias(jnp.asarray(t2n(attn.relative_position_bias_table)), 4)
+        np.testing.assert_array_equal(t2n(b1), np.asarray(want))
+        attn.relative_position_bias_table.add_(1.0)
+        b2 = attn.bias()
+        assert b2 is not b1
+        torch.testing.assert_close(b2, b1 + 1.0)
+    # a call that differentiates the table gets a bias with its graph
+    attn.bias().sum().backward()
+    assert attn.relative_position_bias_table.grad is not None
+    m = shift_mask(8, 8, 4, 2, torch.device("cpu"))
+    assert shift_mask(8, 8, 4, 2, torch.device("cpu")) is m
+    np.testing.assert_array_equal(t2n(m), JS.shift_attention_mask(8, 8, 4, 2))
+    np.testing.assert_array_equal(t2n(m), shift_attention_mask(8, 8, 4, 2))
+
