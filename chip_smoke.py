@@ -8,12 +8,15 @@ no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the hand-written kernels, one ``nvcc`` per source, started
-   together: ``edtr_torch/csrc/{flash_attention,gn_conv,ln_matmul,geglu,
-   window_attention,swin_block}.cu`` (ptxas register and spill lines
-   printed);
+   together: ``edtr_torch/csrc/{flash_attention,flash_attention_bwd,gn_conv,
+   ln_matmul,geglu,window_attention,swin_block}.cu`` (ptxas register and
+   spill lines printed);
 3. each flash kernel against its plain PyTorch version at the 512² bs-1
    main-path shapes, in bf16: O and lse errors, kernel / plain / SDPA
    (``library_ms``, a yardstick the port never calls) times and the bound;
+   then each flash backward kernel against ``plain_bwd`` at the training
+   step's shapes (bs 2): dq, dk, dv errors, kernel / plain / SDPA's
+   backward alone (``library_ms``) times and the bound;
 4. the full-width EDTR-s4 ``EDTRPipeline.restore`` at 512², bs 1, bf16,
    seeded random weights, in four configurations on the same weights,
    input and noise: stock (the pipeline's ``fused_conv``, ``fused_proj``
@@ -49,7 +52,23 @@ no result line):
 9. one full-width ControlLDM eps forward through the flash kernels and
    through the plain attention (test hook), and fused and fused+proj
    against stock;
-10. a ``{"kernels": [...]}`` line with every ported kernel, then the result
+10. the full-width EDTR-s4 training step (``build_flagship(train=True)``,
+   ``EDTRTrainState``, ``make_edtr_train_step``; the restore's pipeline is
+   freed first) at 512², bs 2, bf16 compute, seeded weights, batch, t and
+   noise: one step's gradients on the kernel path against the plain path
+   (plain attention, stock convs, stock SwinIR) on the same weights, the
+   ControlNet's and the decoder's each within the limit; one step counted
+   (exact launches of every kernel, the remat recomputes and the backward
+   kernels included; the shapes each kernel was launched with), loss and
+   gradients finite; 2 warm-up and 5 timed ``step(...)`` calls; peak
+   memory; a traced step, whose ranges (set inside the step) split it into
+   forward+loss / backward / optimizer; then every trainable parameter
+   moved and every frozen one bit-identical;
+11. each forward kernel of the training step (flash, conv, Swin) against its
+   plain version at every bs-2 shape the counted step launched it with, as
+   phases 3, 5 and 7 hold them at the restore's shapes; the step's backward
+   shapes must be those phase 3 held;
+12. a ``{"kernels": [...]}`` line with every ported kernel, then the result
    line.
 
 Needs one CUDA card and ``nvcc`` (``CUDA_HOME``); imports nothing of JAX.
@@ -57,6 +76,7 @@ Needs one CUDA card and ``nvcc`` (``CUDA_HOME``); imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -73,8 +93,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 FA_SOURCE = "edtr_torch/csrc/flash_attention.cu"
+BWD_SOURCE = "edtr_torch/csrc/flash_attention_bwd.cu"
 CONV_SOURCE = "edtr_torch/csrc/gn_conv.cu"
-SOURCES = ("flash_attention", "gn_conv", "ln_matmul", "geglu", "window_attention", "swin_block")
+SOURCES = ("flash_attention", "flash_attention_bwd", "gn_conv", "ln_matmul", "geglu",
+           "window_attention", "swin_block")
 # wrapper -> (flat (BH, N, D) at 512² bs 1, the TPU kernel it replaces,
 #             launches in one 512² restore; None: not on that path)
 KERNELS = {
@@ -84,6 +106,40 @@ KERNELS = {
     # N > 4096 (1024² inputs); held here at the 1024² ds=2 shape, not run at 512²
     "flash_fwd": ((5, 8192, 64), "edtr_tpu/ops/flash_attention.py:123", None),
 }
+# flash backward wrapper -> (flat (BH, N, D) in the 512² bs-2 training step,
+# the TPU kernel it replaces, launches per step): the backward reaches every
+# ControlNet self-attention and the UNet's output blocks (its input blocks
+# and middle block see no gradient: frozen weights on a no-grad latent), 2 +
+# 3 at 1024 tokens and 2 + 3 at 4096; the VAE decoder's D = 512 attention
+# takes plain_bwd, as JAX's _xla_bwd_flat
+BWD_KERNELS = {
+    "whole_bwd": ((20, 1024, 64), "edtr_tpu/ops/flash_attention.py:369", 5),
+    "flash_bwd_dq": ((10, 4096, 64), "edtr_tpu/ops/flash_attention.py:391", 5),
+    "flash_bwd_dkv": ((10, 4096, 64), "edtr_tpu/ops/flash_attention.py:413", 5),
+}
+TRAIN_BATCH = 2
+CONTEXT_DIM = 1024  # SD2.1's text-embedding width
+# launches of every kernel in one training step (fused_conv, the Swin
+# kernels on, fused_proj off: the pipeline's defaults). Forward: K1/K2 at
+# 4096/1024 tokens in ControlNet 2 + UNet 2 + 3 self-attentions each, then
+# the ControlNet's and the UNet output blocks' remat recomputes (2 + 3); K3 in
+# the VAE encoder and decoder (the decoder's attention is not remat'd). K5:
+# the forward of the VAE encoder's 10, the ControlNet's 10, the UNet's 22
+# and the decoder's 14 ResBlocks x 2 halves, then the recomputes of the
+# ControlNet's 10, the UNet output blocks' 12 and the decoder's 14 (x 2);
+# those at the 8² latent level (ControlNet 4 + 4 recomputed, UNet 7 + 3)
+# take the whole-image tier. K6: SwinIR tail 3,
+# UNet 3, decoder 3 (not remat'd). The Swin kernels as in a restore (SwinIR
+# runs once, under no grad). The backward kernels as BWD_KERNELS.
+TRAIN_LAUNCHES = {
+    "wholekv_fwd": 12, "whole_fwd": 12, "streamkv_fwd": 2, "flash_fwd": 0,
+    "gn_conv_whole": 36, "gn_conv_band": 148, "upsample_conv": 9,
+    "ln_matmuls": 0, "affine_matmul": 0, "geglu_proj": 0, "ln_geglu_proj": 0,
+    "window_attention": 48, "swin_pre": 48, "swin_post": 48,
+    **{name: n for name, (_, _, n) in BWD_KERNELS.items()},
+}
+TRAIN_WARMUP = 2
+TRAIN_TIMED = 5
 # conv wrapper -> (the TPU kernel it replaces, launches in one fused 512²
 # restore): 4 steps x (UNet 22 + ControlNet 10 ResBlocks) x 2 halves, of
 # them 4 x 22 at the 8² latent level (whole-image tier), plus the VAE's
@@ -172,6 +228,24 @@ TOL_EPS_REL = 5e-2
 # layers with random weights and the 4-step walk; the same bound as the
 # attention comparison above, for eps and for the restored image.
 TOL_FUSED_REL = 5e-2
+# Flash backward kernels vs plain_bwd, in bf16: both compute p = exp(s -
+# lse) in fp32 and round p (for dV) and dS to bf16 at the same places, and
+# accumulate every product in fp32 in other orders (__expf, another logit
+# summation order: ~1e-6 relative), so a rounding of p or dS flips by a bf16
+# ulp here and there and a right kernel differs by about an ulp of the
+# largest gradient; a wrong tile, row block or transpose moves whole rows
+# by O(|grad|). The limits of the forward: max abs error <= 2^-6 *
+# max|grad_plain| for each of dq, dk, dv, relative L2 <= 1e-2.
+TOL_BWD_MAX = 2.0 ** -6
+TOL_BWD_L2 = 1e-2
+# Training-step gradients, kernel path vs plain path (plain attention and
+# stock convs) on the same weights, batch, t and noise: the forward differs
+# as the eps comparison above (rounding flips through ~100 bf16 layers) and
+# the backward adds the flash backward's roundings; relative L2 over all
+# trainable gradients, the fused-vs-stock bound. The loss is a mean over
+# 2 x 512² x 3 pixels: within 1e-2 relative.
+TOL_GRAD_REL = 5e-2
+TOL_TRAIN_LOSS = 1e-2
 # GroupNorm statistics, channels-last (Welford) vs two-pass on NCHW: both
 # fp32 over the same bf16 values, in other orders (~1e-7 relative), over
 # up to 2^21 elements a group; a dropped or doubled row moves them by
@@ -297,46 +371,115 @@ def build() -> None:
                 print(f"ptxas {name}:", line.strip())
 
 
+def flash_case(device, name, shape, gen) -> dict:
+    """One flash forward kernel against :func:`plain_fwd` at one (BH, N, D),
+    in bf16: O and lse errors, kernel / plain / SDPA times and the bound."""
+    from edtr_torch.ops import flash_attention as FA
+
+    bh, n, d = shape
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    fwd = FA.FWD[name]
+    before = FA.launches[name]
+    o_k, lse_k = fwd(q, k, v, scale)
+    check(FA.launches[name] == before + 1, f"{name} launched its kernel")
+    o_p, lse_p = FA.plain_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    diff = o_k.float() - o_p.float()
+    err_o = diff.abs().max().item()
+    o_max = o_p.float().abs().max().item()
+    rel = rel_l2(o_k, o_p)
+    err_l = (lse_k - lse_p).abs().max().item()
+    ms = time_ms(lambda: fwd(q, k, v, scale), 20)
+    plain_ms = time_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1)
+    q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20)
+    t_ops = 4.0 * n * n * d * bh / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (4 * bh * n * d * 2 + bh * n * 4) / PEAK_BYTES * 1e3
+    row = dict(name=name, shape=[bh, n, d], max_abs_err=max(err_o, err_l), ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=library_ms, err_o=err_o, o_max=o_max, rel_l2_o=rel, err_lse=err_l,
+               ok=bool(err_o <= TOL_O_MAX * o_max and rel <= TOL_O_L2 and err_l <= TOL_LSE))
+    row["bound_share"] = row["bound_ms"] / ms
+    print("kernel:", json.dumps(row), flush=True)
+    check(row["ok"], f"{name} at {shape} vs plain: err_o {err_o} (tol {TOL_O_MAX * o_max}), "
+                     f"rel L2 {rel} (tol {TOL_O_L2}), err_lse {err_l} (tol {TOL_LSE})")
+    return row
+
+
 def kernel_phase(device) -> dict:
+    """Each flash forward kernel at its 512² bs-1 shape (:data:`KERNELS`)."""
+    rows = {}
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, (shape, replaces, expected) in KERNELS.items():
+        rows[name] = dict(name=name, route="cuda", source=FA_SOURCE, replaces=replaces,
+                          launches=None, on_path=expected is not None, scope="one call",
+                          **{k: v for k, v in flash_case(device, name, shape, gen).items()
+                             if k != "name"})
+    return rows
+
+
+def bwd_kernel_phase(device) -> dict:
+    """Each flash backward wrapper against ``plain_bwd`` at its shape in the
+    training step, in bf16, on the (q, k, v, O, lse) of a forward and a
+    random dO: dq, dk, dv errors, times and the bound. ``library_ms``: the
+    backward alone of ``F.scaled_dot_product_attention`` (all three
+    gradients, from a retained graph), a yardstick the port never calls.
+    The bound counts the function each wrapper computes (whole: the five
+    N² D products of the backward, 2.5x the forward's four; dq: S, dP, dS K;
+    dkv: S, dP, P^T dO, dS^T Q), not a split design's recomputes."""
     from edtr_torch.ops import flash_attention as FA
 
     rows = {}
-    gen = torch.Generator(device=device).manual_seed(0)
-    for name, ((bh, n, d), replaces, _) in KERNELS.items():
-        q, k, v = (torch.randn((bh, n, d), generator=gen, device=device,
-                               dtype=torch.bfloat16) for _ in range(3))
+    gen = torch.Generator(device=device).manual_seed(13)
+    products = {"whole_bwd": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+    outs = {"whole_bwd": (0, 1, 2), "flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
+    for name, ((bh, n, d), replaces, _) in BWD_KERNELS.items():
+        q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=device,
+                                   dtype=torch.bfloat16) for _ in range(4))
         scale = d ** -0.5
-        fwd = FA.FWD[name]
-        o_k, lse_k = fwd(q, k, v, scale)
-        o_p, lse_p = FA.plain_fwd(q, k, v, scale)
+        out, lse = FA.FWD[FA.kernel_for(n, d)](q, k, v, scale)
+        dd = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, dd, scale)
+        fn = getattr(FA, name)
+        before = FA.launches[name]
+        got = fn(*args)
+        check(FA.launches[name] == before + 1, f"{name} launched its kernel")
+        got = got if isinstance(got, tuple) else (got,)
+        want = [FA.plain_bwd(*args)[i] for i in outs[name]]
         torch.cuda.synchronize()
-        diff = o_k.float() - o_p.float()
-        err_o = diff.abs().max().item()
-        o_max = o_p.float().abs().max().item()
-        rel = rel_l2(o_k, o_p)
-        err_l = (lse_k - lse_p).abs().max().item()
-        ms = time_ms(lambda: fwd(q, k, v, scale), 20)
-        plain_ms = time_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1)
-        q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, scale=scale), 20)
-        t_ops = 4.0 * n * n * d * bh / PEAK_BF16_FLOPS * 1e3
-        t_bytes = (4 * bh * n * d * 2 + bh * n * 4) / PEAK_BYTES * 1e3
+        errs = {}
+        for i, a, b in zip(outs[name], got, want):
+            g_max = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            errs["dq dk dv".split()[i]] = dict(max_abs_err=err, grad_max=g_max, rel_l2=rel_l2(a, b))
+        ms = time_ms(lambda: fn(*args), 20)
+        plain_ms = time_ms(lambda: FA.plain_bwd(*args), 3, 1)
+        q4, k4, v4 = (t.view(1, bh, n, d).detach().requires_grad_() for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        do4 = do.view(1, bh, n, d)
+        library_ms = time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                                         retain_graph=True), 20)
+        flops = products[name] * 2.0 * n * n * d * bh
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        nbytes = (4 + len(outs[name])) * bh * n * d * 2 + 2 * bh * n * 4
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        ok = all(e["max_abs_err"] <= TOL_BWD_MAX * e["grad_max"] and e["rel_l2"] <= TOL_BWD_L2
+                 for e in errs.values())
         rows[name] = dict(
-            name=name, route="cuda", source=FA_SOURCE, replaces=replaces, launches=None,
-            on_path=KERNELS[name][2] is not None, scope="one call",
-            max_abs_err=max(err_o, err_l), ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=library_ms, shape=[bh, n, d], err_o=err_o, o_max=o_max,
-            rel_l2_o=rel, err_lse=err_l,
-            ok=bool(err_o <= TOL_O_MAX * o_max and rel <= TOL_O_L2
-                    and err_l <= TOL_LSE))
+            name=name, route="cuda", source=BWD_SOURCE, replaces=replaces, launches=None,
+            on_path=True, scope="one call at the training step's shape; library_ms: SDPA's "
+                                "whole backward (dq, dk, dv)",
+            max_abs_err=max(e["max_abs_err"] for e in errs.values()), ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=library_ms, shape=[bh, n, d], gflop=flops / 1e9, mb=nbytes / 1e6,
+            errors=errs, ok=bool(ok))
         rows[name]["bound_share"] = rows[name]["bound_ms"] / ms
-        print("kernel:", json.dumps(rows[name]), flush=True)
-        check(rows[name]["ok"],
-              f"{name} vs plain: err_o {err_o} (tol {TOL_O_MAX * o_max}), rel L2 "
-              f"{rel} (tol {TOL_O_L2}), err_lse {err_l} (tol {TOL_LSE})")
+        print("bwd kernel:", json.dumps(rows[name]), flush=True)
+        check(ok, f"{name} vs plain_bwd: {errs} (tol max {TOL_BWD_MAX} x max|grad|, "
+                  f"rel L2 {TOL_BWD_L2})")
     return rows
 
 
@@ -417,11 +560,11 @@ def conv_case(device, key, gen) -> dict:
     return row
 
 
-def conv_kernel_phase(device, shape_counts: dict) -> dict:
+def conv_kernel_phase(device, shape_counts: dict, per: str = "restore") -> dict:
     """Each conv kernel at every shape of ``shape_counts`` (shape key ->
-    launches in one restore); per kernel, the launch-weighted sums over its
-    shapes: the time the restore spends in it, and the same for the plain
-    version, ``F.conv2d`` and the bound."""
+    launches in one restore, or in one ``per`` run); per kernel, the
+    launch-weighted sums over its shapes: the time the run spends in it, and
+    the same for the plain version, ``F.conv2d`` and the bound."""
     gen = torch.Generator(device=device).manual_seed(5)
     rows = {}
     for key, count in sorted(shape_counts.items(), key=str):
@@ -429,7 +572,7 @@ def conv_kernel_phase(device, shape_counts: dict) -> dict:
         agg = rows.setdefault(key[0], dict(
             name=key[0], route="cuda", source=CONV_SOURCE,
             replaces=CONV_KERNELS[key[0]][0], launches=None, on_path=True,
-            scope="per restore: launch-weighted sum over its shapes",
+            scope=f"per {per}: launch-weighted sum over its shapes",
             max_abs_err=0.0, max_err_share=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
             library_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, shapes=0))
         agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
@@ -709,10 +852,11 @@ def swin_case(device, key, gen) -> dict:
     return row
 
 
-def swin_kernel_phase(device, shape_counts: dict) -> dict:
+def swin_kernel_phase(device, shape_counts: dict, per: str = "restore") -> dict:
     """Each Swin kernel at every shape of ``shape_counts`` (shape key ->
-    launches in one fused+swin restore); per kernel the launch-weighted sums
-    over its shapes, as :func:`conv_kernel_phase` computes them."""
+    launches in one fused+swin restore, or in one ``per`` run); per kernel
+    the launch-weighted sums over its shapes, as :func:`conv_kernel_phase`
+    computes them."""
     gen = torch.Generator(device=device).manual_seed(11)
     rows = {}
     for key, count in sorted(shape_counts.items(), key=str):
@@ -721,7 +865,7 @@ def swin_kernel_phase(device, shape_counts: dict) -> dict:
         agg = rows.setdefault(key[0], dict(
             name=key[0], route="cuda", source=source, replaces=replaces, launches=None,
             on_path=True,
-            scope="per restore: launch-weighted sum over its shapes; ms, plain_ms, "
+            scope=f"per {per}: launch-weighted sum over its shapes; ms, plain_ms, "
                   "library_ms: device time (profiler), event_ms: CUDA events",
             max_abs_err=0.0, max_err_share=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
             library_ms=0.0, event_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, gflop=0.0,
@@ -740,10 +884,8 @@ def swin_kernel_phase(device, shape_counts: dict) -> dict:
     return rows
 
 
-def counted_restore(pipe, args) -> tuple:
-    """One restore with every launch count set to 0 just before it and read
-    just after: (outputs, launches, shapes per kernel module, layout copies
-    (conv, proj), host ms)."""
+def launch_counters() -> tuple:
+    """Every kernel module's ``launches`` dict."""
     from edtr_torch.ops import flash_attention as FA
     from edtr_torch.ops import gn_conv as GC
     from edtr_torch.ops import geglu as GG
@@ -751,19 +893,52 @@ def counted_restore(pipe, args) -> tuple:
     from edtr_torch.ops import swin_block as SB
     from edtr_torch.ops import window_attention as WA
 
-    counters = (FA.launches, GC.launches, LM.launches, GG.launches, WA.launches, SB.launches)
-    for counts in counters:
+    return (FA.launches, GC.launches, LM.launches, GG.launches, WA.launches, SB.launches)
+
+
+def zero_counts() -> None:
+    """Every kernel module's launch counts, per-shape logs and layout-copy
+    counts set to 0."""
+    from edtr_torch.ops import flash_attention as FA
+    from edtr_torch.ops import gn_conv as GC
+    from edtr_torch.ops import geglu as GG
+    from edtr_torch.ops import ln_matmul as LM
+    from edtr_torch.ops import swin_block as SB
+    from edtr_torch.ops import window_attention as WA
+
+    for counts in launch_counters():
         for key in counts:
             counts[key] = 0
-    for shapes in (GC.shapes, LM.shapes, GG.shapes, WA.shapes, SB.shapes):
+    for shapes in (FA.shapes, GC.shapes, LM.shapes, GG.shapes, WA.shapes, SB.shapes):
         shapes.clear()
     GC.layout_copies["count"] = LM.layout_copies["count"] = 0
+
+
+def read_counts() -> tuple:
+    """(launches per wrapper, shapes per kernel family, layout copies (conv,
+    proj)) since :func:`zero_counts`."""
+    from edtr_torch.ops import flash_attention as FA
+    from edtr_torch.ops import gn_conv as GC
+    from edtr_torch.ops import geglu as GG
+    from edtr_torch.ops import ln_matmul as LM
+    from edtr_torch.ops import swin_block as SB
+    from edtr_torch.ops import window_attention as WA
+
+    launches = {k: n for counts in launch_counters() for k, n in counts.items()}
+    shapes = dict(flash=dict(FA.shapes), conv=dict(GC.shapes),
+                  proj={**LM.shapes, **GG.shapes}, swin={**WA.shapes, **SB.shapes})
+    copies = dict(conv=GC.layout_copies["count"], proj=LM.layout_copies["count"])
+    return launches, shapes, copies
+
+
+def counted_restore(pipe, args) -> tuple:
+    """One restore with every launch count set to 0 just before it and read
+    just after: (outputs, launches, shapes per kernel family, layout copies
+    (conv, proj), host ms)."""
+    zero_counts()
     out = {}
     ms = host_ms(lambda: out.update(pipe.restore(*args)))
-    launches = {k: n for counts in counters for k, n in counts.items()}
-    shapes = dict(conv=dict(GC.shapes), proj={**LM.shapes, **GG.shapes},
-                  swin={**WA.shapes, **SB.shapes})
-    copies = dict(conv=GC.layout_copies["count"], proj=LM.layout_copies["count"])
+    launches, shapes, copies = read_counts()
     return out, launches, shapes, copies, ms
 
 
@@ -776,6 +951,7 @@ def expected_launches(flags: tuple) -> dict:
                  for name, (_, _, expected) in PROJ_KERNELS.items()})
     want.update({name: expected if fused_swin else 0
                  for name, (_, _, expected) in SWIN_KERNELS.items()})
+    want.update({name: 0 for name in BWD_KERNELS})  # a restore has no backward
     return want
 
 
@@ -804,7 +980,7 @@ def restore_args(device) -> tuple:
     g = torch.Generator(device=device).manual_seed(1)
     lat = IMAGE // 8
     return (torch.rand((1, IMAGE, IMAGE, 3), generator=g, device=device),
-            torch.randn((1, 77, 1024), generator=g, device=device),
+            torch.randn((1, 77, CONTEXT_DIM), generator=g, device=device),
             torch.randn((1, lat, lat, 4), generator=g, device=device),
             torch.randn((4, 1, lat, lat, 4), generator=g, device=device))
 
@@ -1028,6 +1204,147 @@ def cldm_phase(pipe, device) -> dict:
     return res
 
 
+def train_phase(device) -> dict:
+    """The full-width training step (module docstring, phase 10)."""
+    from edtr_torch.models.layers import randomize_
+    from edtr_torch.ops.attention import force_plain
+    from edtr_torch.pipeline import build_flagship
+    from edtr_torch.profile_restore import TRAIN_STAGES, trace_restores
+    from edtr_torch.train.edtr_step import EDTRTrainState, make_edtr_train_step
+
+    t0 = time.perf_counter()
+    pipe = build_flagship(tiny=False, dtype=torch.bfloat16, device=device, train=True)
+    randomize_(pipe, torch.Generator(device=device).manual_seed(0))
+    state = EDTRTrainState.create(pipe)
+    step = make_edtr_train_step(pipe)
+    params = dict(pipe.named_parameters())
+    trainable = {n: p for n, p in params.items() if p.requires_grad}
+    frozen = {n: p for n, p in params.items() if not p.requires_grad}
+    torch.cuda.synchronize()
+    print(f"train: EDTR-s4 full width, train=True (remat), {sum(p.numel() for p in trainable.values())}"
+          f" trainable (ControlNet + VAE decoder) and {sum(p.numel() for p in frozen.values())} "
+          f"frozen params (fp32), bf16 compute, built + randomised in "
+          f"{time.perf_counter() - t0:.1f} s; configuration (fused_conv, fused_proj, fused_swin) "
+          f"{(pipe.fused_conv, pipe.fused_proj, pipe.fused_swin)}", flush=True)
+    check(all(n.startswith(("cldm.controlnet.", "cldm.vae.decoder.")) for n in trainable),
+          "trainable partition")
+    g = torch.Generator(device=device).manual_seed(2)
+    lat = IMAGE // 8
+    batch = dict(lq=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
+                 gt=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
+                 c_txt=torch.randn((TRAIN_BATCH, 77, CONTEXT_DIM), generator=g, device=device))
+    t, noise = step.draw(torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
+
+    # one step's gradients, kernel path against plain path (plain attention,
+    # stock convs, stock SwinIR), same weights, batch, t and noise
+    loss_k = step.grads(state, batch, t, noise).item()
+    grads_k = {n: p.grad.detach().clone() for n, p in trainable.items()}
+    check(all(bool(torch.isfinite(v).all()) for v in grads_k.values()), "kernel-path grads finite")
+    flags = pipe.fused_conv, pipe.fused_swin
+    pipe.fused_conv = pipe.fused_swin = False
+    with force_plain():
+        loss_p = step.grads(state, batch, t, noise).item()
+    pipe.fused_conv, pipe.fused_swin = flags
+    rel = {}
+    for part in ("cldm.controlnet.", "cldm.vae.decoder.", ""):
+        names = [n for n in trainable if n.startswith(part)]
+        num = sum((grads_k[n] - trainable[n].grad).float().pow(2).sum() for n in names)
+        den = sum(trainable[n].grad.float().pow(2).sum() for n in names)
+        rel[part.strip(".") or "all"] = (num / den).sqrt().item()
+    del grads_k
+    cmp = dict(loss_kernel=loss_k, loss_plain=loss_p, loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+               grads_rel_l2=rel, tol_grad_rel_l2=TOL_GRAD_REL, tol_loss_rel=TOL_TRAIN_LOSS)
+    print("train grads kernel path vs plain path (plain attention, stock convs, stock "
+          "SwinIR):", json.dumps(cmp), flush=True)
+    check(math.isfinite(loss_k) and math.isfinite(loss_p), "train losses finite")
+    check(cmp["loss_rel"] <= TOL_TRAIN_LOSS, f"train loss kernel vs plain {cmp['loss_rel']}")
+    for part, r in rel.items():  # each part alone: the decoder's grads do not dilute
+        check(r <= TOL_GRAD_REL, f"train grads kernel vs plain, {part}: relative L2 {r}")
+
+    before = {n: p.detach().clone() for n, p in params.items()}
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch, generator=g)
+    # the main path: counts set to 0 just before the step, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = {}
+    first_ms = host_ms(lambda: out.update(step(state, batch, t, noise)))
+    launches, shapes, _ = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = out["loss_hlf"].item()
+    print(f"train step counted: {first_ms:.1f} ms, loss_hlf {loss}, launches {launches}, peak "
+          f"memory {peak:.2f} GiB (max_memory_allocated)", flush=True)
+    check(launches == TRAIN_LAUNCHES, f"train launches {launches}, want {TRAIN_LAUNCHES}")
+    check(math.isfinite(loss), "train loss finite")
+    check(all(bool(torch.isfinite(p.grad).all()) for p in trainable.values()), "train grads finite")
+
+    # the step as a caller makes it, timed on the host clock; its phases
+    # from a trace of one more step (the step's own profiler ranges)
+    steps = [host_ms(lambda: step(state, batch, generator=g)) for _ in range(TRAIN_TIMED)]
+    t0 = time.perf_counter()
+    trace = trace_restores(lambda: step(state, batch, generator=g), 1, TRAIN_STAGES)
+    timing = dict(step_ms=statistics.median(steps), step_runs_ms=steps,
+                  phase_host_ms_traced={s: trace["stages"][s]["host_ms"] for s in TRAIN_STAGES},
+                  peak_memory_gib=peak, batch=TRAIN_BATCH, image=IMAGE)
+    print(f"train step: {timing['step_ms']:.2f} ms (median of {TRAIN_TIMED}, bs {TRAIN_BATCH}, "
+          f"512², host clock around synchronised steps; phases from the traced step):",
+          json.dumps(timing), flush=True)
+    print(f"trace of one train step ({time.perf_counter() - t0:.1f} s):", json.dumps(trace),
+          flush=True)
+
+    moved = [n for n in trainable if not torch.equal(params[n], before[n])]
+    changed = [n for n in frozen if not torch.equal(params[n], before[n])]
+    print(f"train: {len(moved)} of {len(trainable)} trainable tensors moved, {len(changed)} of "
+          f"{len(frozen)} frozen tensors changed after {state.step} steps", flush=True)
+    check(len(moved) == len(trainable), "every trainable tensor moved")
+    check(not changed, f"frozen tensors changed: {changed[:5]}")
+    # the optimizer's in-place updates reach the kernels' cached bf16 weights
+    from edtr_torch.ops.gn_conv import pack_weight
+
+    convs = [m for name, m in pipe.named_modules() if name.startswith(
+        ("cldm.controlnet.", "cldm.vae.decoder.")) and hasattr(m, "packed_weight")
+             and m.weight.ndim == 4 and m.weight.shape[-1] == 3]
+    stale = [c for c in convs if not torch.equal(c.packed_weight(torch.bfloat16),
+                                                 pack_weight(c.weight, torch.bfloat16))]
+    check(convs and not stale, f"{len(stale)} of {len(convs)} cached conv weights stale")
+    return dict(launches=launches, shapes=shapes, loss_hlf=loss, kernel_vs_plain=cmp,
+                timing=timing, trace=trace, steps=state.step)
+
+
+def train_shape_phase(device, shapes: dict) -> dict:
+    """Every kernel of the training step held against its plain version at
+    each shape the counted step launched it with (bs 2; the phases before
+    hold the forward kernels at the restore's bs-1 shapes): the flash
+    forward, conv and Swin kernels here, the backward kernels in
+    :func:`bwd_kernel_phase`, whose shapes must be the step's. Per kernel:
+    shapes held, the largest error over its largest output, and the
+    launch-weighted device ms per step (kernel, plain, library, bound)."""
+    bwd = {key: n for key, n in shapes["flash"].items() if key[0] in BWD_KERNELS}
+    want = {(name, *shape): n for name, (shape, _, n) in BWD_KERNELS.items()}
+    check(bwd == want, f"the step's backward shapes {bwd}, held at {want}")
+    gen = torch.Generator(device=device).manual_seed(17)
+    held = {}
+    for key, count in sorted(shapes["flash"].items()):
+        if key[0] in KERNELS:
+            r = flash_case(device, key[0], key[1:], gen)
+            agg = held.setdefault(key[0], dict(shapes=0, max_err_share=0.0, ms=0.0,
+                                               plain_ms=0.0, library_ms=0.0, bound_ms=0.0))
+            agg["shapes"] += 1
+            agg["max_err_share"] = max(agg["max_err_share"], r["err_o"] / r["o_max"])
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                agg[k] += count * r[k]
+    for rows in (conv_kernel_phase(device, shapes["conv"], "training step"),
+                 swin_kernel_phase(device, shapes["swin"], "training step")):
+        for name, r in rows.items():
+            held[name] = {k: r[k] for k in ("shapes", "max_err_share", "ms", "plain_ms",
+                                            "library_ms", "bound_ms")}
+    print("train shapes held (bs 2, per step):", json.dumps(held), flush=True)
+    launched = {name for name, n in TRAIN_LAUNCHES.items() if n and name not in BWD_KERNELS}
+    check(set(held) == launched, f"train-shape holds {sorted(held)}, launched {sorted(launched)}")
+    return held
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1043,21 +1360,33 @@ def main() -> int:
 
     build()
     rows = kernel_phase(device)
+    bwd_rows = bwd_kernel_phase(device)
     pipe, counted, timing = restore_phase(device)
     conv_rows = conv_kernel_phase(device, counted["fused"]["shapes"]["conv"])
     proj_rows = proj_kernel_phase(device, counted["fused+proj"]["shapes"]["proj"])
     swin_rows = swin_kernel_phase(device, counted["fused+swin"]["shapes"]["swin"])
     norms = norm_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
+    del pipe  # the training pipeline does not fit beside it with its optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["held_at_step_shapes"] = train_shape_phase(device, train.pop("shapes"))
 
-    all_rows = {**rows, **conv_rows, **proj_rows, **swin_rows}
-    for name, row in all_rows.items():  # from the configuration that runs it
-        row["launches"] = max(c["launches"][name] for c in counted.values())
+    all_rows = {**rows, **bwd_rows, **conv_rows, **proj_rows, **swin_rows}
+    for name, row in all_rows.items():  # from the path that runs it most
+        row["launches"] = max([c["launches"][name] for c in counted.values()]
+                              + [train["launches"][name]])
+        row["launches_train_step"] = train["launches"][name]
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
     check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
     check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")
-    check(len(all_rows) == 14, f"kernels line: {sorted(all_rows)}")
+    check(set(bwd_rows) == set(BWD_KERNELS), f"backward kernels timed: {sorted(bwd_rows)}")
+    check(len(all_rows) == 17, f"kernels line: {sorted(all_rows)}")
     print(json.dumps({"card": card, "restore": timing, "cldm_eps": cldm, "gn_stats": norms,
+                      "train": train,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},
                       "conv_shapes": [dict(key=list(k), launches=n) for k, n in

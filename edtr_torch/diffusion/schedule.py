@@ -1,17 +1,24 @@
-"""Gaussian diffusion tables: the forward process of the restore path.
+"""Gaussian diffusion tables: the forward process and the training
+objectives.
 
 Counterpart of ``edtr_tpu/diffusion/schedule.py``: the linear beta
 schedule is computed once in float64 numpy and frozen into fp32 tensors on
-the target device; ``q_sample`` and ``predict_xstart_from_eps`` gather one
-coefficient per sample. The training losses are not ported yet.
+the target device; ``q_sample``, ``get_v`` and ``predict_xstart_from_eps``
+gather one coefficient per sample. ``p_losses`` (the eps/x0/v objective)
+and ``reverse`` (EDTR's one-step noising and denoising) take their noise as
+a tensor, or draw it from a ``torch.Generator``: JAX's keys give other
+numbers, so parity tests hand both sides the same noise.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+ModelFn = Callable[[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
 
 
 def make_beta_schedule(n_timestep: int, linear_start: float = 1e-4,
@@ -36,11 +43,15 @@ class Diffusion:
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
+    parameterization: str = "eps"
+    loss_type: str = "l2"
 
     @classmethod
     def create(cls, timesteps: int = 1000, linear_start: float = 1e-4,
-               linear_end: float = 2e-2,
-               device: torch.device | str = "cpu") -> "Diffusion":
+               linear_end: float = 2e-2, device: torch.device | str = "cpu",
+               parameterization: str = "eps", loss_type: str = "l2") -> "Diffusion":
+        if parameterization not in ("eps", "x0", "v"):
+            raise ValueError(f"parameterization must be eps, x0 or v, got {parameterization!r}")
         betas = make_beta_schedule(timesteps, linear_start, linear_end)
         ac = np.cumprod(1.0 - betas, axis=0)
 
@@ -53,6 +64,8 @@ class Diffusion:
             sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - ac)),
             sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / ac)),
             sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / ac - 1)),
+            parameterization=parameterization,
+            loss_type=loss_type,
         )
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
@@ -66,3 +79,60 @@ class Diffusion:
         nd = x_t.ndim
         return (extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
                 - extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * eps)
+
+    def get_v(self, x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        nd = x.ndim
+        return (extract(self.sqrt_alphas_cumprod, t, nd) * noise
+                - extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * x)
+
+    def get_loss(self, pred: torch.Tensor, target: torch.Tensor,
+                 mean: bool = True) -> torch.Tensor:
+        if self.loss_type == "l1":
+            loss = (target - pred).abs()
+        elif self.loss_type == "l2":
+            loss = (target - pred) ** 2
+        else:
+            raise NotImplementedError(f"unknown loss type '{self.loss_type}'")
+        return loss.mean() if mean else loss
+
+    def p_losses(self, model_fn: ModelFn, x_start: torch.Tensor, t: torch.Tensor,
+                 cond: Dict[str, torch.Tensor], noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 return_predicted_x_start: bool = False):
+        """The eps/x0/v objective (``model/gaussian_diffusion.py:113-133``);
+        ``noise`` drawn from ``generator`` when not given."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                dtype=x_start.dtype)
+        x_noisy = self.q_sample(x_start, t, noise)
+        model_output = model_fn(x_noisy, t, cond)
+        if self.parameterization == "x0":
+            target = x_start
+        elif self.parameterization == "eps":
+            target = noise
+        else:
+            target = self.get_v(x_start, noise, t)
+        loss_simple = self.get_loss(model_output, target, mean=False).mean()
+        if return_predicted_x_start:
+            return loss_simple, self.predict_xstart_from_eps(x_noisy, t, model_output)
+        return loss_simple
+
+    def reverse(self, model_fn: ModelFn, t: torch.Tensor, x0: torch.Tensor,
+                cond: Dict[str, torch.Tensor], noise: Optional[torch.Tensor] = None,
+                x_noisy: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """EDTR's one-step noising and denoising of the HLF loss
+        (``model/gaussian_diffusion.py:153-169``): q_sample to ``t``, one eps
+        prediction, the closed-form x0. ``noise`` drawn from ``generator``
+        when neither it nor ``x_noisy`` is given."""
+        if self.parameterization != "eps":
+            raise ValueError("reverse needs the eps parameterization")
+        if x_noisy is None:
+            if noise is None:
+                noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+                                    dtype=x0.dtype)
+            x_noisy = self.q_sample(x0, t, noise)
+        model_output = model_fn(x_noisy, t, cond)
+        return dict(x_noisy=x_noisy,
+                    x_pred=self.predict_xstart_from_eps(x_noisy, t, model_output),
+                    model_output=model_output)

@@ -23,8 +23,8 @@ from edtr_torch.models.vae import AutoencoderKL
 
 class ControlLDM(nn.Module):
     """``unet_cfg``/``controlnet_cfg``: keyword arguments of
-    :class:`UNetModel`/:class:`ControlNet`; ``vae_cfg``: ``ddconfig`` and
-    ``embed_dim`` of :class:`AutoencoderKL`."""
+    :class:`UNetModel`/:class:`ControlNet`; ``vae_cfg``: ``ddconfig``,
+    ``embed_dim`` and ``train_decoder`` of :class:`AutoencoderKL`."""
 
     def __init__(self, unet_cfg: Dict[str, Any], vae_cfg: Dict[str, Any],
                  controlnet_cfg: Dict[str, Any], latent_scale_factor: float,
@@ -35,7 +35,8 @@ class ControlLDM(nn.Module):
         self.unet = UNetModel(dtype=dtype, **unet_cfg)
         self.controlnet = ControlNet(dtype=dtype, **controlnet_cfg)
         self.vae = AutoencoderKL(ddconfig=vae_cfg.get("ddconfig", {}),
-                                 embed_dim=vae_cfg.get("embed_dim", 4), dtype=dtype)
+                                 embed_dim=vae_cfg.get("embed_dim", 4),
+                                 train_decoder=vae_cfg.get("train_decoder", False), dtype=dtype)
 
     def vae_encode(self, image: torch.Tensor) -> torch.Tensor:
         """Scaled posterior mode of ``image`` (NCHW in [-1, 1]), fp32."""

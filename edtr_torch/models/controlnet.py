@@ -3,7 +3,8 @@ zero-initialised 1x1 convs into 13 control residuals.
 
 Counterpart of ``edtr_tpu/models/controlnet.py``. Parameter names are the
 reference state-dict keys (``zero_convs.{i}.0``, ``middle_block_out.0``),
-read by ``edtr_tpu/utils/convert.py:convert_controlnet``.
+read by ``edtr_tpu/utils/convert.py:convert_controlnet``. ``use_checkpoint``
+puts its ResBlocks and transformers under ``layers.remat``, as the UNet's.
 """
 
 from __future__ import annotations
@@ -24,12 +25,12 @@ class ControlNet(_Encoder):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_heads: int = -1,
                  num_head_channels: int = 64, transformer_depth: int = 1,
                  context_dim: Optional[int] = 1024,
-                 use_linear_in_transformer: bool = True,
+                 use_linear_in_transformer: bool = True, use_checkpoint: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels + hint_channels, model_channels, num_res_blocks,
                          attention_resolutions, channel_mult, num_heads,
                          num_head_channels, transformer_depth, context_dim,
-                         use_linear_in_transformer, dtype)
+                         use_linear_in_transformer, use_checkpoint, dtype)
         self.zero_convs = nn.ModuleList(
             nn.Sequential(Conv2d(ch, ch, 1, dtype=dtype)) for ch in self.block_chans)
         self.middle_block_out = nn.Sequential(
@@ -43,8 +44,8 @@ class ControlNet(_Encoder):
             context = context.to(self.dtype or context.dtype)
         outs = []
         for block, zero_conv in zip(self.input_blocks, self.zero_convs):
-            h = run_block(block, h, emb, context)
+            h = run_block(block, h, emb, context, self.use_checkpoint)
             outs.append(zero_conv(h))
-        h = run_block(self.middle_block, h, emb, context)
+        h = run_block(self.middle_block, h, emb, context, self.use_checkpoint)
         outs.append(self.middle_block_out(h))
         return outs

@@ -23,7 +23,10 @@ Counterpart of ``edtr_tpu/models/layers.py``:
 * :func:`fused_swin`: the Swin configuration, read by ``models/swinir.py``:
   inside the block every SwinIR transformer block runs as the port's three
   Swin kernels (``edtr_torch/ops/{swin_block,window_attention}.py``) in
-  rolled token space.
+  rolled token space;
+* :func:`remat`: JAX's ``remat`` ("full" policy) on
+  ``torch.utils.checkpoint``, its recompute run in the configuration of
+  its forward.
 
 Parameter names follow the reference torch state dicts (``weight``/
 ``bias``, OIHW conv kernels, (out, in) linear kernels).
@@ -38,7 +41,9 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from edtr_torch.ops import attention as attention_ops
 from edtr_torch.ops import gn_conv
 from edtr_torch.ops._norms import fold_from_moments, gn_stats, ln_f32
 
@@ -103,6 +108,27 @@ def fused_swin(on: bool = True) -> Iterator[None]:
 def fused_swin_on() -> bool:
     """Whether the call runs inside a :func:`fused_swin` block."""
     return _fused_swin
+
+
+def remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+    """``fn(*args)`` with its activations recomputed in the backward
+    instead of kept: ``edtr_tpu/models/layers.py:remat`` with the "full"
+    policy, as ``torch.utils.checkpoint`` (non-reentrant). The switches are
+    module globals and ``loss.backward()`` may run outside the blocks that
+    set them, so the recompute re-enters the switches of the forward
+    (conv, projection, Swin, attention's ``force_plain``): the same kernels,
+    the same numerics, the same saved tensors. Without grad mode it is
+    ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    conv, proj, swin = _fused_conv, _fused_proj, _fused_swin
+    plain = attention_ops.force_plain_on()
+
+    def run(*a):
+        with fused_conv(conv), fused_proj(proj), fused_swin(swin), \
+                attention_ops.force_plain(plain):
+            return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class DerivedWeight:

@@ -8,7 +8,10 @@ function both of JAX's formulations (``_ups_ref`` and the phase-folded
 ``_ups_subpixel``) compute. Inside a ``layers.fused_conv`` block (JAX's
 ``ResBlock.fused`` with the gn_conv families forced on) both run through the
 port's conv kernels on channels-last activations; otherwise they are stock
-PyTorch ops, as the JAX package leaves them to XLA by default.
+PyTorch ops, as the JAX package leaves them to XLA by default. With
+``use_checkpoint`` (JAX's ``nn.remat`` over ResBlock and SpatialTransformer,
+the reference's gradient checkpointing) each of those recomputes its
+activations in the backward (``layers.remat``).
 
 Parameter names are the reference LDM state-dict keys (``time_embed.0``,
 ``input_blocks.1.0.in_layers.0``, ``middle_block.1.proj_in``, ``out.2``, ...),
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from edtr_torch.models.attention import SpatialTransformer
-from edtr_torch.models.layers import (Conv2d, GroupNorm32, Linear, norm_silu_conv,
+from edtr_torch.models.layers import (Conv2d, GroupNorm32, Linear, norm_silu_conv, remat,
                                       timestep_embedding, to_conv_layout,
                                       upsample_conv3x3)
 
@@ -92,14 +95,14 @@ def heads_for(ch: int, num_head_channels: int, num_heads: int) -> Tuple[int, int
 
 
 def run_block(block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,
-              context: Optional[torch.Tensor]) -> torch.Tensor:
+              context: Optional[torch.Tensor], use_checkpoint: bool = False) -> torch.Tensor:
     """The reference's ``TimestepEmbedSequential``: ResBlocks take the
-    timestep embedding, transformers the context, the rest only ``h``."""
+    timestep embedding, transformers the context, the rest only ``h``;
+    ``use_checkpoint``: ResBlocks and transformers under ``remat``."""
     for layer in block:
-        if isinstance(layer, ResBlock):
-            h = layer(h, emb)
-        elif isinstance(layer, SpatialTransformer):
-            h = layer(h, context)
+        if isinstance(layer, (ResBlock, SpatialTransformer)):
+            arg = emb if isinstance(layer, ResBlock) else context
+            h = remat(layer, h, arg) if use_checkpoint else layer(h, arg)
         else:
             h = layer(h)
     return h
@@ -113,12 +116,13 @@ class _Encoder(nn.Module):
                  attention_resolutions: Sequence[int], channel_mult: Sequence[int],
                  num_heads: int, num_head_channels: int, transformer_depth: int,
                  context_dim: Optional[int], use_linear_in_transformer: bool,
-                 dtype: Optional[torch.dtype]):
+                 use_checkpoint: bool, dtype: Optional[torch.dtype]):
         super().__init__()
         if not use_linear_in_transformer:
             raise NotImplementedError("only use_linear_in_transformer=True is ported")
         mc = model_channels
         self.model_channels, self.dtype = mc, dtype
+        self.use_checkpoint = bool(use_checkpoint)
         self._st = dict(depth=transformer_depth, context_dim=context_dim, dtype=dtype)
         self._heads = (num_head_channels, num_heads)
         self.time_embed = nn.Sequential(
@@ -163,12 +167,12 @@ class UNetModel(_Encoder):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_heads: int = -1,
                  num_head_channels: int = 64, transformer_depth: int = 1,
                  context_dim: Optional[int] = 1024,
-                 use_linear_in_transformer: bool = True,
+                 use_linear_in_transformer: bool = True, use_checkpoint: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, model_channels, num_res_blocks,
                          attention_resolutions, channel_mult, num_heads,
                          num_head_channels, transformer_depth, context_dim,
-                         use_linear_in_transformer, dtype)
+                         use_linear_in_transformer, use_checkpoint, dtype)
         mc = model_channels
         chans = list(self.block_chans)
         ch = self.out_ch
@@ -194,10 +198,11 @@ class UNetModel(_Encoder):
         if context is not None:
             context = context.to(cdt)
         hs = []
+        ckpt = self.use_checkpoint
         for block in self.input_blocks:
-            h = run_block(block, h, emb, context)
+            h = run_block(block, h, emb, context, ckpt)
             hs.append(h)
-        h = run_block(self.middle_block, h, emb, context)
+        h = run_block(self.middle_block, h, emb, context, ckpt)
         control = list(control) if control is not None else None
         if control is not None:
             h = h + control.pop().to(h.dtype)
@@ -205,6 +210,6 @@ class UNetModel(_Encoder):
             skip = hs.pop()
             if control is not None:
                 skip = skip + control.pop().to(h.dtype)
-            h = run_block(block, torch.cat([h, skip], dim=1), emb, context)
+            h = run_block(block, torch.cat([h, skip], dim=1), emb, context, ckpt)
         h = F.silu(self.out[0](h))
         return self.out[2](h).float()

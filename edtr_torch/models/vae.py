@@ -9,7 +9,10 @@ run through the port's conv kernels (``edtr_torch/ops/gn_conv.py``) on
 channels-last activations. The
 mid-block ``AttnBlock`` is single-head attention over the H*W tokens at
 D = channels, which at 512² input (64² x 512) is the shape of the
-streamed-KV flash kernel.
+streamed-KV flash kernel. The Decoder's ``use_checkpoint`` (JAX's decoder
+remat, a training aid with no reference counterpart) puts each of its
+ResnetBlocks under ``layers.remat``; ``train_decoder`` is the flag the
+training step reads to train the decoder.
 
 Parameter names are the reference state-dict keys (``encoder.down.0.block.1
 .norm1``, ``encoder.mid.attn_1.q``, ``decoder.up.3.upsample.conv``,
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from edtr_torch.models.distributions import DiagonalGaussianDistribution
-from edtr_torch.models.layers import (Conv2d, GroupNorm32, norm_silu_conv,
+from edtr_torch.models.layers import (Conv2d, GroupNorm32, norm_silu_conv, remat,
                                       to_conv_layout, upsample_conv3x3)
 from edtr_torch.ops.attention import dot_product_attention
 
@@ -91,23 +94,30 @@ class Upsample(nn.Module):
         return upsample_conv3x3(x.to(self.dtype or x.dtype), self.conv)
 
 
+def _resnet(blk: ResnetBlock, h: torch.Tensor, use_checkpoint: bool) -> torch.Tensor:
+    return remat(blk, h) if use_checkpoint else blk(h)
+
+
 class _Mid(nn.Module):
-    def __init__(self, ch: int, dtype: Optional[torch.dtype]):
+    def __init__(self, ch: int, dtype: Optional[torch.dtype], use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.block_1 = ResnetBlock(ch, ch, dtype)
         self.attn_1 = AttnBlock(ch, dtype)
         self.block_2 = ResnetBlock(ch, ch, dtype)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.block_2(self.attn_1(self.block_1(h)))
+        h = self.attn_1(_resnet(self.block_1, h, self.use_checkpoint))
+        return _resnet(self.block_2, h, self.use_checkpoint)
 
 
 class _Level(nn.Module):
     """One resolution: ``block`` resnets, then ``downsample``/``upsample``."""
 
     def __init__(self, blocks: Sequence[nn.Module], resample: Optional[nn.Module],
-                 resample_name: str):
+                 resample_name: str, use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.block = nn.ModuleList(blocks)
         if resample is not None:
             setattr(self, resample_name, resample)
@@ -115,7 +125,7 @@ class _Level(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         for blk in self.block:
-            h = blk(h)
+            h = _resnet(blk, h, self.use_checkpoint)
         if self.resample_name:
             h = getattr(self, self.resample_name)(h)
         return h
@@ -153,20 +163,21 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4, 4),
-                 num_res_blocks: int = 2, z_channels: int = 4,
+                 num_res_blocks: int = 2, z_channels: int = 4, use_checkpoint: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
         block_in = ch * ch_mult[-1]
         self.conv_in = Conv2d(z_channels, block_in, 3, padding=1, dtype=dtype)
-        self.mid = _Mid(block_in, dtype)
+        self.mid = _Mid(block_in, dtype, use_checkpoint)
         levels = {}
         for i in reversed(range(len(ch_mult))):
             blocks = []
             for _ in range(num_res_blocks + 1):
                 blocks.append(ResnetBlock(block_in, ch * ch_mult[i], dtype))
                 block_in = ch * ch_mult[i]
-            levels[i] = _Level(blocks, Upsample(block_in, dtype) if i else None, "upsample")
+            levels[i] = _Level(blocks, Upsample(block_in, dtype) if i else None, "upsample",
+                               use_checkpoint)
         self.up = nn.ModuleList(levels[i] for i in range(len(ch_mult)))
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, dtype=dtype)
@@ -180,8 +191,9 @@ class Decoder(nn.Module):
 
 class AutoencoderKL(nn.Module):
     def __init__(self, ddconfig: Optional[Dict[str, Any]] = None, embed_dim: int = 4,
-                 dtype: Optional[torch.dtype] = None):
+                 train_decoder: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.train_decoder = bool(train_decoder)
         dd = dict(ddconfig or {})
         arch = dict(ch=dd.get("ch", 128), ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
                     num_res_blocks=dd.get("num_res_blocks", 2),
@@ -189,7 +201,8 @@ class AutoencoderKL(nn.Module):
         double_z = dd.get("double_z", True)
         self.encoder = Encoder(in_channels=dd.get("in_channels", 3), double_z=double_z,
                                **arch)
-        self.decoder = Decoder(out_ch=dd.get("out_ch", 3), **arch)
+        self.decoder = Decoder(out_ch=dd.get("out_ch", 3),
+                               use_checkpoint=dd.get("use_checkpoint", False), **arch)
         self.quant_conv = Conv2d(2 * arch["z_channels"] if double_z else arch["z_channels"],
                                  2 * embed_dim if double_z else embed_dim, 1, dtype=dtype)
         self.post_quant_conv = Conv2d(embed_dim, arch["z_channels"], 1, dtype=dtype)

@@ -6,6 +6,10 @@ throughout. A CUDA tensor at a shape the flash kernels take
 the kernel :func:`kernel_route` names; every other call (77-token
 cross-attention, N = 256 or 64, any call with a bias, and every CPU tensor)
 takes the plain math of ``_xla_attention``, as JAX leaves those to XLA.
+Both are differentiable: the flash route through the autograd Function of
+:func:`edtr_torch.ops.flash_attention.flash_attention` (JAX's
+``custom_vjp``, its backward kernels on the card), the plain math under
+autograd.
 """
 
 from __future__ import annotations
@@ -21,15 +25,20 @@ _force_plain = False
 
 
 @contextlib.contextmanager
-def force_plain() -> Iterator[None]:
+def force_plain(on: bool = True) -> Iterator[None]:
     """Test hook: inside the block every call takes the plain math, also
     on CUDA (chip_smoke.py holds the kernels' path against it)."""
     global _force_plain
-    prev, _force_plain = _force_plain, True
+    prev, _force_plain = _force_plain, bool(on)
     try:
         yield
     finally:
         _force_plain = prev
+
+
+def force_plain_on() -> bool:
+    """Whether the call runs inside a :func:`force_plain` block."""
+    return _force_plain
 
 
 def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,10 @@
-"""Flash-attention forward: Hopper kernels and their plain PyTorch versions.
+"""Flash attention, forward and backward: Hopper kernels and their plain
+PyTorch versions.
 
 Counterpart of ``edtr_tpu/ops/flash_attention.py``. The dispatch
-(:func:`shapes_supported`, :func:`kernel_for`) mirrors the JAX one exactly,
-so each JAX Pallas kernel has one wrapper here, with its own launch count:
+(:func:`shapes_supported`, :func:`kernel_for`, :func:`bwd_kernel_for`)
+mirrors the JAX one exactly, so each JAX Pallas kernel has one wrapper here,
+with its own launch count:
 
   ==============  =====================================  ====================
   wrapper         replaces (edtr_tpu/ops/...)             CUDA symbol
@@ -15,19 +17,35 @@ so each JAX Pallas kernel has one wrapper here, with its own launch count:
                   (N > 4096, D <= 128)
   streamkv_fwd    flash_attention.py:_streamkv_fwd_flat  edtr_flash_fwd_d512
                   (128 < D <= 512)
+  whole_bwd       flash_attention.py:_whole_bwd_flat     edtr_flash_bwd_dq_d64
+                  (N <= 1024, D <= 128)                  + edtr_flash_bwd_dkv_d64
+  flash_bwd_dq    flash_attention.py:_flash_bwd_flat     edtr_flash_bwd_dq_d64
+                  (``_dq_kernel``; N > 1024, D <= 128)
+  flash_bwd_dkv   flash_attention.py:_flash_bwd_flat     edtr_flash_bwd_dkv_d64
+                  (``_dkv_kernel``)
   ==============  =====================================  ====================
 
-The kernels live in ``edtr_torch/csrc/flash_attention.cu`` (see its header
-for the design). A wrapper given CPU tensors computes :func:`plain_fwd`;
-given CUDA tensors it launches its kernel or raises. The kernels take
-contiguous bf16 ``(BH, N, D)`` with D = 64 (``edtr_flash_fwd_d64``) or
-D = 512 (``edtr_flash_fwd_d512``); anything else on CUDA raises.
+The forward kernels live in ``edtr_torch/csrc/flash_attention.cu``, the
+backward ones in ``edtr_torch/csrc/flash_attention_bwd.cu`` (see their
+headers for the designs). A forward wrapper given CPU tensors computes
+:func:`plain_fwd`, a backward one :func:`plain_bwd`; given CUDA tensors each
+launches its kernel or raises. The forward kernels take contiguous bf16
+``(BH, N, D)`` with D = 64 (``edtr_flash_fwd_d64``) or D = 512
+(``edtr_flash_fwd_d512``), the backward ones D = 64; anything else on CUDA
+raises. The D > 128 backward is :func:`plain_bwd` on every device, as JAX
+leaves it to XLA (``_xla_bwd_flat``).
+
+:func:`flash_attention` is differentiable: a ``torch.autograd.Function``
+whose forward saves q, k, v, the output and the logsumexp, and whose
+backward is JAX's ``_bwd``: D = rowsum(dO * O) from the saved output, then
+the backward wrapper :func:`bwd_kernel_for` names.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from typing import Dict, Tuple
 
 import torch
@@ -42,7 +60,10 @@ Q_BLOCK_WHOLEKV = 256
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around a run
 launches: Dict[str, int] = {
-    "wholekv_fwd": 0, "whole_fwd": 0, "flash_fwd": 0, "streamkv_fwd": 0}
+    "wholekv_fwd": 0, "whole_fwd": 0, "flash_fwd": 0, "streamkv_fwd": 0,
+    "whole_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# launches per (wrapper, BH, N, D)
+shapes: Counter = Counter()
 
 # (symbol, head dim, row tile n must divide) of each wrapper's kernel
 _KERNEL = {
@@ -81,6 +102,15 @@ def kernel_for(n: int, d: int) -> str:
     if n <= 4096 and n % Q_BLOCK_WHOLEKV == 0:
         return "wholekv_fwd"
     return "flash_fwd"
+
+
+def bwd_kernel_for(n: int, d: int) -> str:
+    """The backward ``edtr_tpu``'s ``_bwd`` takes at (N, D): the XLA
+    recompute (here :func:`plain_bwd`) for D > 128, else the whole-sequence
+    kernel for N <= 1024, else the dq/dkv pair."""
+    if d > 128:
+        return "plain_bwd"
+    return "whole_bwd" if n <= WHOLE_SEQ_MAX else "flash_bwd"
 
 
 def plain_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
@@ -133,6 +163,7 @@ def _launch(name: str, qf, kf, vf, scale: float):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     launches[name] += 1
+    shapes[(name, *qf.shape)] += 1
     return out, lse
 
 
@@ -157,6 +188,142 @@ FWD = {"wholekv_fwd": wholekv_fwd, "whole_fwd": whole_fwd,
        "flash_fwd": flash_fwd, "streamkv_fwd": streamkv_fwd}
 
 
+def plain_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, dof: torch.Tensor,
+              lse: torch.Tensor, dd: torch.Tensor, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(BH, N, D) q, k, v, dO; (BH, N) fp32 lse and D -> (dq, dk, dv).
+
+    ``edtr_tpu.ops.flash_attention._xla_bwd_flat`` cast for cast: fp32
+    logits times scale, p = exp(s - lse) in fp32; dv from p cast to dO's
+    dtype, dp = dO v^T and ds = p (dp - D) cast to q's dtype, each product
+    accumulated in fp32; each gradient cast once to its input's dtype.
+    """
+    f32 = torch.float32
+    s = torch.matmul(qf.float(), kf.float().transpose(1, 2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.to(dof.dtype).to(f32).transpose(1, 2), dof.float()).to(vf.dtype)
+    dp = torch.matmul(dof.float(), vf.float().transpose(1, 2))
+    ds = (p * (dp - dd[..., None])).to(qf.dtype).to(f32)
+    dq = (torch.matmul(ds, kf.float()) * scale).to(qf.dtype)
+    dk = (torch.matmul(ds.transpose(1, 2), qf.float()) * scale).to(kf.dtype)
+    return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_symbol(symbol: str):
+    """A backward C entry point, with its signature declared (q, k, v, do,
+    lse, dd, then dq or dk + dv pointers; bh, n; scale; stream)."""
+    fn = getattr(_cuda.load("flash_attention_bwd"), symbol)
+    outs = 1 if symbol == "edtr_flash_bwd_dq_d64" else 2
+    fn.argtypes = [ctypes.c_void_p] * (6 + outs) + [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(name: str, symbol: str, ins, outs, scale: float) -> None:
+    qf, kf, vf, dof, lse, dd = ins
+    for t in (qf, kf, vf, dof):
+        if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous bf16 CUDA q/k/v/dO, got "
+                             f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
+        if t.shape != qf.shape or t.device != qf.device:
+            raise ValueError(f"{name}: q/k/v/dO shapes or devices differ")
+        if t.data_ptr() % 16:  # cp.async copies 16-byte chunks
+            raise ValueError(f"{name}: tensor data is not 16-byte aligned")
+    bh, n, d = qf.shape
+    if d != 64 or n % 64 or n == 0:
+        raise ValueError(f"{name}: kernel takes D=64 and N a multiple of 64, got "
+                         f"{tuple(qf.shape)}")
+    for t in (lse, dd):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (bh, n) or t.device != qf.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: lse and D must be contiguous fp32 ({bh}, {n}) on "
+                             f"{qf.device}, 16-byte aligned")
+    with torch.cuda.device(qf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_symbol(symbol)(*(t.data_ptr() for t in (*ins, *outs)), bh, n,
+                                  float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def flash_bwd_dq(qf, kf, vf, dof, lse, dd, scale: float) -> torch.Tensor:
+    """dq of the backward: the ``flash_bwd_dq`` kernel on CUDA tensors
+    (``_dq_kernel``), :func:`plain_bwd`'s dq on CPU tensors."""
+    if qf.device.type == "cpu":
+        return plain_bwd(qf, kf, vf, dof, lse, dd, scale)[0]
+    dq = torch.empty_like(qf)
+    _launch_bwd("flash_bwd_dq", "edtr_flash_bwd_dq_d64", (qf, kf, vf, dof, lse, dd), (dq,),
+                scale)
+    launches["flash_bwd_dq"] += 1
+    shapes[("flash_bwd_dq", *qf.shape)] += 1
+    return dq
+
+
+def flash_bwd_dkv(qf, kf, vf, dof, lse, dd, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the backward: the ``flash_bwd_dkv`` kernel on CUDA
+    tensors (``_dkv_kernel``), :func:`plain_bwd`'s on CPU tensors."""
+    if qf.device.type == "cpu":
+        return plain_bwd(qf, kf, vf, dof, lse, dd, scale)[1:]
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    _launch_bwd("flash_bwd_dkv", "edtr_flash_bwd_dkv_d64", (qf, kf, vf, dof, lse, dd),
+                (dk, dv), scale)
+    launches["flash_bwd_dkv"] += 1
+    shapes[("flash_bwd_dkv", *qf.shape)] += 1
+    return dk, dv
+
+
+def whole_bwd(qf, kf, vf, dof, lse, dd, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) at N <= 1024 (``_whole_bwd_flat``): on CUDA tensors the
+    dq and dkv kernels, counted as one call; :func:`plain_bwd` on CPU
+    tensors."""
+    if qf.device.type == "cpu":
+        return plain_bwd(qf, kf, vf, dof, lse, dd, scale)
+    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
+    ins = (qf, kf, vf, dof, lse, dd)
+    _launch_bwd("whole_bwd", "edtr_flash_bwd_dq_d64", ins, (dq,), scale)
+    _launch_bwd("whole_bwd", "edtr_flash_bwd_dkv_d64", ins, (dk, dv), scale)
+    launches["whole_bwd"] += 1
+    shapes[("whole_bwd", *qf.shape)] += 1
+    return dq, dk, dv
+
+
+def flash_bwd(qf, kf, vf, dof, lse, dd, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_flash_bwd_flat``: :func:`flash_bwd_dq` then :func:`flash_bwd_dkv`."""
+    return (flash_bwd_dq(qf, kf, vf, dof, lse, dd, scale),
+            *flash_bwd_dkv(qf, kf, vf, dof, lse, dd, scale))
+
+
+BWD = {"plain_bwd": plain_bwd, "whole_bwd": whole_bwd, "flash_bwd": flash_bwd}
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``jax.custom_vjp`` of ``edtr_tpu``'s ``flash_attention`` on flat
+    (BH, N, D) tensors: ``_fwd`` saves q, k, v, the output and lse; ``_bwd``
+    computes D from the saved output and dispatches by (N, D)."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, scale):
+        out, lse = FWD[kernel_for(qf.shape[1], qf.shape[2])](qf, kf, vf, scale)
+        ctx.save_for_backward(qf, kf, vf, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qf, kf, vf, out, lse = ctx.saved_tensors
+        dof = dout.to(out.dtype).contiguous()
+        # D_i = sum_d dO_i O_i, the softmax-jacobian row correction
+        dd = (dof.float() * out.float()).sum(-1)
+        grads = BWD[bwd_kernel_for(qf.shape[1], qf.shape[2])](
+            qf, kf, vf, dof, lse, dd, ctx.scale)
+        return (*grads, None)
+
+
 def _to_flat(x: torch.Tensor) -> torch.Tensor:
     b, n, h, d = x.shape
     return x.transpose(1, 2).reshape(b * h, n, d).contiguous()
@@ -169,8 +336,8 @@ def _from_flat(xf: torch.Tensor, b: int, h: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """(B, N, H, D) -> (B, N, H, D): the forward of
-    ``edtr_tpu.ops.flash_attention.flash_attention`` (inference only)."""
+    """(B, N, H, D) -> (B, N, H, D): ``edtr_tpu.ops.flash_attention.
+    flash_attention``, differentiable in q, k and v."""
     b, n, h, d = q.shape
-    out, _ = FWD[kernel_for(n, d)](_to_flat(q), _to_flat(k), _to_flat(v), scale)
+    out = _FlashAttention.apply(_to_flat(q), _to_flat(k), _to_flat(v), scale)
     return _from_flat(out, b, h)

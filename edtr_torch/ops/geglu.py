@@ -144,6 +144,7 @@ def geglu_proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     not given)."""
     if x.device.type == "cpu":
         return plain_geglu_proj(x, w, b)
+    _cuda.forward_only("geglu_proj", x, w, b)
     return _launch("geglu_proj", x, w, b, w_packed)
 
 
@@ -155,4 +156,5 @@ def ln_geglu_proj(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
     reach device memory), :func:`plain_ln_geglu_proj` on CPU tensors."""
     if x.device.type == "cpu":
         return plain_ln_geglu_proj(x, ln_s, ln_b, w, b, eps)
+    _cuda.forward_only("ln_geglu_proj", x, ln_s, ln_b, w, b)
     return _launch("ln_geglu_proj", x, w, b, w_packed, (ln_s, ln_b), eps)

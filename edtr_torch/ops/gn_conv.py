@@ -32,6 +32,13 @@ reads ``w_packed``, a bf16 (3, 3, Cout, Cin) copy (:func:`pack_weight`) that
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 activations, fp32
 ``mul``/``add``/bias, Cin a multiple of 32 and Cout a multiple of 64.
+
+:func:`gn_silu_conv` and :func:`upsample_conv` are differentiable, on both
+devices: each is a ``torch.autograd.Function`` (JAX's ``custom_vjp``s,
+``gn_conv.py:_fwd/_bwd`` and ``_ups_fwd/_ups_bwd``) whose forward is the
+wrapper and whose backward is JAX's recompute: ``torch.autograd.grad`` of
+the plain version at the saved inputs. Gradients reach every tensor input
+but ``w_packed``, a cached detached copy of ``w``.
 """
 
 from __future__ import annotations
@@ -218,14 +225,7 @@ def _launch(name: str, mode: int, bm: int, xh: torch.Tensor, wp: torch.Tensor,
     return out
 
 
-def gn_silu_conv(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
-                 w: torch.Tensor, b: torch.Tensor, emb: Optional[torch.Tensor] = None,
-                 res: Optional[torch.Tensor] = None, *,
-                 w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``conv3x3(silu(x*mul + add)) + b [+ emb] [+ res]`` (pad 1): the
-    ``gn_conv_whole``/``gn_conv_band`` kernel on CUDA tensors,
-    :func:`plain_gn_silu_conv` on CPU tensors. ``w_packed``: the bf16
-    :func:`pack_weight` of ``w`` (made here, per call, when not given)."""
+def _gn_silu_conv(x, mul, add, w, b, emb, res, w_packed) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain_gn_silu_conv(x, mul, add, w, b, emb, res)
     batch, cin, h, wd = x.shape
@@ -241,12 +241,7 @@ def gn_silu_conv(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
     return out
 
 
-def upsample_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                  act: Optional[str] = None, *,
-                  w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``act(conv3x3(nearest2x(x)) + b)`` (pad 1), (B, Cin, H, W) ->
-    (B, Cout, 2H, 2W): the ``upsample_conv`` kernel on CUDA tensors,
-    :func:`plain_upsample_conv` on CPU tensors."""
+def _upsample_conv(x, w, b, act, w_packed) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain_upsample_conv(x, w, b, act)
     if act not in (None, "lrelu"):
@@ -257,3 +252,65 @@ def upsample_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   (2 * h, 2 * wd), lrelu=act == "lrelu")
     shapes[("upsample_conv", batch, cin, 2 * h, 2 * wd, wp.shape[2], False, False, act)] += 1
     return out
+
+
+def _recompute_grads(ctx, plain, grad: torch.Tensor, *args) -> tuple:
+    """JAX's recompute backward: the gradients of ``plain(*args)`` at the
+    saved inputs, for the tensor inputs that need one (None for the rest)."""
+    want = [i for i, a in enumerate(args)
+            if isinstance(a, torch.Tensor) and ctx.needs_input_grad[i]]
+    with torch.enable_grad():
+        live = [a.detach().requires_grad_(i in want) if isinstance(a, torch.Tensor) else a
+                for i, a in enumerate(args)]
+        out = plain(*live)
+        got = torch.autograd.grad(out, [live[i] for i in want], grad) if want else ()
+    grads = [None] * len(args)
+    for i, g in zip(want, got):
+        grads[i] = g
+    return tuple(grads)
+
+
+class _GnSiluConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mul, add, w, b, emb, res, w_packed):
+        ctx.save_for_backward(x, mul, add, w, b, emb, res)
+        return _gn_silu_conv(x, mul, add, w, b, emb, res, w_packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _recompute_grads(ctx, plain_gn_silu_conv, grad, *ctx.saved_tensors) + (None,)
+
+
+class _UpsampleConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, act, w_packed):
+        ctx.save_for_backward(x, w, b)
+        ctx.act = act
+        return _upsample_conv(x, w, b, act, w_packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w, b = ctx.saved_tensors
+        return _recompute_grads(ctx, plain_upsample_conv, grad, x, w, b, ctx.act) + (None,)
+
+
+def gn_silu_conv(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                 w: torch.Tensor, b: torch.Tensor, emb: Optional[torch.Tensor] = None,
+                 res: Optional[torch.Tensor] = None, *,
+                 w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv3x3(silu(x*mul + add)) + b [+ emb] [+ res]`` (pad 1): the
+    ``gn_conv_whole``/``gn_conv_band`` kernel on CUDA tensors,
+    :func:`plain_gn_silu_conv` on CPU tensors; differentiable (the plain
+    version's gradients). ``w_packed``: the bf16 :func:`pack_weight` of
+    ``w`` (made here, per call, when not given)."""
+    return _GnSiluConv.apply(x, mul, add, w, b, emb, res, w_packed)
+
+
+def upsample_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  act: Optional[str] = None, *,
+                  w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act(conv3x3(nearest2x(x)) + b)`` (pad 1), (B, Cin, H, W) ->
+    (B, Cout, 2H, 2W): the ``upsample_conv`` kernel on CUDA tensors,
+    :func:`plain_upsample_conv` on CPU tensors; differentiable (the plain
+    version's gradients)."""
+    return _UpsampleConv.apply(x, w, b, act, w_packed)

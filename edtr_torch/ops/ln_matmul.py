@@ -106,6 +106,7 @@ def ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
     call, when not given)."""
     if x.device.type == "cpu":
         return plain_ln_matmuls(x, ln_s, ln_b, ws, eps)
+    _cuda.forward_only("ln_matmuls", x, ln_s, ln_b, *ws)
     b, n, c = x.shape
     k, o = len(ws), ws[0].shape[0]
     if not 1 <= k <= 3 or any(tuple(w.shape) != (o, c) for w in ws) or o % 64:
@@ -141,6 +142,7 @@ def affine_matmul(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
     bf16 copy of ``w`` (made here, per call, when not given)."""
     if x.device.type == "cpu":
         return plain_affine_matmul(x, mul, add, w, b)
+    _cuda.forward_only("affine_matmul", x, mul, add, w, b)
     bsz, n, c = x.shape
     o = w.shape[0]
     if tuple(w.shape) != (o, c) or o % 64:

@@ -168,6 +168,7 @@ def swin_pre(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor, wqkv: torc
     bf16 copy of ``wqkv`` (made here, per call, when not given)."""
     if x.device.type == "cpu":
         return plain_swin_pre(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps)
+    _cuda.forward_only("swin_pre", x, ln_s, ln_b, wqkv, bqkv)
     _check_tokens("swin_pre", x, h, w, win)
     b, l, c = x.shape
     dev = x.device
@@ -200,6 +201,7 @@ def swin_post(attn: torch.Tensor, xr: torch.Tensor, wproj: torch.Tensor,
     if xr.device.type == "cpu":
         return plain_swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win,
                                eps)
+    _cuda.forward_only("swin_post", attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2)
     _check_tokens("swin_post", xr, h, w, win)
     b, l, c = xr.shape
     hidden = w1.shape[0]

@@ -94,6 +94,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return plain_window_attention(q, k, v, bias.float(), mask, scale)
+    _cuda.forward_only("window_attention", q, k, v, bias, mask)
     _check_qkv(q, k, v)
     bw, n, h, d = q.shape
     dev = q.device

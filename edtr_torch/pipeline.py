@@ -33,13 +33,22 @@ the port's three Swin kernels in rolled token space
 (``edtr_torch/ops/{swin_block,window_attention}.py``), JAX's SwinIR with
 ``swin_block._FORCE_KERNEL`` and ``EDTR_WINDOW_ATTN=pallas``; False runs
 the module path. The modules are the same in every configuration, so all
-load the same state dicts.
+load the same state dicts. ``EDTRPipeline.configuration()`` enters all
+three around any other call, as the training step does around its forward
+and its backward.
+
+``build_flagship(train=True)`` is the model of
+``__graft_entry__._flagship_pipeline(train=True)``: UNet and ControlNet
+ResBlocks and transformers, and the VAE decoder's ResnetBlocks, recompute
+their activations in the backward (``use_checkpoint``). The training step
+is ``edtr_torch.train.edtr_step``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
@@ -94,8 +103,7 @@ def _in_config(stage):
     configurations."""
     @functools.wraps(stage)
     def run(self, *args, **kwargs):
-        with (conv_config(self.fused_conv), proj_config(self.fused_proj),
-              swin_config(self.fused_swin)):
+        with self.configuration():
             return stage(self, *args, **kwargs)
     return run
 
@@ -124,6 +132,14 @@ class EDTRPipeline(nn.Module):
         self.used_timesteps = edtr_used_timesteps(start_timestep, num_timesteps)
         self.schedule = make_spaced_schedule(diffusion.betas, self.used_timesteps,
                                              self.device)
+
+    @contextlib.contextmanager
+    def configuration(self) -> Iterator[None]:
+        """Every call inside the block runs in the pipeline's conv,
+        projection and Swin configurations (module docstring)."""
+        with (conv_config(self.fused_conv), proj_config(self.fused_proj),
+              swin_config(self.fused_swin)):
+            yield
 
     @torch.no_grad()
     @_in_config
@@ -178,9 +194,12 @@ class EDTRPipeline(nn.Module):
         return dict(restored=_nhwc(restored), pre_restored=_nhwc(pre), z=_nhwc(z))
 
 
-def flagship_configs(tiny: bool = False) -> Dict[str, Any]:
+def flagship_configs(tiny: bool = False, train: bool = False) -> Dict[str, Any]:
     """Model configs of ``__graft_entry__._flagship_pipeline``: SD2.1 /
-    EDTR-s4 dims, or the toy dims of its ``tiny=True``. SwinIR unpadded."""
+    EDTR-s4 dims, or the toy dims of its ``tiny=True``. SwinIR unpadded.
+    At full width, as there, the VAE decoder is trainable and ``train``
+    turns on ``use_checkpoint`` (UNet, ControlNet, VAE decoder); the toy
+    dims set neither."""
     if tiny:
         unet = dict(in_channels=4, out_channels=4, model_channels=32,
                     attention_resolutions=(1,), num_res_blocks=1, channel_mult=(1, 2),
@@ -196,10 +215,11 @@ def flagship_configs(tiny: bool = False) -> Dict[str, Any]:
                     attention_resolutions=(4, 2, 1), num_res_blocks=2,
                     channel_mult=(1, 2, 4, 4), num_head_channels=64,
                     transformer_depth=1, context_dim=1024,
-                    use_linear_in_transformer=True)
-        vae = dict(embed_dim=4, ddconfig=dict(double_z=True, z_channels=4, in_channels=3,
-                                              out_ch=3, ch=128, ch_mult=[1, 2, 4, 4],
-                                              num_res_blocks=2))
+                    use_linear_in_transformer=True, use_checkpoint=train)
+        vae = dict(embed_dim=4, train_decoder=True,
+                   ddconfig=dict(double_z=True, z_channels=4, in_channels=3, out_ch=3,
+                                 ch=128, ch_mult=[1, 2, 4, 4], num_res_blocks=2,
+                                 use_checkpoint=train))
         swinir = dict(embed_dim=180, depths=(6,) * 8, num_heads=(6,) * 8,
                       window_size=8, mlp_ratio=2, sf=8)
     controlnet = {k: v for k, v in unet.items() if k != "out_channels"}
@@ -211,13 +231,14 @@ def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bflo
                    device: Optional[torch.device | str] = None,
                    fused_conv: bool = FUSED_CONV_DEFAULT,
                    fused_proj: bool = FUSED_PROJ_DEFAULT,
-                   fused_swin: bool = FUSED_SWIN_DEFAULT) -> EDTRPipeline:
+                   fused_swin: bool = FUSED_SWIN_DEFAULT, train: bool = False) -> EDTRPipeline:
     """The EDTR-s4 restore pipeline (start t=200, 4 steps), weights as
     initialised by the constructors: load a state dict or randomise them.
     ``fused_conv``, ``fused_proj``, ``fused_swin``: the configurations
-    (module docstring)."""
+    (module docstring); ``train``: the training model
+    (:func:`flagship_configs`)."""
     device = resolve_device(device)
-    cfg = flagship_configs(tiny)
+    cfg = flagship_configs(tiny, train)
     with torch.device(device):
         swinir = SwinIR(dtype=dtype, **cfg["swinir"])
         cldm = ControlLDM(cfg["unet"], cfg["vae"], cfg["controlnet"],

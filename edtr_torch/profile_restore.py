@@ -1,15 +1,16 @@
-"""Where a restore spends its time on the card: a ``torch.profiler`` trace
-summarised per stage.
+"""Where a restore or a training step spends its time on the card: a
+``torch.profiler`` trace summarised per stage.
 
-:func:`trace_restores` runs a caller's restore chain under the profiler; the
-chain puts each stage under a ``record_function`` range named as
-``bench.py:_run_split`` names them (:data:`STAGES`). :func:`summarise`
-reads the Chrome trace: per stage the host ms, the device-busy ms (union of
-kernel intervals), the idle share, the kernel count and the host-to-device
-copies (each one a stall of the host: a copy from pageable memory
-synchronises the stream); the device time by kernel family; and the top
-kernels by device time. ``chip_smoke.py`` prints
-it for the full-width 512² restore.
+:func:`trace_restores` runs a caller's chain (one restore, or one training
+step) under the profiler; the chain puts each stage under a
+``record_function`` range: a restore's named as ``bench.py:_run_split``
+names them (:data:`STAGES`), a training step's :data:`TRAIN_STAGES`.
+:func:`summarise` reads the Chrome trace: per stage the host ms, the
+device-busy ms (union of kernel intervals), the idle share, the kernel
+count and the host-to-device copies (each one a stall of the host: a copy
+from pageable memory synchronises the stream); the device time by kernel
+family; and the top kernels by device time. ``chip_smoke.py`` prints it for
+the full-width 512² restore and training step.
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ import json
 import os
 import tempfile
 from collections import defaultdict
-from typing import Callable
+from typing import Callable, Sequence
+
+# a training step's ranges, set inside the step: frozen SwinIR + encode and
+# the loss's forward, the backward (recomputes included), the optimizer
+from edtr_torch.train.edtr_step import STAGES as TRAIN_STAGES
 
 STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # kernel family by substring of the kernel name, first match wins: the
@@ -26,7 +31,8 @@ STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # nor "proj_gemm_kernel" as cuBLAS's
 FAMILIES = (
     ("swin (edtr_torch)", ("window_attention_kernel", "swin_pre_kernel", "swin_post_kernel")),
-    ("flash (edtr_torch)", ("flash_fwd_d64", "flash_fwd_d512")),
+    ("flash (edtr_torch)", ("flash_fwd_d64", "flash_fwd_d512", "flash_bwd_dq",
+                            "flash_bwd_dkv")),
     ("gn_conv (edtr_torch)", ("conv3x3_kernel",)),
     ("proj (edtr_torch)", ("proj_gemm_kernel",)),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "nhwc", "nchw")),
@@ -55,18 +61,21 @@ def _union_ms(intervals) -> float:
     return busy / 1e3
 
 
-def summarise(trace: dict) -> dict:
+def summarise(trace: dict, stages: Sequence[str] = STAGES) -> dict:
+    """The summary of a trace of runs of a chain whose stages are
+    ``stages``, per run (the runs counted by their first stage; the
+    ``*_per_restore`` keys are per run, a restore or a training step)."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     ranges = [e for e in events if e.get("cat") == "user_annotation"
-              and e.get("name") in STAGES]
+              and e.get("name") in stages]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
     # host timestamp of the runtime call that launched each kernel
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-    n_runs = max(1, sum(r["name"] == STAGES[0] for r in ranges))
-    stages = {}
-    for stage in STAGES:
+    n_runs = max(1, sum(r["name"] == stages[0] for r in ranges))
+    per_stage = {}
+    for stage in stages:
         wins = [(r["ts"], r["ts"] + r["dur"]) for r in ranges if r["name"] == stage]
         # a kernel or copy belongs to the stage whose host range issued it
         def issued(e):
@@ -75,10 +84,10 @@ def summarise(trace: dict) -> dict:
         ks = [k for k in kernels if issued(k)]
         wall = sum(b - a for a, b in wins) / 1e3
         busy = _union_ms((k["ts"], k["ts"] + k["dur"]) for k in ks)
-        stages[stage] = dict(host_ms=wall / n_runs, device_busy_ms=busy / n_runs,
-                             idle_share=1 - busy / wall if wall else None,
-                             kernels=len(ks) // n_runs,
-                             htod_memcpy=sum(issued(e) for e in htod) / n_runs)
+        per_stage[stage] = dict(host_ms=wall / n_runs, device_busy_ms=busy / n_runs,
+                                idle_share=1 - busy / wall if wall else None,
+                                kernels=len(ks) // n_runs,
+                                htod_memcpy=sum(issued(e) for e in htod) / n_runs)
     by_family, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for k in kernels:
         by_family[_family(k["name"])] += k["dur"] / 1e3 / n_runs
@@ -86,7 +95,7 @@ def summarise(trace: dict) -> dict:
         by_name[k["name"]][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return dict(
-        stages=stages,
+        stages=per_stage,
         device_ms_per_restore=sum(by_family.values()),
         kernels_per_restore=len(kernels) // n_runs,
         by_family_ms=dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
@@ -94,9 +103,11 @@ def summarise(trace: dict) -> dict:
                      for n, v in top])
 
 
-def trace_restores(chain: Callable[[], None], iters: int) -> dict:
-    """:func:`summarise` of ``iters`` calls of ``chain`` (one restore, its
-    stages under :data:`STAGES` ranges) traced on the host and the card."""
+def trace_restores(chain: Callable[[], None], iters: int,
+                   stages: Sequence[str] = STAGES) -> dict:
+    """:func:`summarise` of ``iters`` calls of ``chain`` (one restore or one
+    training step, its stages under ``stages`` ranges) traced on the host
+    and the card."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -107,6 +118,6 @@ def trace_restores(chain: Callable[[], None], iters: int) -> dict:
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return summarise(json.load(f))
+            return summarise(json.load(f), stages)
     finally:
         os.remove(path)

@@ -112,7 +112,7 @@ def test_port_imports_no_jax():
                 "edtr_torch.ops.flash_attention", "edtr_torch.ops.gn_conv",
                 "edtr_torch.ops.ln_matmul", "edtr_torch.ops.geglu",
                 "edtr_torch.ops.window_attention", "edtr_torch.ops.swin_block",
-                "edtr_torch.utils.convert"):
+                "edtr_torch.train.edtr_step", "edtr_torch.utils.convert"):
         assert mod in res.stdout
 
 

@@ -363,7 +363,8 @@ def test_chip_smoke_lists_every_kernel():
     import chip_smoke
     from edtr_torch.ops import flash_attention as FA
 
-    listed = list(chip_smoke.KERNELS) + list(chip_smoke.CONV_KERNELS)
+    listed = (list(chip_smoke.KERNELS) + list(chip_smoke.BWD_KERNELS)
+              + list(chip_smoke.CONV_KERNELS))
     assert sorted(listed) == sorted(list(FA.launches) + list(G.launches))
     assert chip_smoke.KERNELS["flash_fwd"][2] is None  # held, not launched at 512²
     assert [n for _, n in chip_smoke.CONV_KERNELS.values()] == [88, 216, 18]

@@ -1,7 +1,9 @@
 """edtr_torch's kernel wrappers on the card: a CUDA tensor at a supported
 shape launches the hand-written kernel (its launch count rises by one), and
 one no kernel takes raises. (``chip_smoke.py`` holds each kernel against its
-plain version.)
+plain version.) The flash backward wrappers match ``plain_bwd``; the K5/K6
+autograd Functions give the plain versions' gradients; a wrapper whose
+kernel has no backward raises on a path that asks for a gradient.
 The kernels have no CPU mode: without a card this test skips. This file
 imports no JAX, so on a card host without JAX it runs alone, without the
 suite's conftest:
@@ -174,3 +176,134 @@ def test_swin_unsupported_raises():
         WA.window_attention(q.float(), k.float(), v.float(), bias)
     with pytest.raises(ValueError):  # 16 tokens a window (window 4)
         WA.window_attention(q[:, :16], k[:, :16], v[:, :16], bias[:, :16, :16])
+
+
+# flash backward vs plain_bwd: both round p and dS to bf16 at the same places
+# and accumulate in fp32 in other orders, so a right kernel differs by about
+# a bf16 ulp of the largest gradient (chip_smoke.py's limits)
+TOL_BWD_MAX = 2.0 ** -6
+TOL_BWD_L2 = 1e-2
+
+
+def _bwd_args(bh, n, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((bh, n, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    out, lse = F.plain_fwd(q, k, v, 0.125)
+    dd = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, lse, dd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bh,n", [("whole_bwd", 4, 1024), ("whole_bwd", 2, 256),
+                                       ("flash_bwd", 2, 2048), ("flash_bwd", 1, 4096)])
+def test_flash_bwd_matches_plain(name, bh, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    args = _bwd_args(bh, n)
+    before = dict(F.launches)
+    got = F.BWD[name](*args, 0.125)
+    want = F.plain_bwd(*args, 0.125)
+    torch.cuda.synchronize()
+    launched = {k: F.launches[k] - before[k] for k in before}
+    assert launched == {k: int(k == name or (name == "flash_bwd" and k.startswith("flash_bwd")))
+                        for k in before}
+    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert err <= TOL_BWD_MAX * b.float().abs().max().item(), (what, err)
+        assert rel <= TOL_BWD_L2, (what, rel)
+
+
+# the Function against autograd through plain_attention: autograd rounds dP
+# to bf16 (the gradient of the bf16 probabilities) and takes dS from the
+# fp32 softmax, where the kernels keep dP in fp32 and round dS; each is a
+# bf16 ulp of an element here and there, so the limits are the kernel
+# limits with twice the max abs error
+TOL_FN_MAX = 2.0 ** -5
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_launches_the_kernels():
+    """Attention at a flash shape under grad: the forward and backward
+    kernels launch once each, and the gradients reaching q, k and v through
+    the Function (the (B, N, H, D) <-> (BH, N, D) moves, dO made contiguous,
+    D from the saved output) match autograd through the plain math."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n, launched in ((4096, ("wholekv_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                        (1024, ("whole_fwd", "whole_bwd"))):
+        q, k, v = (torch.randn((2, n, 3, 64), generator=g, device="cuda",
+                               dtype=torch.bfloat16).requires_grad_() for _ in range(3))
+        # a non-uniform cotangent, not contiguous in the flat layout
+        cot = torch.randn((2, n, 3, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+        before = dict(F.launches)
+        out = A.dot_product_attention(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), cot)
+        torch.cuda.synchronize()
+        assert {name: F.launches[name] - before[name] for name in before} == {
+            name: int(name in launched) for name in before}
+        want = torch.autograd.grad(A.plain_attention(q, k, v, 0.125), (q, k, v), cot)
+        for what, a, b in zip(("dq", "dk", "dv"), grads, want):
+            assert a.dtype == torch.bfloat16 and a.shape == q.shape, what
+            assert bool(torch.isfinite(a).all()), what
+            err = (a.float() - b.float()).abs().max().item()
+            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+            assert err <= TOL_FN_MAX * b.float().abs().max().item(), (n, what, err)
+            assert rel <= TOL_BWD_L2, (n, what, rel)
+
+
+def _close_grads(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL_BWD_MAX * b.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,h", [("gn_conv_whole", 8), ("gn_conv_band", 16),
+                                    ("upsample_conv", 8)])
+def test_conv_functions_give_the_plain_gradients(name, h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, mul, add, w, b = (t.requires_grad_() for t in _conv_args(h=h))
+    before = G.launches[name]
+    if name == "upsample_conv":
+        ins = (x, w, b)
+        out = G.upsample_conv(x, w, b)
+        plain = G.plain_upsample_conv(x, w, b)
+    else:
+        emb = torch.randn((1, 64), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+        res = torch.randn(x.shape, device="cuda", dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        ins = (x, mul, add, w, b, emb, res)
+        out = G.gn_silu_conv(*ins)
+        plain = G.plain_gn_silu_conv(*ins)
+    assert G.launches[name] == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, device="cuda", dtype=out.dtype)
+    _close_grads(torch.autograd.grad(out, ins, cot), torch.autograd.grad(plain, ins, cot))
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, s, sh, w, b = _proj_args()
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        LM.ln_matmuls(x, s, sh, [w])
+    with pytest.raises(RuntimeError, match="no backward"):
+        GG.ln_geglu_proj(x, s, sh, w, b)
+    with torch.no_grad():  # inference: the kernel runs
+        LM.ln_matmuls(x, s, sh, [w])
+    xs, pre, post = _swin_args()
+    xs.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        SB.swin_pre(xs, *pre, 16, 16, 8, 0)
+    qkv, xr = SB.swin_pre(xs.detach(), *pre, 16, 16, 8, 0)
+    q, k, v = qkv.view(8, 64, 3, 2, 30).unbind(2)
+    bias = torch.randn((2, 64, 64), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        WA.window_attention(q, k, v, bias)

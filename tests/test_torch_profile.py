@@ -75,3 +75,31 @@ def test_profile_books_the_swin_kernels_and_counts_host_copies():
     assert {s: v["htod_memcpy"] for s, v in stages.items()} == {
         "swinir": 1, "vae_encode": 0, "scan": 1, "decode+wavelet": 0}
     assert stages["swinir"]["kernels"] == 1
+
+
+def test_profile_books_the_backward_kernels_and_takes_a_train_step():
+    from edtr_torch.profile_restore import TRAIN_STAGES
+
+    for name in ("void (anonymous namespace)::flash_bwd_dq_kernel(...)",
+                 "void (anonymous namespace)::flash_bwd_dkv_kernel(...)"):
+        assert _family(name) == "flash (edtr_torch)", name
+    events = []
+    for run in range(2):  # two steps, each forward+loss / backward / optimizer
+        t0 = 1000 * run
+        events += [_x("user_annotation", s, t0 + 100 * i, 100)
+                   for i, s in enumerate(TRAIN_STAGES)]
+        events += [_x("cuda_runtime", "cudaLaunchKernel", t0 + 10, 1, corr=10 * run + 1),
+                   _x("cuda_runtime", "cudaLaunchKernel", t0 + 110, 1, corr=10 * run + 2),
+                   _x("cuda_runtime", "cudaLaunchKernel", t0 + 120, 1, corr=10 * run + 3),
+                   _x("cuda_runtime", "cudaLaunchKernel", t0 + 210, 1, corr=10 * run + 4),
+                   _x("kernel", "flash_fwd_d64_kernel", t0 + 20, 30, corr=10 * run + 1),
+                   _x("kernel", "flash_bwd_dq_kernel", t0 + 130, 20, corr=10 * run + 2),
+                   _x("kernel", "flash_bwd_dkv_kernel", t0 + 150, 30, corr=10 * run + 3),
+                   _x("kernel", "multi_tensor_apply_kernel", t0 + 220, 10, corr=10 * run + 4)]
+    out = summarise({"traceEvents": events}, TRAIN_STAGES)
+    assert set(out["stages"]) == set(TRAIN_STAGES)
+    assert [out["stages"][s]["kernels"] for s in TRAIN_STAGES] == [1, 2, 1]
+    bwd = out["stages"]["backward"]
+    assert abs(bwd["device_busy_ms"] - 0.05) < 1e-9 and abs(bwd["idle_share"] - 0.5) < 1e-9
+    assert abs(out["by_family_ms"]["flash (edtr_torch)"] - 0.08) < 1e-9
+    assert out["kernels_per_restore"] == 4
