@@ -55,19 +55,24 @@ no result line):
 10. the full-width EDTR-s4 training step (``build_flagship(train=True)``,
    ``EDTRTrainState``, ``make_edtr_train_step``; the restore's pipeline is
    freed first) at 512², bs 2, bf16 compute, seeded weights, batch, t and
-   noise: one step's gradients on the kernel path against the plain path
-   (plain attention, stock convs, stock SwinIR) on the same weights, the
-   ControlNet's and the decoder's each within the limit; one step counted
+   noise: one step's gradients on the kernel path, in the pipeline's
+   configuration and again with ``fused_proj`` on (the projection
+   kernels' autograd Functions; counted: exact launches of K8a, K8b and
+   K7b in the forward and the remat recompute), against the plain path
+   (plain attention, stock convs, stock SwinIR, stock projections) on the
+   same weights, the ControlNet's and the decoder's each within the limit;
+   one step counted
    (exact launches of every kernel, the remat recomputes and the backward
    kernels included; the shapes each kernel was launched with), loss and
    gradients finite; 2 warm-up and 5 timed ``step(...)`` calls; peak
    memory; a traced step, whose ranges (set inside the step) split it into
    forward+loss / backward / optimizer; then every trainable parameter
    moved and every frozen one bit-identical;
-11. each forward kernel of the training step (flash, conv, Swin) against its
-   plain version at every bs-2 shape the counted step launched it with, as
-   phases 3, 5 and 7 hold them at the restore's shapes; the step's backward
-   shapes must be those phase 3 held;
+11. each forward kernel of the training step (flash, conv, Swin; the
+   projection kernels of the fused_proj step) against its plain version at
+   every bs-2 shape the counted steps launched it with, as phases 3, 5, 6
+   and 7 hold them at the restore's shapes; the step's backward shapes must
+   be those phase 3 held;
 12. a ``{"kernels": [...]}`` line with every ported kernel, then the result
    line.
 
@@ -138,6 +143,14 @@ TRAIN_LAUNCHES = {
     "window_attention": 48, "swin_pre": 48, "swin_post": 48,
     **{name: n for name, (_, _, n) in BWD_KERNELS.items()},
 }
+# the same step with fused_proj on: every transformer block at >= 256
+# tokens (ControlNet 2 + UNet 5 at each of 4096, 1024 and 256 tokens in the
+# forward, the ControlNet's 2 and the UNet output blocks' 3 again in the
+# remat recompute: 21 + 15 = 36 blocks) runs one affine_matmul, two
+# ln_matmuls (q/k/v, query) and one ln_geglu_proj through the autograd
+# Functions, whose backward recomputes the plain versions
+TRAIN_LAUNCHES_PROJ = {**TRAIN_LAUNCHES, "ln_matmuls": 72, "affine_matmul": 36,
+                       "ln_geglu_proj": 36}
 TRAIN_WARMUP = 2
 TRAIN_TIMED = 5
 # conv wrapper -> (the TPU kernel it replaces, launches in one fused 512²
@@ -598,7 +611,7 @@ def proj_case(device, key, gen) -> dict:
     from edtr_torch.ops import geglu as GG
     from edtr_torch.ops import ln_matmul as LM
     from edtr_torch.ops._norms import ln_f32
-    from edtr_torch.ops._proj import plan
+    from edtr_torch.ops._proj import lnproj_plan, lnproj_stages, plan
 
     name, b, n, c = key[:4]
     bf16 = torch.bfloat16
@@ -680,10 +693,16 @@ def proj_case(device, key, gen) -> dict:
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     # bf16 tokens, outputs and weight; fp32 LN / affine vectors and biases
     t_bytes = ((m * c + m * out_cols + slab * c) * 2 + small_bytes) / PEAK_BYTES * 1e3
-    bm, bn = plan(m, slab)
+    if name in ("ln_matmuls", "ln_geglu_proj"):  # proj_wgmma.cuh: column groups
+        bm, bn, groups = lnproj_plan(m, c, slab, name == "ln_geglu_proj")
+        tile = dict(bm=bm, bn=bn, groups=groups, blocks=(m // bm) * groups,
+                    stages=lnproj_stages(bn, c))
+    else:
+        bm, bn = plan(m, slab)
+        tile = dict(bm=bm, bn=bn, blocks=(m // bm) * (slab // bn))
     row = dict(name=name, shape=dict(b=b, n=n, c=c, cols=out_cols, k=key[5] if len(key) > 5
                                      else 1),
-               tile=dict(bm=bm, bn=bn, blocks=(m // bm) * (slab // bn)),
+               tile=tile,
                max_abs_err=err, out_max=o_max, rel_l2=rel, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, event_ms=event_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1235,31 +1254,53 @@ def train_phase(device) -> dict:
                  c_txt=torch.randn((TRAIN_BATCH, 77, CONTEXT_DIM), generator=g, device=device))
     t, noise = step.draw(torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
 
-    # one step's gradients, kernel path against plain path (plain attention,
-    # stock convs, stock SwinIR), same weights, batch, t and noise
-    loss_k = step.grads(state, batch, t, noise).item()
-    grads_k = {n: p.grad.detach().clone() for n, p in trainable.items()}
-    check(all(bool(torch.isfinite(v).all()) for v in grads_k.values()), "kernel-path grads finite")
-    flags = pipe.fused_conv, pipe.fused_swin
-    pipe.fused_conv = pipe.fused_swin = False
+    # one step's gradients on the plain path (plain attention, stock convs,
+    # stock SwinIR, stock projections), then on the kernel path in the
+    # pipeline's configuration and with fused_proj on, same weights, batch,
+    # t and noise; the fused_proj step counted (counts set to 0 just before
+    # it, read just after)
+    flags = pipe.fused_conv, pipe.fused_proj, pipe.fused_swin
+    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
     with force_plain():
         loss_p = step.grads(state, batch, t, noise).item()
-    pipe.fused_conv, pipe.fused_swin = flags
-    rel = {}
-    for part in ("cldm.controlnet.", "cldm.vae.decoder.", ""):
-        names = [n for n in trainable if n.startswith(part)]
-        num = sum((grads_k[n] - trainable[n].grad).float().pow(2).sum() for n in names)
-        den = sum(trainable[n].grad.float().pow(2).sum() for n in names)
-        rel[part.strip(".") or "all"] = (num / den).sqrt().item()
-    del grads_k
-    cmp = dict(loss_kernel=loss_k, loss_plain=loss_p, loss_rel=abs(loss_k - loss_p) / abs(loss_p),
-               grads_rel_l2=rel, tol_grad_rel_l2=TOL_GRAD_REL, tol_loss_rel=TOL_TRAIN_LOSS)
-    print("train grads kernel path vs plain path (plain attention, stock convs, stock "
-          "SwinIR):", json.dumps(cmp), flush=True)
-    check(math.isfinite(loss_k) and math.isfinite(loss_p), "train losses finite")
-    check(cmp["loss_rel"] <= TOL_TRAIN_LOSS, f"train loss kernel vs plain {cmp['loss_rel']}")
-    for part, r in rel.items():  # each part alone: the decoder's grads do not dilute
-        check(r <= TOL_GRAD_REL, f"train grads kernel vs plain, {part}: relative L2 {r}")
+    grads_p = {n: p.grad.detach().clone() for n, p in trainable.items()}
+    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
+    loss_k = step.grads(state, batch, t, noise).item()
+    grads_k = {n: p.grad.detach().clone() for n, p in trainable.items()}
+    pipe.fused_proj = True
+    zero_counts()
+    loss_kp = step.grads(state, batch, t, noise).item()
+    launches_proj, shapes_proj, _ = read_counts()
+    pipe.fused_proj = flags[1]
+    grads_kp = {n: p.grad.detach().clone() for n, p in trainable.items()}
+    cmp = {}
+    for what, loss, grads in (("kernel", loss_k, grads_k), ("kernel_fused_proj", loss_kp,
+                                                              grads_kp)):
+        check(all(bool(torch.isfinite(v).all()) for v in grads.values()),
+              f"{what}-path grads finite")
+        rel = {}
+        for part in ("cldm.controlnet.", "cldm.vae.decoder.", ""):
+            names = [n for n in trainable if n.startswith(part)]
+            num = sum((grads[n] - grads_p[n]).float().pow(2).sum() for n in names)
+            den = sum(grads_p[n].float().pow(2).sum() for n in names)
+            rel[part.strip(".") or "all"] = (num / den).sqrt().item()
+        cmp[what] = dict(loss=loss, loss_rel=abs(loss - loss_p) / abs(loss_p),
+                         grads_rel_l2=rel)
+    del grads_p, grads_k, grads_kp
+    cmp.update(loss_plain=loss_p, tol_grad_rel_l2=TOL_GRAD_REL, tol_loss_rel=TOL_TRAIN_LOSS,
+               fused_proj_launches=launches_proj)
+    print("train grads kernel path (pipeline configuration; fused_proj on) vs plain path "
+          "(plain attention, stock convs, stock SwinIR, stock projections):", json.dumps(cmp),
+          flush=True)
+    check(math.isfinite(loss_k) and math.isfinite(loss_kp) and math.isfinite(loss_p),
+          "train losses finite")
+    for what in ("kernel", "kernel_fused_proj"):
+        check(cmp[what]["loss_rel"] <= TOL_TRAIN_LOSS,
+              f"train loss {what} vs plain {cmp[what]['loss_rel']}")
+        for part, r in cmp[what]["grads_rel_l2"].items():  # each part alone
+            check(r <= TOL_GRAD_REL, f"train grads {what} vs plain, {part}: relative L2 {r}")
+    check(launches_proj == TRAIN_LAUNCHES_PROJ,
+          f"fused_proj train launches {launches_proj}, want {TRAIN_LAUNCHES_PROJ}")
 
     before = {n: p.detach().clone() for n, p in params.items()}
     for _ in range(TRAIN_WARMUP):
@@ -1309,16 +1350,18 @@ def train_phase(device) -> dict:
                                                  pack_weight(c.weight, torch.bfloat16))]
     check(convs and not stale, f"{len(stale)} of {len(convs)} cached conv weights stale")
     return dict(launches=launches, shapes=shapes, loss_hlf=loss, kernel_vs_plain=cmp,
+                launches_fused_proj=launches_proj, shapes_fused_proj=shapes_proj["proj"],
                 timing=timing, trace=trace, steps=state.step)
 
 
-def train_shape_phase(device, shapes: dict) -> dict:
+def train_shape_phase(device, shapes: dict, proj_shapes: dict) -> dict:
     """Every kernel of the training step held against its plain version at
     each shape the counted step launched it with (bs 2; the phases before
     hold the forward kernels at the restore's bs-1 shapes): the flash
-    forward, conv and Swin kernels here, the backward kernels in
-    :func:`bwd_kernel_phase`, whose shapes must be the step's. Per kernel:
-    shapes held, the largest error over its largest output, and the
+    forward, conv and Swin kernels here, and the projection kernels at the
+    shapes of the fused_proj step (``proj_shapes``); the backward kernels
+    in :func:`bwd_kernel_phase`, whose shapes must be the step's. Per
+    kernel: shapes held, the largest error over its largest output, and the
     launch-weighted device ms per step (kernel, plain, library, bound)."""
     bwd = {key: n for key, n in shapes["flash"].items() if key[0] in BWD_KERNELS}
     want = {(name, *shape): n for name, (shape, _, n) in BWD_KERNELS.items()}
@@ -1334,13 +1377,22 @@ def train_shape_phase(device, shapes: dict) -> dict:
             agg["max_err_share"] = max(agg["max_err_share"], r["err_o"] / r["o_max"])
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 agg[k] += count * r[k]
+    for key, count in sorted(proj_shapes.items(), key=str):
+        r = proj_case(device, key, gen)
+        agg = held.setdefault(key[0], dict(shapes=0, max_err_share=0.0, ms=0.0, plain_ms=0.0,
+                                           library_ms=0.0, bound_ms=0.0))
+        agg["shapes"] += 1
+        agg["max_err_share"] = max(agg["max_err_share"], r["max_abs_err"] / r["out_max"])
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            agg[k] += count * r[k]
     for rows in (conv_kernel_phase(device, shapes["conv"], "training step"),
                  swin_kernel_phase(device, shapes["swin"], "training step")):
         for name, r in rows.items():
             held[name] = {k: r[k] for k in ("shapes", "max_err_share", "ms", "plain_ms",
                                             "library_ms", "bound_ms")}
     print("train shapes held (bs 2, per step):", json.dumps(held), flush=True)
-    launched = {name for name, n in TRAIN_LAUNCHES.items() if n and name not in BWD_KERNELS}
+    launched = {name for name, n in TRAIN_LAUNCHES_PROJ.items()
+                if n and name not in BWD_KERNELS}
     check(set(held) == launched, f"train-shape holds {sorted(held)}, launched {sorted(launched)}")
     return held
 
@@ -1373,13 +1425,15 @@ def main() -> int:
     train = train_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
-    train["held_at_step_shapes"] = train_shape_phase(device, train.pop("shapes"))
+    train["held_at_step_shapes"] = train_shape_phase(device, train.pop("shapes"),
+                                                     train.pop("shapes_fused_proj"))
 
     all_rows = {**rows, **bwd_rows, **conv_rows, **proj_rows, **swin_rows}
     for name, row in all_rows.items():  # from the path that runs it most
         row["launches"] = max([c["launches"][name] for c in counted.values()]
                               + [train["launches"][name]])
         row["launches_train_step"] = train["launches"][name]
+        row["launches_train_step_fused_proj"] = train["launches_fused_proj"][name]
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
     check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
     check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")

@@ -1,5 +1,7 @@
-// The transformer blocks' projection GEMM for Hopper (sm_90a), shared by
-// ln_matmul.cu and geglu.cu: bf16 tokens in, bf16 out, fp32 accumulation.
+// The transformer blocks' projection GEMM for Hopper (sm_90a) on mma.sync,
+// shared by ln_matmul.cu (affine_matmul, K8b) and geglu.cu (geglu_proj,
+// K7a): bf16 tokens in, bf16 out, fp32 accumulation. (The LayerNorm forms,
+// K8a and K7b, run on the wgmma kernel of proj_wgmma.cuh.)
 //
 //   out = EPI(PRO(x) @ W^T)
 //
@@ -12,17 +14,9 @@
 // the transformed tokens never reach device memory (the TPU kernels keep
 // them in VMEM):
 //   PRO_NONE  x as it is;
-//   PRO_LN    LayerNorm: the block's rows' fp32 mean and rstd come from a
-//             first pass over C (a row is <= 2.5 KB and sits in L2), then
-//             ((x - mean) * rstd) * s + b in fp32, rounded to bf16
-//             (edtr_tpu/ops/_norms.py:ln_f32: biased variance, eps inside
-//             the rsqrt);
 //   PRO_AFF   the folded GroupNorm: x * mul + add with the (B, C) fp32 row
 //             of the token's batch, rounded to bf16.
 // Epilogue (EPI):
-//   EPI_STORE round each sum to bf16 once; slab column n goes to output
-//             n / O, column n % O (K = 1..3 outputs of O columns: the
-//             self-attention q/k/v from one concatenated (3*O, C) weight);
 //   EPI_BIAS  round to bf16, then add the bias rounded to bf16, rounded
 //             again (flax Dense: ln_matmul.py:_aff_kernel);
 //   EPI_GEGLU the slab of each warp is half h rows (j) and half gate rows
@@ -55,33 +49,22 @@ constexpr int BK = 32;          // channels per chunk
 constexpr int LDS = BK + 8;     // padded smem row (elements): 80 B, ldmatrix conflict-free
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kStages = 3;      // weight chunks in flight
-enum { PRO_NONE = 0, PRO_LN = 1, PRO_AFF = 2 };
-enum { EPI_STORE = 0, EPI_BIAS = 1, EPI_GEGLU = 2 };
+enum { PRO_NONE = 0, PRO_AFF = 2 };
+enum { EPI_BIAS = 1, EPI_GEGLU = 2 };
 
 struct ProjArgs {
   const bf16* x;        // (M, C) tokens
-  const bf16* w;        // (slab rows, C): K*O (STORE), O (BIAS) or 2*O (GEGLU)
-  const float* ln_s;    // (C) LayerNorm scale and shift (PRO_LN)
-  const float* ln_b;
+  const bf16* w;        // (slab rows, C): O (BIAS) or 2*O (GEGLU)
   const float* mul;     // (M / n_tok, C) folded GroupNorm (PRO_AFF)
   const float* add;
   const float* bias;    // (O) for EPI_BIAS, (2*O) for EPI_GEGLU
-  bf16* out0;           // (M, O) outputs; out1/out2 only for EPI_STORE with K > 1
-  bf16* out1;
-  bf16* out2;
-  int M, C, O;          // rows, channels, columns of each output
+  bf16* out0;           // (M, O) output
+  int M, C, O;          // rows, channels, output columns
   int n_tok;            // tokens per batch element (PRO_AFF)
-  float eps;
 };
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
@@ -120,7 +103,6 @@ __global__ void __launch_bounds__(kThreads) proj_gemm_kernel(const ProjArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // [2][BM][LDS] transformed tokens
   bf16* sB = sA + 2 * BM * LDS;                  // [kStages][BN][LDS] weight chunks
-  __shared__ float s_mean[BM], s_rstd[BM];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp % WARPS_M, wn = warp / WARPS_M;
@@ -136,36 +118,6 @@ __global__ void __launch_bounds__(kThreads) proj_gemm_kernel(const ProjArgs p) {
     }
     return blockIdx.y * BN + r;
   };
-
-  if (PRO == PRO_LN) {  // two-pass fp32 row statistics, one warp per row
-    for (int r = warp; r < BM; r += kThreads / 32) {
-      const bf16* row = p.x + (size_t)(m0 + r) * p.C;
-      float s = 0.f;
-      for (int c = lane * 8; c < p.C; c += 256) {
-        float f[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(row + c)), f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += f[j];
-      }
-      const float mean = warp_sum(s) / (float)p.C;
-      float q = 0.f;
-      for (int c = lane * 8; c < p.C; c += 256) {
-        float f[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(row + c)), f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float d = f[j] - mean;
-          q += d * d;
-        }
-      }
-      const float var = warp_sum(q) / (float)p.C;
-      if (lane == 0) {
-        s_mean[r] = mean;
-        s_rstd[r] = rsqrtf(var + p.eps);
-      }
-    }
-    __syncthreads();
-  }
 
   uint4 a_reg[A_CH];
 
@@ -189,20 +141,11 @@ __global__ void __launch_bounds__(kThreads) proj_gemm_kernel(const ProjArgs p) {
         const int c0 = kc * BK + col;
         float f[8], sc[8], sh[8];
         unpack8(v, f);
-        if (PRO == PRO_LN) {
-          load8f(p.ln_s + c0, sc);
-          load8f(p.ln_b + c0, sh);
-          const float mean = s_mean[row], rstd = s_rstd[row];
+        const size_t b0 = (size_t)((m0 + row) / p.n_tok) * p.C + c0;
+        load8f(p.mul + b0, sc);
+        load8f(p.add + b0, sh);
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            f[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[j], mean), rstd), sc[j]), sh[j]);
-        } else {
-          const size_t b0 = (size_t)((m0 + row) / p.n_tok) * p.C + c0;
-          load8f(p.mul + b0, sc);
-          load8f(p.add + b0, sh);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) f[j] = __fadd_rn(__fmul_rn(f[j], sc[j]), sh[j]);
-        }
+        for (int j = 0; j < 8; ++j) f[j] = __fadd_rn(__fmul_rn(f[j], sc[j]), sh[j]);
         uint32_t* u = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
         for (int j = 0; j < 4; ++j) u[j] = edtr::pack_bf16(f[2 * j], f[2 * j + 1]);
@@ -288,16 +231,9 @@ __global__ void __launch_bounds__(kThreads) proj_gemm_kernel(const ProjArgs p) {
 #pragma unroll
         for (int t = 0; t < NT; ++t) {
           const int n = blockIdx.y * BN + wn * WN + t * 8 + tig * 2;
-          float o0 = acc[mt][t][2 * half], o1 = acc[mt][t][2 * half + 1];
-          if (EPI == EPI_BIAS) {
-            o0 = bf16r(bf16r(o0) + bf16r(p.bias[n]));
-            o1 = bf16r(bf16r(o1) + bf16r(p.bias[n + 1]));
-            *reinterpret_cast<uint32_t*>(p.out0 + m * p.O + n) = edtr::pack_bf16(o0, o1);
-          } else {
-            const int k = n / p.O, col = n - k * p.O;  // O even: a pair never straddles
-            bf16* out = k == 0 ? p.out0 : (k == 1 ? p.out1 : p.out2);
-            *reinterpret_cast<uint32_t*>(out + m * p.O + col) = edtr::pack_bf16(o0, o1);
-          }
+          const float o0 = bf16r(bf16r(acc[mt][t][2 * half]) + bf16r(p.bias[n]));
+          const float o1 = bf16r(bf16r(acc[mt][t][2 * half + 1]) + bf16r(p.bias[n + 1]));
+          *reinterpret_cast<uint32_t*>(p.out0 + m * p.O + n) = edtr::pack_bf16(o0, o1);
         }
       }
     }

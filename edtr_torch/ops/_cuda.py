@@ -7,10 +7,6 @@ the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 kernel or header is rebuilt and a stale library is never loaded. Nothing is
 compiled when a module is imported; :func:`build_all` runs one ``nvcc`` per
 source, all at once.
-
-:func:`forward_only` is the guard of the wrappers whose kernels have no
-backward yet: on a path that asks for a gradient they raise, and never
-return an output cut off from the graph.
 """
 
 from __future__ import annotations
@@ -23,9 +19,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence
 
-import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -90,14 +85,3 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so_path(name)))
             _libs[name] = lib
         return lib
-
-
-def forward_only(name: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Raise if grad mode is on and an input or weight of the ``name``
-    kernel requires grad: its output would carry no gradient (the kernel
-    has no backward yet). Run it under ``torch.no_grad()``, or on a path
-    that trains nothing."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: this kernel has no backward yet, so its output would "
-                           "carry no gradient; call it under torch.no_grad() or use the "
-                           "stock path for training")

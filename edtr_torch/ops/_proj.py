@@ -1,7 +1,7 @@
 """Host side shared by the transformer-projection kernels
-(``ops/ln_matmul.py``, ``ops/geglu.py``; ``csrc/proj_gemm.cuh``): the tile
-plan, the operand checks, the launch's error check, and the fp32-accumulated
-product of the plain versions."""
+(``ops/ln_matmul.py``, ``ops/geglu.py``; ``csrc/proj_gemm.cuh`` and
+``csrc/proj_wgmma.cuh``): the tile plans, the operand checks, the launch's
+error check, and the fp32-accumulated product of the plain versions."""
 
 from __future__ import annotations
 
@@ -12,8 +12,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-BK = 32   # channels per chunk of the kernel's K walk
+BK = 32   # channels per chunk of proj_gemm.cuh's K walk
 SMS = 132  # streaming multiprocessors of an H100 SXM
+# proj_wgmma.cuh: channels per chunk (a 128-byte swizzle row), the shared
+# memory a block may use, and the deepest weight ring
+KC = 64
+SMEM_LIMIT = 232448
+MAX_STAGES = 4
 
 
 def dot32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -37,6 +42,39 @@ def plan(m: int, slab_rows: int) -> Tuple[int, int]:
         else:
             bm = 64
     return bm, bn
+
+
+def lnproj_stages(bn: int, c: int) -> int:
+    """Weight-ring stages of a ``proj_wgmma.cuh`` block (``launch``): as
+    many as shared memory holds beside the resident (64, C) tokens and the
+    output staging, at most :data:`MAX_STAGES`."""
+    fixed = 1024 + -(-c // KC) * 64 * 2 * KC + 8 * 512 + (2 * MAX_STAGES + 2 + 32) * 8
+    return min(MAX_STAGES, (SMEM_LIMIT - fixed) // (bn * 2 * KC))
+
+
+@functools.lru_cache(maxsize=None)
+def lnproj_plan(m: int, c: int, slab_rows: int, geglu: bool) -> Tuple[int, int, int]:
+    """``(bm, bn, groups)`` of a ``proj_wgmma.cuh`` launch over ``m`` token
+    rows of ``c`` channels and ``slab_rows`` weight rows: 160-row weight
+    tiles for K8a (they divide every main-path slab, 320-3840) and 128-row
+    ones for GEGLU (64 h + 64 gate rows), else 64; as many column groups as
+    one wave of blocks takes (one an SM: a block holds most of its shared
+    memory); and 64-row blocks, unless those would leave half the SMs idle:
+    then 32-row ones, which halve the LayerNorm each block does first.
+    Raises ValueError for a C whose tokens do not fit beside a 2-stage
+    ring."""
+    bn = (128 if slab_rows % 128 == 0 else 64) if geglu else (160 if slab_rows % 160 == 0
+                                                               else 64)
+    if lnproj_stages(bn, c) < 2:
+        bn = 64
+    if lnproj_stages(bn, c) < 2:
+        raise ValueError(f"{c} channels do not fit the LayerNorm kernels' shared memory")
+    tiles = slab_rows // bn
+
+    def groups(bm: int) -> int:
+        return min(tiles, max(1, SMS // (m // bm)))
+    bm = 64 if m % 64 == 0 and (m // 64) * groups(64) >= SMS // 2 else 32
+    return bm, bn, groups(bm)
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple,

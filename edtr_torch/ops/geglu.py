@@ -9,8 +9,7 @@ wrapper here, with its own launch count:
   =============  =================================  =========================
   geglu_proj     ``geglu_proj`` (``_kernel``)       proj_gemm_kernel
                                                     <PRO_NONE, EPI_GEGLU>
-  ln_geglu_proj  ``ln_geglu_proj`` (``_ln_kernel``)  proj_gemm_kernel
-                                                    <PRO_LN, EPI_GEGLU>
+  ln_geglu_proj  ``ln_geglu_proj`` (``_ln_kernel``)  lnproj_kernel<EPI_GEGLU>
   =============  =================================  =========================
 
 Both compute ``(x@wh + bh) * gelu_erf(x@wg + bg)`` (``ln_geglu_proj`` on
@@ -18,11 +17,18 @@ LN(x)), where ``wh``/``wg`` and ``bh``/``bg`` are the two halves of the
 FeedForward's packed ``ff.net.0.proj`` Linear: rows [0, inner) and [inner,
 2*inner) of its (2*inner, C) weight. The wrappers take that packed weight
 and bias as the module holds them. The kernels live in
-``edtr_torch/csrc/geglu.cu`` on the GEMM of ``csrc/proj_gemm.cuh``.
+``edtr_torch/csrc/geglu.cu``: ``geglu_proj`` on the mma.sync GEMM of
+``csrc/proj_gemm.cuh``, ``ln_geglu_proj`` on the wgmma GEMM of
+``csrc/proj_wgmma.cuh`` (LayerNorm once per block, weights through a TMA
+ring).
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. :func:`supported` is JAX's rule, so the
-FeedForward takes the split-halves form exactly where JAX does.
+FeedForward takes the split-halves form exactly where JAX does. Both
+wrappers are ``torch.autograd.Function``s whose backward is JAX's recompute
+(``geglu.py:_bwd``/``_ln_bwd``): ``torch.autograd.grad`` of the plain
+version at the saved inputs (``ops/_grad.py``), for every tensor input but
+``w_packed``.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from edtr_torch.ops import _cuda
+from edtr_torch.ops._grad import needs_grad, recompute_grads
 from edtr_torch.ops._norms import ln_f32
-from edtr_torch.ops._proj import (check, check_tokens, dot32, on_device, plan,
+from edtr_torch.ops._proj import (check, check_tokens, dot32, lnproj_plan, on_device, plan,
                                   raise_on_error)
 
 # copies of edtr_tpu/ops/geglu.py's eligibility constants: the kernels take
@@ -97,7 +104,7 @@ def plain_ln_geglu_proj(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _symbol():
     fn = _cuda.load("geglu").edtr_geglu
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -123,9 +130,12 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         check(s, f"{name}: ln_s", torch.float32, (c,), dev)
         check(sh, f"{name}: ln_b", torch.float32, (c,), dev)
     out = torch.empty((bsz, n, inner), device=dev, dtype=torch.bfloat16)
-    bm, bn = plan(bsz * n, 2 * inner)
+    if ln is None:
+        bm, bn, groups = *plan(bsz * n, 2 * inner), 1
+    else:
+        bm, bn, groups = lnproj_plan(bsz * n, c, 2 * inner, True)
     with on_device(dev):
-        err = _symbol()(int(ln is not None), bm, bn, x.data_ptr(),
+        err = _symbol()(int(ln is not None), bm, bn, groups, x.data_ptr(),
                         None if s is None else s.data_ptr(),
                         None if sh is None else sh.data_ptr(), wp.data_ptr(),
                         bias.data_ptr(), out.data_ptr(), bsz * n, c, inner, float(eps),
@@ -136,16 +146,53 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _geglu_proj(x, w, b, w_packed) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return plain_geglu_proj(x, w, b)
+    return _launch("geglu_proj", x, w, b, w_packed)
+
+
+def _ln_geglu_proj(x, ln_s, ln_b, w, b, eps, w_packed) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return plain_ln_geglu_proj(x, ln_s, ln_b, w, b, eps)
+    return _launch("ln_geglu_proj", x, w, b, w_packed, (ln_s, ln_b), eps)
+
+
+class _GegluProj(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, w_packed):
+        ctx.save_for_backward(x, w, b)
+        return _geglu_proj(x, w, b, w_packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_grads(ctx.needs_input_grad, plain_geglu_proj, grad,
+                               ctx.saved_tensors) + (None,)
+
+
+class _LnGegluProj(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, w, b, eps, w_packed):
+        ctx.save_for_backward(x, ln_s, ln_b, w, b)
+        ctx.eps = eps
+        return _ln_geglu_proj(x, ln_s, ln_b, w, b, eps, w_packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_grads(
+            ctx.needs_input_grad,
+            lambda *a: plain_ln_geglu_proj(*a, ctx.eps), grad, ctx.saved_tensors) + (None, None)
+
+
 def geglu_proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(x@wh + bh) * gelu_erf(x@wg + bg)`` (B, N, inner): the
     ``geglu_proj`` kernel on CUDA tensors, :func:`plain_geglu_proj` on CPU
-    tensors. ``w_packed``: the bf16 copy of ``w`` (made here, per call, when
-    not given)."""
-    if x.device.type == "cpu":
-        return plain_geglu_proj(x, w, b)
-    _cuda.forward_only("geglu_proj", x, w, b)
-    return _launch("geglu_proj", x, w, b, w_packed)
+    tensors; differentiable (the plain version's gradients). ``w_packed``:
+    the bf16 copy of ``w`` (made here, per call, when not given)."""
+    if needs_grad(x, w, b):
+        return _GegluProj.apply(x, w, b, w_packed)
+    return _geglu_proj(x, w, b, w_packed)
 
 
 def ln_geglu_proj(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
@@ -153,8 +200,8 @@ def ln_geglu_proj(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
                   w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`geglu_proj` of LN(x), ``x`` the pre-norm residual stream: the
     ``ln_geglu_proj`` kernel on CUDA tensors (the normalised tokens never
-    reach device memory), :func:`plain_ln_geglu_proj` on CPU tensors."""
-    if x.device.type == "cpu":
-        return plain_ln_geglu_proj(x, ln_s, ln_b, w, b, eps)
-    _cuda.forward_only("ln_geglu_proj", x, ln_s, ln_b, w, b)
-    return _launch("ln_geglu_proj", x, w, b, w_packed, (ln_s, ln_b), eps)
+    reach device memory), :func:`plain_ln_geglu_proj` on CPU tensors;
+    differentiable (the plain version's gradients)."""
+    if needs_grad(x, ln_s, ln_b, w, b):
+        return _LnGegluProj.apply(x, ln_s, ln_b, w, b, eps, w_packed)
+    return _ln_geglu_proj(x, ln_s, ln_b, w, b, eps, w_packed)

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from edtr_torch.ops import _cuda
+from edtr_torch.ops._grad import recompute_grads
 
 BAND_MIN_H = 16   # ``_call``: h >= 16 takes the row-band tier
 BK = 32           # input channels per chunk of the kernel's K walk
@@ -254,22 +255,6 @@ def _upsample_conv(x, w, b, act, w_packed) -> torch.Tensor:
     return out
 
 
-def _recompute_grads(ctx, plain, grad: torch.Tensor, *args) -> tuple:
-    """JAX's recompute backward: the gradients of ``plain(*args)`` at the
-    saved inputs, for the tensor inputs that need one (None for the rest)."""
-    want = [i for i, a in enumerate(args)
-            if isinstance(a, torch.Tensor) and ctx.needs_input_grad[i]]
-    with torch.enable_grad():
-        live = [a.detach().requires_grad_(i in want) if isinstance(a, torch.Tensor) else a
-                for i, a in enumerate(args)]
-        out = plain(*live)
-        got = torch.autograd.grad(out, [live[i] for i in want], grad) if want else ()
-    grads = [None] * len(args)
-    for i, g in zip(want, got):
-        grads[i] = g
-    return tuple(grads)
-
-
 class _GnSiluConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mul, add, w, b, emb, res, w_packed):
@@ -278,7 +263,8 @@ class _GnSiluConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _recompute_grads(ctx, plain_gn_silu_conv, grad, *ctx.saved_tensors) + (None,)
+        return recompute_grads(ctx.needs_input_grad, plain_gn_silu_conv, grad,
+                               ctx.saved_tensors) + (None,)
 
 
 class _UpsampleConv(torch.autograd.Function):
@@ -291,7 +277,8 @@ class _UpsampleConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, w, b = ctx.saved_tensors
-        return _recompute_grads(ctx, plain_upsample_conv, grad, x, w, b, ctx.act) + (None,)
+        return recompute_grads(ctx.needs_input_grad, plain_upsample_conv, grad,
+                               (x, w, b, ctx.act)) + (None,)
 
 
 def gn_silu_conv(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,

@@ -7,14 +7,16 @@ wrapper here, with its own launch count:
   =============  ====================================  =====================
   wrapper        replaces (edtr_tpu/ops/ln_matmul.py)  CUDA kernel
   =============  ====================================  =====================
-  ln_matmuls     ``ln_matmuls`` (``_kernel``)          proj_gemm_kernel
-                                                       <PRO_LN, EPI_STORE>
+  ln_matmuls     ``ln_matmuls`` (``_kernel``)          lnproj_kernel
+                                                       <EPI_STORE>
   affine_matmul  ``affine_matmul`` (``_aff_kernel``)   proj_gemm_kernel
                                                        <PRO_AFF, EPI_BIAS>
   =============  ====================================  =====================
 
-The kernels live in ``edtr_torch/csrc/ln_matmul.cu`` on the GEMM of
-``csrc/proj_gemm.cuh`` (see its header for the design). Tokens are (B, N, C)
+The kernels live in ``edtr_torch/csrc/ln_matmul.cu``: ``ln_matmuls`` on the
+wgmma GEMM of ``csrc/proj_wgmma.cuh`` (LayerNorm once per block, weights
+through a TMA ring), ``affine_matmul`` on the mma.sync GEMM of
+``csrc/proj_gemm.cuh`` (see their headers for the designs). Tokens are (B, N, C)
 with C contiguous, weights in nn.Linear layout (out, in): the module's fp32
 weights for the plain versions, and for the kernels ``w_packed``, a bf16
 copy (for K = 3 the (3*O, C) concatenation of q/k/v) that the modules cache
@@ -24,6 +26,14 @@ A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 tokens with N a
 multiple of :data:`SEQ_TILE` (:func:`supported`, JAX's rule), C a multiple
 of 32 and O a multiple of 64.
+
+Both wrappers are differentiable, on both devices: each is a
+``torch.autograd.Function`` (JAX's ``custom_vjp``s, ``ln_matmul.py:_fwd/_bwd``
+and ``_aff_fwd/_aff_bwd``) whose backward is JAX's recompute,
+``torch.autograd.grad`` of the plain version at the saved inputs
+(``ops/_grad.py``). Gradients reach every tensor input but ``w_packed``, a
+cached detached copy of the weights; an output given no gradient counts as
+zero.
 """
 
 from __future__ import annotations
@@ -36,8 +46,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from edtr_torch.ops import _cuda
+from edtr_torch.ops._grad import needs_grad, recompute_grads
 from edtr_torch.ops._norms import ln_f32
-from edtr_torch.ops._proj import (check, check_tokens, dot32, on_device, plan,
+from edtr_torch.ops._proj import (check, check_tokens, dot32, lnproj_plan, on_device, plan,
                                   raise_on_error)
 
 # the token counts the kernels take: a copy of edtr_tpu/ops/ln_matmul.py's
@@ -86,7 +97,7 @@ def _symbol(name: str):
     lib = _cuda.load("ln_matmul")
     if name == "ln_matmuls":
         fn = lib.edtr_ln_matmul
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
     else:
         fn = lib.edtr_affine_matmul
@@ -96,17 +107,9 @@ def _symbol(name: str):
     return fn
 
 
-def ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
-               ws: Sequence[torch.Tensor], eps: float = 1e-5, *,
-               w_packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
-    """``tuple(LN(x) @ w.T for w in ws)``, K = len(ws) in 1..3 weights of
-    the same (O, C): the ``ln_matmuls`` kernel on CUDA tensors (K contiguous
-    (B, N, O) outputs), :func:`plain_ln_matmuls` on CPU tensors.
-    ``w_packed``: the (K*O, C) bf16 concatenation of ``ws`` (made here, per
-    call, when not given)."""
+def _ln_matmuls(x, ln_s, ln_b, ws, eps, w_packed) -> Tuple[torch.Tensor, ...]:
     if x.device.type == "cpu":
         return plain_ln_matmuls(x, ln_s, ln_b, ws, eps)
-    _cuda.forward_only("ln_matmuls", x, ln_s, ln_b, *ws)
     b, n, c = x.shape
     k, o = len(ws), ws[0].shape[0]
     if not 1 <= k <= 3 or any(tuple(w.shape) != (o, c) for w in ws) or o % 64:
@@ -122,10 +125,10 @@ def ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
     check(s, "ln_matmuls: ln_s", torch.float32, (c,), dev)
     check(sh, "ln_matmuls: ln_b", torch.float32, (c,), dev)
     outs = tuple(torch.empty((b, n, o), device=dev, dtype=torch.bfloat16) for _ in range(k))
-    bm, bn = plan(b * n, k * o)
+    bm, bn, groups = lnproj_plan(b * n, c, k * o, False)
     ptrs = [t.data_ptr() for t in outs] + [None] * (3 - k)
     with on_device(dev):
-        err = _symbol("ln_matmuls")(bm, bn, x.data_ptr(), s.data_ptr(), sh.data_ptr(),
+        err = _symbol("ln_matmuls")(bm, bn, groups, x.data_ptr(), s.data_ptr(), sh.data_ptr(),
                                     wp.data_ptr(), *ptrs, k, b * n, c, o, float(eps),
                                     torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("ln_matmuls", err)
@@ -134,15 +137,9 @@ def ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
     return outs
 
 
-def affine_matmul(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
-                  w: torch.Tensor, b: torch.Tensor, *,
-                  w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``((x*mul + add) @ w.T) + b``: the ``affine_matmul`` kernel on CUDA
-    tensors, :func:`plain_affine_matmul` on CPU tensors. ``w_packed``: the
-    bf16 copy of ``w`` (made here, per call, when not given)."""
+def _affine_matmul(x, mul, add, w, b, w_packed) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain_affine_matmul(x, mul, add, w, b)
-    _cuda.forward_only("affine_matmul", x, mul, add, w, b)
     bsz, n, c = x.shape
     o = w.shape[0]
     if tuple(w.shape) != (o, c) or o % 64:
@@ -169,3 +166,58 @@ def affine_matmul(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
     launches["affine_matmul"] += 1
     shapes[("affine_matmul", bsz, n, c, o, 1)] += 1
     return out
+
+
+class _LnMatmuls(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, eps, w_packed, *ws):
+        ctx.save_for_backward(x, ln_s, ln_b, *ws)
+        ctx.eps = eps
+        return _ln_matmuls(x, ln_s, ln_b, ws, eps, w_packed)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, ln_s, ln_b, *ws = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        got = recompute_grads(needs[:3] + needs[5:],
+                              lambda x, s, b, *ws: plain_ln_matmuls(x, s, b, ws, ctx.eps),
+                              grads, (x, ln_s, ln_b, *ws))
+        return got[:3] + (None, None) + got[3:]
+
+
+class _AffineMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mul, add, w, b, w_packed):
+        ctx.save_for_backward(x, mul, add, w, b)
+        return _affine_matmul(x, mul, add, w, b, w_packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_grads(ctx.needs_input_grad, plain_affine_matmul, grad,
+                               ctx.saved_tensors) + (None,)
+
+
+def ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
+               ws: Sequence[torch.Tensor], eps: float = 1e-5, *,
+               w_packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """``tuple(LN(x) @ w.T for w in ws)``, K = len(ws) in 1..3 weights of
+    the same (O, C): the ``ln_matmuls`` kernel on CUDA tensors (K contiguous
+    (B, N, O) outputs), :func:`plain_ln_matmuls` on CPU tensors;
+    differentiable (the plain version's gradients). ``w_packed``: the
+    (K*O, C) bf16 concatenation of ``ws`` (made here, per call, when not
+    given)."""
+    if needs_grad(x, ln_s, ln_b, *ws):
+        return tuple(_LnMatmuls.apply(x, ln_s, ln_b, eps, w_packed, *ws))
+    return _ln_matmuls(x, ln_s, ln_b, ws, eps, w_packed)
+
+
+def affine_matmul(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                  w: torch.Tensor, b: torch.Tensor, *,
+                  w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``((x*mul + add) @ w.T) + b``: the ``affine_matmul`` kernel on CUDA
+    tensors, :func:`plain_affine_matmul` on CPU tensors; differentiable (the
+    plain version's gradients). ``w_packed``: the bf16 copy of ``w`` (made
+    here, per call, when not given)."""
+    if needs_grad(x, mul, add, w, b):
+        return _AffineMatmul.apply(x, mul, add, w, b, w_packed)
+    return _affine_matmul(x, mul, add, w, b, w_packed)

@@ -30,6 +30,13 @@ A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 tokens, window 8
 (64 tokens), h and w multiples of it, C a multiple of 4 up to 192 and an
 MLP hidden a multiple of 4 up to 384.
+
+Both wrappers are ``torch.autograd.Function``s whose backward is JAX's
+recompute (``swin_block.py:_pre_bwd``/``_post_bwd``): ``torch.autograd.grad``
+of the plain version at the saved inputs (``ops/_grad.py``), for every
+tensor input but the bf16 weight copies; the grid, window and shift are
+integers, nondiff in JAX too. An output of ``swin_pre`` given no gradient
+counts as zero.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from edtr_torch.ops import _cuda
+from edtr_torch.ops._grad import needs_grad, recompute_grads
 from edtr_torch.ops._norms import ln_f32
 from edtr_torch.ops._proj import check, dot32, on_device, raise_on_error
 
@@ -160,15 +168,10 @@ def _bf16(w: torch.Tensor, packed: Optional[torch.Tensor], what: str, shape: tup
     return wp
 
 
-def swin_pre(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor, wqkv: torch.Tensor,
-             bqkv: torch.Tensor, h: int, w: int, win: int, d: int, eps: float = 1e-5, *,
-             w_packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """LN1 + roll(-d) + qkv + window partition: the ``swin_pre`` kernel on
-    CUDA tensors, :func:`plain_swin_pre` on CPU tensors. ``w_packed``: the
-    bf16 copy of ``wqkv`` (made here, per call, when not given)."""
+def _swin_pre(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return plain_swin_pre(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps)
-    _cuda.forward_only("swin_pre", x, ln_s, ln_b, wqkv, bqkv)
     _check_tokens("swin_pre", x, h, w, win)
     b, l, c = x.shape
     dev = x.device
@@ -189,19 +192,11 @@ def swin_pre(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor, wqkv: torc
     return qkv, xr
 
 
-def swin_post(attn: torch.Tensor, xr: torch.Tensor, wproj: torch.Tensor,
-              bproj: torch.Tensor, ln2s: torch.Tensor, ln2b: torch.Tensor,
-              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-              h: int, w: int, win: int, eps: float = 1e-5, *,
-              packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-    """Window reverse + proj + residual + LN2 + MLP + residual: the
-    ``swin_post`` kernel on CUDA tensors, :func:`plain_swin_post` on CPU
-    tensors. ``packed``: the bf16 copies of (wproj, w1, w2) (made here, per
-    call, when not given)."""
+def _swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win, eps,
+               packed) -> torch.Tensor:
     if xr.device.type == "cpu":
         return plain_swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win,
                                eps)
-    _cuda.forward_only("swin_post", attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2)
     _check_tokens("swin_post", xr, h, w, win)
     b, l, c = xr.shape
     hidden = w1.shape[0]
@@ -231,3 +226,61 @@ def swin_post(attn: torch.Tensor, xr: torch.Tensor, wproj: torch.Tensor,
     launches["swin_post"] += 1
     shapes[("swin_post", b, h, w, c, win, hidden)] += 1
     return out
+
+
+class _SwinPre(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed):
+        ctx.save_for_backward(x, ln_s, ln_b, wqkv, bqkv)
+        ctx.dims = h, w, win, d, eps
+        return _swin_pre(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return recompute_grads(ctx.needs_input_grad,
+                               lambda *a: plain_swin_pre(*a, *ctx.dims), grads,
+                               ctx.saved_tensors) + (None,) * 6
+
+
+class _SwinPost(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win, eps,
+                packed):
+        ctx.save_for_backward(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2)
+        ctx.dims = h, w, win, eps
+        return _swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win, eps,
+                          packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_grads(ctx.needs_input_grad,
+                               lambda *a: plain_swin_post(*a, *ctx.dims), grad,
+                               ctx.saved_tensors) + (None,) * 5
+
+
+def swin_pre(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor, wqkv: torch.Tensor,
+             bqkv: torch.Tensor, h: int, w: int, win: int, d: int, eps: float = 1e-5, *,
+             w_packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LN1 + roll(-d) + qkv + window partition: the ``swin_pre`` kernel on
+    CUDA tensors, :func:`plain_swin_pre` on CPU tensors; differentiable (the
+    plain version's gradients). ``w_packed``: the bf16 copy of ``wqkv``
+    (made here, per call, when not given)."""
+    if needs_grad(x, ln_s, ln_b, wqkv, bqkv):
+        return _SwinPre.apply(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed)
+    return _swin_pre(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed)
+
+
+def swin_post(attn: torch.Tensor, xr: torch.Tensor, wproj: torch.Tensor,
+              bproj: torch.Tensor, ln2s: torch.Tensor, ln2b: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+              h: int, w: int, win: int, eps: float = 1e-5, *,
+              packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """Window reverse + proj + residual + LN2 + MLP + residual: the
+    ``swin_post`` kernel on CUDA tensors, :func:`plain_swin_post` on CPU
+    tensors; differentiable (the plain version's gradients). ``packed``: the
+    bf16 copies of (wproj, w1, w2) (made here, per call, when not given)."""
+    if needs_grad(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2):
+        return _SwinPost.apply(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win,
+                               eps, packed)
+    return _swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win, eps,
+                      packed)

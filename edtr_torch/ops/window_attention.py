@@ -21,6 +21,11 @@ None. A wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches its kernel or raises. The kernel takes bf16 q/k/v with
 N = 64 (window 8), D even and at most 32, unit stride along D and even
 strides elsewhere.
+
+The wrapper is a ``torch.autograd.Function`` whose backward is JAX's
+recompute (``window_attention.py:_bwd_rule``): ``torch.autograd.grad`` of
+the plain version at the saved inputs (``ops/_grad.py``), for q, k, v and
+the relative-position bias; the shift mask is a constant and gets none.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Dict, Optional
 import torch
 
 from edtr_torch.ops import _cuda
+from edtr_torch.ops._grad import needs_grad, recompute_grads
 from edtr_torch.ops._proj import check, on_device, raise_on_error
 
 N_TOKENS = 64   # tokens per window the kernel takes (window 8)
@@ -84,17 +90,9 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("window_attention: q/k/v data is not 4-byte aligned")
 
 
-def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q kᵀ·scale + bias [+ mask]) v: the ``window_attention`` kernel
-    on CUDA tensors (contiguous (BW, N, H, D) output), the plain version on
-    CPU tensors. ``scale`` defaults to D**-0.5."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _window_attention(q, k, v, bias, mask, scale) -> torch.Tensor:
     if q.device.type == "cpu":
         return plain_window_attention(q, k, v, bias.float(), mask, scale)
-    _cuda.forward_only("window_attention", q, k, v, bias, mask)
     _check_qkv(q, k, v)
     bw, n, h, d = q.shape
     dev = q.device
@@ -116,3 +114,33 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches["window_attention"] += 1
     shapes[("window_attention", bw, n, h, d, nw)] += 1
     return out
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.scale = scale
+        return _window_attention(q, k, v, bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, bias, mask = ctx.saved_tensors
+
+        def plain(q, k, v, bias):  # the mask is a constant, as in JAX
+            return plain_window_attention(q, k, v, bias.float(), mask, ctx.scale)
+        return recompute_grads(ctx.needs_input_grad, plain, grad, (q, k, v, bias)) + (None, None)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q kᵀ·scale + bias [+ mask]) v: the ``window_attention`` kernel
+    on CUDA tensors (contiguous (BW, N, H, D) output), the plain version on
+    CPU tensors. ``scale`` defaults to D**-0.5. Differentiable in q, k, v
+    and the bias (the plain version's gradients); the mask gets none."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if needs_grad(q, k, v, bias):
+        return _WindowAttention.apply(q, k, v, bias, mask, scale)
+    return _window_attention(q, k, v, bias, mask, scale)

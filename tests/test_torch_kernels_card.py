@@ -1,9 +1,10 @@
 """edtr_torch's kernel wrappers on the card: a CUDA tensor at a supported
 shape launches the hand-written kernel (its launch count rises by one), and
 one no kernel takes raises. (``chip_smoke.py`` holds each kernel against its
-plain version.) The flash backward wrappers match ``plain_bwd``; the K5/K6
-autograd Functions give the plain versions' gradients; a wrapper whose
-kernel has no backward raises on a path that asks for a gradient.
+plain version; here the projection kernels are also held to theirs at the
+main path's token counts and widths.) The flash backward wrappers match
+``plain_bwd``; the K5/K6 and K7-K10 autograd Functions give the plain
+versions' gradients.
 The kernels have no CPU mode: without a card this test skips. This file
 imports no JAX, so on a card host without JAX it runs alone, without the
 suite's conftest:
@@ -75,36 +76,53 @@ def test_conv_unsupported_raises():
         G.upsample_conv(x, torch.cat([w, w[:32]]), torch.cat([b, b[:32]]))
 
 
-def _proj_args(n=256, c=64, o=128):
+def _proj_args(n=256, c=64, o=128, b=2):
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, device="cuda") * scale
-    x = rnd(2, n, c).to(torch.bfloat16)
+    x = (rnd(b, n, c, scale=2.0) + 0.5).to(torch.bfloat16)
     return x, 1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(o, c, scale=c ** -0.5), rnd(o)
 
 
+# the projection kernels vs their plain versions: chip_smoke.py's limits
+TOL_PROJ_MAX = 2.0 ** -6
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["ln_matmuls_1", "ln_matmuls_3", "affine_matmul", "geglu_proj",
-                                  "ln_geglu_proj"])
-def test_proj_call_launches(name):
+@pytest.mark.parametrize("name,n,c", [
+    *((name, 256, 64) for name in ("ln_matmuls_1", "ln_matmuls_3", "affine_matmul",
+                                   "geglu_proj", "ln_geglu_proj")),
+    # the main path's token counts and widths (bs 1)
+    *((name, n, c) for name in ("ln_matmuls_1", "ln_matmuls_3", "ln_geglu_proj")
+      for n, c in ((4096, 320), (1024, 640), (256, 1280)))])
+def test_proj_call_launches(name, n, c):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    x, s, sh, w, b = _proj_args()
+    b = 2 if c == 64 else 1
+    o = 128 if c == 64 else (4 * c if "geglu" in name else c)
+    x, s, sh, w, bias = _proj_args(n, c, (2 if "geglu" in name else 1) * o, b)
     key = name[:-2] if name[-1].isdigit() else name
     mod = GG if "geglu" in key else LM
     before = mod.launches[key]
     if key == "ln_matmuls":
         k = int(name[-1])
-        outs = LM.ln_matmuls(x, s, sh, [w] * k)
-        assert len(outs) == k and all(o.shape == (2, 256, 128) for o in outs)
+        ws = [w] + [torch.randn_like(w) * c ** -0.5 for _ in range(k - 1)]
+        out = torch.cat(LM.ln_matmuls(x, s, sh, ws), -1)
+        want = torch.cat(LM.plain_ln_matmuls(x, s, sh, ws), -1)
+        assert out.shape == (b, n, k * o)
     elif key == "affine_matmul":
-        mul, add = s.expand(2, -1).contiguous(), sh.expand(2, -1).contiguous()
-        assert LM.affine_matmul(x, mul, add, w, b).shape == (2, 256, 128)
+        mul, add = s.expand(b, -1).contiguous(), sh.expand(b, -1).contiguous()
+        out = LM.affine_matmul(x, mul, add, w, bias)
+        want = LM.plain_affine_matmul(x, mul, add, w, bias)
     elif key == "geglu_proj":
-        assert GG.geglu_proj(x, w, b).shape == (2, 256, 64)
+        out, want = GG.geglu_proj(x, w, bias), GG.plain_geglu_proj(x, w, bias)
     else:
-        assert GG.ln_geglu_proj(x, s, sh, w, b).shape == (2, 256, 64)
+        out = GG.ln_geglu_proj(x, s, sh, w, bias)
+        want = GG.plain_ln_geglu_proj(x, s, sh, w, bias)
     torch.cuda.synchronize()
     assert mod.launches[key] == before + 1
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL_PROJ_MAX * want.float().abs().max().item(), err
 
 
 @pytest.mark.cuda
@@ -287,23 +305,80 @@ def test_conv_functions_give_the_plain_gradients(name, h):
 
 
 @pytest.mark.cuda
-def test_kernels_without_a_backward_raise_under_grad():
+@pytest.mark.parametrize("name", ["ln_matmuls", "affine_matmul", "geglu_proj",
+                                  "ln_geglu_proj", "window_attention", "swin_pre",
+                                  "swin_post"])
+def test_proj_and_swin_functions_give_the_plain_gradients(name):
+    """Each K7-K10 wrapper under grad on the card: it launches its kernel,
+    its output carries the Function's backward, and the gradients reaching
+    every differentiable input are the plain version's (the backward
+    recomputes it); the bf16 weight copy and the shift mask get none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    x, s, sh, w, b = _proj_args()
-    w.requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        LM.ln_matmuls(x, s, sh, [w])
-    with pytest.raises(RuntimeError, match="no backward"):
-        GG.ln_geglu_proj(x, s, sh, w, b)
-    with torch.no_grad():  # inference: the kernel runs
-        LM.ln_matmuls(x, s, sh, [w])
-    xs, pre, post = _swin_args()
-    xs.requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        SB.swin_pre(xs, *pre, 16, 16, 8, 0)
-    qkv, xr = SB.swin_pre(xs.detach(), *pre, 16, 16, 8, 0)
-    q, k, v = qkv.view(8, 64, 3, 2, 30).unbind(2)
-    bias = torch.randn((2, 64, 64), device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        WA.window_attention(q, k, v, bias)
+    x, s, sh, w, b = (t.requires_grad_() for t in _proj_args())
+    if name == "ln_matmuls":
+        w2 = (torch.randn_like(w) * 0.125).requires_grad_()
+        wp = torch.cat([w, w2]).detach().to(torch.bfloat16).requires_grad_()
+        ins, mod, kw = (x, s, sh, w, w2), LM, dict(w_packed=wp)
+
+        def fn(x, s, sh, w, w2, **kw):
+            return torch.cat(LM.ln_matmuls(x, s, sh, [w, w2], **kw), -1)
+
+        def plain(x, s, sh, w, w2):
+            return torch.cat(LM.plain_ln_matmuls(x, s, sh, [w, w2]), -1)
+    elif name == "affine_matmul":
+        mul = (1 + 0.1 * torch.randn((2, 64), device="cuda")).requires_grad_()
+        add = (0.1 * torch.randn((2, 64), device="cuda")).requires_grad_()
+        wp = w.detach().to(torch.bfloat16).requires_grad_()
+        ins, mod, kw = (x, mul, add, w, b), LM, dict(w_packed=wp)
+        fn, plain = LM.affine_matmul, LM.plain_affine_matmul
+    elif name in ("geglu_proj", "ln_geglu_proj"):
+        wp = w.detach().to(torch.bfloat16).requires_grad_()
+        ins = (x, w, b) if name == "geglu_proj" else (x, s, sh, w, b)
+        mod, kw = GG, dict(w_packed=wp)
+        fn, plain = getattr(GG, name), getattr(GG, "plain_" + name)
+    elif name == "window_attention":
+        xs, pre, _ = _swin_args()
+        qkv, _ = SB.swin_pre(xs, *pre, 16, 16, 8, 4)
+        qkv = qkv.detach().view(8, 64, 3, 2, 30).requires_grad_()
+        bias = torch.randn((2, 64, 64), device="cuda", requires_grad=True)
+        wp = torch.zeros((4, 64, 64), device="cuda", requires_grad=True)  # the mask
+        ins, mod, kw = (qkv, bias), WA, {}
+
+        def fn(qkv, bias):
+            return WA.window_attention(*qkv.unbind(2), bias, wp)
+
+        def plain(qkv, bias):
+            return WA.plain_window_attention(*qkv.unbind(2), bias, wp.detach(), 30 ** -0.5)
+    elif name == "swin_pre":
+        xs, pre, _ = _swin_args()
+        pre = tuple(t.requires_grad_() for t in pre)
+        wp = pre[2].detach().to(torch.bfloat16).requires_grad_()
+        ins, mod, kw = (xs.requires_grad_(), *pre), SB, dict(w_packed=wp)
+
+        def fn(*a, **kw):
+            return torch.cat([t.flatten() for t in SB.swin_pre(*a, 16, 16, 8, 4, **kw)])
+
+        def plain(*a):
+            return torch.cat([t.flatten() for t in SB.plain_swin_pre(*a, 16, 16, 8, 4)])
+    else:
+        xs, _, post = _swin_args()
+        post = tuple(t.requires_grad_() for t in post)
+        attn = torch.randn((2, 4, 64, 60), device="cuda").to(torch.bfloat16).requires_grad_()
+        wp = post[0].detach().to(torch.bfloat16).requires_grad_()
+        packed = [wp, post[4].detach().to(torch.bfloat16), post[6].detach().to(torch.bfloat16)]
+        ins, mod, kw = (attn, xs.requires_grad_(), *post), SB, dict(packed=packed)
+
+        def fn(*a, **kw):
+            return SB.swin_post(*a, 16, 16, 8, **kw)
+
+        def plain(*a):
+            return SB.plain_swin_post(*a, 16, 16, 8)
+    before = mod.launches[name]
+    out = fn(*ins, **kw)
+    assert mod.launches[name] == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, device="cuda", dtype=out.dtype)
+    _close_grads(torch.autograd.grad(out, ins, cot), torch.autograd.grad(plain(*ins), ins, cot))
+    out = fn(*ins, **kw)
+    out.backward(cot)
+    assert wp.grad is None, name

@@ -33,7 +33,9 @@ from edtr_torch.diffusion.schedule import Diffusion
 from edtr_torch.models import layers
 from edtr_torch.models.cldm import ControlLDM
 from edtr_torch.models.swinir import SwinIR
+from edtr_torch.ops import geglu as GG
 from edtr_torch.ops import gn_conv as G
+from edtr_torch.ops import ln_matmul as LM
 from edtr_torch.pipeline import EDTRPipeline, flagship_configs
 from edtr_torch.train.edtr_step import EDTRTrainState, make_edtr_train_step, split_trainable
 from edtr_torch.utils.convert import from_jax
@@ -54,9 +56,11 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _port(use_checkpoint: bool = False, fused_conv: bool = False) -> EDTRPipeline:
+def _port(use_checkpoint: bool = False, fused_conv: bool = False,
+          fused_proj: bool = False) -> EDTRPipeline:
     """A fresh tiny port pipeline (the step updates it in place) with the
-    JAX weights, trainable decoder, and ``use_checkpoint`` as given."""
+    JAX weights, trainable decoder, and ``use_checkpoint`` and the
+    configuration as given."""
     _, params = jax_tiny()
     cfg = flagship_configs(tiny=True)
     for name in ("unet", "controlnet"):
@@ -66,7 +70,7 @@ def _port(use_checkpoint: bool = False, fused_conv: bool = False) -> EDTRPipelin
     pipe = EDTRPipeline(SwinIR(**cfg["swinir"]),
                         ControlLDM(cfg["unet"], cfg["vae"], cfg["controlnet"], 0.18215),
                         Diffusion.create(1000, linear_start=0.00085, linear_end=0.0120),
-                        device="cpu", fused_conv=fused_conv)
+                        device="cpu", fused_conv=fused_conv, fused_proj=fused_proj)
     load_port(pipe, params)
     return pipe
 
@@ -378,3 +382,49 @@ def test_upsample_conv_function_backward_matches_plain(act):
     want = torch.autograd.grad(G.plain_upsample_conv(x, w, b, act), (x, w, b), cot)
     for a, bb in zip(got, want):
         torch.testing.assert_close(a, bb, rtol=0, atol=0)
+
+
+def test_fused_proj_step_gives_the_stock_gradients(monkeypatch):
+    """The step with ``fused_proj`` on (remat on): the transformer blocks'
+    LN + q/k/v, LN + query, GroupNorm-affine + ``proj_in`` and LN + GEGLU
+    run through the K7/K8 autograd Functions (the tiny UNet's 64-token
+    blocks taken with 64-token tiles, as the tiny-restore tests take them)
+    in the forward and again in remat's recompute, and the loss and every
+    trainable gradient equal the stock step's to fp32 rounding (the fused
+    forms add the GEGLU bias in fp32 before the GELU, the stock one after a
+    rounding to the compute dtype, which is fp32 here)."""
+    for mod in (LM, GG):
+        monkeypatch.setattr(mod, "SEQ_TILE", 64)
+    calls = {"forward": 0, "backward": 0}
+    phase = ["forward"]
+    for mod, name in ((LM, "_ln_matmuls"), (LM, "_affine_matmul")):
+        real = getattr(mod, name)
+
+        def spy(*args, _real=real):
+            calls[phase[0]] += 1
+            return _real(*args)
+        monkeypatch.setattr(mod, name, spy)
+    batch = _torch(_batch())
+    t, noise = _t_noise()
+    t, noise = torch.from_numpy(t).long(), nchw(noise)
+    loss0, g0 = _grads(_port(use_checkpoint=True), 1, batch, t, noise)
+    assert calls == {"forward": 0, "backward": 0}
+    pipe = _port(use_checkpoint=True, fused_proj=True)
+    state = EDTRTrainState.create(pipe, train_decoder=True)
+    step = make_edtr_train_step(pipe)
+    real_backward = torch.Tensor.backward
+
+    def backward(self, *args, **kwargs):
+        phase[0] = "backward"
+        return real_backward(self, *args, **kwargs)
+    monkeypatch.setattr(torch.Tensor, "backward", backward)
+    loss1 = step.grads(state, batch, t, noise)
+    g1 = {n: p.grad.clone() for n, p in pipe.named_parameters() if p.requires_grad}
+    # the tiny nets' 64-token transformer blocks (ControlNet 1, UNet input 1
+    # and output 2; the middle blocks have 16 tokens), 3 K8 calls each
+    # (affine, q/k/v, query); the recompute: the ControlNet's and the UNet
+    # output blocks'
+    assert calls == {"forward": 12, "backward": 9}, calls
+    torch.testing.assert_close(loss1, loss0, rtol=1e-5, atol=0)
+    worst = _worst(g1, g0)
+    assert worst[0] <= 1e-4, worst
