@@ -26,17 +26,20 @@ no result line):
    once (launch counts set to 0 just before it, read just after, and held
    to their exact values; no layout copies in the fused ones), the fused
    outputs are held against the stock ones, then the stage times and
-   end-to-end ms/img of all four, in turns (the pairs won: stock vs fused
-   against ``pipeline.FUSED_CONV_DEFAULT``, fused vs fused+proj against
-   ``FUSED_PROJ_DEFAULT``, and fused vs fused+swin on the ``swinir``
-   stage, the only one the switch changes, against ``FUSED_SWIN_DEFAULT``),
+   end-to-end ms/img of all four, in turns, 21 rounds, then 20 more of
+   fused and fused+proj alone (the pairs won: stock vs fused against
+   ``pipeline.FUSED_CONV_DEFAULT`` over 21 pairs, fused vs fused+proj
+   against ``FUSED_PROJ_DEFAULT`` over 41, and fused vs fused+swin over 21
+   on the ``swinir`` stage, the only one the switch changes, against
+   ``FUSED_SWIN_DEFAULT``),
    and a ``torch.profiler`` trace of each (device-busy ms, idle share,
    host-to-device copies, none allowed in the ``swinir`` stage, kernel
    families);
 5. each conv kernel against its plain version at every shape the fused
    restore launched it with: errors, kernel / plain / ``F.conv2d``
    (``library_ms``: the cuDNN conv alone, on the activated or upsampled
-   bf16 input, never called by the fused path) times and the bound;
+   bf16 input, never called by the fused path) times (K6's device time
+   from a trace, K5's from CUDA events) and the bound;
 6. each projection kernel against its plain version at every shape the
    fused+proj restore launched it with (and ``geglu_proj``, which it does
    not launch, at the 4096-token shape): errors, device times of kernel /
@@ -270,6 +273,9 @@ IMAGE = 512
 # traced
 TIME_ITERS = 21
 TRACE_ITERS = 3
+# fused vs fused+proj pairs: the projection switch's verdict has read both
+# ways at 21 pairs, so these two configurations run 20 more rounds alone
+PROJ_PAIRS = 41
 # a configuration wins end to end beyond the ~5% drift between runs
 # (edtr_tpu/ops/dispatch.py) only if it also wins a clear majority of the
 # interleaved pairs: a one-sided sign test at this level
@@ -512,7 +518,7 @@ def conv_case(device, key, gen) -> dict:
     x = randn(b, cin, hin, win, dtype=bf16).contiguous(memory_format=torch.channels_last)
     w32 = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
     bias = randn(cout, scale=0.05)
-    wp = GC.pack_weight(w32, bf16)
+    wp = GC.fold_subpixel_weights(w32, bf16) if up else GC.pack_weight(w32, bf16)
     wb = w32.to(bf16).contiguous(memory_format=torch.channels_last)
     if up:
         def kern():
@@ -546,23 +552,33 @@ def conv_case(device, key, gen) -> dict:
     rel = rel_l2(out_k, out_p)
     # the work the function needs: nearest-2x then conv3x3 meets each input
     # pixel in only 4 of the 9 taps per output phase (JAX's ``_ups_subpixel``
-    # form), so K6's bound counts 4 taps; the kernel still does all 9
+    # form, which the kernel computes), so K6's bound counts 4 taps
     flops = 2.0 * b * h * w * (4 if up else 9) * cin * cout
     iters = max(3, min(20, int(2e12 / flops)))
-    ms = time_ms(kern, iters)
-    plain_ms = time_ms(plain, 3, 1)
-    library_ms = time_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters)
+    # K6's calls (13-400 us) are at or below the wrapper's host-side launch
+    # at its small sites: device time from a trace, as the projection
+    # kernels are timed, CUDA events beside it; K5's from CUDA events
+    timer = device_ms if up else time_ms
+    ms = timer(kern, iters)
+    plain_ms = timer(plain, 3, 1)
+    library_ms = timer(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters)
+    event_ms = time_ms(kern, iters) if up else ms
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = ((b * hin * win * cin + b * h * w * cout + 9 * cin * cout) * 2 + res_bytes) \
         / PEAK_BYTES * 1e3
-    bm = 64 if name == "gn_conv_whole" else 128
-    bn, tw, splits, _ = GC.plan(b, h, w, cin, cout, bm)
+    if up:  # conv_wgmma.cuh: 8 x 16 low-res tiles, all 4 phases of 64 channels
+        bm, bn = 128, GC.UPS_BN
+        tw, splits, _ = GC.ups_plan(b, hin, win, cin, cout)
+        blocks = b * -(-hin // (bm // tw)) * -(-win // tw) * (cout // bn) * splits
+    else:
+        bm = 64 if name == "gn_conv_whole" else 128
+        bn, tw, splits, _ = GC.plan(b, h, w, cin, cout, bm)
+        blocks = b * -(-h // (bm // tw)) * -(-w // tw) * (cout // bn) * splits
     row = dict(name=name, shape=dict(b=b, cin=cin, h=h, w=w, cout=cout, emb=has_emb,
                                      res=has_res, act=act),
-               tile=dict(bm=bm, bn=bn, tw=tw, splits=splits,
-                         blocks=b * -(-h // (bm // tw)) * -(-w // tw) * (cout // bn) * splits),
+               tile=dict(bm=bm, bn=bn, tw=tw, splits=splits, blocks=blocks),
                max_abs_err=err, out_max=o_max, rel_l2=rel, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+               library_ms=library_ms, event_ms=event_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                gflop=flops / 1e9, mb=t_bytes * PEAK_BYTES / 1e9,
                ok=bool(err <= TOL_CONV_MAX * o_max and rel <= TOL_CONV_L2))
@@ -585,12 +601,14 @@ def conv_kernel_phase(device, shape_counts: dict, per: str = "restore") -> dict:
         agg = rows.setdefault(key[0], dict(
             name=key[0], route="cuda", source=CONV_SOURCE,
             replaces=CONV_KERNELS[key[0]][0], launches=None, on_path=True,
-            scope=f"per {per}: launch-weighted sum over its shapes",
+            scope=f"per {per}: launch-weighted sum over its shapes" + (
+                "; ms, plain_ms, library_ms: device time (profiler), event_ms: CUDA events"
+                if key[0] == "upsample_conv" else "; CUDA events"),
             max_abs_err=0.0, max_err_share=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-            library_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, shapes=0))
+            library_ms=0.0, event_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, shapes=0))
         agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
         agg["max_err_share"] = max(agg["max_err_share"], r["max_abs_err"] / r["out_max"])
-        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms", "event_ms"):
             agg[k] += count * r[k]
         agg["ops_bound_ms" if r["bound_by"] == "operations" else "bytes_bound_ms"] += (
             count * r["bound_ms"])
@@ -693,8 +711,8 @@ def proj_case(device, key, gen) -> dict:
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     # bf16 tokens, outputs and weight; fp32 LN / affine vectors and biases
     t_bytes = ((m * c + m * out_cols + slab * c) * 2 + small_bytes) / PEAK_BYTES * 1e3
-    if name in ("ln_matmuls", "ln_geglu_proj"):  # proj_wgmma.cuh: column groups
-        bm, bn, groups = lnproj_plan(m, c, slab, name == "ln_geglu_proj")
+    if name != "geglu_proj":  # proj_wgmma.cuh: column groups
+        bm, bn, groups = lnproj_plan(m, c, slab, name)
         tile = dict(bm=bm, bn=bn, groups=groups, blocks=(m // bm) * groups,
                     stages=lnproj_stages(bn, c))
     else:
@@ -978,8 +996,10 @@ def verdict(base_runs: list, new_runs: list, default: bool) -> dict:
     """``edtr_tpu/ops/dispatch.py``'s rule on interleaved pairs (base, new):
     the new configuration is the default only when it wins a clear majority
     of pairs and its median is more than 5% (the drift between runs) below;
-    the base when the base wins a clear majority; else unresolved."""
-    n = len(base_runs)
+    the base when the base wins a clear majority; else unresolved. Pair i
+    is the i-th run of each, as many pairs as the shorter list has."""
+    n = min(len(base_runs), len(new_runs))
+    base_runs, new_runs = base_runs[:n], new_runs[:n]
     wins = sum(nw < bs for bs, nw in zip(base_runs, new_runs))
     need = sign_test_wins(n)
     ratio = statistics.median(new_runs) / statistics.median(base_runs)
@@ -1091,8 +1111,8 @@ def restore_phase(device) -> tuple:
         return run
 
     e2e = {cfg: [] for cfg in cfgs}
-    order = list(cfgs)
-    for i in range(TIME_ITERS):  # in turns, the order reversed every other round
+    for i in range(max(TIME_ITERS, PROJ_PAIRS)):  # in turns, reversed every other round
+        order = list(cfgs) if i < TIME_ITERS else ["fused", "fused+proj"]
         for cfg in (order if i % 2 == 0 else order[::-1]):
             chain(cfg)()
             e2e[cfg].append(host_ms(lambda: configured(cfg).restore(*args)))
@@ -1101,7 +1121,7 @@ def restore_phase(device) -> tuple:
         stage_ms = {s: statistics.median(v) for s, v in stages[cfg].items()}
         e2e_ms = statistics.median(e2e[cfg])
         print(f"stages_ms {cfg}:", json.dumps(stage_ms), flush=True)
-        print(f"e2e {cfg}: {e2e_ms:.2f} ms/img (median of {TIME_ITERS}: {e2e[cfg]}; bs 1, "
+        print(f"e2e {cfg}: {e2e_ms:.2f} ms/img (median of {len(e2e[cfg])}: {e2e[cfg]}; bs 1, "
               f"512², host clock around synchronised calls)", flush=True)
         t0 = time.perf_counter()
         trace = trace_restores(chain(cfg), TRACE_ITERS)
@@ -1340,8 +1360,9 @@ def train_phase(device) -> dict:
           f"{len(frozen)} frozen tensors changed after {state.step} steps", flush=True)
     check(len(moved) == len(trainable), "every trainable tensor moved")
     check(not changed, f"frozen tensors changed: {changed[:5]}")
-    # the optimizer's in-place updates reach the kernels' cached bf16 weights
-    from edtr_torch.ops.gn_conv import pack_weight
+    # the optimizer's in-place updates reach the kernels' cached bf16 weights,
+    # the nearest-2x convs' folded ones included
+    from edtr_torch.ops.gn_conv import fold_subpixel_weights, pack_weight
 
     convs = [m for name, m in pipe.named_modules() if name.startswith(
         ("cldm.controlnet.", "cldm.vae.decoder.")) and hasattr(m, "packed_weight")
@@ -1349,6 +1370,10 @@ def train_phase(device) -> dict:
     stale = [c for c in convs if not torch.equal(c.packed_weight(torch.bfloat16),
                                                  pack_weight(c.weight, torch.bfloat16))]
     check(convs and not stale, f"{len(stale)} of {len(convs)} cached conv weights stale")
+    ups = [c for c in convs if c._folded.value is not None]
+    stale = [c for c in ups if not torch.equal(c.folded_weight(torch.bfloat16),
+                                               fold_subpixel_weights(c.weight, torch.bfloat16))]
+    check(ups and not stale, f"{len(stale)} of {len(ups)} cached folded conv weights stale")
     return dict(launches=launches, shapes=shapes, loss_hlf=loss, kernel_vs_plain=cmp,
                 launches_fused_proj=launches_proj, shapes_fused_proj=shapes_proj["proj"],
                 timing=timing, trace=trace, steps=state.step)

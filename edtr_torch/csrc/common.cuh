@@ -1,10 +1,13 @@
 // Device helpers shared by the port's Hopper kernels: shared-memory
-// addresses, cp.async 16-byte copies, ldmatrix and the bf16 mma.sync tile.
+// addresses, cp.async 16-byte copies, ldmatrix and the bf16 mma.sync tile;
+// and the host's one-time raise of a kernel's shared-memory limit.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace edtr {
 
@@ -56,9 +59,30 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// v rounded to bf16 and back
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (one bit of `raised` each), not on every launch.
+template <typename Kernel>
+cudaError_t raise_smem_once(Kernel kernel, size_t bytes, std::atomic<unsigned>& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (!((raised.load() >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    raised.fetch_or(1u << dev);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace edtr

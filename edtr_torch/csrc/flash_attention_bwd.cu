@@ -304,22 +304,6 @@ __global__ void __launch_bounds__(kThreads)
   store_rows(dv + base, dv_acc, k0 + warp * 16, g, tig, 1.f);
 }
 
-// Raises `kernel`'s dynamic shared-memory limit to `smem` once per device
-// (one bit of `raised` each), not on every launch.
-template <typename Kernel>
-cudaError_t raise_smem(Kernel kernel, size_t smem, std::atomic<unsigned>& raised) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 32) return cudaErrorInvalidDevice;
-  if (!((raised.load() >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    raised.fetch_or(1u << dev);
-  }
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes). q/k/v/do/dq/dk/dv are contiguous
@@ -330,7 +314,7 @@ extern "C" int edtr_flash_bwd_dq_d64(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse, const void* dd,
                                      void* dq, int bh, int n, float scale, void* stream) {
   static std::atomic<unsigned> raised{0u};
-  const cudaError_t err = raise_smem(flash_bwd_dq_kernel, kSmemDq, raised);
+  const cudaError_t err = raise_smem_once(flash_bwd_dq_kernel, kSmemDq, raised);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n / BR, bh);
   flash_bwd_dq_kernel<<<grid, kThreads, kSmemDq, static_cast<cudaStream_t>(stream)>>>(
@@ -345,7 +329,7 @@ extern "C" int edtr_flash_bwd_dkv_d64(const void* q, const void* k, const void* 
                                       void* dk, void* dv, int bh, int n, float scale,
                                       void* stream) {
   static std::atomic<unsigned> raised{0u};
-  const cudaError_t err = raise_smem(flash_bwd_dkv_kernel, kSmemDkv, raised);
+  const cudaError_t err = raise_smem_once(flash_bwd_dkv_kernel, kSmemDkv, raised);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n / BR, bh);
   flash_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv, static_cast<cudaStream_t>(stream)>>>(

@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernels of edtr_tpu/ops/geglu.py:
 //
-//   proj_gemm_kernel<.., PRO_NONE, EPI_GEGLU> (proj_gemm.cuh: mma.sync)
+//   proj_gemm_kernel (proj_gemm.cuh: mma.sync)
 //       <- _kernel (geglu_proj, pallas_call :159)
-//   lnproj_kernel<.., EPI_GEGLU> (proj_wgmma.cuh: wgmma, TMA weight ring,
+//   lnproj_kernel<.., PRO_LN, EPI_GEGLU> (proj_wgmma.cuh: wgmma, TMA weight ring,
 //   LayerNorm once per block) <- _ln_kernel (ln_geglu_proj, :218)
 //
 //       out = (x@wh + bh) * gelu_erf(x@wg + bg), x optionally LN(x)
@@ -43,10 +43,10 @@ extern "C" int edtr_geglu(int ln, int bm, int bn, int groups, const void* x, con
     a.O = inner;
     a.groups = groups;
     a.eps = eps;
-    if (bm == 32 && bn == 64) return launch<32, 64, EPI_GEGLU>(x, w, 2 * inner, a, st);
-    if (bm == 32 && bn == 128) return launch<32, 128, EPI_GEGLU>(x, w, 2 * inner, a, st);
-    if (bm == 64 && bn == 64) return launch<64, 64, EPI_GEGLU>(x, w, 2 * inner, a, st);
-    if (bm == 64 && bn == 128) return launch<64, 128, EPI_GEGLU>(x, w, 2 * inner, a, st);
+    if (bm == 32 && bn == 64) return launch<32, 64, PRO_LN, EPI_GEGLU>(x, w, 2 * inner, a, st);
+    if (bm == 32 && bn == 128) return launch<32, 128, PRO_LN, EPI_GEGLU>(x, w, 2 * inner, a, st);
+    if (bm == 64 && bn == 64) return launch<64, 64, PRO_LN, EPI_GEGLU>(x, w, 2 * inner, a, st);
+    if (bm == 64 && bn == 128) return launch<64, 128, PRO_LN, EPI_GEGLU>(x, w, 2 * inner, a, st);
     return (int)cudaErrorInvalidValue;
   }
   using namespace edtr_proj;
@@ -58,5 +58,5 @@ extern "C" int edtr_geglu(int ln, int bm, int bn, int groups, const void* x, con
   a.M = M;
   a.C = C;
   a.O = inner;
-  return launch_tile<PRO_NONE, EPI_GEGLU>(bm, bn, a, 2 * inner, st);
+  return launch_tile(bm, bn, a, 2 * inner, st);
 }

@@ -3,14 +3,17 @@
 //
 // Replaces the Pallas TPU kernels of edtr_tpu/ops/gn_conv.py:
 //
-//   conv3x3_kernel<MODE_GN>   <- _kernel_{plain,emb,res,emb_res} (_call, the
-//                                whole-image tier) and _band_{plain,emb,res,
-//                                emb_res} (_band_call, the row-band tier):
-//                                out = conv3x3(silu(x*mul + add)) + b
-//                                      [+ emb] [+ res]
-//   conv3x3_kernel<MODE_UP2>  <- _ups_kernel (upsample_conv):
-//                                out = act(conv3x3(nearest2x(x)) + b),
-//                                act none or LeakyReLU(0.2)
+//   conv3x3_kernel       <- _kernel_{plain,emb,res,emb_res} (_call, the
+//                           whole-image tier) and _band_{plain,emb,res,
+//                           emb_res} (_band_call, the row-band tier):
+//                           out = conv3x3(silu(x*mul + add)) + b
+//                                 [+ emb] [+ res]
+//   upconv_wgmma_kernel  <- _ups_kernel (upsample_conv):
+//   (conv_wgmma.cuh)        out = act(conv3x3(nearest2x(x)) + b),
+//                           act none or LeakyReLU(0.2), as a phase-folded
+//                           wgmma implicit GEMM fed by TMA (see its header)
+//
+// conv3x3_kernel:
 //
 // The TPU kernels keep a whole image, or a row band plus its halo rows, of
 // the activated input in VMEM and run the conv as 9 shifted (rows x Cin) @
@@ -26,13 +29,10 @@
 //
 // Staging a halo: each thread loads 8 channels of a few halo pixels into
 // registers at the chunk's first tap and, after the chunk's last tap has
-// been issued, applies
-//   MODE_GN:  a = x*mul + add in fp32 (no fma contraction, as the plain
-//             version's separate multiply and add), round to bf16, silu
-//             in fp32 on the rounded value, round to bf16;
-//   MODE_UP2: the nearest-2x gather: hi-res pixel (y, x) is low-res
-//             (y >> 1, x >> 1), no activation;
-// then stores it into the other halo buffer. A halo pixel outside the image
+// been issued, applies a = x*mul + add in fp32 (no fma contraction, as the
+// plain version's separate multiply and add), rounds to bf16, applies silu
+// in fp32 on the rounded value and rounds to bf16, then stores it into the
+// other halo buffer. A halo pixel outside the image
 // stores zeros AFTER the activation: the conv pads silu(GN(x)) with zeros,
 // not x (gn_conv.py:381-386). The weights are a packed bf16 copy
 // (9, Cout, Cin) made once per module; a (tap, chunk) slab of BN rows
@@ -40,11 +40,9 @@
 // of the tensor cores.
 //
 // The epilogue rounds the fp32 sum to bf16, then adds the bias (fp32 rounded
-// to bf16), emb and res in bf16, each sum rounded (gn_conv.py:_epilogue),
-// and for MODE_UP2 applies LeakyReLU(0.2) to the rounded value
-// (_ups_act_kernel).
+// to bf16), emb and res in bf16, each sum rounded (gn_conv.py:_epilogue).
 //
-// What bounds it on an H100: the row-band and upsample shapes (M >= 256)
+// What bounds it on an H100: the row-band shapes (M >= 256)
 // do 2*9*Cin FLOP per output element on bf16 data, hundreds of FLOP per
 // byte, so the tensor cores bound them; this version issues mma.sync
 // without wgmma/TMA and cannot reach the dense peak. The whole-image tier
@@ -59,6 +57,7 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "conv_wgmma.cuh"
 
 namespace {
 
@@ -68,11 +67,10 @@ constexpr int BK = 32;          // input channels per chunk
 constexpr int LDS = BK + 8;     // padded smem row (elements): 80 B, ldmatrix conflict-free
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kStagesB = 3;     // weight slabs in flight
-enum { MODE_GN = 0, MODE_UP2 = 1 };
 
 struct Conv3x3Args {
-  const bf16* x;        // NHWC (batch, hin, win, cin)
-  const float* mul;     // (batch, cin) folded GroupNorm (MODE_GN)
+  const bf16* x;        // NHWC (batch, h, wd, cin)
+  const float* mul;     // (batch, cin) folded GroupNorm
   const float* add;
   const bf16* wt;       // (9, cout, cin): tap-major, cin contiguous
   const float* bias;    // (cout)
@@ -84,7 +82,6 @@ struct Conv3x3Args {
   int batch, h, wd, cin, cout;  // output geometry
   int tw;               // tile width in pixels (8 or 16); tile height BM / tw
   int chunks_per_split;
-  int lrelu;
 };
 
 // most halo pixels a BM-pixel tile needs: (BM/TW + 2) x (TW + 2)
@@ -96,16 +93,12 @@ constexpr size_t smem_bytes() {
   return (size_t)(2 * halo_max<BM>() + kStagesB * BN) * LDS * sizeof(bf16);
 }
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 // silu on a bf16-rounded value, in fp32, rounded: the plain version's F.silu
 __device__ __forceinline__ float silu_r(float s) {
   return bf16r(__fdiv_rn(s, __fadd_rn(1.f, expf(-s))));
 }
 
-template <int BM, int BN, int MODE>
+template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const Conv3x3Args p) {
   constexpr int WARPS_M = BM / 32;
   constexpr int WARPS_N = (kThreads / 32) / WARPS_M;
@@ -136,8 +129,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const Conv3x3Args p) 
   const int c_begin = blockIdx.z * p.chunks_per_split;
   const int c_end = min(chunks, c_begin + p.chunks_per_split);
   const int s_begin = 9 * c_begin, s_end = 9 * c_end;
-  const int hin = MODE == MODE_UP2 ? p.h >> 1 : p.h;
-  const int win = MODE == MODE_UP2 ? p.wd >> 1 : p.wd;
 
   uint4 a_reg[A_CH];
   bool a_ok[A_CH];
@@ -152,12 +143,9 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const Conv3x3Args p) 
       const int yy = y0 - 1 + q / hrow, xx = x0 - 1 + q % hrow;
       a_ok[i] = q < hp && yy >= 0 && yy < p.h && xx >= 0 && xx < p.wd;
       a_reg[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (a_ok[i]) {
-        const int sy = MODE == MODE_UP2 ? yy >> 1 : yy;
-        const int sx = MODE == MODE_UP2 ? xx >> 1 : xx;
+      if (a_ok[i])
         a_reg[i] = __ldg(reinterpret_cast<const uint4*>(
-            p.x + (((size_t)img * hin + sy) * win + sx) * p.cin + a_c0 + col));
-      }
+            p.x + (((size_t)img * p.h + yy) * p.wd + xx) * p.cin + a_c0 + col));
     }
   };
 
@@ -168,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const Conv3x3Args p) 
       const int c = tid + i * kThreads, q = c >> 2, col = (c & 3) * 8;
       if (q >= hp) continue;
       uint4 v = a_reg[i];
-      if (MODE == MODE_GN && a_ok[i]) {
+      if (a_ok[i]) {
         const size_t cb = (size_t)img * p.cin + a_c0 + col;
         const float4 m_lo = __ldg(reinterpret_cast<const float4*>(p.mul + cb));
         const float4 m_hi = __ldg(reinterpret_cast<const float4*>(p.mul + cb + 4));
@@ -309,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const Conv3x3Args p) 
     if (tid == 0) p.counters[tile] = 0;  // ready for the next launch
   }
 
-  // epilogue: round, + bias, + emb, + res (each in bf16), LeakyReLU
+  // epilogue: round, + bias, + emb, + res (each in bf16)
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -334,55 +322,39 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const Conv3x3Args p) 
           o0 = bf16r(o0 + __low2float(r));
           o1 = bf16r(o1 + __high2float(r));
         }
-        if (p.lrelu) {
-          o0 = o0 > 0.f ? o0 : bf16r(o0 * 0.2f);
-          o1 = o1 > 0.f ? o1 : bf16r(o1 * 0.2f);
-        }
         *reinterpret_cast<uint32_t*>(p.out + (size_t)m * p.cout + n) = pack_bf16(o0, o1);
       }
     }
 }
 
-template <int BM, int BN, int MODE>
+template <int BM, int BN>
 int launch(const Conv3x3Args& a, int splits, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<BM, BN>();
-  // the dynamic shared-memory limit is raised once per device (one bit
-  // each), not on every launch
   static std::atomic<unsigned> raised{0u};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = raise_smem_once(conv3x3_kernel<BM, BN>, smem, raised);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 32) return (int)cudaErrorInvalidDevice;
-  if (!((raised.load() >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(conv3x3_kernel<BM, BN, MODE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    raised.fetch_or(1u << dev);
-  }
   const int th = BM / a.tw;
   const int tiles = a.batch * ((a.h + th - 1) / th) * ((a.wd + a.tw - 1) / a.tw);
   dim3 grid(tiles, a.cout / BN, splits);
-  conv3x3_kernel<BM, BN, MODE><<<grid, kThreads, smem, stream>>>(a);
+  conv3x3_kernel<BM, BN><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes). mode 0: GN+SiLU prologue (mul, add
-// used; emb, res may be null); mode 1: nearest-2x gather (h, w are the
-// OUTPUT sizes; mul/add/emb/res null; lrelu 0 or 1). bm in {64, 128}
-// (mode 1: 128), bn in {64, 128}, tw in {8, 16}; cin % 32 == 0,
-// cout % bn == 0, all tensors contiguous and 16-byte aligned (the Python
-// wrappers check). splits > 1 needs `partial` ((splits, M, cout) fp32) and
-// `counters` (zeroed, one per output tile: batch x ceil(h/th) x
-// ceil(w/tw) x cout/bn), used by no other launch at the same time.
-// Launches on `stream`; returns cudaGetLastError(),
-// or cudaErrorInvalidValue for an unknown tile or mode.
-extern "C" int edtr_conv3x3(int mode, int bm, int bn, int tw, const void* x, const void* mul,
+// Plain C interface (loaded with ctypes). The GN+SiLU prologue conv: mul,
+// add (batch, cin) fp32; emb, res may be null. bm in {64, 128}, bn in {64,
+// 128}, tw in {8, 16}; cin % 32 == 0, cout % bn == 0, all tensors
+// contiguous and 16-byte aligned (the Python wrappers check). splits > 1
+// needs `partial` ((splits, M, cout) fp32) and `counters` (zeroed, one per
+// output tile: batch x ceil(h/th) x ceil(w/tw) x cout/bn), used by no other
+// launch at the same time. Launches on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown tile.
+extern "C" int edtr_conv3x3(int bm, int bn, int tw, const void* x, const void* mul,
                             const void* add, const void* w, const void* bias, const void* emb,
                             const void* res, void* out, void* partial, void* counters, int batch,
                             int h, int w_out, int cin, int cout, int splits,
-                            int chunks_per_split, int lrelu, void* stream) {
+                            int chunks_per_split, void* stream) {
   if (tw != 8 && tw != 16) return (int)cudaErrorInvalidValue;
   Conv3x3Args a;
   a.x = static_cast<const bf16*>(x);
@@ -402,16 +374,39 @@ extern "C" int edtr_conv3x3(int mode, int bm, int bn, int tw, const void* x, con
   a.cout = cout;
   a.tw = tw;
   a.chunks_per_split = chunks_per_split;
-  a.lrelu = lrelu;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == MODE_GN) {
-    if (bm == 64 && bn == 64) return launch<64, 64, MODE_GN>(a, splits, st);
-    if (bm == 64 && bn == 128) return launch<64, 128, MODE_GN>(a, splits, st);
-    if (bm == 128 && bn == 64) return launch<128, 64, MODE_GN>(a, splits, st);
-    if (bm == 128 && bn == 128) return launch<128, 128, MODE_GN>(a, splits, st);
-  } else if (mode == MODE_UP2) {
-    if (bm == 128 && bn == 64) return launch<128, 64, MODE_UP2>(a, splits, st);
-    if (bm == 128 && bn == 128) return launch<128, 128, MODE_UP2>(a, splits, st);
-  }
+  if (bm == 64 && bn == 64) return launch<64, 64>(a, splits, st);
+  if (bm == 64 && bn == 128) return launch<64, 128>(a, splits, st);
+  if (bm == 128 && bn == 64) return launch<128, 64>(a, splits, st);
+  if (bm == 128 && bn == 128) return launch<128, 128>(a, splits, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The nearest-2x conv (conv_wgmma.cuh). x (batch, h, w, cin) NHWC bf16, the
+// LOW-res input; w the folded weights (4 phases, 2, 2, cout, cin) bf16;
+// bias (cout) fp32; out (batch, 2h, 2w, cout) NHWC bf16. tw 16 (8 x 16
+// low-res tiles) or 8 (16 x 8); cin % 32 == 0, cout % 64 == 0, pointers
+// 16-byte aligned. splits > 1 needs `partial` ((splits, batch*2h*2w, cout)
+// fp32) and `counters` as above (batch x ceil(h/th) x ceil(w/tw) x cout/64
+// tiles), each split chunks_per_split 64-channel chunks. lrelu 0 or 1.
+// Returns cudaGetLastError(), cudaErrorInvalidValue for a shape the kernel
+// does not take, or -(CUresult) if cuTensorMapEncodeTiled refuses a map.
+extern "C" int edtr_upsample_conv(int tw, const void* x, const void* w, const void* bias,
+                                  void* out, void* partial, void* counters, int batch, int h,
+                                  int w_in, int cin, int cout, int splits,
+                                  int chunks_per_split, int lrelu, void* stream) {
+  edtr_upconv::UpArgs a = {};
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<bf16*>(out);
+  a.partial = static_cast<float*>(partial);
+  a.counters = static_cast<int*>(counters);
+  a.batch = batch;
+  a.h = h;
+  a.w = w_in;
+  a.cin = cin;
+  a.cout = cout;
+  a.tw = tw;
+  a.chunks_per_split = chunks_per_split;
+  a.lrelu = lrelu;
+  return edtr_upconv::launch(x, w, a, splits, static_cast<cudaStream_t>(stream));
 }

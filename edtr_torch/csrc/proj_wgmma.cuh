@@ -1,74 +1,75 @@
-// LayerNorm + projection GEMM for Hopper (sm_90a) on wgmma, with the
-// weights streamed through a TMA ring; shared by ln_matmul.cu (K8a) and the
-// LN branch of geglu.cu (K7b). bf16 tokens in, bf16 out, fp32 accumulation:
+// Normalisation + projection GEMM for Hopper (sm_90a) on wgmma, with the
+// weights streamed through a TMA ring; shared by ln_matmul.cu (K8a, K8b)
+// and the LN branch of geglu.cu (K7b). bf16 tokens in, bf16 out, fp32
+// accumulation:
 //
-//   out = EPI(LN(x) @ W^T)
+//   out = EPI(PRO(x) @ W^T)
 //
 // Replaces the Pallas TPU kernels edtr_tpu/ops/ln_matmul.py:_kernel
-// (ln_matmuls, its pallas_call at :120) and edtr_tpu/ops/geglu.py:_ln_kernel
-// (ln_geglu_proj, :218). x is (M, C) tokens, row-major; W is the module's
-// bf16 weight in nn.Linear layout (rows = output columns, C contiguous),
-// which is already the K-major B operand of wgmma, so nothing is repacked.
+// (ln_matmuls, its pallas_call at :120) and _aff_kernel (affine_matmul,
+// :201), and edtr_tpu/ops/geglu.py:_ln_kernel (ln_geglu_proj, :218). x is
+// (M, C) tokens, row-major; W is the module's bf16 weight in nn.Linear
+// layout (rows = output columns, C contiguous), which is already the
+// K-major B operand of wgmma, so nothing is repacked.
 //
 // What bounds them on an H100: at the main-path shapes (256-4096 tokens, C
 // 320-1280, 320-10240 weight rows) a product does 2*C FLOP per output on
-// bf16 data, 100-600 FLOP a byte, so the tensor cores bound them (the
-// 3*320-column q/k/v at 4096 tokens sits near the line). Their predecessor
-// (proj_gemm.cuh, mma.sync) stayed at 7% of the bound: a barrier every 32
-// channels, the LayerNorm redone by every column block, no wgmma. Here:
+// bf16 data, 100-600 FLOP a byte, so the tensor cores bound the wide ones;
+// the single C -> C products (K8b, the cross-attention query) sit at or
+// below the line and the bytes bound them. Their predecessor (proj_gemm.cuh,
+// mma.sync) stayed at 7% of the bound: a barrier every 32 channels, the
+// prologue redone by every column block, no wgmma. Here:
 //
-// 1. LayerNorm once per block. A block owns 64 token rows. The producer warp
-//    brings them into shared memory by TMA, straight into the K-major
-//    128-byte-swizzled layout wgmma reads for A (64-channel chunks of 64
-//    rows x 128 bytes; TMA fills the channels past C with zeros). The 256
-//    consumer threads, 4 to a row, take the two-pass fp32 statistics from
-//    there as the chunks land (ops/_norms.py:ln_f32: biased variance, eps
-//    inside the rsqrt) and write the normalised bf16 rows back in place. A
-//    stays resident for the whole block (160 KB at C = 1280). The LayerNorm
-//    is latency-bound (8 warps, ~10 instructions an element), so a block
-//    takes 64 rows rather than 128: that halves its share and doubles the
-//    blocks that share it out (measured on the card, PERF.md).
+// 1. The prologue once per block. A block owns 64 (or 32) token rows. The
+//    producer warp brings them into shared memory by TMA, straight into the
+//    K-major 128-byte-swizzled layout wgmma reads for A (64-channel chunks
+//    of 64 rows x 128 bytes; TMA fills the channels past C with zeros). The
+//    256 consumer threads, 4-8 to a row, transform the rows in place as the
+//    chunks land and write them back as bf16:
+//    PRO_LN   the LayerNorm: two-pass fp32 statistics (ops/_norms.py:ln_f32:
+//             biased variance, eps inside the rsqrt), then ((x - mean) *
+//             rstd) * s + b. It is latency-bound (8 warps, ~10 instructions
+//             an element), so a block takes 64 rows rather than 128: that
+//             halves its share and doubles the blocks that share it out
+//             (measured on the card, PERF.md);
+//    PRO_AFF  the SpatialTransformer's GroupNorm folded to a per-(batch, C)
+//             affine: x * mul + add in fp32 without contraction, with the
+//             (C) row of the block's batch element (N % 256 == 0, so a block
+//             never straddles two); one pass, no statistics.
+//    A stays resident for the whole block (160 KB at C = 1280).
 // 2. Weights through a TMA ring. The block walks a range of BN-row tiles of
-//    W (a column group: grid (M / 64) x groups, the LayerNorm computed once
-//    per group instead of once per tile). The producer warp keeps a 2-4
-//    stage mbarrier ring of BN x 64-channel W boxes full (TMA, 128-byte
-//    swizzle, zero fill past C). The two consumer warpgroups take the tiles
-//    in turn, each issuing wgmma m64nBNk16 with both operands in shared
-//    memory and the sums in fp32 registers while the other runs its
-//    epilogue; a stage is freed as soon as the wgmma that read it retired.
-//    For GEGLU a stage holds BN/2 h rows and the matching BN/2 gate rows
-//    (at +inner), as two boxes, so a thread holds both sums of each of its
-//    outputs.
+//    W (a column group: grid (M / BM) x groups, the prologue done once per
+//    group instead of once per tile). The producer warp keeps a 2-4 stage
+//    mbarrier ring of BN x 64-channel W boxes full (TMA, 128-byte swizzle,
+//    zero fill past C). The two consumer warpgroups take the tiles in turn,
+//    each issuing wgmma m64nBNk16 with both operands in shared memory and
+//    the sums in fp32 registers while the other runs its epilogue; a stage
+//    is freed as soon as the wgmma that read it retired. For GEGLU a stage
+//    holds BN/2 h rows and the matching BN/2 gate rows (at +inner), as two
+//    boxes, so a thread holds both sums of each of its outputs.
 // 3. Epilogue from the registers, with the roundings of the Pallas kernels:
 //    EPI_STORE rounds each sum to bf16 once and sends weight row n to output
 //    n / O (the self-attention q/k/v from one (3*O, C) weight);
 //    EPI_GEGLU adds both fp32 biases, applies the erf GELU (erff, the exact
-//    GELU of F.gelu) and rounds the product once (geglu.py:_geglu_tile).
+//    GELU of F.gelu) and rounds the product once (geglu.py:_geglu_tile);
+//    EPI_BIAS rounds the sum to bf16, adds the fp32 bias rounded to bf16
+//    and rounds again (flax Dense in bf16: ln_matmul.py:_aff_kernel).
 //    Each warp passes its 16 rows through a 16 x 16 staging buffer, so that
 //    the stores fill whole 32-byte sectors.
 //
 // The tensor maps of W and x are encoded once per (pointer, shape, box)
-// and cached: the modules keep their bf16 weight copies at a stable address
-// (models/layers.py:DerivedWeight). cuTensorMapEncodeTiled is looked up at
-// run time (cudaGetDriverEntryPoint), so nothing links libcuda.
+// and cached (sm90.cuh): the modules keep their bf16 weight copies at a
+// stable address (models/layers.py:DerivedWeight).
 
 #pragma once
 
-#include <cuda.h>
-
-#include <array>
 #include <atomic>
-#include <cstring>
-#include <map>
-#include <mutex>
-#include <tuple>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace edtr_lnproj {
 
-using edtr::bf16;
-using edtr::smem_u32;
+using namespace edtr_sm90;
 
 constexpr int KC = 64;             // channels per chunk: one 128-byte swizzle row
 constexpr int ROW_BYTES = KC * 2;
@@ -78,12 +79,15 @@ constexpr int AM = 64;              // rows of the A tile: wgmma's M
 constexpr int kConsumers = 256;     // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
-enum { EPI_STORE = 0, EPI_GEGLU = 1 };
+enum { PRO_LN = 0, PRO_AFF = 1 };
+enum { EPI_STORE = 0, EPI_GEGLU = 1, EPI_BIAS = 2 };
 
 struct Args {
-  const float* ln_s;    // (C) LayerNorm scale and shift
+  const float* ln_s;    // (C) LayerNorm scale and shift (PRO_LN)
   const float* ln_b;
-  const float* bias;    // (2*O) for EPI_GEGLU
+  const float* mul;     // (M / n_tok, C) folded GroupNorm (PRO_AFF)
+  const float* add;
+  const float* bias;    // (2*O) for EPI_GEGLU, (O) for EPI_BIAS
   bf16* out0;           // (M, O) outputs; out1/out2 only for EPI_STORE with K > 1
   bf16* out1;
   bf16* out2;
@@ -92,158 +96,9 @@ struct Args {
   int tiles;            // BN-row tiles of the weight
   int groups;           // column groups: gridDim.y
   int stages;           // weight ring depth
+  int n_tok;            // tokens per batch element (PRO_AFF)
   float eps;
 };
-
-// ---- mbarrier, TMA, wgmma (PTX) ---------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed. A wait of more
-// than ~2 s (4e9 cycles) means a broken pipeline: trap, so that the launch
-// fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > 4000000000LL) {
-      asm volatile("trap;");
-    }
-  }
-}
-
-// box {KC channels, rows} of the tensor map at (c0, r0) -> dst, completing
-// its bytes on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int r0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(r0)
-      : "memory");
-}
-
-// shared-memory descriptor of a K-major operand in the 128-byte swizzle:
-// rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), 1024-byte aligned
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator accesses across the async MMAs
-template <int R>
-__device__ __forceinline__ void fence_operands(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x N fp32, N/2 registers a thread) += A (64 x 16, smem) * B^T (N x
-// 16, smem), both K-major bf16
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<160> {
-  __device__ static __forceinline__ void mma(float (&d)[80], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
-        "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-        : "l"(da), "l"(db), "r"(1));
-  }
-};
-
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -276,44 +131,21 @@ __device__ __forceinline__ float sum8(const float (&f)[8]) {
   return ((f[0] + f[1]) + (f[2] + f[3])) + ((f[4] + f[5]) + (f[6] + f[7]));
 }
 
-// per warp, 16 rows x 16 columns of bf16, 32 bytes a row; rows 4-7 and
-// 12-15 swap their two 16-byte halves, so that the 8 rows one write
-// instruction touches fall in different banks
-constexpr int STG_WARP = 16 * 16;  // elements
-
-__device__ __forceinline__ int stg_offset(int row, int half) {
-  return row * 16 + ((half ^ ((row >> 2) & 1)) << 3);
-}
-
-// The 16 x 16 output block (o[0..3]: this thread's columns 2tq, 2tq+1 of
-// rows gq and gq+8 of the first n8 block, o[4..7] of the second) through the
-// warp's staging buffer to rows r0.. of `out` (row stride ld), columns
-// c0..c0+15: each lane stores 16 contiguous bytes, a store instruction 16
-// whole 32-byte sectors.
+// The warp's 16 x 16 output block o (store16x16_rows) to rows r0.. of
+// `out` (row stride ld), columns c0..c0+15.
 __device__ __forceinline__ void store16x16(bf16* stg, const float (&o)[8], int lane, bf16* out,
                                            size_t r0, int ld, int c0) {
-  const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<uint32_t*>(stg + stg_offset(gq + 8 * h, n) + 2 * tq) =
-          edtr::pack_bf16(o[4 * n + 2 * h], o[4 * n + 2 * h + 1]);
-  __syncwarp();
-  const int r = lane >> 1, half = lane & 1;
-  *reinterpret_cast<uint4*>(out + (r0 + r) * ld + c0 + 8 * half) =
-      *reinterpret_cast<const uint4*>(stg + stg_offset(r, half));
-  __syncwarp();
+  store16x16_rows(stg, o, lane, out + (r0 + (lane >> 1)) * ld + c0);
 }
 
 // Two consumer warpgroups, then one producer warp. BM token rows a block (32
 // or 64): with 32, rows 32-63 of the A tile are left as they are, and their
 // sums are never stored.
-template <int BM, int BN, int EPI>
+template <int BM, int BN, int PRO, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
     lnproj_kernel(const __grid_constant__ CUtensorMap wmap,
                   const __grid_constant__ CUtensorMap xmap, const Args p) {
-  constexpr int TPR = kConsumers / BM;  // LayerNorm threads a row
+  constexpr int TPR = kConsumers / BM;  // prologue threads a row
   constexpr int UPT = 8 / TPR;          // their 16-byte units in each 64-channel chunk
   constexpr int STAGE_BYTES = BN * ROW_BYTES;
   constexpr int R = BN / 2;             // accumulator registers a thread
@@ -409,12 +241,54 @@ __global__ void __launch_bounds__(kThreads, 1)
     prev = s;
   };
 
-  // LayerNorm in place over the block's rows (TMA zero-fills the channels
-  // past C). TPR neighbouring threads share a row, each taking UPT units of
-  // every chunk (unit j of chunk kc: j = sub*UPT + i), so that a
-  // quarter-warp's 16-byte loads fall in 8 distinct bank groups. The sums
-  // start as each chunk lands.
-  {
+  // The prologue in place over the block's rows (TMA zero-fills the
+  // channels past C). TPR neighbouring threads share a row, each taking UPT
+  // units of every chunk (unit j of chunk kc: j = sub*UPT + i), so that a
+  // quarter-warp's 16-byte loads fall in 8 distinct bank groups. The work
+  // starts as each chunk lands.
+  if (PRO == PRO_AFF) {
+    // x * mul + add in fp32, no contraction (plain_affine_matmul's separate
+    // multiply and add), rounded to bf16; the block's batch element's row.
+    // No product starts before the whole tile is transformed, so the pass
+    // waits for every chunk first and then keeps CU chunks' loads in flight
+    // (one chunk at a time, each waiting on its loads, took most of a
+    // block's time: PERF.md).
+    constexpr int CU = 4 / UPT;
+    const int r = tid / TPR, sub = tid % TPR, cu = p.C / 8;
+    const size_t row = (size_t)(m0 / p.n_tok) * p.C;
+    for (int kc = 0; kc < p.kch; ++kc) mbar_wait(&a_full[kc], 0);
+    for (int k0 = 0; k0 < p.kch; k0 += CU) {
+      uint4 u[CU][UPT];
+      float sc[CU][UPT][8], sh[CU][UPT][8];
+#pragma unroll
+      for (int k = 0; k < CU; ++k)
+#pragma unroll
+        for (int i = 0; i < UPT; ++i) {
+          const int q = (k0 + k) * 8 + sub * UPT + i;
+          if (k0 + k < p.kch && q < cu) {
+            u[k][i] = *reinterpret_cast<const uint4*>(sA + a_offset(r, q));
+            load8f(p.mul + row + q * 8, sc[k][i]);
+            load8f(p.add + row + q * 8, sh[k][i]);
+          }
+        }
+#pragma unroll
+      for (int k = 0; k < CU; ++k)
+#pragma unroll
+        for (int i = 0; i < UPT; ++i) {
+          const int q = (k0 + k) * 8 + sub * UPT + i;
+          if (k0 + k < p.kch && q < cu) {
+            float f[8];
+            unpack8(u[k][i], f);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              f[e] = __fadd_rn(__fmul_rn(f[e], sc[k][i][e]), sh[k][i][e]);
+            *reinterpret_cast<uint4*>(sA + a_offset(r, q)) =
+                make_uint4(edtr::pack_bf16(f[0], f[1]), edtr::pack_bf16(f[2], f[3]),
+                           edtr::pack_bf16(f[4], f[5]), edtr::pack_bf16(f[6], f[7]));
+          }
+        }
+    }
+  } else {
     const int cu = p.C / 8, kfull = p.C / KC;  // chunks wholly inside C, then a tail
     const float inv_c = 1.f / (float)p.C;
     const int r = tid / TPR, sub = tid % TPR;
@@ -491,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kc = 0; kc < kfull; ++kc) norm_chunk(kc, false);
     if (kfull < p.kch) norm_chunk(kfull, true);
   }
-  // the normalised rows, written by the threads, are read by wgmma (the
+  // the transformed rows, written by the threads, are read by wgmma (the
   // async proxy)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -540,6 +414,21 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         store16x16(wstg, o, lane, p.out0, r0, p.O, t * (BN / 2) + j * 8);
       }
+    } else if (EPI == EPI_BIAS) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 2) {
+        const int n = t * BN + j * 8;
+        float o[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n + h * 8 + 2 * tq));
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            o[4 * h + i] = edtr::bf16r(edtr::bf16r(acc[4 * (j + h) + i]) +
+                                       edtr::bf16r(i & 1 ? b.y : b.x));
+        }
+        store16x16(wstg, o, lane, p.out0, r0, p.O, n);
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < BN / 8; j += 2) {
@@ -557,61 +446,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host ------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The tensor map of a (rows, C) bf16 matrix read in boxes of 64 channels x
-// box_rows rows, in the 128-byte swizzle, zeros past C. Returns 0, or
-// -(CUresult) if cuTensorMapEncodeTiled refuses it.
-inline int encode_map(const void* ptr, int rows, int C, int box_rows, CUtensorMap* out) {
-  static EncodeTiled encode = []() -> EncodeTiled {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiled>(fn);
-  }();
-  if (encode == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)box_rows};
-  const cuuint32_t estrides[2] = {1, 1};
-  const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                            dims, strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
-}
-
-// encode_map from a cache keyed by (pointer, rows, C, box_rows): a map
-// holds nothing else, so it stays right for whatever tensor later lies
-// there with that shape. The modules keep their bf16 weights at a stable
-// address (models/layers.py:DerivedWeight), and the caching allocator hands
-// the tokens of a layer the same few addresses, so nearly every call hits.
-inline int cached_map(const void* w, int rows, int C, int box_rows, CUtensorMap* out) {
-  typedef std::tuple<uintptr_t, int, int, int> Key;
-  static std::mutex mu;
-  static std::map<Key, std::array<uint64_t, 16>> cache;
-  static_assert(sizeof(CUtensorMap) == sizeof(std::array<uint64_t, 16>), "CUtensorMap size");
-  const Key key(reinterpret_cast<uintptr_t>(w), rows, C, box_rows);
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = cache.find(key);
-  if (it == cache.end()) {
-    CUtensorMap map;
-    const int r = encode_map(w, rows, C, box_rows, &map);
-    if (r != 0) return r;
-    if (cache.size() >= 4096) cache.clear();  // fresh tensors every call: stay bounded
-    std::array<uint64_t, 16> bytes;
-    memcpy(bytes.data(), &map, sizeof(map));
-    it = cache.emplace(key, bytes).first;
-  }
-  memcpy(out, it->second.data(), sizeof(CUtensorMap));
-  return 0;
-}
-
 // Shared memory of a block: the alignment slack, A, the ring, the output
 // staging, the barriers.
 inline int smem_bytes(int bn, int kch, int stages) {
@@ -622,11 +456,13 @@ inline int smem_bytes(int bn, int kch, int stages) {
 // One launch over (M / BM) x groups blocks, each walking its range of the
 // slab_rows / BN weight tiles with as deep a ring as shared memory holds
 // (2-4 stages). The dynamic shared-memory limit is raised once per device.
-template <int BM, int BN, int EPI>
+template <int BM, int BN, int PRO, int EPI>
 int launch(const void* x, const void* w, int slab_rows, Args a, cudaStream_t stream) {
-  // 16 output columns a store: whole within one output (STORE: O % 64)
+  // 16 output columns a store: whole within one output (STORE: O % 64); an
+  // affine block's rows within one batch element
   if (a.M % BM || slab_rows % BN || a.C % 32 || a.C <= 0 ||
-      a.O % (EPI == EPI_STORE ? 64 : BN / 2))
+      a.O % (EPI == EPI_GEGLU ? BN / 2 : 64) ||
+      (PRO == PRO_AFF && (a.n_tok <= 0 || a.n_tok % BM || a.M % a.n_tok)))
     return (int)cudaErrorInvalidValue;
   a.kch = (a.C + KC - 1) / KC;
   a.tiles = slab_rows / BN;
@@ -636,22 +472,13 @@ int launch(const void* x, const void* w, int slab_rows, Args a, cudaStream_t str
   if (a.stages > kMaxStages) a.stages = kMaxStages;
   if (a.stages < 2) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned> raised{0u};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 32) return (int)cudaErrorInvalidDevice;
-  if (!((raised.load() >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(lnproj_kernel<BM, BN, EPI>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (err != cudaSuccess) return (int)err;
-    raised.fetch_or(1u << dev);
-  }
+  int r = (int)edtr::raise_smem_once(lnproj_kernel<BM, BN, PRO, EPI>, kSmemLimit, raised);
   CUtensorMap wmap, xmap;
-  int r = cached_map(w, slab_rows, a.C, EPI == EPI_GEGLU ? BN / 2 : BN, &wmap);
-  if (r == 0) r = cached_map(x, a.M, a.C, BM, &xmap);
+  if (r == 0) r = cached_matrix_map(w, slab_rows, a.C, EPI == EPI_GEGLU ? BN / 2 : BN, &wmap);
+  if (r == 0) r = cached_matrix_map(x, a.M, a.C, BM, &xmap);
   if (r != 0) return r;
   dim3 grid(a.M / BM, a.groups);
-  lnproj_kernel<BM, BN, EPI><<<grid, kThreads, smem_bytes(BN, a.kch, a.stages), stream>>>(
+  lnproj_kernel<BM, BN, PRO, EPI><<<grid, kThreads, smem_bytes(BN, a.kch, a.stages), stream>>>(
       wmap, xmap, a);
   return (int)cudaGetLastError();
 }

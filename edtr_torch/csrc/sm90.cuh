@@ -1,0 +1,306 @@
+// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
+// (proj_wgmma.cuh: K8a, K8b, K7b; conv_wgmma.cuh: K6): mbarriers, TMA tile
+// loads (2-D and 4-D), the shared-memory descriptor of a K-major operand in
+// the 128-byte swizzle, the wgmma instructions with their fences, the 16 x
+// 16 store staging of a warp's accumulator fragment, and the tensor-map
+// encoder with its cache. cuTensorMapEncodeTiled is looked up at run time
+// (cudaGetDriverEntryPoint), so nothing links libcuda.
+
+#pragma once
+
+#include <cuda.h>
+
+#include <array>
+#include <cstring>
+#include <map>
+#include <mutex>
+
+#include "common.cuh"
+
+namespace edtr_sm90 {
+
+using edtr::bf16;
+using edtr::smem_u32;
+
+// ---- mbarrier ----------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed. A wait of more
+// than ~2 s (4e9 cycles) means a broken pipeline: trap, so that the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > 4000000000LL) {
+      asm volatile("trap;");
+    }
+  }
+}
+
+// ---- TMA -----------------------------------------------------------------------
+
+// box of the 2-D tensor map at (c0, r0) -> dst, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(r0)
+      : "memory");
+}
+
+// box of the 4-D tensor map at (c0, c1, c2, c3) -> dst; coordinates outside
+// the tensor (negative ones included) read as zeros, and the box's full
+// bytes still complete on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma -------------------------------------------------------------------
+
+// shared-memory descriptor of a K-major operand in the 128-byte swizzle:
+// rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), 1024-byte aligned
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across the async MMAs
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N fp32, N/2 registers a thread) += A (64 x 16, smem) * B^T (N x
+// 16, smem), both K-major bf16. Register 4j + 2h + e of a thread holds row
+// (warp % 4) * 16 + lane / 4 + 8h, column 8j + 2 (lane % 4) + e.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<160> {
+  __device__ static __forceinline__ void mma(float (&d)[80], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// ---- stores from the accumulator fragment ---------------------------------
+
+// per warp, 16 rows x 16 columns of bf16, 32 bytes a row; rows 4-7 and
+// 12-15 swap their two 16-byte halves, so that the 8 rows one write
+// instruction touches fall in different banks
+constexpr int STG_WARP = 16 * 16;  // elements
+
+__device__ __forceinline__ int stg_offset(int row, int half) {
+  return row * 16 + ((half ^ ((row >> 2) & 1)) << 3);
+}
+
+// A warp's 16 x 16 output block (o[0..3]: this thread's columns 2tq, 2tq+1
+// of rows gq and gq+8 of the first n8 block, o[4..7] of the second) through
+// its staging buffer: lane l stores 16 contiguous bytes, the half l % 2 of
+// row l / 2, at `dst` (that row's 16 columns; nullptr: the row is not
+// stored), so that a store instruction fills whole 32-byte sectors.
+__device__ __forceinline__ void store16x16_rows(bf16* stg, const float (&o)[8], int lane,
+                                                bf16* dst) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(stg + stg_offset(gq + 8 * h, n) + 2 * tq) =
+          edtr::pack_bf16(o[4 * n + 2 * h], o[4 * n + 2 * h + 1]);
+  __syncwarp();
+  const int r = lane >> 1, half = lane & 1;
+  if (dst != nullptr)
+    *reinterpret_cast<uint4*>(dst + 8 * half) =
+        *reinterpret_cast<const uint4*>(stg + stg_offset(r, half));
+  __syncwarp();
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The tensor map of a contiguous bf16 tensor of `rank` (2-4) dimensions
+// (dims[0] innermost) read in boxes of `box` elements, in the 128-byte
+// swizzle (box[0] * 2 == 128), zeros outside the tensor. Returns 0, or
+// -(CUresult) if cuTensorMapEncodeTiled refuses it.
+inline int encode_map(const void* ptr, int rank, const uint64_t* dims, const uint32_t* box,
+                      CUtensorMap* out) {
+  static EncodeTiled encode = []() -> EncodeTiled {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(fn);
+  }();
+  if (encode == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+  if (rank < 2 || rank > 4) return -(int)CUDA_ERROR_INVALID_VALUE;
+  cuuint64_t gdims[4], strides[3];
+  cuuint32_t gbox[4], estrides[4];
+  uint64_t stride = sizeof(bf16);
+  for (int i = 0; i < rank; ++i) {
+    gdims[i] = dims[i];
+    gbox[i] = box[i];
+    estrides[i] = 1;
+    stride *= dims[i];
+    if (i + 1 < rank) strides[i] = stride;
+  }
+  const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+                            gdims, strides, gbox, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// encode_map from a cache keyed by (pointer, dims, box): a map holds
+// nothing else, so it stays right for whatever tensor later lies there with
+// that shape. The modules keep their bf16 weights at a stable address
+// (models/layers.py:DerivedWeight), and the caching allocator hands the
+// activations of a layer the same few addresses, so nearly every call hits.
+inline int cached_map(const void* ptr, int rank, const uint64_t* dims, const uint32_t* box,
+                      CUtensorMap* out) {
+  typedef std::array<uint64_t, 10> Key;
+  static std::mutex mu;
+  static std::map<Key, std::array<uint64_t, 16>> cache;
+  static_assert(sizeof(CUtensorMap) == sizeof(std::array<uint64_t, 16>), "CUtensorMap size");
+  Key key{};
+  key[0] = reinterpret_cast<uintptr_t>(ptr);
+  key[1] = (uint64_t)rank;
+  for (int i = 0; i < rank; ++i) {
+    key[2 + i] = dims[i];
+    key[6 + i] = box[i];
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it == cache.end()) {
+    CUtensorMap map;
+    const int r = encode_map(ptr, rank, dims, box, &map);
+    if (r != 0) return r;
+    if (cache.size() >= 4096) cache.clear();  // fresh tensors every call: stay bounded
+    std::array<uint64_t, 16> bytes;
+    memcpy(bytes.data(), &map, sizeof(map));
+    it = cache.emplace(key, bytes).first;
+  }
+  memcpy(out, it->second.data(), sizeof(CUtensorMap));
+  return 0;
+}
+
+// the cached map of a row-major (rows, cols) bf16 matrix in boxes of 64
+// columns x box_rows rows
+inline int cached_matrix_map(const void* ptr, int rows, int cols, int box_rows,
+                             CUtensorMap* out) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint32_t box[2] = {64u, (uint32_t)box_rows};
+  return cached_map(ptr, 2, dims, box, out);
+}
+
+}  // namespace edtr_sm90

@@ -13,8 +13,9 @@ Counterpart of ``edtr_tpu/models/layers.py``:
   nearest-2x conv of ``edtr_tpu/ops/gn_conv.py``, as stock PyTorch ops (the
   plain versions) or, inside a :func:`fused_conv` block, through the port's
   conv kernels (``edtr_torch/ops/gn_conv.py``), which read channels-last
-  activations (:func:`to_conv_layout`) and the bf16 weight copy
-  ``Conv2d.packed_weight`` caches;
+  activations (:func:`to_conv_layout`) and the bf16 weight copies
+  ``Conv2d.packed_weight`` (ResBlock halves) and ``Conv2d.folded_weight``
+  (nearest-2x convs, phase-folded) cache;
 * :func:`fused_proj`: the projection configuration, read by
   ``models/attention.py``: inside the block the transformer blocks' LN+q/k/v,
   LN+GEGLU and GroupNorm-affine+``proj_in`` run through the port's
@@ -181,6 +182,10 @@ def _pack_conv(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
     return gn_conv.pack_weight(ws[0], dtype)
 
 
+def _fold_conv(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    return gn_conv.fold_subpixel_weights(ws[0], dtype)
+
+
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -220,12 +225,20 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
         self._packed = DerivedWeight()
+        self._folded = DerivedWeight()
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """The weight as the conv kernels read it (``gn_conv.pack_weight``:
-        (kh, kw, out, in) in ``dtype``), made once and kept until the weight
-        is changed in place (its version) or replaced (its storage)."""
+        """The weight as the GroupNorm-conv kernels read it
+        (``gn_conv.pack_weight``: (kh, kw, out, in) in ``dtype``), made once
+        and kept until the weight is changed in place (its version) or
+        replaced (its storage)."""
         return self._packed.get((self.weight,), dtype, _pack_conv)
+
+    def folded_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The 3x3 weight as the nearest-2x conv kernel reads it
+        (``gn_conv.fold_subpixel_weights``: (4 phases, 2, 2, out, in) in
+        ``dtype``), kept as :meth:`packed_weight` is."""
+        return self._folded.get((self.weight,), dtype, _fold_conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
@@ -287,7 +300,7 @@ def upsample_conv3x3(x: torch.Tensor, conv: Conv2d,
     "lrelu"); under :func:`fused_conv`, one kernel."""
     if _fused_conv:
         return gn_conv.upsample_conv(x, conv.weight, conv.bias, act,
-                                     w_packed=conv.packed_weight(x.dtype))
+                                     w_packed=conv.folded_weight(x.dtype))
     return gn_conv.plain_upsample_conv(x, conv.weight, conv.bias, act)
 
 

@@ -1,7 +1,8 @@
 """Host side shared by the transformer-projection kernels
-(``ops/ln_matmul.py``, ``ops/geglu.py``; ``csrc/proj_gemm.cuh`` and
-``csrc/proj_wgmma.cuh``): the tile plans, the operand checks, the launch's
-error check, and the fp32-accumulated product of the plain versions."""
+(``ops/ln_matmul.py``, ``ops/geglu.py``; ``csrc/proj_wgmma.cuh`` and, for
+K7a, ``csrc/proj_gemm.cuh``): the tile plans, the operand checks, the
+launch's error check, and the fp32-accumulated product of the plain
+versions."""
 
 from __future__ import annotations
 
@@ -30,10 +31,10 @@ def dot32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def plan(m: int, slab_rows: int) -> Tuple[int, int]:
-    """``(bm, bn)`` of a launch over ``m`` token rows and ``slab_rows``
-    weight rows: 128 x 128 tiles where the shapes allow, halved (columns
-    first, then rows) while the grid would leave SMs idle. No split over C:
-    the smallest main-path grid (256 tokens, 1280 -> 1280) gets 80 blocks."""
+    """``(bm, bn)`` of a ``proj_gemm.cuh`` launch (``geglu_proj``, K7a)
+    over ``m`` token rows and ``slab_rows`` weight rows: 128 x 128 tiles
+    where the shapes allow, halved (columns first, then rows) while the grid
+    would leave SMs idle. No split over C."""
     bm = 128 if m % 128 == 0 else 64
     bn = 128 if slab_rows % 128 == 0 else 64
     while (m // bm) * (slab_rows // bn) < SMS and (bn > 64 or bm > 64):
@@ -44,25 +45,55 @@ def plan(m: int, slab_rows: int) -> Tuple[int, int]:
     return bm, bn
 
 
+def lnproj_smem(bn: int, c: int, stages: int) -> int:
+    """Dynamic shared memory of a ``proj_wgmma.cuh`` block
+    (``smem_bytes``): the alignment slack, the resident (64, C) tokens, the
+    ring, the output staging and the barriers."""
+    return (1024 + -(-c // KC) * 64 * 2 * KC + stages * bn * 2 * KC + 8 * 512
+            + (2 * MAX_STAGES + 2 + 32) * 8)
+
+
 def lnproj_stages(bn: int, c: int) -> int:
     """Weight-ring stages of a ``proj_wgmma.cuh`` block (``launch``): as
     many as shared memory holds beside the resident (64, C) tokens and the
     output staging, at most :data:`MAX_STAGES`."""
-    fixed = 1024 + -(-c // KC) * 64 * 2 * KC + 8 * 512 + (2 * MAX_STAGES + 2 + 32) * 8
-    return min(MAX_STAGES, (SMEM_LIMIT - fixed) // (bn * 2 * KC))
+    return min(MAX_STAGES, (SMEM_LIMIT - lnproj_smem(bn, c, 0)) // (bn * 2 * KC))
 
 
 @functools.lru_cache(maxsize=None)
-def lnproj_plan(m: int, c: int, slab_rows: int, geglu: bool) -> Tuple[int, int, int]:
-    """``(bm, bn, groups)`` of a ``proj_wgmma.cuh`` launch over ``m`` token
-    rows of ``c`` channels and ``slab_rows`` weight rows: 160-row weight
-    tiles for K8a (they divide every main-path slab, 320-3840) and 128-row
-    ones for GEGLU (64 h + 64 gate rows), else 64; as many column groups as
-    one wave of blocks takes (one an SM: a block holds most of its shared
-    memory); and 64-row blocks, unless those would leave half the SMs idle:
-    then 32-row ones, which halve the LayerNorm each block does first.
-    Raises ValueError for a C whose tokens do not fit beside a 2-stage
-    ring."""
+def lnproj_plan(m: int, c: int, slab_rows: int, kind: str) -> Tuple[int, int, int]:
+    """``(bm, bn, groups)`` of a ``proj_wgmma.cuh`` launch of wrapper
+    ``kind`` ("ln_matmuls", "ln_geglu_proj" or "affine_matmul") over ``m``
+    token rows of ``c`` channels and ``slab_rows`` weight rows; as many
+    column groups as one wave of blocks takes (one an SM: a block holds most
+    of its shared memory). Raises ValueError for a C whose tokens do not
+    fit beside a 2-stage ring.
+
+    The LayerNorm forms: 160-row weight tiles for K8a (they divide every
+    main-path slab, 320-3840) and 128-row ones for GEGLU (64 h + 64 gate
+    rows), else 64; and 64-row blocks, unless those would leave half the SMs
+    idle: then 32-row ones, which halve the LayerNorm each block does first.
+
+    The affine form (K8b) has no statistics to share out, and a block's
+    fixed cost (its tokens by TMA and the affine before the first product)
+    is best paid once a tile: one weight tile a block, the (bm, bn) with the
+    most blocks within one wave, then the wider tile: 64 x 160 at 4096
+    tokens, 32 x 160 at 1024 and 32 x 128 at 256 (a sweep of every plan on
+    the card, PERF.md)."""
+    if kind == "affine_matmul":
+        best = None
+        for bm in (64, 32):
+            for bn in (160, 128, 64):
+                if m % bm or slab_rows % bn or lnproj_stages(bn, c) < 2:
+                    continue
+                blocks = (m // bm) * (slab_rows // bn)
+                score = (blocks <= SMS, blocks if blocks <= SMS else -blocks, bn)
+                if best is None or score > best[0]:
+                    best = (score, (bm, bn, slab_rows // bn))
+        if best is None:
+            raise ValueError(f"{c} channels do not fit the affine kernel's shared memory")
+        return best[1]
+    geglu = kind == "ln_geglu_proj"
     bn = (128 if slab_rows % 128 == 0 else 64) if geglu else (160 if slab_rows % 160 == 0
                                                                else 64)
     if lnproj_stages(bn, c) < 2:

@@ -8,8 +8,8 @@ wrapper here, with its own launch count:
   wrapper        replaces (edtr_tpu/ops/geglu.py)   CUDA kernel
   =============  =================================  =========================
   geglu_proj     ``geglu_proj`` (``_kernel``)       proj_gemm_kernel
-                                                    <PRO_NONE, EPI_GEGLU>
-  ln_geglu_proj  ``ln_geglu_proj`` (``_ln_kernel``)  lnproj_kernel<EPI_GEGLU>
+  ln_geglu_proj  ``ln_geglu_proj`` (``_ln_kernel``)  lnproj_kernel
+                                                    <PRO_LN, EPI_GEGLU>
   =============  =================================  =========================
 
 Both compute ``(x@wh + bh) * gelu_erf(x@wg + bg)`` (``ln_geglu_proj`` on
@@ -133,7 +133,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if ln is None:
         bm, bn, groups = *plan(bsz * n, 2 * inner), 1
     else:
-        bm, bn, groups = lnproj_plan(bsz * n, c, 2 * inner, True)
+        bm, bn, groups = lnproj_plan(bsz * n, c, 2 * inner, "ln_geglu_proj")
     with on_device(dev):
         err = _symbol()(int(ln is not None), bm, bn, groups, x.data_ptr(),
                         None if s is None else s.data_ptr(),

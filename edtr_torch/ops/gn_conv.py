@@ -4,30 +4,36 @@ their plain PyTorch versions.
 Counterpart of ``edtr_tpu/ops/gn_conv.py``. Each JAX Pallas kernel has one
 wrapper here, with its own launch count:
 
-  ==============  ==========================================  ================
+  ==============  ==========================================  ===================
   wrapper         replaces (edtr_tpu/ops/gn_conv.py)          CUDA kernel
-  ==============  ==========================================  ================
+  ==============  ==========================================  ===================
   gn_conv_whole   ``_call`` (``_kernel_{plain,emb,res,         conv3x3_kernel
-                  emb_res}``), the whole-image tier: H < 16    <MODE_GN>
+                  emb_res}``), the whole-image tier: H < 16
   gn_conv_band    ``_band_call`` (``_band_*``), the row-band   conv3x3_kernel
-                  tier: H >= 16                                <MODE_GN>
-  upsample_conv   ``upsample_conv`` (``_ups_kernel``)          conv3x3_kernel
-                                                               <MODE_UP2>
-  ==============  ==========================================  ================
+                  tier: H >= 16
+  upsample_conv   ``upsample_conv`` (``_ups_kernel``)          upconv_wgmma_kernel
+  ==============  ==========================================  ===================
 
 :func:`gn_silu_conv` picks the tier by JAX's rule in ``_call`` (``h >= 16``
--> band). The kernels live in ``edtr_torch/csrc/gn_conv.cu`` (see its header
-for the design); one implicit-GEMM kernel serves both tiers, with 64-pixel
-output tiles (one 8² image) for the whole-image tier and 128-pixel tiles
-(8 x 16 or 16 x 8 pixels) otherwise.
+-> band). The kernels are built from ``edtr_torch/csrc/gn_conv.cu`` (see
+its header and ``csrc/conv_wgmma.cuh``'s for the designs). One mma.sync
+implicit-GEMM kernel serves both GroupNorm tiers, with 64-pixel output
+tiles (one 8² image) for the whole-image tier and 128-pixel tiles (8 x 16
+or 16 x 8 pixels) otherwise. The nearest-2x conv is a phase-folded wgmma
+implicit GEMM at low resolution: each output phase (2i+a, 2j+b) is a 2x2
+conv of the input with folded taps (:func:`fold_subpixel_weights`, JAX's
+``_fold_subpixel_weights``), 4 of the 9 taps' work.
 
 Tensors are NCHW at this interface, as in the port's modules. The kernels
 read and write channels-last memory (``torch.channels_last``: physically
 NHWC), which the fused modules keep from their first layer on; a CUDA input
 in another layout is copied once and counted in :data:`layout_copies`.
-Weights are the module's fp32 OIHW ``w`` for the plain version; the kernel
-reads ``w_packed``, a bf16 (3, 3, Cout, Cin) copy (:func:`pack_weight`) that
-``models/layers.py:Conv2d.packed_weight`` caches until the weight changes.
+Weights are the module's fp32 OIHW ``w`` for the plain version; the kernels
+read ``w_packed``, a bf16 copy that ``models/layers.py:Conv2d`` caches until
+the weight changes: (3, 3, Cout, Cin) for the GroupNorm conv
+(:func:`pack_weight`, ``Conv2d.packed_weight``), the folded (4, 2, 2, Cout,
+Cin) for the nearest-2x conv (:func:`fold_subpixel_weights`,
+``Conv2d.folded_weight``).
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 activations, fp32
@@ -55,8 +61,15 @@ from edtr_torch.ops import _cuda
 from edtr_torch.ops._grad import recompute_grads
 
 BAND_MIN_H = 16   # ``_call``: h >= 16 takes the row-band tier
-BK = 32           # input channels per chunk of the kernel's K walk
+BK = 32           # input channels per chunk of conv3x3_kernel's K walk
 SMS = 132         # streaming multiprocessors of an H100 SXM
+# conv_wgmma.cuh: input channels a chunk, output channels a block (each
+# phase), and the block's dynamic shared memory (4 ring stages of two 8 KB
+# windows and four 8 KB weight boxes, the output staging, the barriers)
+UPS_KC = 64
+UPS_BN = 64
+UPS_SMEM = 1024 + 4 * (2 + 4) * 8192 + 8 * 512 + 2 * 4 * 8 + 16
+SMEM_LIMIT = 232448
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around a run
 launches: Dict[str, int] = {"gn_conv_whole": 0, "gn_conv_band": 0, "upsample_conv": 0}
@@ -71,6 +84,34 @@ def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     layout the kernels stream (one (Cout, Cin) matrix per tap)."""
     with torch.no_grad():
         return w.detach().to(dtype).permute(2, 3, 0, 1).contiguous()
+
+
+def fold_subpixel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW conv weight -> (4 phases, 2, 2, out, in) phase-folded taps in
+    ``dtype``, contiguous: ``conv3x3(nearest2x(x))`` at phase p = 2a+b,
+    output pixel (2i+a, 2j+b), is the 2x2 conv of x at rows i+a-1, i+a and
+    columns j+b-1, j+b with tap (dr, dc) = ``out[p, dr, dc]``. Nearest
+    duplication sends two hi-res taps of an axis to one low-res pixel, so a
+    tap is a sum of 1, 2 or 4 of w's:
+
+      rows a=0: (w[0], w[1]+w[2])     a=1: (w[0]+w[1], w[2])
+      cols b=0: (k[0], k[1]+k[2])     b=1: (k[0]+k[1], k[2])
+
+    summed in fp32 rows first, then columns, as JAX's
+    ``_fold_subpixel_weights`` sums them (the same fp32 values), and rounded
+    once to ``dtype``."""
+    with torch.no_grad():
+        w = w.detach().float()
+        rows = {0: (w[:, :, 0], w[:, :, 1] + w[:, :, 2]),
+                1: (w[:, :, 0] + w[:, :, 1], w[:, :, 2])}   # each (O, I, kw)
+        phases = []
+        for a in (0, 1):
+            r = torch.stack(rows[a])                        # (dr, O, I, kw)
+            for b in (0, 1):
+                cols = ((r[..., 0], r[..., 1] + r[..., 2]) if b == 0
+                        else (r[..., 0] + r[..., 1], r[..., 2]))
+                phases.append(torch.stack(cols, 1))         # (dr, dc, O, I)
+        return torch.stack(phases).to(dtype).contiguous()
 
 
 def plain_gn_silu_conv(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
@@ -135,10 +176,32 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, bm: int) -> Tuple[int, int
 
 
 @functools.lru_cache(maxsize=None)
-def _symbol():
-    fn = _cuda.load("gn_conv").edtr_conv3x3
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
+def ups_plan(b: int, h: int, w: int, cin: int, cout: int) -> Tuple[int, int, int]:
+    """``(tw, splits, chunks_per_split)`` of an ``upsample_conv`` launch over
+    a (b, h, w) LOW-res input: 8 x 16 low-res tiles (two 8 x 8 halves side
+    by side), 16 x 8 for inputs at most 8 wide; :data:`UPS_BN` output
+    channels a block; the 64-channel chunks split across blocks when the
+    tiles alone would leave SMs idle, with no empty split."""
+    tw = 16 if w > 8 else 8
+    th = 128 // tw
+    tiles = b * -(-h // th) * -(-w // tw) * (cout // UPS_BN)
+    chunks = -(-cin // UPS_KC)
+    splits = max(1, min(SMS // tiles, chunks)) if tiles < SMS else 1
+    per = -(-chunks // splits)
+    return tw, -(-chunks // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _symbol(name: str):
+    lib = _cuda.load("gn_conv")
+    if name == "conv3x3":
+        fn = lib.edtr_conv3x3
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+    else:
+        fn = lib.edtr_upsample_conv
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -178,18 +241,16 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"gn_conv: {what} data is not 16-byte aligned")
 
 
-def _launch(name: str, mode: int, bm: int, xh: torch.Tensor, wp: torch.Tensor,
-            b: torch.Tensor, out_hw: Tuple[int, int], mul=None, add=None, emb=None,
-            res=None, lrelu: bool = False) -> torch.Tensor:
-    """One kernel launch. ``xh``: NHWC view of the input; returns the
-    (B, Cout, H, W) channels-last output."""
-    batch, _, _, cin = xh.shape
-    h, wd = out_hw
+def _launch(name: str, bm: int, xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+            mul: torch.Tensor, add: torch.Tensor, emb=None, res=None) -> torch.Tensor:
+    """One GroupNorm-conv launch. ``xh``: NHWC view of the input; returns
+    the (B, Cout, H, W) channels-last output."""
+    batch, h, wd, cin = xh.shape
     cout = wp.shape[2]
     dev = xh.device
     if dev.index != torch.cuda.current_device():  # the launch goes to the current device
         with torch.cuda.device(dev):
-            return _launch(name, mode, bm, xh, wp, b, out_hw, mul, add, emb, res, lrelu)
+            return _launch(name, bm, xh, wp, b, mul, add, emb, res)
     if cin % BK or cout % 64 or cin == 0 or cout == 0:
         raise ValueError(f"{name}: kernel takes Cin % {BK} == 0 and Cout % 64 == 0, "
                          f"got Cin {cin}, Cout {cout}")
@@ -197,9 +258,8 @@ def _launch(name: str, mode: int, bm: int, xh: torch.Tensor, wp: torch.Tensor,
         raise ValueError(f"{name}: input data is not 16-byte aligned")
     _check(wp, "w_packed", torch.bfloat16, (3, 3, cout, cin), dev)
     _check(b, "bias", torch.float32, (cout,), dev)
-    if mul is not None:
-        _check(mul, "mul", torch.float32, (batch, cin), dev)
-        _check(add, "add", torch.float32, (batch, cin), dev)
+    _check(mul, "mul", torch.float32, (batch, cin), dev)
+    _check(add, "add", torch.float32, (batch, cin), dev)
     if emb is not None:
         _check(emb, "emb", torch.bfloat16, (batch, cout), dev)
     if res is not None:
@@ -216,13 +276,47 @@ def _launch(name: str, mode: int, bm: int, xh: torch.Tensor, wp: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _symbol()(mode, bm, bn, tw, xh.data_ptr(), ptr(mul), ptr(add), wp.data_ptr(),
-                    b.data_ptr(), ptr(emb), ptr(res), out.data_ptr(), ptr(partial),
-                    _tile_counters(dev, stream).data_ptr(), batch, h, wd, cin, cout, splits,
-                    per, int(lrelu), stream)
+    err = _symbol("conv3x3")(bm, bn, tw, xh.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                             wp.data_ptr(), b.data_ptr(), ptr(emb), ptr(res), out.data_ptr(),
+                             ptr(partial), _tile_counters(dev, stream).data_ptr(), batch, h,
+                             wd, cin, cout, splits, per, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     launches[name] += 1
+    return out
+
+
+def _launch_ups(xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+                lrelu: bool) -> torch.Tensor:
+    """One ``upsample_conv`` launch. ``xh``: NHWC view of the low-res input;
+    ``wp``: the folded weights; returns the (B, Cout, 2H, 2W) channels-last
+    output."""
+    batch, h, wd, cin = xh.shape
+    cout = wp.shape[3]
+    dev = xh.device
+    if dev.index != torch.cuda.current_device():  # the launch goes to the current device
+        with torch.cuda.device(dev):
+            return _launch_ups(xh, wp, b, lrelu)
+    if cin % BK or cout % UPS_BN or cin == 0 or cout == 0:
+        raise ValueError(f"upsample_conv: kernel takes Cin % {BK} == 0 and Cout % {UPS_BN} "
+                         f"== 0, got Cin {cin}, Cout {cout}")
+    if xh.data_ptr() % 16:
+        raise ValueError("upsample_conv: input data is not 16-byte aligned")
+    _check(wp, "w_packed (fold_subpixel_weights)", torch.bfloat16, (4, 2, 2, cout, cin), dev)
+    _check(b, "bias", torch.float32, (cout,), dev)
+    tw, splits, per = ups_plan(batch, h, wd, cin, cout)
+    out = torch.empty((batch, cout, 2 * h, 2 * wd), device=dev, dtype=torch.bfloat16,
+                      memory_format=torch.channels_last)
+    partial = (torch.empty((splits, batch * 4 * h * wd, cout), device=dev,
+                           dtype=torch.float32) if splits > 1 else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _symbol("upsample_conv")(
+        tw, xh.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), _tile_counters(dev, stream).data_ptr(),
+        batch, h, wd, cin, cout, splits, per, int(lrelu), stream)
+    if err != 0:
+        raise RuntimeError(f"upsample_conv: CUDA launch failed (cudaError {err})")
+    launches["upsample_conv"] += 1
     return out
 
 
@@ -233,9 +327,8 @@ def _gn_silu_conv(x, mul, add, w, b, emb, res, w_packed) -> torch.Tensor:
     name = tier(h)
     wp = pack_weight(w, torch.bfloat16) if w_packed is None else w_packed
     cout = wp.shape[2]
-    out = _launch(name, 0, 64 if name == "gn_conv_whole" else 128, _nhwc(x, "x"), wp,
-                  b.float().contiguous(), (h, wd), mul=mul.float().contiguous(),
-                  add=add.float().contiguous(),
+    out = _launch(name, 64 if name == "gn_conv_whole" else 128, _nhwc(x, "x"), wp,
+                  b.float().contiguous(), mul.float().contiguous(), add.float().contiguous(),
                   emb=None if emb is None else emb.to(torch.bfloat16).contiguous(),
                   res=None if res is None else _nhwc(res, "res"))
     shapes[(name, batch, cin, h, wd, cout, emb is not None, res is not None, None)] += 1
@@ -248,10 +341,9 @@ def _upsample_conv(x, w, b, act, w_packed) -> torch.Tensor:
     if act not in (None, "lrelu"):
         raise ValueError(f"upsample_conv: act must be None or 'lrelu', got {act!r}")
     batch, cin, h, wd = x.shape
-    wp = pack_weight(w, torch.bfloat16) if w_packed is None else w_packed
-    out = _launch("upsample_conv", 1, 128, _nhwc(x, "x"), wp, b.float().contiguous(),
-                  (2 * h, 2 * wd), lrelu=act == "lrelu")
-    shapes[("upsample_conv", batch, cin, 2 * h, 2 * wd, wp.shape[2], False, False, act)] += 1
+    wp = fold_subpixel_weights(w, torch.bfloat16) if w_packed is None else w_packed
+    out = _launch_ups(_nhwc(x, "x"), wp, b.float().contiguous(), act == "lrelu")
+    shapes[("upsample_conv", batch, cin, 2 * h, 2 * wd, out.shape[1], False, False, act)] += 1
     return out
 
 
@@ -299,5 +391,7 @@ def upsample_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """``act(conv3x3(nearest2x(x)) + b)`` (pad 1), (B, Cin, H, W) ->
     (B, Cout, 2H, 2W): the ``upsample_conv`` kernel on CUDA tensors,
     :func:`plain_upsample_conv` on CPU tensors; differentiable (the plain
-    version's gradients)."""
+    version's gradients). ``w_packed``: the bf16
+    :func:`fold_subpixel_weights` of ``w`` (made here, per call, when not
+    given)."""
     return _UpsampleConv.apply(x, w, b, act, w_packed)

@@ -8,15 +8,15 @@ wrapper here, with its own launch count:
   wrapper        replaces (edtr_tpu/ops/ln_matmul.py)  CUDA kernel
   =============  ====================================  =====================
   ln_matmuls     ``ln_matmuls`` (``_kernel``)          lnproj_kernel
-                                                       <EPI_STORE>
-  affine_matmul  ``affine_matmul`` (``_aff_kernel``)   proj_gemm_kernel
+                                                       <PRO_LN, EPI_STORE>
+  affine_matmul  ``affine_matmul`` (``_aff_kernel``)   lnproj_kernel
                                                        <PRO_AFF, EPI_BIAS>
   =============  ====================================  =====================
 
-The kernels live in ``edtr_torch/csrc/ln_matmul.cu``: ``ln_matmuls`` on the
-wgmma GEMM of ``csrc/proj_wgmma.cuh`` (LayerNorm once per block, weights
-through a TMA ring), ``affine_matmul`` on the mma.sync GEMM of
-``csrc/proj_gemm.cuh`` (see their headers for the designs). Tokens are (B, N, C)
+The kernels live in ``edtr_torch/csrc/ln_matmul.cu``, both on the wgmma
+GEMM of ``csrc/proj_wgmma.cuh`` (the LayerNorm or the folded GroupNorm
+affine once per block, weights through a TMA ring; see its header for the
+design). Tokens are (B, N, C)
 with C contiguous, weights in nn.Linear layout (out, in): the module's fp32
 weights for the plain versions, and for the kernels ``w_packed``, a bf16
 copy (for K = 3 the (3*O, C) concatenation of q/k/v) that the modules cache
@@ -48,7 +48,7 @@ import torch
 from edtr_torch.ops import _cuda
 from edtr_torch.ops._grad import needs_grad, recompute_grads
 from edtr_torch.ops._norms import ln_f32
-from edtr_torch.ops._proj import (check, check_tokens, dot32, lnproj_plan, on_device, plan,
+from edtr_torch.ops._proj import (check, check_tokens, dot32, lnproj_plan, on_device,
                                   raise_on_error)
 
 # the token counts the kernels take: a copy of edtr_tpu/ops/ln_matmul.py's
@@ -101,7 +101,7 @@ def _symbol(name: str):
                        + [ctypes.c_float, ctypes.c_void_p])
     else:
         fn = lib.edtr_affine_matmul
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -125,7 +125,7 @@ def _ln_matmuls(x, ln_s, ln_b, ws, eps, w_packed) -> Tuple[torch.Tensor, ...]:
     check(s, "ln_matmuls: ln_s", torch.float32, (c,), dev)
     check(sh, "ln_matmuls: ln_b", torch.float32, (c,), dev)
     outs = tuple(torch.empty((b, n, o), device=dev, dtype=torch.bfloat16) for _ in range(k))
-    bm, bn, groups = lnproj_plan(b * n, c, k * o, False)
+    bm, bn, groups = lnproj_plan(b * n, c, k * o, "ln_matmuls")
     ptrs = [t.data_ptr() for t in outs] + [None] * (3 - k)
     with on_device(dev):
         err = _symbol("ln_matmuls")(bm, bn, groups, x.data_ptr(), s.data_ptr(), sh.data_ptr(),
@@ -156,11 +156,11 @@ def _affine_matmul(x, mul, add, w, b, w_packed) -> torch.Tensor:
     check(a, "affine_matmul: add", torch.float32, (bsz, c), dev)
     check(bias, "affine_matmul: bias", torch.float32, (o,), dev)
     out = torch.empty((bsz, n, o), device=dev, dtype=torch.bfloat16)
-    bm, bn = plan(bsz * n, o)
+    bm, bn, groups = lnproj_plan(bsz * n, c, o, "affine_matmul")
     with on_device(dev):
-        err = _symbol("affine_matmul")(bm, bn, x.data_ptr(), m.data_ptr(), a.data_ptr(),
-                                       wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                                       bsz * n, c, o, n,
+        err = _symbol("affine_matmul")(bm, bn, groups, x.data_ptr(), m.data_ptr(),
+                                       a.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                                       out.data_ptr(), bsz * n, c, o, n,
                                        torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("affine_matmul", err)
     launches["affine_matmul"] += 1

@@ -382,3 +382,130 @@ def test_so_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     assert _cuda.so_path("k") == first
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert _cuda.so_path("k") != first
+
+
+# ---- the phase-folded nearest-2x conv (K6) and the kernel plans ----------
+
+
+def _folds_from_jax(wk):
+    """JAX's folds ``_fold_subpixel_weights(w)`` ((2, 2, cin, 4*cout), HWIO,
+    phase p the channel block [p*cout, (p+1)*cout)) in the port's layout:
+    (4 phases, 2, 2, cout, cin), each tap's (in, out) transposed to (out,
+    in)."""
+    cin, cout = wk.shape[2], wk.shape[3]
+    fj = np.asarray(JG._fold_subpixel_weights(jnp.asarray(wk)))
+    return fj.reshape(2, 2, cin, 4, cout).transpose(3, 0, 1, 4, 2)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 128)])
+def test_fold_subpixel_weights_bit_identical_to_jax(cin, cout):
+    """The port folds OIHW weights with the same fp32 sums, rows first,
+    then columns, as JAX's ``_fold_subpixel_weights`` folds HWIO ones."""
+    wk = (np.random.default_rng(cin).standard_normal((3, 3, cin, cout)) * 0.05
+          ).astype(np.float32)
+    got = G.fold_subpixel_weights(_oihw(wk), torch.float32).numpy()
+    assert got.shape == (4, 2, 2, cout, cin)
+    want = _folds_from_jax(wk)
+    assert np.array_equal(got.view(np.uint32), np.ascontiguousarray(want).view(np.uint32))
+    bf = G.fold_subpixel_weights(_oihw(wk), torch.bfloat16)  # rounded once, from fp32
+    assert bf.dtype == torch.bfloat16 and bf.is_contiguous()
+    assert torch.equal(bf, torch.from_numpy(got).to(torch.bfloat16))
+
+
+def _phase_conv(x, folds):
+    """``conv3x3(nearest2x(x))`` from the folds, as the kernel computes it:
+    output phase (a, b) = (2i+a, 2j+b) is the VALID 2x2 conv of the
+    1-padded low-res input at rows i+a-1.., columns j+b-1.. with the taps
+    ``folds[2a+b]`` ((dr, dc, out, in)); the phases interleaved. x (B, C,
+    H, W) fp32 -> (B, out, 2H, 2W) fp32, sums in fp32."""
+    b, _, h, w = x.shape
+    z = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    out = torch.empty(b, folds.shape[3], 2 * h, 2 * w)
+    for a in (0, 1):
+        for bb in (0, 1):
+            taps = folds[2 * a + bb].permute(2, 3, 0, 1).float()  # (out, in, dr, dc)
+            out[:, :, a::2, bb::2] = torch.nn.functional.conv2d(
+                z[:, :, a:a + h + 1, bb:bb + w + 1], taps)
+    return out
+
+
+@pytest.mark.parametrize("act", [None, "lrelu"])
+def test_folded_phases_match_jax_subpixel(act):
+    """The phase order and tap offsets the K6 kernel relies on: in fp32 the
+    folded-phase conv is the plain nearest-2x conv (1e-5); in bf16, from the
+    port's packed folds with the kernel's roundings (fp32 sums rounded, the
+    bias added in bf16, LeakyReLU on the rounded value), it is JAX's
+    ``_ups_subpixel`` within 2 bf16 ulps."""
+    g = np.random.default_rng(13)
+    x = g.standard_normal((2, 8, 6, 32)).astype(np.float32)            # NHWC, low-res
+    wk = (g.standard_normal((3, 3, 32, 64)) * 0.05).astype(np.float32)
+    bk = (g.standard_normal(64) * 0.1).astype(np.float32)
+    xt, wt, bt = nchw(x), _oihw(wk), torch.from_numpy(bk)
+    o32 = _phase_conv(xt, G.fold_subpixel_weights(wt, torch.float32)) + bt[:, None, None]
+    if act == "lrelu":
+        o32 = torch.nn.functional.leaky_relu(o32, 0.2)
+    np.testing.assert_allclose(t2n(o32), t2n(G.plain_upsample_conv(xt, wt, bt, act)),
+                               rtol=1e-5, atol=1e-5)
+
+    bf = torch.bfloat16
+    xb = xt.to(bf)
+    o = _phase_conv(xb.float(), G.fold_subpixel_weights(wt, bf)).to(bf) + bt.to(bf)[:, None, None]
+    if act == "lrelu":
+        o = torch.nn.functional.leaky_relu(o.float(), 0.2).to(bf)
+    want = np.asarray(JG._ups_subpixel(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wk),
+                                       jnp.asarray(bk), act).astype(jnp.float32))
+    got = nhwc(o.float())
+    assert got.shape == want.shape == (2, 16, 12, 64)
+    # one bf16 ulp at |want| (8 significant bits; 2^-10 the floor near zero)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -10))) - 7)
+    assert np.all(np.abs(got - want) <= 2 * ulp), np.max(np.abs(got - want) / ulp)
+
+
+# the main path's K6 launches (LOW-res input: UNet 8²-32², VAE decoder
+# 64²-256², SwinIR tail 64²-256²) and K8b's (tokens, C = O)
+_K6_SHAPES = [(1, 8, 8, 1280, 1280), (1, 16, 16, 1280, 1280), (1, 32, 32, 640, 640),
+              (1, 64, 64, 512, 512), (1, 128, 128, 512, 512), (1, 256, 256, 256, 256),
+              (1, 64, 64, 64, 64), (1, 128, 128, 64, 64), (1, 256, 256, 64, 64)]
+_K8B_SHAPES = [(4096, 320), (1024, 640), (256, 1280)]
+
+
+@pytest.mark.parametrize("kind,shape", [("upsample_conv", s) for s in _K6_SHAPES]
+                         + [("affine_matmul", s) for s in _K8B_SHAPES])
+def test_kernel_plans_fit(kind, shape):
+    """Each redesigned kernel's plan at its main-path shapes: tiles divide
+    the output, a block's shared memory fits the 232,448 bytes a block may
+    use, and K6's split-K chunks cover Cin exactly once, in one wave."""
+    from edtr_torch.ops import _proj
+
+    if kind == "upsample_conv":
+        b, h, w, cin, cout = shape
+        tw, splits, per = G.ups_plan(b, h, w, cin, cout)
+        chunks = -(-cin // G.UPS_KC)
+        assert tw in (8, 16) and cout % G.UPS_BN == 0
+        assert (splits - 1) * per < chunks <= splits * per  # every chunk once, no empty split
+        tiles = b * -(-h // (128 // tw)) * -(-w // tw) * (cout // G.UPS_BN)
+        assert splits == 1 or tiles * splits <= G.SMS
+        assert splits == 1 or tiles <= 4 * G.SMS  # one arrival counter a tile
+        assert G.UPS_SMEM <= G.SMEM_LIMIT
+    else:
+        m, c = shape
+        bm, bn, groups = _proj.lnproj_plan(m, c, c, kind)
+        assert m % bm == 0 and 256 % bm == 0  # a block inside one batch element
+        assert c % bn == 0 and groups == c // bn  # one weight tile a block
+        stages = _proj.lnproj_stages(bn, c)
+        assert stages >= 2 and _proj.lnproj_smem(bn, c, stages) <= _proj.SMEM_LIMIT
+        assert (m // bm) * groups <= G.SMS
+
+
+def test_folded_weight_follows_the_weight():
+    conv = Conv2d(32, 64, 3, padding=1)
+    f1 = conv.folded_weight(torch.bfloat16)
+    assert f1.shape == (4, 2, 2, 64, 32) and f1.dtype == torch.bfloat16
+    assert conv.folded_weight(torch.bfloat16) is f1  # cached
+    assert torch.equal(f1, G.fold_subpixel_weights(conv.weight, torch.bfloat16))
+    with torch.no_grad():
+        conv.weight.mul_(2.0)  # in place: the version moves
+    f2 = conv.folded_weight(torch.bfloat16)
+    assert f2 is not f1 and torch.equal(f2, G.fold_subpixel_weights(conv.weight,
+                                                                    torch.bfloat16))
+    assert conv.packed_weight(torch.bfloat16).shape == (3, 3, 64, 32)  # its own cache

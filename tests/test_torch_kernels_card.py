@@ -74,6 +74,44 @@ def test_conv_unsupported_raises():
         G.gn_silu_conv(x[:, :48], mul[:, :48], add[:, :48], w[:, :48], b)
     with pytest.raises(ValueError):  # Cout 96: not a multiple of 64
         G.upsample_conv(x, torch.cat([w, w[:32]]), torch.cat([b, b[:32]]))
+    with pytest.raises(ValueError):  # the 9-tap pack: the kernel reads the folded one
+        G.upsample_conv(x, w, b, w_packed=G.pack_weight(w, torch.bfloat16))
+    with pytest.raises(ValueError):  # fp32 activations
+        G.upsample_conv(x.float(), w, b)
+
+
+# the fused 512² restore's nearest-2x convs (low-res input, Cin = Cout, act)
+# and the training step's bs-2 UNet one
+UPS_SHAPES = [(1, 8, 1280, None), (1, 16, 1280, None), (1, 32, 640, None), (1, 64, 512, None),
+              (1, 128, 512, None), (1, 256, 256, None), (1, 64, 64, "lrelu"),
+              (1, 128, 64, "lrelu"), (1, 256, 64, "lrelu"), (2, 8, 1280, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,c,act", UPS_SHAPES)
+def test_upsample_conv_matches_plain_at_main_path_shapes(b, h, c, act):
+    """K6 (the phase-folded wgmma conv) against its plain version at every
+    main-path shape, with chip_smoke.py's conv limits: the folds round once
+    where the plain version rounds each tap, an ulp or two of the output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(h + c)
+    x = torch.randn((b, c, h, h), generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn((c, c, 3, 3), generator=gen, device="cuda") * (9 * c) ** -0.5
+    bias = torch.randn(c, generator=gen, device="cuda") * 0.05
+    before = G.launches["upsample_conv"]
+    out = G.upsample_conv(x, w, bias, act,
+                          w_packed=G.fold_subpixel_weights(w, torch.bfloat16))
+    want = G.plain_upsample_conv(x, w, bias, act)
+    torch.cuda.synchronize()
+    assert G.launches["upsample_conv"] == before + 1
+    assert out.shape == want.shape == (b, c, 2 * h, 2 * h)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL_CONV_MAX * want.float().abs().max().item(), err
+    rel = ((out.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= TOL_CONV_L2, rel
 
 
 def _proj_args(n=256, c=64, o=128, b=2):
@@ -83,8 +121,11 @@ def _proj_args(n=256, c=64, o=128, b=2):
     return x, 1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(o, c, scale=c ** -0.5), rnd(o)
 
 
-# the projection kernels vs their plain versions: chip_smoke.py's limits
+# the projection and conv kernels vs their plain versions: chip_smoke.py's
+# limits
 TOL_PROJ_MAX = 2.0 ** -6
+TOL_CONV_MAX = 2.0 ** -6
+TOL_CONV_L2 = 1e-2
 
 
 @pytest.mark.cuda
@@ -92,7 +133,8 @@ TOL_PROJ_MAX = 2.0 ** -6
     *((name, 256, 64) for name in ("ln_matmuls_1", "ln_matmuls_3", "affine_matmul",
                                    "geglu_proj", "ln_geglu_proj")),
     # the main path's token counts and widths (bs 1)
-    *((name, n, c) for name in ("ln_matmuls_1", "ln_matmuls_3", "ln_geglu_proj")
+    *((name, n, c) for name in ("ln_matmuls_1", "ln_matmuls_3", "ln_geglu_proj",
+                                "affine_matmul")
       for n, c in ((4096, 320), (1024, 640), (256, 1280)))])
 def test_proj_call_launches(name, n, c):
     if not torch.cuda.is_available():
@@ -137,6 +179,13 @@ def test_proj_unsupported_raises():
     with pytest.raises(ValueError):  # strided tokens
         LM.affine_matmul(x.transpose(1, 2).contiguous().transpose(1, 2), s[None].expand(2, -1),
                          sh[None].expand(2, -1), w, b)
+    mul, add = s[None].expand(2, -1).contiguous(), sh[None].expand(2, -1).contiguous()
+    with pytest.raises(ValueError):  # 64 tokens a batch element: not a size it takes
+        LM.affine_matmul(x[:, :64].contiguous(), mul, add, w, b)
+    with pytest.raises(ValueError):  # one (C) row of mul/add for two batch elements
+        LM.affine_matmul(x, mul[:1], add[:1], w, b)
+    with pytest.raises(ValueError):  # O 96: not a multiple of 64
+        LM.affine_matmul(x, mul, add, w[:96], b[:96])
 
 
 def _swin_args(h=16, w=16, c=60, hidden=120):

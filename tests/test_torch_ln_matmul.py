@@ -397,6 +397,12 @@ def test_profile_books_the_projection_kernels():
     # "gemm" in the name, but the port's own kernel, not cuBLAS's
     assert (_family("void edtr_proj::proj_gemm_kernel<128, 64, 1, 0>(edtr_proj::ProjArgs)")
             == "proj (edtr_torch)")
+    assert (_family("void edtr_proj::proj_gemm_kernel<128, 128>(edtr_proj::ProjArgs)")
+            == "proj (edtr_torch)")
+    # the wgmma kernel of K8a, K7b and K8b (it was booked as "other")
+    for tmpl in ("64, 160, 0, 0", "64, 128, 0, 1", "32, 160, 1, 2"):
+        assert (_family(f"void edtr_lnproj::lnproj_kernel<{tmpl}>(CUtensorMap_st, "
+                        "CUtensorMap_st, edtr_lnproj::Args)") == "proj (edtr_torch)")
     assert _family("sm90_xmma_gemm_bf16bf16_bf16f32") == "gemm (cuBLAS)"
     # cuBLAS's Hopper GEMMs, which the stock projections run
     assert _family("nvjet_tst_64x64_64x13_4x2_h_bz_TNT") == "gemm (cuBLAS)"

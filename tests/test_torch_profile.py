@@ -2,6 +2,8 @@
 Chrome trace: stage attribution by launch time, device-busy union, idle
 share, host-to-device copies and kernel families."""
 
+import pytest
+
 from edtr_torch.profile_restore import _family, summarise
 
 
@@ -103,3 +105,22 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
     assert abs(bwd["device_busy_ms"] - 0.05) < 1e-9 and abs(bwd["idle_share"] - 0.5) < 1e-9
     assert abs(out["by_family_ms"]["flash (edtr_torch)"] - 0.08) < 1e-9
     assert out["kernels_per_restore"] == 4
+
+
+@pytest.mark.parametrize("name,family", [
+    # the port's kernels, as the profiler names them; "conv" and "gemm" in
+    # some of them, but not cuDNN's or cuBLAS's
+    ("void (anonymous namespace)::conv3x3_kernel<128, 128>((anonymous namespace)::Conv3x3Args)",
+     "gn_conv (edtr_torch)"),
+    ("edtr_upconv::upconv_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, edtr_upconv::UpArgs)",
+     "gn_conv (edtr_torch)"),
+    ("void edtr_lnproj::lnproj_kernel<64, 160, 1, 2>(CUtensorMap_st, CUtensorMap_st, "
+     "edtr_lnproj::Args)", "proj (edtr_torch)"),
+    ("void edtr_proj::proj_gemm_kernel<128, 128>(edtr_proj::ProjArgs)", "proj (edtr_torch)"),
+    # cuDNN's and cuBLAS's, which the stock path runs
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "conv (cuDNN)"),
+    ("void cudnn::cnn::conv2d_grouped_direct_kernel<true>", "conv (cuDNN)"),
+    ("nvjet_tst_64x64_64x13_4x2_h_bz_TNT", "gemm (cuBLAS)"),
+])
+def test_kernel_families_of_the_port_and_the_libraries(name, family):
+    assert _family(name) == family
