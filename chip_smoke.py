@@ -38,8 +38,9 @@ no result line):
 5. each conv kernel against its plain version at every shape the fused
    restore launched it with: errors, kernel / plain / ``F.conv2d``
    (``library_ms``: the cuDNN conv alone, on the activated or upsampled
-   bf16 input, never called by the fused path) times (K6's device time
-   from a trace, K5's from CUDA events) and the bound;
+   bf16 input, never called by the fused path) device times from a trace
+   (CUDA-event times beside them) and the bound; the restore's K5 shapes
+   must be the ones ``proj_bench.py`` pins;
 6. each projection kernel against its plain version at every shape the
    fused+proj restore launched it with (and ``geglu_proj``, which it does
    not launch, at the 4096-token shape): errors, device times of kernel /
@@ -94,6 +95,8 @@ import time
 
 import torch
 import torch.nn.functional as F
+
+import proj_bench
 
 # NVIDIA H100 SXM data-sheet peaks at the full 700 W: dense bf16 tensor
 # core FLOP/s and HBM3 bytes/s
@@ -555,28 +558,28 @@ def conv_case(device, key, gen) -> dict:
     # form, which the kernel computes), so K6's bound counts 4 taps
     flops = 2.0 * b * h * w * (4 if up else 9) * cin * cout
     iters = max(3, min(20, int(2e12 / flops)))
-    # K6's calls (13-400 us) are at or below the wrapper's host-side launch
-    # at its small sites: device time from a trace, as the projection
-    # kernels are timed, CUDA events beside it; K5's from CUDA events
-    timer = device_ms if up else time_ms
-    ms = timer(kern, iters)
-    plain_ms = timer(plain, 3, 1)
-    library_ms = timer(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters)
-    event_ms = time_ms(kern, iters) if up else ms
+    # calls of 10-400 us, at or below the wrapper's host-side launch at the
+    # small sites: device time from a trace, as the projection kernels are
+    # timed, CUDA events beside it
+    ms = device_ms(kern, iters)
+    plain_ms = device_ms(plain, 3, 1)
+    library_ms = device_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters)
+    event_ms = time_ms(kern, iters)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = ((b * hin * win * cin + b * h * w * cout + 9 * cin * cout) * 2 + res_bytes) \
         / PEAK_BYTES * 1e3
     if up:  # conv_wgmma.cuh: 8 x 16 low-res tiles, all 4 phases of 64 channels
         bm, bn = 128, GC.UPS_BN
         tw, splits, _ = GC.ups_plan(b, hin, win, cin, cout)
-        blocks = b * -(-hin // (bm // tw)) * -(-win // tw) * (cout // bn) * splits
-    else:
-        bm = 64 if name == "gn_conv_whole" else 128
-        bn, tw, splits, _ = GC.plan(b, h, w, cin, cout, bm)
-        blocks = b * -(-h // (bm // tw)) * -(-w // tw) * (cout // bn) * splits
+    else:  # gnconv_wgmma.cuh: th x 8 tiles of GN_TILES[wn, th] channels
+        wn, th, splits, _ = GC.gn_plan(b, h, w, cin, cout, name)
+        bm, bn, tw = 8 * th, GC.GN_TILES[wn, th], 8
+    items = b * -(-hin // (bm // tw)) * -(-win // tw) * (cout // bn) * splits
     row = dict(name=name, shape=dict(b=b, cin=cin, h=h, w=w, cout=cout, emb=has_emb,
                                      res=has_res, act=act),
-               tile=dict(bm=bm, bn=bn, tw=tw, splits=splits, blocks=blocks),
+               # K5 walks its items (tiles x splits) with at most one block an SM
+               tile=dict(bm=bm, bn=bn, tw=tw, splits=splits, items=items,
+                         blocks=items if up else min(items, GC.SMS)),
                max_abs_err=err, out_max=o_max, rel_l2=rel, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, event_ms=event_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -601,9 +604,8 @@ def conv_kernel_phase(device, shape_counts: dict, per: str = "restore") -> dict:
         agg = rows.setdefault(key[0], dict(
             name=key[0], route="cuda", source=CONV_SOURCE,
             replaces=CONV_KERNELS[key[0]][0], launches=None, on_path=True,
-            scope=f"per {per}: launch-weighted sum over its shapes" + (
-                "; ms, plain_ms, library_ms: device time (profiler), event_ms: CUDA events"
-                if key[0] == "upsample_conv" else "; CUDA events"),
+            scope=f"per {per}: launch-weighted sum over its shapes; ms, plain_ms, "
+                  "library_ms: device time (profiler), event_ms: CUDA events",
             max_abs_err=0.0, max_err_share=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
             library_ms=0.0, event_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, shapes=0))
         agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
@@ -1391,6 +1393,10 @@ def train_shape_phase(device, shapes: dict, proj_shapes: dict) -> dict:
     bwd = {key: n for key, n in shapes["flash"].items() if key[0] in BWD_KERNELS}
     want = {(name, *shape): n for name, (shape, _, n) in BWD_KERNELS.items()}
     check(bwd == want, f"the step's backward shapes {bwd}, held at {want}")
+    k5 = {key for key in shapes["conv"] if key[0] != "upsample_conv"}
+    pinned = {(key[0], 2, *key[2:]) for key in proj_bench.GN_SHAPES}
+    check(k5 == pinned, f"the step's K5 shapes {sorted(k5)}, pinned (proj_bench.py, B = 2) "
+                        f"{sorted(pinned)}")
     gen = torch.Generator(device=device).manual_seed(17)
     held = {}
     for key, count in sorted(shapes["flash"].items()):
@@ -1439,6 +1445,9 @@ def main() -> int:
     rows = kernel_phase(device)
     bwd_rows = bwd_kernel_phase(device)
     pipe, counted, timing = restore_phase(device)
+    k5 = {k: n for k, n in counted["fused"]["shapes"]["conv"].items() if k[0] != "upsample_conv"}
+    check(k5 == proj_bench.GN_SHAPES, f"the restore's K5 shapes {k5}, pinned "
+                                      f"{proj_bench.GN_SHAPES} (proj_bench.py)")
     conv_rows = conv_kernel_phase(device, counted["fused"]["shapes"]["conv"])
     proj_rows = proj_kernel_phase(device, counted["fused+proj"]["shapes"]["proj"])
     swin_rows = swin_kernel_phase(device, counted["fused+swin"]["shapes"]["swin"])

@@ -106,22 +106,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = __low2float(h[j]);
-    f[2 * j + 1] = __high2float(h[j]);
-  }
-}
-
-__device__ __forceinline__ void load8f(const float* p, float (&f)[8]) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(p + 4));
-  f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
-  f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
-}
-
 // byte offset of 16-byte unit q (channels 8q..8q+7) of row r in the A tile
 __device__ __forceinline__ int a_offset(int r, int q) {
   return (q >> 3) * (AM * ROW_BYTES) + r * ROW_BYTES + (((q & 7) ^ (r & 7)) << 4);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (proj_wgmma.cuh: K8a, K8b, K7b; conv_wgmma.cuh: K6): mbarriers, TMA tile
-// loads (2-D and 4-D), the shared-memory descriptor of a K-major operand in
-// the 128-byte swizzle, the wgmma instructions with their fences, the 16 x
+// (proj_wgmma.cuh: K8a, K8b, K7b; conv_wgmma.cuh: K6; gnconv_wgmma.cuh:
+// K5): mbarriers, TMA tile loads (2-D and 4-D), the shared-memory
+// descriptors of a K-major operand (128-byte swizzle, and no swizzle), the
+// wgmma instructions with their fences, 8-element bf16/fp32 loads, the 16 x
 // 16 store staging of a warp's accumulator fragment, and the tensor-map
 // encoder with its cache. cuTensorMapEncodeTiled is looked up at run time
 // (cudaGetDriverEntryPoint), so nothing links libcuda.
@@ -96,6 +97,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// shared-memory descriptor of a K-major operand without swizzle: 8 x 8
+// core matrices (8 rows of 16 bytes, 128 contiguous bytes each), the next
+// one along K `lbo` bytes on, the next 8 rows along M or N `sbo` bytes on;
+// 16-byte aligned. The rows of a core matrix need only be 16 bytes apart,
+// so a window may start at any row of a larger tile.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -121,6 +132,20 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 // (warp % 4) * 16 + lane / 4 + 8h, column 8j + 2 (lane % 4) + e.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  __device__ static __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -188,6 +213,59 @@ struct Wgmma<160> {
   }
 };
 
+template <>
+struct Wgmma<256> {
+  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// ---- 8-element loads ------------------------------------------------------------
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __low2float(h[j]);
+    f[2 * j + 1] = __high2float(h[j]);
+  }
+}
+
+__device__ __forceinline__ void load8f(const float* p, float (&f)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p + 4));
+  f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+  f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
+}
+
 // ---- stores from the accumulator fragment ---------------------------------
 
 // per warp, 16 rows x 16 columns of bf16, 32 bytes a row; rows 4-7 and
@@ -230,10 +308,11 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 
 // The tensor map of a contiguous bf16 tensor of `rank` (2-4) dimensions
 // (dims[0] innermost) read in boxes of `box` elements, in the 128-byte
-// swizzle (box[0] * 2 == 128), zeros outside the tensor. Returns 0, or
-// -(CUresult) if cuTensorMapEncodeTiled refuses it.
+// swizzle (box[0] * 2 == 128) or, with `swizzle` false, as plain rows of
+// box[0] elements (a multiple of 8), zeros outside the tensor. Returns 0,
+// or -(CUresult) if cuTensorMapEncodeTiled refuses it.
 inline int encode_map(const void* ptr, int rank, const uint64_t* dims, const uint32_t* box,
-                      CUtensorMap* out) {
+                      CUtensorMap* out, bool swizzle = true) {
   static EncodeTiled encode = []() -> EncodeTiled {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q;
@@ -256,25 +335,26 @@ inline int encode_map(const void* ptr, int rank, const uint64_t* dims, const uin
   }
   const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
                             gdims, strides, gbox, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
-// encode_map from a cache keyed by (pointer, dims, box): a map holds
-// nothing else, so it stays right for whatever tensor later lies there with
-// that shape. The modules keep their bf16 weights at a stable address
+// encode_map from a cache keyed by (pointer, dims, box, swizzle): a map
+// holds nothing else, so it stays right for whatever tensor later lies there
+// with that shape. The modules keep their bf16 weights at a stable address
 // (models/layers.py:DerivedWeight), and the caching allocator hands the
 // activations of a layer the same few addresses, so nearly every call hits.
 inline int cached_map(const void* ptr, int rank, const uint64_t* dims, const uint32_t* box,
-                      CUtensorMap* out) {
+                      CUtensorMap* out, bool swizzle = true) {
   typedef std::array<uint64_t, 10> Key;
   static std::mutex mu;
   static std::map<Key, std::array<uint64_t, 16>> cache;
   static_assert(sizeof(CUtensorMap) == sizeof(std::array<uint64_t, 16>), "CUtensorMap size");
   Key key{};
   key[0] = reinterpret_cast<uintptr_t>(ptr);
-  key[1] = (uint64_t)rank;
+  key[1] = (uint64_t)rank | (swizzle ? 0u : 256u);
   for (int i = 0; i < rank; ++i) {
     key[2 + i] = dims[i];
     key[6 + i] = box[i];
@@ -283,7 +363,7 @@ inline int cached_map(const void* ptr, int rank, const uint64_t* dims, const uin
   auto it = cache.find(key);
   if (it == cache.end()) {
     CUtensorMap map;
-    const int r = encode_map(ptr, rank, dims, box, &map);
+    const int r = encode_map(ptr, rank, dims, box, &map, swizzle);
     if (r != 0) return r;
     if (cache.size() >= 4096) cache.clear();  // fresh tensors every call: stay bounded
     std::array<uint64_t, 16> bytes;

@@ -7,22 +7,27 @@ wrapper here, with its own launch count:
   ==============  ==========================================  ===================
   wrapper         replaces (edtr_tpu/ops/gn_conv.py)          CUDA kernel
   ==============  ==========================================  ===================
-  gn_conv_whole   ``_call`` (``_kernel_{plain,emb,res,         conv3x3_kernel
+  gn_conv_whole   ``_call`` (``_kernel_{plain,emb,res,         gnconv_wgmma_kernel
                   emb_res}``), the whole-image tier: H < 16
-  gn_conv_band    ``_band_call`` (``_band_*``), the row-band   conv3x3_kernel
+  gn_conv_band    ``_band_call`` (``_band_*``), the row-band   gnconv_wgmma_kernel
                   tier: H >= 16
   upsample_conv   ``upsample_conv`` (``_ups_kernel``)          upconv_wgmma_kernel
   ==============  ==========================================  ===================
 
 :func:`gn_silu_conv` picks the tier by JAX's rule in ``_call`` (``h >= 16``
 -> band). The kernels are built from ``edtr_torch/csrc/gn_conv.cu`` (see
-its header and ``csrc/conv_wgmma.cuh``'s for the designs). One mma.sync
-implicit-GEMM kernel serves both GroupNorm tiers, with 64-pixel output
-tiles (one 8² image) for the whole-image tier and 128-pixel tiles (8 x 16
-or 16 x 8 pixels) otherwise. The nearest-2x conv is a phase-folded wgmma
-implicit GEMM at low resolution: each output phase (2i+a, 2j+b) is a 2x2
-conv of the input with folded taps (:func:`fold_subpixel_weights`, JAX's
-``_fold_subpixel_weights``), 4 of the 9 taps' work.
+the headers of ``csrc/gnconv_wgmma.cuh`` and ``csrc/conv_wgmma.cuh`` for
+the designs). One wgmma implicit-GEMM kernel fed by TMA serves both
+GroupNorm tiers: a block loads each 64-channel chunk's halo once,
+activates its pixels inside the image once, in place (TMA's zero fill is
+the conv's padding), reads it at a shifted offset for every tap, and
+streams the weights through an mbarrier ring; 8 x 8 output tiles (one 8²
+image) for the whole-image tier, 16 x 8 otherwise (:func:`gn_plan`). The
+nearest-2x conv is a phase-folded wgmma implicit GEMM at low resolution:
+each output phase (2i+a, 2j+b) is a 2x2 conv of the input with folded taps
+(:func:`fold_subpixel_weights`, JAX's ``_fold_subpixel_weights``), 4 of
+the 9 taps' work. ``python3 proj_bench.py --conv`` times both at the fused
+restore's shapes.
 
 Tensors are NCHW at this interface, as in the port's modules. The kernels
 read and write channels-last memory (``torch.channels_last``: physically
@@ -37,7 +42,8 @@ Cin) for the nearest-2x conv (:func:`fold_subpixel_weights`,
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 activations, fp32
-``mul``/``add``/bias, Cin a multiple of 32 and Cout a multiple of 64.
+``mul``/``add``/bias and Cout a multiple of 64; Cin a multiple of 64 (the
+GroupNorm conv) or of 32 (the nearest-2x conv).
 
 :func:`gn_silu_conv` and :func:`upsample_conv` are differentiable, on both
 devices: each is a ``torch.autograd.Function`` (JAX's ``custom_vjp``s,
@@ -61,8 +67,12 @@ from edtr_torch.ops import _cuda
 from edtr_torch.ops._grad import recompute_grads
 
 BAND_MIN_H = 16   # ``_call``: h >= 16 takes the row-band tier
-BK = 32           # input channels per chunk of conv3x3_kernel's K walk
 SMS = 132         # streaming multiprocessors of an H100 SXM
+# gnconv_wgmma.cuh: input channels a chunk; the stages of its halo ring and
+# of its weight ring
+GN_KC = 64
+GN_RING = 3
+GN_STAGES = 4
 # conv_wgmma.cuh: input channels a chunk, output channels a block (each
 # phase), and the block's dynamic shared memory (4 ring stages of two 8 KB
 # windows and four 8 KB weight boxes, the output staging, the barriers)
@@ -157,22 +167,60 @@ def tier(h: int) -> str:
     return "gn_conv_band" if h >= BAND_MIN_H else "gn_conv_whole"
 
 
-@functools.lru_cache(maxsize=None)
-def plan(b: int, h: int, w: int, cin: int, cout: int, bm: int) -> Tuple[int, int, int, int]:
-    """``(bn, tw, splits, chunks_per_split)`` of a launch over a (b, h, w)
-    output with ``bm``-pixel tiles: 128-wide Cout tiles where Cout allows,
-    tiles ``tw`` pixels wide, and the Cin chunks split across blocks when
-    the output tiles alone would leave SMs idle."""
-    bn = 128 if cout % 128 == 0 else 64
-    tw = 8 if w <= 8 else 16
-    th = bm // tw
-    tiles = b * -(-h // th) * -(-w // tw) * (cout // bn)
-    chunks = cin // BK
-    splits = 1
-    if tiles < SMS:
-        splits = max(1, min(SMS // tiles, chunks))
+# gnconv_wgmma.cuh's instances: (wn, th) -> the tile's output channels
+GN_TILES = {(32, 8): 64, (64, 16): 64, (128, 16): 128, (160, 16): 160, (256, 16): 256}
+
+
+def gn_split(b: int, h: int, w: int, cin: int, cout: int, wn: int,
+             th: int) -> Tuple[int, int, int, int]:
+    """``(wn, th, splits, chunks_per_split)`` with ``th`` x 8-pixel tiles of
+    ``GN_TILES[wn, th]`` channels: the 64-channel chunks split across
+    blocks when the tiles alone would leave SMs idle, with no empty split."""
+    tiles = b * -(-h // th) * -(-w // 8) * (cout // GN_TILES[wn, th])
+    chunks = cin // GN_KC
+    splits = max(1, min(SMS // tiles, chunks)) if tiles < SMS else 1
     per = -(-chunks // splits)
-    return bn, tw, -(-chunks // per), per
+    return wn, th, -(-chunks // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(b: int, h: int, w: int, cin: int, cout: int,
+            name: str) -> Tuple[int, int, int, int]:
+    """``(wn, th, splits, chunks_per_split)`` of a ``gn_conv_whole`` /
+    ``gn_conv_band`` (``name``) launch over a (b, h, w) output, from
+    ``gnconv_wgmma_kernel``'s instances (:data:`GN_TILES`). The whole-image
+    tier takes 8 x 8 tiles whose two warpgroups split 64 channels (wn 32:
+    the most tiles for the fewest splits of its weight-bound 8² sites). The
+    row band takes 16 x 8 tiles, a warpgroup each 8 x 8 pixels and all wn
+    channels: 256 where that still gives a tile to every SM (the halo's
+    activation and the weights' trips from L2 are shared by twice the
+    products), else 128, 160 or 64, the first that divides Cout. Then
+    :func:`gn_split`. (Measured on the card at every main-path shape by
+    ``proj_bench.py --conv --plans``; PERF.md.)"""
+    if name == "gn_conv_whole":
+        return gn_split(b, h, w, cin, cout, 32, 8)
+    tiles = b * -(-h // 16) * -(-w // 8)
+    wn = (256 if cout % 256 == 0 and tiles * (cout // 256) >= SMS
+          else next(n for n in (128, 160, 64) if cout % n == 0))
+    return gn_split(b, h, w, cin, cout, wn, 16)
+
+
+def gn_smem(wn: int, th: int) -> int:
+    """Dynamic shared-memory bytes of a ``gnconv_wgmma_kernel`` block
+    (``Tile<WN, SPLITN>::SMEM`` there): the alignment slack, the
+    :data:`GN_STAGES` weight stages (the tile's channels x 64), the
+    three-stage halo ring (8 channel groups of (th + 2) x 10 pixels, each
+    padded to 128 bytes), the output staging and the barriers."""
+    halo = 8 * (-(-((th + 2) * 10 * 16) // 128) * 128)
+    return (1024 + GN_STAGES * GN_TILES[wn, th] * GN_KC * 2 + GN_RING * halo + 8 * 16 * 16 * 2
+            + (3 * GN_RING + 2 * GN_STAGES) * 8 + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """Multiprocessors of device ``index``: the most blocks a
+    ``gnconv_wgmma_kernel`` launch takes (one an SM, walking its items)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,9 +242,9 @@ def ups_plan(b: int, h: int, w: int, cin: int, cout: int) -> Tuple[int, int, int
 @functools.lru_cache(maxsize=None)
 def _symbol(name: str):
     lib = _cuda.load("gn_conv")
-    if name == "conv3x3":
-        fn = lib.edtr_conv3x3
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    if name == "gn_conv":
+        fn = lib.edtr_gn_conv
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
     else:
         fn = lib.edtr_upsample_conv
@@ -241,7 +289,7 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"gn_conv: {what} data is not 16-byte aligned")
 
 
-def _launch(name: str, bm: int, xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+def _launch(name: str, xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
             mul: torch.Tensor, add: torch.Tensor, emb=None, res=None) -> torch.Tensor:
     """One GroupNorm-conv launch. ``xh``: NHWC view of the input; returns
     the (B, Cout, H, W) channels-last output."""
@@ -250,9 +298,9 @@ def _launch(name: str, bm: int, xh: torch.Tensor, wp: torch.Tensor, b: torch.Ten
     dev = xh.device
     if dev.index != torch.cuda.current_device():  # the launch goes to the current device
         with torch.cuda.device(dev):
-            return _launch(name, bm, xh, wp, b, mul, add, emb, res)
-    if cin % BK or cout % 64 or cin == 0 or cout == 0:
-        raise ValueError(f"{name}: kernel takes Cin % {BK} == 0 and Cout % 64 == 0, "
+            return _launch(name, xh, wp, b, mul, add, emb, res)
+    if cin % GN_KC or cout % 64 or cin == 0 or cout == 0:
+        raise ValueError(f"{name}: kernel takes Cin % {GN_KC} == 0 and Cout % 64 == 0, "
                          f"got Cin {cin}, Cout {cout}")
     if xh.data_ptr() % 16:
         raise ValueError(f"{name}: input data is not 16-byte aligned")
@@ -266,7 +314,7 @@ def _launch(name: str, bm: int, xh: torch.Tensor, wp: torch.Tensor, b: torch.Ten
         if tuple(res.shape) != (batch, h, wd, cout) or res.device != dev or res.data_ptr() % 16:
             raise ValueError(f"{name}: res must be (B, Cout, H, W) = "
                              f"{(batch, cout, h, wd)} on {dev}, 16-byte aligned")
-    bn, tw, splits, per = plan(batch, h, wd, cin, cout, bm)
+    wn, th, splits, per = gn_plan(batch, h, wd, cin, cout, name)
     out = torch.empty((batch, cout, h, wd), device=dev, dtype=torch.bfloat16,
                       memory_format=torch.channels_last)
     partial = (torch.empty((splits, batch * h * wd, cout), device=dev, dtype=torch.float32)
@@ -276,12 +324,12 @@ def _launch(name: str, bm: int, xh: torch.Tensor, wp: torch.Tensor, b: torch.Ten
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _symbol("conv3x3")(bm, bn, tw, xh.data_ptr(), mul.data_ptr(), add.data_ptr(),
+    err = _symbol("gn_conv")(wn, th, xh.data_ptr(), mul.data_ptr(), add.data_ptr(),
                              wp.data_ptr(), b.data_ptr(), ptr(emb), ptr(res), out.data_ptr(),
                              ptr(partial), _tile_counters(dev, stream).data_ptr(), batch, h,
-                             wd, cin, cout, splits, per, stream)
+                             wd, cin, cout, splits, per, _sms(dev.index), stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
     launches[name] += 1
     return out
 
@@ -297,8 +345,8 @@ def _launch_ups(xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     if dev.index != torch.cuda.current_device():  # the launch goes to the current device
         with torch.cuda.device(dev):
             return _launch_ups(xh, wp, b, lrelu)
-    if cin % BK or cout % UPS_BN or cin == 0 or cout == 0:
-        raise ValueError(f"upsample_conv: kernel takes Cin % {BK} == 0 and Cout % {UPS_BN} "
+    if cin % 32 or cout % UPS_BN or cin == 0 or cout == 0:  # TMA zero-fills a half chunk
+        raise ValueError(f"upsample_conv: kernel takes Cin % 32 == 0 and Cout % {UPS_BN} "
                          f"== 0, got Cin {cin}, Cout {cout}")
     if xh.data_ptr() % 16:
         raise ValueError("upsample_conv: input data is not 16-byte aligned")
@@ -327,7 +375,7 @@ def _gn_silu_conv(x, mul, add, w, b, emb, res, w_packed) -> torch.Tensor:
     name = tier(h)
     wp = pack_weight(w, torch.bfloat16) if w_packed is None else w_packed
     cout = wp.shape[2]
-    out = _launch(name, 64 if name == "gn_conv_whole" else 128, _nhwc(x, "x"), wp,
+    out = _launch(name, _nhwc(x, "x"), wp,
                   b.float().contiguous(), mul.float().contiguous(), add.float().contiguous(),
                   emb=None if emb is None else emb.to(torch.bfloat16).contiguous(),
                   res=None if res is None else _nhwc(res, "res"))

@@ -27,13 +27,13 @@ from edtr_torch.train.edtr_step import STAGES as TRAIN_STAGES
 
 STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # kernel family by substring of the kernel name, first match wins: the
-# port's own kernels first, so "conv3x3_kernel" and "upconv_wgmma_kernel"
+# port's own kernels first, so "gnconv_wgmma_kernel" and "upconv_wgmma_kernel"
 # are not booked as cuDNN's convs nor "proj_gemm_kernel" as cuBLAS's GEMMs
 FAMILIES = (
     ("swin (edtr_torch)", ("window_attention_kernel", "swin_pre_kernel", "swin_post_kernel")),
     ("flash (edtr_torch)", ("flash_fwd_d64", "flash_fwd_d512", "flash_bwd_dq",
                             "flash_bwd_dkv")),
-    ("gn_conv (edtr_torch)", ("conv3x3_kernel", "upconv_wgmma_kernel")),
+    ("gn_conv (edtr_torch)", ("gnconv_wgmma_kernel", "upconv_wgmma_kernel")),
     ("proj (edtr_torch)", ("proj_gemm_kernel", "lnproj_kernel")),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "nhwc", "nchw")),
     ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),

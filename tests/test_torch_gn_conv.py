@@ -27,6 +27,7 @@ from edtr_tpu.ops import gn_conv as JG
 
 from edtr_torch.models.layers import Conv2d, fused_conv
 from edtr_torch.ops import gn_conv as G
+from proj_bench import GN_SHAPES
 from torch_port_helpers import CTX, IMAGE, jax_tiny, load_port, nchw, nhwc, port_tiny, t2n
 
 OP_TOL = dict(rtol=0, atol=2e-5)
@@ -347,11 +348,13 @@ def test_packed_weight_follows_the_weight():
     (1, 32, 32, 960, 640, 128), (1, 64, 64, 320, 320, 128), (1, 512, 512, 256, 128, 128),
     (1, 256, 256, 512, 512, 128), (1, 128, 128, 64, 64, 128), (2, 24, 40, 64, 128, 128)])
 def test_plan_covers_k_once(b, h, w, cin, cout, bm):
-    bn, tw, splits, per = G.plan(b, h, w, cin, cout, bm)
-    chunks = cin // G.BK
-    assert cout % bn == 0 and bn in (64, 128) and tw in (8, 16) and bm % tw == 0
+    name = "gn_conv_whole" if bm == 64 else "gn_conv_band"  # 64-pixel tiles: one 8² image
+    wn, th, splits, per = G.gn_plan(b, h, w, cin, cout, name)
+    bn = G.GN_TILES[wn, th]
+    chunks = cin // G.GN_KC
+    assert cout % bn == 0 and (th == 8) == (bm == 64)
     assert (splits - 1) * per < chunks <= splits * per  # no empty split
-    tiles = b * -(-h // (bm // tw)) * -(-w // tw) * (cout // bn)
+    tiles = b * -(-h // th) * -(-w // 8) * (cout // bn)
     assert splits == 1 or tiles * splits <= G.SMS
     assert splits == 1 or tiles < G.SMS  # the counters cover every tile
 
@@ -469,15 +472,35 @@ _K6_SHAPES = [(1, 8, 8, 1280, 1280), (1, 16, 16, 1280, 1280), (1, 32, 32, 640, 6
 _K8B_SHAPES = [(4096, 320), (1024, 640), (256, 1280)]
 
 
+# K5a/K5b: every shape of the fused restore (bs 1) and of the training
+# step (bs 2), (B, H, W, Cin, Cout) by tier
+_K5_SHAPES = [(k[0], (bs, k[3], k[4], k[2], k[5])) for bs in (1, 2)
+              for k in sorted(set((k[:6] for k in GN_SHAPES)), key=str)]
+
+
 @pytest.mark.parametrize("kind,shape", [("upsample_conv", s) for s in _K6_SHAPES]
-                         + [("affine_matmul", s) for s in _K8B_SHAPES])
+                         + [("affine_matmul", s) for s in _K8B_SHAPES] + _K5_SHAPES)
 def test_kernel_plans_fit(kind, shape):
     """Each redesigned kernel's plan at its main-path shapes: tiles divide
     the output, a block's shared memory fits the 232,448 bytes a block may
-    use, and K6's split-K chunks cover Cin exactly once, in one wave."""
+    use, and the split-K chunks of K5 and K6 cover Cin exactly once, with no
+    empty split, within the arrival counters, in one wave."""
     from edtr_torch.ops import _proj
 
-    if kind == "upsample_conv":
+    if kind in ("gn_conv_whole", "gn_conv_band"):
+        b, h, w, cin, cout = shape
+        wn, th, splits, per = G.gn_plan(b, h, w, cin, cout, kind)
+        bn = G.GN_TILES[wn, th]
+        chunks = cin // G.GN_KC
+        assert cin % G.GN_KC == 0 and cout % bn == 0
+        assert (th == 8) == (kind == "gn_conv_whole")
+        assert (splits - 1) * per < chunks <= splits * per  # every chunk once, no empty split
+        tiles = b * -(-h // th) * -(-w // 8) * (cout // bn)
+        assert tiles * 8 * th * bn >= b * h * w * cout  # the tiles cover the output
+        assert splits == 1 or tiles * splits <= G.SMS
+        assert splits == 1 or tiles <= 4 * G.SMS  # one arrival counter a tile
+        assert G.gn_smem(wn, th) <= G.SMEM_LIMIT
+    elif kind == "upsample_conv":
         b, h, w, cin, cout = shape
         tw, splits, per = G.ups_plan(b, h, w, cin, cout)
         chunks = -(-cin // G.UPS_KC)

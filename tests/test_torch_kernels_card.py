@@ -22,6 +22,7 @@ from edtr_torch.ops import gn_conv as G
 from edtr_torch.ops import ln_matmul as LM
 from edtr_torch.ops import swin_block as SB
 from edtr_torch.ops import window_attention as WA
+from proj_bench import GN_SHAPES
 
 
 @pytest.mark.cuda
@@ -70,8 +71,16 @@ def test_conv_unsupported_raises():
     x, mul, add, w, b = _conv_args()
     with pytest.raises(ValueError):  # fp32 activations: no kernel takes them
         G.gn_silu_conv(x.float(), mul, add, w, b)
-    with pytest.raises(ValueError):  # Cin 48: not a multiple of 32
+    with pytest.raises(ValueError):  # Cin 48: not a multiple of 64
         G.gn_silu_conv(x[:, :48], mul[:, :48], add[:, :48], w[:, :48], b)
+    x96, mul96, add96, w96, b96 = _conv_args(cin=96, cout=96)
+    for h in (8, 16):  # both tiers
+        xh = torch.randn((1, 96, h, h), device="cuda").to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        with pytest.raises(ValueError):  # Cin 96: not a multiple of 64
+            G.gn_silu_conv(xh, mul96, add96, w96[:64], b96[:64])
+        with pytest.raises(ValueError):  # Cout 96: not a multiple of 64
+            G.gn_silu_conv(xh[:, :64], mul96[:, :64], add96[:, :64], w96[:, :64], b96)
     with pytest.raises(ValueError):  # Cout 96: not a multiple of 64
         G.upsample_conv(x, torch.cat([w, w[:32]]), torch.cat([b, b[:32]]))
     with pytest.raises(ValueError):  # the 9-tap pack: the kernel reads the folded one
@@ -112,6 +121,90 @@ def test_upsample_conv_matches_plain_at_main_path_shapes(b, h, c, act):
     assert err <= TOL_CONV_MAX * want.float().abs().max().item(), err
     rel = ((out.float() - want.float()).norm() / want.float().norm()).item()
     assert rel <= TOL_CONV_L2, rel
+
+
+def _gn_case(key, seed, add_shift=0.0, bias_scale=0.05):
+    """K5 at a ``gn_conv.shapes`` key against its plain version: the
+    kernel's output, the plain one's, and the wrapper that launched."""
+    name, b, cin, h, w, cout, has_emb, has_res, _ = key
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    x = rnd(b, cin, h, w).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    mul, add = 1 + rnd(b, cin, scale=0.1), add_shift + rnd(b, cin, scale=0.1)
+    wt, bias = rnd(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), rnd(cout, scale=bias_scale)
+    emb = rnd(b, cout, scale=0.5).to(torch.bfloat16) if has_emb else None
+    res = (rnd(b, cout, h, w).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+           if has_res else None)
+    before = dict(G.launches)
+    out = G.gn_silu_conv(x, mul, add, wt, bias, emb, res,
+                         w_packed=G.pack_weight(wt, torch.bfloat16))
+    want = G.plain_gn_silu_conv(x, mul, add, wt, bias, emb, res)
+    torch.cuda.synchronize()
+    launched = [n for n in G.launches if G.launches[n] != before[n]]
+    return out, want, launched
+
+
+def _assert_conv_close(out, want):
+    assert out.shape == want.shape and out.dtype == want.dtype == torch.bfloat16
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL_CONV_MAX * want.float().abs().max().item(), err
+    rel = ((out.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= TOL_CONV_L2, rel
+
+
+# every K5 shape of the fused 512² restore (bs 1) and of the training step
+# (bs 2), as proj_bench.py pins them
+K5_KEYS = [(k[0], bs, *k[2:]) for bs in (1, 2) for k in sorted(GN_SHAPES, key=str)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", K5_KEYS, ids=str)
+def test_gn_conv_matches_plain_at_main_path_shapes(key):
+    """K5a/K5b (gnconv_wgmma_kernel) against the plain version at every
+    main-path shape, with chip_smoke.py's conv limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    out, want, launched = _gn_case(key, seed=sum(key[1:6]))
+    assert launched == [key[0]]
+    _assert_conv_close(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,h,w", [("gn_conv_band", 24, 40), ("gn_conv_band", 20, 13),
+                                      ("gn_conv_band", 16, 24), ("gn_conv_whole", 8, 12),
+                                      ("gn_conv_whole", 5, 7)])
+def test_gn_conv_halo_is_zero_after_the_activation(name, h, w):
+    """H and W that are not tile multiples, with add ~ 2: silu(x*mul + add)
+    is ~1.8 where x = 0, so a halo that was activated instead of zeroed
+    (outside the image, or past the tile's last row or column) moves the
+    edge pixels by O(|out|); the bias is small beside it. At 16 x 24 (three
+    row-band tiles of 128 channels) the chunks also split in two."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    key = (name, 2, 128, h, w, 128, True, True, None)
+    out, want, launched = _gn_case(key, seed=h * w, add_shift=2.0, bias_scale=0.0)
+    assert launched == [name]
+    _assert_conv_close(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", [("gn_conv_whole", 1, 2560, 8, 8, 1280, True, False, None),
+                                 ("gn_conv_band", 1, 2560, 16, 16, 1280, True, False, None)],
+                         ids=str)
+def test_gn_conv_split_k_is_deterministic(key):
+    """Two launches at a split-K shape give bit-identical outputs: the last
+    block of a tile sums the partials in split order, whatever order the
+    blocks arrive in."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert G.gn_plan(key[1], key[3], key[4], key[2], key[5], key[0])[2] > 1  # split K
+    first, want, _ = _gn_case(key, seed=3)
+    second, _, _ = _gn_case(key, seed=3)
+    assert torch.equal(first, second)
+    _assert_conv_close(first, want)
 
 
 def _proj_args(n=256, c=64, o=128, b=2):

@@ -44,8 +44,8 @@ def test_summarise_attributes_kernels_to_the_launching_stage():
 def test_kernel_families():
     assert _family("flash_fwd_d512_kernel(...)") == "flash (edtr_torch)"
     # the port's conv kernel, not cuDNN, though its name holds "conv"
-    assert (_family("void (anonymous namespace)::conv3x3_kernel<128, 128, 0>(Conv3x3Args)")
-            == "gn_conv (edtr_torch)")
+    assert (_family("void edtr_gnconv::gnconv_wgmma_kernel<128, false>(CUtensorMap_st, "
+                    "CUtensorMap_st, edtr_gnconv::Args)") == "gn_conv (edtr_torch)")
     assert _family("sm90_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"
     assert _family("ampere_bf16_s16816gemm_bf16_128x64") == "gemm (cuBLAS)"
     assert _family("void at::native::reduce_kernel<512>") == "norm / reduce"
@@ -110,8 +110,10 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
 @pytest.mark.parametrize("name,family", [
     # the port's kernels, as the profiler names them; "conv" and "gemm" in
     # some of them, but not cuDNN's or cuBLAS's
-    ("void (anonymous namespace)::conv3x3_kernel<128, 128>((anonymous namespace)::Conv3x3Args)",
-     "gn_conv (edtr_torch)"),
+    ("void edtr_gnconv::gnconv_wgmma_kernel<128, false>(CUtensorMap_st, CUtensorMap_st, "
+     "edtr_gnconv::Args)", "gn_conv (edtr_torch)"),
+    ("void edtr_gnconv::gnconv_wgmma_kernel<32, true>(CUtensorMap_st, CUtensorMap_st, "
+     "edtr_gnconv::Args)", "gn_conv (edtr_torch)"),
     ("edtr_upconv::upconv_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, edtr_upconv::UpArgs)",
      "gn_conv (edtr_torch)"),
     ("void edtr_lnproj::lnproj_kernel<64, 160, 1, 2>(CUtensorMap_st, CUtensorMap_st, "
