@@ -9,11 +9,12 @@ no result line):
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the hand-written kernels, one ``nvcc`` per source, started
    together: ``edtr_torch/csrc/{flash_attention,flash_attention_bwd,gn_conv,
-   ln_matmul,geglu,window_attention,swin_block}.cu`` (ptxas register and
-   spill lines printed);
+   ln_matmul,geglu,window_attention,swin_block}.cu`` (ptxas register, spill
+   and wgmma-serialisation lines printed);
 3. each flash kernel against its plain PyTorch version at the 512² bs-1
    main-path shapes, in bf16: O and lse errors, kernel / plain / SDPA
-   (``library_ms``, a yardstick the port never calls) times and the bound;
+   (``library_ms``, a yardstick the port never calls) device times from a
+   trace (CUDA-event times beside them) and the bound;
    then each flash backward kernel against ``plain_bwd`` at the training
    step's shapes (bs 2): dq, dk, dv errors, kernel / plain / SDPA's
    backward alone (``library_ms``) times and the bound;
@@ -47,7 +48,8 @@ no result line):
    plain / ``F.linear`` (``library_ms``: the cuBLAS GEMM alone on the
    already-normalised bf16 tokens, never called by the port) and the bound;
 7. each Swin kernel (window attention, swin_pre, swin_post) against its
-   plain version at every shape the fused+swin restore launched it with:
+   plain version at every shape the fused+swin restore launched it with
+   (the swin_pre shapes must be the ones ``proj_bench.py`` pins):
    errors, device times of kernel / plain / library (``library_ms``, never
    called by the port: SDPA with the bias and mask as one additive mask;
    the ``F.linear`` GEMMs on already-normalised bf16 tokens) and the bound;
@@ -108,14 +110,15 @@ BWD_SOURCE = "edtr_torch/csrc/flash_attention_bwd.cu"
 CONV_SOURCE = "edtr_torch/csrc/gn_conv.cu"
 SOURCES = ("flash_attention", "flash_attention_bwd", "gn_conv", "ln_matmul", "geglu",
            "window_attention", "swin_block")
+FA_WGMMA_SOURCE = "edtr_torch/csrc/flash_wgmma.cuh"
 # wrapper -> (flat (BH, N, D) at 512² bs 1, the TPU kernel it replaces,
-#             launches in one 512² restore; None: not on that path)
+#             launches in one 512² restore (None: not on that path), source)
 KERNELS = {
-    "wholekv_fwd": ((5, 4096, 64), "edtr_tpu/ops/flash_attention.py:181", 28),
-    "whole_fwd": ((10, 1024, 64), "edtr_tpu/ops/flash_attention.py:352", 28),
-    "streamkv_fwd": ((1, 4096, 512), "edtr_tpu/ops/flash_attention.py:264", 2),
+    "wholekv_fwd": ((5, 4096, 64), "edtr_tpu/ops/flash_attention.py:181", 28, FA_WGMMA_SOURCE),
+    "whole_fwd": ((10, 1024, 64), "edtr_tpu/ops/flash_attention.py:352", 28, FA_WGMMA_SOURCE),
+    "streamkv_fwd": ((1, 4096, 512), "edtr_tpu/ops/flash_attention.py:264", 2, FA_SOURCE),
     # N > 4096 (1024² inputs); held here at the 1024² ds=2 shape, not run at 512²
-    "flash_fwd": ((5, 8192, 64), "edtr_tpu/ops/flash_attention.py:123", None),
+    "flash_fwd": ((5, 8192, 64), "edtr_tpu/ops/flash_attention.py:123", None, FA_WGMMA_SOURCE),
 }
 # flash backward wrapper -> (flat (BH, N, D) in the 512² bs-2 training step,
 # the TPU kernel it replaces, launches per step): the backward reaches every
@@ -322,27 +325,39 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device_ms's traces with a kernel count that was not a whole number of
+# calls', and its calls timed by CUDA events after three such traces
+TRACE_STATS = {"traces_taken_again": 0, "event_timed": 0}
+
+
 def device_ms(fn, iters: int, warmup: int = 2) -> float:
     """Device ms per call: the kernels' time in a ``torch.profiler`` trace of
     ``iters`` back-to-back calls, over ``iters``. Unlike :func:`time_ms` it
     leaves out the host's time to launch, which sets CUDA-event times of
-    calls shorter than the wrapper's Python."""
+    calls shorter than the wrapper's Python. The profiler first runs one
+    cycle of the same calls whose events it drops: without it, late in this
+    script's run, one-kernel calls read 2.2x fast, below their bound, as if
+    11 of a trace's 20 kernels were missing (chip run 6, PR 9). Traces taken
+    again and event-timed calls are counted in :data:`TRACE_STATS`."""
     import os
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a trace now and then holds no kernel at all (seen once in ~40 traces
-    # on the H100): trace again, and after three such traces take the
-    # CUDA-event time
+    # a trace whose kernels are not a whole number of calls' lost some (a
+    # trace with no kernel at all was seen once in ~40 on the H100): trace
+    # again, and after three such traces take the CUDA-event time
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         fd, path = tempfile.mkstemp(suffix=".json")
         os.close(fd)
         try:
@@ -351,9 +366,11 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
                 events = json.load(f)["traceEvents"]
         finally:
             os.remove(path)
-        us = sum(e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
-        if us > 0:
-            return us / 1e3 / iters
+        kernels = [e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if kernels and len(kernels) % iters == 0:
+            return sum(kernels) / 1e3 / iters
+        TRACE_STATS["traces_taken_again"] += 1
+    TRACE_STATS["event_timed"] += 1
     return time_ms(fn, iters, 0)
 
 
@@ -389,13 +406,14 @@ def build() -> None:
     for name in nvcc_s:
         log = _cuda.so_path(name).with_suffix(".log")
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "C75")):
                 print(f"ptxas {name}:", line.strip())
 
 
 def flash_case(device, name, shape, gen) -> dict:
     """One flash forward kernel against :func:`plain_fwd` at one (BH, N, D),
-    in bf16: O and lse errors, kernel / plain / SDPA times and the bound."""
+    in bf16: O and lse errors, kernel / plain / SDPA device times from a
+    trace (the kernel's CUDA-event time beside them) and the bound."""
     from edtr_torch.ops import flash_attention as FA
 
     bh, n, d = shape
@@ -413,16 +431,18 @@ def flash_case(device, name, shape, gen) -> dict:
     o_max = o_p.float().abs().max().item()
     rel = rel_l2(o_k, o_p)
     err_l = (lse_k - lse_p).abs().max().item()
-    ms = time_ms(lambda: fwd(q, k, v, scale), 20)
-    plain_ms = time_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1)
+    ms = device_ms(lambda: fwd(q, k, v, scale), 20)
+    plain_ms = device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1)
     q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20)
+    event_ms = time_ms(lambda: fwd(q, k, v, scale), 20)
     t_ops = 4.0 * n * n * d * bh / PEAK_BF16_FLOPS * 1e3
     t_bytes = (4 * bh * n * d * 2 + bh * n * 4) / PEAK_BYTES * 1e3
     row = dict(name=name, shape=[bh, n, d], max_abs_err=max(err_o, err_l), ms=ms,
                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               library_ms=library_ms, err_o=err_o, o_max=o_max, rel_l2_o=rel, err_lse=err_l,
+               library_ms=library_ms, event_ms=event_ms, err_o=err_o, o_max=o_max,
+               rel_l2_o=rel, err_lse=err_l,
                ok=bool(err_o <= TOL_O_MAX * o_max and rel <= TOL_O_L2 and err_l <= TOL_LSE))
     row["bound_share"] = row["bound_ms"] / ms
     print("kernel:", json.dumps(row), flush=True)
@@ -435,9 +455,11 @@ def kernel_phase(device) -> dict:
     """Each flash forward kernel at its 512² bs-1 shape (:data:`KERNELS`)."""
     rows = {}
     gen = torch.Generator(device=device).manual_seed(0)
-    for name, (shape, replaces, expected) in KERNELS.items():
-        rows[name] = dict(name=name, route="cuda", source=FA_SOURCE, replaces=replaces,
-                          launches=None, on_path=expected is not None, scope="one call",
+    for name, (shape, replaces, expected, source) in KERNELS.items():
+        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                          launches=None, on_path=expected is not None,
+                          scope="one call; ms, plain_ms, library_ms: device time (profiler), "
+                                "event_ms: CUDA events",
                           **{k: v for k, v in flash_case(device, name, shape, gen).items()
                              if k != "name"})
     return rows
@@ -823,7 +845,7 @@ def swin_case(device, key, gen) -> dict:
             d = extra
             ln_s, ln_b = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
             w, bias = randn(3 * c, c, scale=c ** -0.5), randn(3 * c, scale=0.05)
-            wp = w.to(bf16)
+            wp, wb = SB.pad_weight(w), w.to(bf16)
 
             def kern():
                 return SB.swin_pre(x, ln_s, ln_b, w, bias, hh, ww, win, d, w_packed=wp)
@@ -833,7 +855,7 @@ def swin_case(device, key, gen) -> dict:
             xln = ln_f32(x, ln_s, ln_b).to(bf16)
 
             def lib():
-                return F.linear(xln, wp)
+                return F.linear(xln, wb)
             flops = 2.0 * b * l * c * 3 * c
             nbytes = (5 * b * l * c + 3 * c * c) * 2 + 5 * c * 4
             shape = dict(b=b, h=hh, w=ww, c=c, win=win, d=d)
@@ -983,7 +1005,7 @@ def counted_restore(pipe, args) -> tuple:
 
 def expected_launches(flags: tuple) -> dict:
     fused_conv, fused_proj, fused_swin = flags
-    want = {name: expected or 0 for name, (_, _, expected) in KERNELS.items()}
+    want = {name: expected or 0 for name, (_, _, expected, _) in KERNELS.items()}
     want.update({name: expected if fused_conv else 0
                  for name, (_, expected) in CONV_KERNELS.items()})
     want.update({name: (expected or 0) if fused_proj else 0
@@ -1450,6 +1472,9 @@ def main() -> int:
                                       f"{proj_bench.GN_SHAPES} (proj_bench.py)")
     conv_rows = conv_kernel_phase(device, counted["fused"]["shapes"]["conv"])
     proj_rows = proj_kernel_phase(device, counted["fused+proj"]["shapes"]["proj"])
+    pre = {k: n for k, n in counted["fused+swin"]["shapes"]["swin"].items() if k[0] == "swin_pre"}
+    check(pre == proj_bench.SWIN_SHAPES, f"the restore's swin_pre shapes {pre}, pinned "
+                                         f"{proj_bench.SWIN_SHAPES} (proj_bench.py)")
     swin_rows = swin_kernel_phase(device, counted["fused+swin"]["shapes"]["swin"])
     norms = norm_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
@@ -1474,7 +1499,7 @@ def main() -> int:
     check(set(bwd_rows) == set(BWD_KERNELS), f"backward kernels timed: {sorted(bwd_rows)}")
     check(len(all_rows) == 17, f"kernels line: {sorted(all_rows)}")
     print(json.dumps({"card": card, "restore": timing, "cldm_eps": cldm, "gn_stats": norms,
-                      "train": train,
+                      "train": train, "device_ms_traces": TRACE_STATS,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},
                       "conv_shapes": [dict(key=list(k), launches=n) for k, n in

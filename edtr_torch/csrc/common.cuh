@@ -70,15 +70,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
-// (one bit of `raised` each), not on every launch.
+// (one bit of `raised` each), not on every launch; with `max_carveout`, also
+// asks for the largest shared-memory share of the SM, so that several
+// blocks fit beside each other.
 template <typename Kernel>
-cudaError_t raise_smem_once(Kernel kernel, size_t bytes, std::atomic<unsigned>& raised) {
+cudaError_t raise_smem_once(Kernel kernel, size_t bytes, std::atomic<unsigned>& raised,
+                            bool max_carveout = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 32) return cudaErrorInvalidDevice;
   if (!((raised.load() >> dev) & 1u)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess && max_carveout)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     raised.fetch_or(1u << dev);
   }

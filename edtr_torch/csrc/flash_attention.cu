@@ -3,7 +3,8 @@
 //
 // Replaces four Pallas TPU kernels of edtr_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_d64     <- _qblock_wholekv_kernel (_qblock_wholekv_fwd_flat),
+//   flash_wgmma_kernel (flash_wgmma.cuh)
+//                     <- _qblock_wholekv_kernel (_qblock_wholekv_fwd_flat),
 //                        _whole_fwd_kernel (_whole_fwd_flat) and
 //                        _fwd_kernel (_flash_fwd_flat): head dim 64.
 //   flash_fwd_d512    <- _fwd_kernel_streamkv (_streamkv_fwd_flat): head
@@ -19,17 +20,11 @@
 //
 // What bounds them on an H100: at the main-path shapes both do 4*N^2*D
 // flops per head on N*D*8 bytes, far above the card's ~295 flop/byte ridge,
-// so the tensor cores bound them. This first version issues mma.sync
+// so the tensor cores bound them. Head dim 64 runs on wgmma fed by TMA
+// (flash_wgmma.cuh has its design). flash_fwd_d512 issues mma.sync
 // m16n8k16 (bf16 -> fp32) from registers fed by ldmatrix, and hides the
-// K/V loads behind the math with a cp.async double buffer. It does not use
-// wgmma/TMA/warp specialisation, so it cannot reach the dense bf16 peak.
-//
-// flash_fwd_d64: FlashAttention-2 layout. A block owns 64 query rows (4
-//   warps x 16 rows); Q fragments stay in registers for the whole KV walk;
-//   K/V tiles of 64 rows are double-buffered in shared memory (row stride
-//   padded to 144 B so ldmatrix is bank-conflict free). The 16 x 64 logit
-//   tile of a warp never leaves registers: its accumulator fragment is
-//   re-packed to bf16 as the A operand of the PV product.
+// K/V loads behind the math with a cp.async double buffer; without
+// wgmma/TMA/warp specialisation it cannot reach the dense bf16 peak.
 //
 // flash_fwd_d512: a 32 x 512 fp32 accumulator is too large for the registers
 //   of one warp, so the output columns are split across 8 warps (64 each).
@@ -40,162 +35,13 @@
 //   ~174 KB of dynamic shared memory, so one block runs per SM.
 
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace edtr;
 
 constexpr float kNegInf = -1e30f;
-
-// ---------------------------------------------------------------------------
-// head dim 64
-// ---------------------------------------------------------------------------
-
-constexpr int D64 = 64;
-constexpr int BM64 = 64;        // query rows per block: 4 warps x 16
-constexpr int BN64 = 64;        // kv rows per tile
-constexpr int LD64 = D64 + 8;   // padded smem row (elements): 144 B
-constexpr int kThreads64 = 128;
-constexpr size_t kSmem64 = (size_t)(BM64 + 4 * BN64) * LD64 * sizeof(bf16);
-
-__device__ __forceinline__ void load_rows64(bf16* dst, const bf16* src, int rows, int tid) {
-  for (int c = tid; c < rows * (D64 / 8); c += kThreads64) {
-    const int r = c / (D64 / 8), col = (c % (D64 / 8)) * 8;
-    cp_async16(dst + r * LD64 + col, src + (size_t)r * D64 + col);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads64)
-    flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, int n, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BM64 * LD64;        // [2][BN64][LD64]
-  bf16* sV = sK + 2 * BN64 * LD64;    // [2][BN64][LD64]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM64;
-  const size_t base = (size_t)bh * n * D64;
-  const bf16* kg = k + base;
-  const bf16* vg = v + base;
-
-  load_rows64(sQ, q + base + (size_t)q0 * D64, BM64, tid);
-  load_rows64(sK, kg, BN64, tid);
-  load_rows64(sV, vg, BN64, tid);
-  cp_async_commit();
-
-  uint32_t qf[D64 / 16][4];
-  float acc[D64 / 8][4];
-#pragma unroll
-  for (int t = 0; t < D64 / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};
-  float l_r[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
-
-  const int nkv = n / BN64;
-  for (int j = 0; j < nkv; ++j) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (j + 1 < nkv) {
-      const int b = (j + 1) & 1;
-      load_rows64(sK + b * BN64 * LD64, kg + (size_t)(j + 1) * BN64 * D64, BN64, tid);
-      load_rows64(sV + b * BN64 * LD64, vg + (size_t)(j + 1) * BN64 * D64, BN64, tid);
-      cp_async_commit();
-    }
-    if (j == 0) {
-#pragma unroll
-      for (int ks = 0; ks < D64 / 16; ++ks)
-        ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * LD64 + ks * 16 + (lane >> 4) * 8);
-    }
-    const bf16* cK = sK + (j & 1) * BN64 * LD64;
-    const bf16* cV = sV + (j & 1) * BN64 * LD64;
-
-    // S = Q K^T: 16 rows x 64 kv columns per warp, as 8 n-tiles of 8
-    float s[BN64 / 8][4];
-#pragma unroll
-    for (int t = 0; t < BN64 / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-    const int mi = lane >> 3;
-#pragma unroll
-    for (int np = 0; np < BN64 / 16; ++np) {
-#pragma unroll
-      for (int ks = 0; ks < D64 / 16; ++ks) {
-        uint32_t b[4];
-        ldmatrix_x4(b, cK + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * LD64 + ks * 16 + (mi & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
-      }
-    }
-
-    // online softmax; this thread holds rows g (s[.][0..1]) and g+8 (s[.][2..3])
-    float mx0 = m_r[0], mx1 = m_r[1];
-#pragma unroll
-    for (int t = 0; t < BN64 / 8; ++t) {
-      s[t][0] *= scale; s[t][1] *= scale; s[t][2] *= scale; s[t][3] *= scale;
-      mx0 = fmaxf(mx0, fmaxf(s[t][0], s[t][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[t][2], s[t][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = __expf(m_r[0] - mx0), alpha1 = __expf(m_r[1] - mx1);
-    m_r[0] = mx0;
-    m_r[1] = mx1;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int t = 0; t < BN64 / 8; ++t) {
-      s[t][0] = __expf(s[t][0] - mx0); s[t][1] = __expf(s[t][1] - mx0);
-      s[t][2] = __expf(s[t][2] - mx1); s[t][3] = __expf(s[t][3] - mx1);
-      ls0 += s[t][0] + s[t][1];
-      ls1 += s[t][2] + s[t][3];
-    }
-    l_r[0] = l_r[0] * alpha0 + ls0;
-    l_r[1] = l_r[1] * alpha1 + ls1;
-#pragma unroll
-    for (int t = 0; t < D64 / 8; ++t) {
-      acc[t][0] *= alpha0; acc[t][1] *= alpha0;
-      acc[t][2] *= alpha1; acc[t][3] *= alpha1;
-    }
-
-    // O += P V: P's accumulator fragments re-packed as bf16 A operands
-#pragma unroll
-    for (int kk = 0; kk < BN64 / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D64 / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, cV + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD64 + dp * 16 + (mi >> 1) * 8);
-        mma_bf16(acc[2 * dp], a, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-  }
-
-  float l0 = l_r[0], l1 = l_r[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  bf16* o0 = o + base + (size_t)row0 * D64;
-  bf16* o1 = o + base + (size_t)row1 * D64;
-#pragma unroll
-  for (int t = 0; t < D64 / 8; ++t) {
-    const int col = t * 8 + tig * 2;
-    *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[t][0] * inv0, acc[t][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[t][2] * inv1, acc[t][3] * inv1);
-  }
-  if (tig == 0) {
-    lse[(size_t)bh * n + row0] = m_r[0] + logf(l0);
-    lse[(size_t)bh * n + row1] = m_r[1] + logf(l1);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // head dim 512
@@ -374,26 +220,31 @@ __global__ void __launch_bounds__(kThreads512, 1)
 
 // Plain C interface (loaded with ctypes). q/k/v/o are contiguous (bh, n, d)
 // bf16, lse is (bh, n) fp32; n must be a multiple of the kernel's row tile
-// (64 for d=64, 32 for d=512; the Python wrappers check it). Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int edtr_flash_fwd_d64(const void* q, const void* k, const void* v, void* o,
-                                  void* lse, int bh, int n, float scale, void* stream) {
-  cudaFuncSetAttribute(flash_fwd_d64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kSmem64);
-  dim3 grid(n / BM64, bh);
-  flash_fwd_d64_kernel<<<grid, kThreads64, kSmem64, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), n, scale);
-  return (int)cudaGetLastError();
-}
-
+// (the Python wrappers check it). Launches on `stream`; returns
+// cudaGetLastError(), or the error of the one-time raise of the kernel's
+// shared-memory limit.
 extern "C" int edtr_flash_fwd_d512(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int bh, int n, float scale, void* stream) {
-  cudaFuncSetAttribute(flash_fwd_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kSmem512);
+  static std::atomic<unsigned> raised{0u};
+  const cudaError_t err = edtr::raise_smem_once(flash_fwd_d512_kernel, kSmem512, raised);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(n / BM512, bh);
   flash_fwd_d512_kernel<<<grid, kThreads512, kSmem512, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), n, scale);
   return (int)cudaGetLastError();
+}
+
+// The wgmma kernel of flash_wgmma.cuh at head dim 64, in tile plan `plan`
+// (ops/flash_attention.py:FLASH_PLANS, (BN, STAGES, MINB)); n a multiple of
+// 64 and of the plan's BN, scale > 0.
+extern "C" int edtr_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int bh, int n, float scale, int plan,
+                                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (plan) {
+    case 0: return edtr_flash::launch<64, 3, 3>(q, k, v, o, lse, bh, n, scale, st);
+    case 1: return edtr_flash::launch<128, 2, 2>(q, k, v, o, lse, bh, n, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

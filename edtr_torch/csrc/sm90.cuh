@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (proj_wgmma.cuh: K8a, K8b, K7b; conv_wgmma.cuh: K6; gnconv_wgmma.cuh:
-// K5): mbarriers, TMA tile loads (2-D and 4-D), the shared-memory
-// descriptors of a K-major operand (128-byte swizzle, and no swizzle), the
-// wgmma instructions with their fences, 8-element bf16/fp32 loads, the 16 x
+// K5; flash_wgmma.cuh: K1, K2, K4; swin_block.cu: K10a): mbarriers, TMA
+// tile loads (2-D and 4-D), the shared-memory descriptors of a K-major
+// operand (128-byte swizzle, and no swizzle) and of an MN-major one, the
+// wgmma instructions (A from shared memory or from registers) with their
+// fences, 8-element bf16/fp32 loads, the 16 x
 // 16 store staging of a warp's accumulator fragment, and the tensor-map
 // encoder with its cache. cuTensorMapEncodeTiled is looked up at run time
 // (cudaGetDriverEntryPoint), so nothing links libcuda.
@@ -107,6 +109,15 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t lbo, uin
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
+// shared-memory descriptor of an MN-major B operand in the 128-byte
+// swizzle: rows of 128 bytes along N (64 bf16), one row per k, 8-row atoms
+// 1024 bytes apart along K (SBO), 1024-byte aligned; N is one atom wide
+// (64), so the stride between N atoms (LBO) is not read
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -125,6 +136,13 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for a register A operand
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (64 x N fp32, N/2 registers a thread) += A (64 x 16, smem) * B^T (N x
@@ -160,6 +178,26 @@ struct Wgmma<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  __device__ static __forceinline__ void mma(float (&d)[48], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "l"(da), "l"(db), "r"(1));
   }
 };
@@ -245,6 +283,60 @@ struct Wgmma<256> {
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// d (64 x N fp32, laid out as Wgmma's) = A (64 x 16 bf16, from registers) *
+// B (16 x N, smem) + (scale_d ? d : 0). Each warp's 16 rows of A (warp % 4)
+// are 4 registers of packed bf16 pairs, mma.sync m16n8k16's A fragment:
+// a[0] row lane / 4, columns 2 (lane % 4) + {0, 1}; a[1] the row 8 on; a[2]
+// and a[3] the same at column + 8. So an accumulator's registers 4j..4j+7,
+// packed in pairs, are the A of the k-step over its columns 8j..8j+15. B is
+// K-major with TB 0 (sw128_desc) and MN-major with TB 1 (sw128_mn_desc: B's
+// rows run along K, N contiguous). The A registers must keep their values
+// until the wgmma that reads them has been waited for.
+template <int N, int TB>
+struct WgmmaRS;
+
+template <int TB>
+struct WgmmaRS<64, TB> {
+  __device__ static __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<128, TB> {
+  __device__ static __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
 

@@ -19,28 +19,51 @@
 // on rolled positions throughout, so a block hands its successor tokens
 // rolled by its own shift and the RSTB un-rolls once before its conv.
 //
-// Design. SwinIR's widths (C 180, 3C 540, hidden 360) are multiples of
+// swin_post. SwinIR's widths (C 180, 3C 540, hidden 360) are multiples of
 // neither 16 nor 32, and its 360-byte rows make odd rows only 8-byte
 // aligned. So every operand is staged with 4- or 8-byte copies, the K walk
 // of each GEMM is zero-padded to a multiple of 32 in shared memory, and the
-// ragged column edge is masked in the epilogue. A block owns a tile of
-// tokens (swin_pre: one window of 64; swin_post: half of one, so that the
-// 64 windows of a 512² image give 128 blocks for 132 SMs) and computes each
-// projection in slabs of 192 output columns: 8 warps of mma.sync m16n8k16 fed by ldmatrix, the weight rows of
-// the slab streaming through a 3-deep cp.async ring of 32-channel chunks
-// (the three post weights, 324 KB in bf16, do not fit in shared memory
-// together). The normalised tokens, x1 = xr + proj and the 32 x 360 GELU
-// hidden stay in shared memory; only x, qkv, xr, the attention output and
-// the block output touch device memory. swin_pre splits the 540 qkv
-// columns over three blocks per window (192 blocks at bs 1).
+// ragged column edge is masked in the epilogue. A block owns half a window
+// (32 tokens, so that the 64 windows of a 512² image give 128 blocks for
+// 132 SMs) and computes each projection in slabs of 192 output columns: 8
+// warps of mma.sync m16n8k16 fed by ldmatrix, the weight rows of the slab
+// streaming through a 3-deep cp.async ring of 32-channel chunks (the three
+// weights, 324 KB in bf16, do not fit in shared memory together). x1 = xr +
+// proj, its LN2 and the 32 x 360 GELU hidden stay in shared memory.
+//
+// swin_pre (pre_wgmma below), on wgmma with the weights fed by TMA. Its
+// mma.sync predecessor (21.9 us of device time a call at the main-path
+// shape on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md) ran three serial
+// phases a block and streamed the 360-byte weight rows in 8-byte
+// cp.asyncs. Here a block owns
+// one window (64 tokens: wgmma's M) and one slab of 192 qkv columns (grid
+// 64 x 3 at bs 1, two blocks an SM):
+// - the weights come from a bf16 copy zero-padded along K to a multiple of
+//   64 channels (384-byte rows at C 180, ops/swin_block.py:pad_weight, cached
+//   by models/layers.py:Linear.padded_weight), which a TMA map describes:
+//   thread 0 issues the slab's 192 rows (72 KB, zeros past 3C) as 64-channel
+//   boxes in the 128-byte swizzle at block start, so they land while the
+//   block gathers and normalises;
+// - the 256 threads gather the window's rolled rows, 8 lanes a token
+//   (8-byte loads: x, qkv and the unpadded rows have no 16-byte stride, so
+//   TMA cannot describe them; a row's statistics take 3 shuffle steps),
+//   copy them to xr (slab 0 only), and write the LayerNorm, rounded to
+//   bf16, straight into the swizzled K-major layout wgmma reads for A,
+//   zeros past C;
+// - each warpgroup issues wgmma m64n96k16 over its 96 columns (12 k-steps
+//   at C 180); its epilogue adds the fp32 bias before the one rounding,
+//   stages the 64 x 96 tile in its own (retired) weight rows and writes
+//   the window-partitioned qkv a row's 8-byte pieces at a time, masked past
+//   3C. (4-byte stores straight from the accumulator, each touching 8 rows
+//   1080 bytes apart, and a warp a token with 5-step reductions were the two
+//   largest costs of a first version on the card; PERF.md, PR 9.)
 //
 // What bounds them on an H100: at the main-path shape (1 x 4096 tokens,
 // C 180) swin_pre moves ~7.6 MB for 0.80 GFLOP and swin_post ~4.7 MB for
 // 1.33 GFLOP: under 300 FLOP per byte, so memory bounds both (~2.3 and
-// ~1.4 us). mma.sync from shared memory, a grid of 128-192 blocks and the
-// serial LN/GEMM phases keep these simple kernels well above that bound.
+// ~1.4 us at 3.35 TB/s).
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -213,49 +236,213 @@ struct PreArgs {
   const bf16* x;        // (B, h*w, C) tokens, rolled by the caller's in_offset
   const float* ln_s;    // (C) LN1 affine
   const float* ln_b;
-  const bf16* wqkv;     // (3C, C) qkv weight
-  const float* bias;    // (3C)
+  const float* bias;    // (3C) qkv bias
   bf16* qkv;            // (B, nW, 64, 3C) windows
   bf16* xr;             // (B, h*w, C) x rolled by d
   int h, w, win, c, d;
   float eps;
 };
 
-// grid (B * nW, ceil(3C / kSlab)): one window, one slab of qkv columns
-__global__ void __launch_bounds__(kThreads) swin_pre_kernel(const PreArgs p) {
+// swin_pre on wgmma: a block owns one window (64 tokens, wgmma's M) and one
+// slab of kSlab qkv columns, 96 for each of its two warpgroups.
+namespace pre_wgmma {
+
+using namespace edtr_sm90;
+
+constexpr int kHalf = kSlab / 2;       // a warpgroup's qkv columns: wgmma m64n96k16
+constexpr int kChunk = 64;             // channels a 128-byte swizzle row holds
+constexpr int kRow = kChunk * 2;
+
+template <int KCH>
+constexpr int smem_bytes() {  // slack, A, the weight slab, the barrier, the LN affine
+  return 1024 + KCH * (kWinTok + kSlab) * kRow + 8 + 2 * kMaxC * 4;
+}
+
+// byte offset of piece pc (channels 4pc..4pc+3) of token row r in the A
+// tile: 64-channel chunks of 64 rows x 128 bytes, the 16-byte units of a
+// row swizzled by its index (sw128_desc's layout)
+__device__ __forceinline__ int a_offset(int r, int pc) {
+  const int unit = (pc & 15) >> 1;
+  return (pc >> 4) * (kWinTok * kRow) + r * kRow + ((unit ^ (r & 7)) << 4) + ((pc & 1) << 3);
+}
+
+// 4-byte word w of row r of a warpgroup's 64 x 96 bf16 output staging
+// (192-byte rows), rotated by 4 (r % 8) words within the row, so that the 8
+// rows an accumulator store touches start in distinct banks; 8-byte pairs
+// (w even, w + 1) stay whole
+__device__ __forceinline__ int stg_word(int r, int w) {
+  return r * (kHalf / 2) + (w + ((r & 7) << 2)) % (kHalf / 2);
+}
+
+// grid (B * nW, ceil(3C / kSlab)); KCH = ceil(C / 64) chunks of K
+template <int KCH>
+__global__ void __launch_bounds__(kThreads, 2)
+    swin_pre_kernel(const __grid_constant__ CUtensorMap wmap, const PreArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // [64][LDA] LN1 tokens
-  bf16* ring = sA + kWinTok * LDA;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* sA = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // [KCH][64][128 B]
+  uint8_t* sW = sA + KCH * kWinTok * kRow;                      // [KCH][kSlab][128 B]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sW + KCH * kSlab * kRow);
+  float* sLn = reinterpret_cast<float*>(bar + 1);  // [2][kMaxC]: LN scale, shift
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Geometry geo(blockIdx.x, p.h, p.w, p.win);
   const int c3 = 3 * p.c, n0 = blockIdx.y * kSlab;
 
-  for (int r = warp; r < kWinTok; r += kThreads / 32) {
+  if (tid == 0) {  // the slab's weight rows (zeros past 3C), landing during the LayerNorm
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, KCH * kSlab * kRow);
+#pragma unroll
+    for (int kc = 0; kc < KCH; ++kc) tma_load_2d(sW + kc * kSlab * kRow, &wmap, bar, kc * kChunk, n0);
+  }
+  for (int i = tid; i < 2 * kMaxC; i += kThreads) {
+    const int ch = i % kMaxC;
+    sLn[i] = ch < p.c ? __ldg((i < kMaxC ? p.ln_s : p.ln_b) + ch) : 0.f;
+  }
+
+  // Warp w takes tokens 8w..8w+7 in two passes of four, 8 lanes a token:
+  // lane takes the 4-channel pieces sub, sub + 8, ... (sub = lane % 8) of
+  // its token's rolled source row. Both passes' loads go out first.
+  constexpr int PPL = kMaxC / 4 / 8;  // pieces a lane: 6
+  const int units = p.c / 4, sub = lane & 7;
+  uint2 u[2][PPL];
+#pragma unroll
+  for (int ps = 0; ps < 2; ++ps) {
+    const int r = warp * 8 + ps * 4 + (lane >> 3);
     const int ys = ((geo.y(r) + p.d) % p.h + p.h) % p.h;
     const int xs = ((geo.x(r) + p.d) % p.w + p.w) % p.w;
     const bf16* src = p.x + ((size_t)geo.b * geo.L + (size_t)ys * p.w + xs) * p.c;
-    bf16* dst_xr = p.xr + geo.token(r) * p.c;
-    uint32_t u[3];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int cc = (lane + 32 * j) * 2;
-      u[j] = cc < p.c ? *reinterpret_cast<const uint32_t*>(src + cc) : 0u;
-      if (blockIdx.y == 0 && cc < p.c) *reinterpret_cast<uint32_t*>(dst_xr + cc) = u[j];
+    for (int k = 0; k < PPL; ++k) {
+      const int pc = sub + 8 * k;
+      u[ps][k] = pc < units ? __ldg(reinterpret_cast<const uint2*>(src + 4 * pc))
+                            : make_uint2(0u, 0u);
     }
-    ln_row(u, p.c, lane, p.ln_s, p.ln_b, p.eps, sA + r * LDA);
   }
+  if (blockIdx.y == 0) {  // xr: the rolled tokens, once a window
+#pragma unroll
+    for (int ps = 0; ps < 2; ++ps) {
+      bf16* dst = p.xr + geo.token(warp * 8 + ps * 4 + (lane >> 3)) * p.c;
+#pragma unroll
+      for (int k = 0; k < PPL; ++k) {
+        const int pc = sub + 8 * k;
+        if (pc < units) *reinterpret_cast<uint2*>(dst + 4 * pc) = u[ps][k];
+      }
+    }
+  }
+  __syncthreads();  // sLn
+
+  // LayerNorm in fp32 (two passes, eps inside the rsqrt, affine without
+  // contraction), rounded to bf16 into A; the channels from C to the end of
+  // the last chunk are zeros (the weights' K padding is zero, but 0 * NaN
+  // is not)
+#pragma unroll
+  for (int ps = 0; ps < 2; ++ps) {
+    const int r = warp * 8 + ps * 4 + (lane >> 3);
+    float f[PPL][4], sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < PPL; ++k) {
+      const float2 lo = unpack2(u[ps][k].x), hi = unpack2(u[ps][k].y);
+      f[k][0] = lo.x; f[k][1] = lo.y; f[k][2] = hi.x; f[k][3] = hi.y;
+      sum += (f[k][0] + f[k][1]) + (f[k][2] + f[k][3]);
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum / (float)p.c;
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < PPL; ++k)
+      if (sub + 8 * k < units)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q += (f[k][e] - mean) * (f[k][e] - mean);
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    const float rstd = rsqrtf(q / (float)p.c + p.eps);
+#pragma unroll
+    for (int k = 0; k < PPL; ++k) {
+      const int pc = sub + 8 * k;
+      if (pc < KCH * 16) {
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[k][e], mean), rstd), sLn[4 * pc + e]),
+                           sLn[kMaxC + 4 * pc + e]);
+        const uint2 v = pc < units ? make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]))
+                                   : make_uint2(0u, 0u);
+        *reinterpret_cast<uint2*>(sA + a_offset(r, pc)) = v;
+      }
+    }
+  }
+  // the threads' A is read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  float acc[Tile<64>::NT][4];
-  slab_gemm<64>(acc, sA, LDA, p.c, p.wqkv, c3, n0, ring);
-  bf16* out = p.qkv + (size_t)blockIdx.x * kWinTok * c3;
-  for_pairs<64>(acc, [&](int row, int col, float v0, float v1) {
-    const int n = n0 + col;
-    if (n < c3)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * c3 + n) =
-          pack_bf16(v0 + p.bias[n], v1 + p.bias[n + 1]);
-  });
+  // warpgroup wg: slab columns 96 wg .. 96 wg + 95, KCH x 4 k-steps; this
+  // thread's bias pairs (columns 8t + 2tq) loaded while the MMAs run
+  const int wg = warp >> 2, w4 = warp & 3, gq = lane >> 2, tq = lane & 3;
+  const int cb = n0 + wg * kHalf;  // the half's first column
+  float2 bias[kHalf / 8];
+#pragma unroll
+  for (int t = 0; t < kHalf / 8; ++t) {
+    const int col = cb + 8 * t + 2 * tq;
+    bias[t] = col < c3 ? make_float2(__ldg(p.bias + col), __ldg(p.bias + col + 1))
+                       : make_float2(0.f, 0.f);
+  }
+  const uint32_t a0 = smem_u32(sA), w0 = smem_u32(sW) + wg * kHalf * kRow;
+  float acc[kHalf / 2];
+#pragma unroll
+  for (int i = 0; i < kHalf / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar, 0);
+  fence_operands(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < KCH; ++kc)
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      Wgmma<kHalf>::mma(acc, sw128_desc(a0 + kc * kWinTok * kRow + kk * 32),
+                        sw128_desc(w0 + kc * kSlab * kRow + kk * 32));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // epilogue: + the fp32 bias, one rounding to bf16 (register 4t + 2h + e:
+  // window token w4 * 16 + gq + 8h, column 8t + 2tq + e of the half), staged
+  // in the half's own weight rows of chunk 0 (only its own wgmmas read
+  // them, and they have retired), then stored a row's 8-byte pieces at a
+  // time: the qkv rows (1080 bytes at C 180) are only 8-byte aligned
+  uint32_t* stg = reinterpret_cast<uint32_t*>(sW + wg * kHalf * kRow);
+#pragma unroll
+  for (int t = 0; t < kHalf / 8; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      stg[stg_word(w4 * 16 + gq + 8 * h, 4 * t + tq)] =
+          pack_bf16(acc[4 * t + 2 * h] + bias[t].x, acc[4 * t + 2 * h + 1] + bias[t].y);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  const int pieces = min(kHalf, c3 - cb) / 4;  // 8-byte pieces of a row (3C % 12 == 0)
+  bf16* out = p.qkv + (size_t)blockIdx.x * kWinTok * c3 + cb;
+  for (int i = tid & 127; i < kWinTok * pieces; i += 128) {
+    const int r = i / pieces, pc = i % pieces;
+    const uint2 v = *reinterpret_cast<const uint2*>(stg + stg_word(r, 2 * pc));
+    *reinterpret_cast<uint2*>(out + (size_t)r * c3 + 4 * pc) = v;
+  }
 }
+
+// the slab's weights: rows of the (3C, 64 KCH) zero-padded bf16 weight,
+// which TMA reads in boxes of 64 channels x kSlab rows; 2 blocks an SM
+template <int KCH>
+int launch(const PreArgs& a, const void* w, int batch, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<KCH>();
+  static std::atomic<unsigned> raised{0u};
+  int r = (int)edtr::raise_smem_once(swin_pre_kernel<KCH>, smem, raised, true);
+  CUtensorMap wmap;
+  if (r == 0) r = cached_matrix_map(w, 3 * a.c, KCH * kChunk, kSlab, &wmap);
+  if (r != 0) return r;
+  dim3 grid(batch * (a.h / a.win) * (a.w / a.win), (3 * a.c + kSlab - 1) / kSlab);
+  swin_pre_kernel<KCH><<<grid, kThreads, smem, stream>>>(wmap, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pre_wgmma
 
 struct PostArgs {
   const bf16* attn;     // (B, nW, 64, C) attention output windows
@@ -369,24 +556,25 @@ bool shape_ok(int h, int w, int win, int c) {
 // Plain C interface (loaded with ctypes). Shapes the kernels take (the
 // Python wrappers check them, with dtypes, contiguity and devices): window
 // 8 (64 tokens), h and w multiples of it, C <= 192 and a multiple of 4,
-// hidden <= 384 and a multiple of 4, pointers 16-byte aligned. Launch on
-// `stream`; return cudaGetLastError(), or cudaErrorInvalidValue for a shape
-// the kernels do not take.
+// hidden <= 384 and a multiple of 4, pointers 16-byte aligned; swin_pre's
+// `w` is the (3C, 64 ceil(C / 64)) zero-padded weight. Launch on `stream`;
+// return cudaGetLastError(), cudaErrorInvalidValue for a shape the kernels
+// do not take, or the error of the one-time raise of a kernel's
+// shared-memory limit (or, negated, of encoding a tensor map).
 extern "C" int edtr_swin_pre(const void* x, const void* ln_s, const void* ln_b, const void* w,
                              const void* bias, void* qkv, void* xr, int batch, int h, int wd,
                              int win, int c, int d, float eps, void* stream) {
   if (!shape_ok(h, wd, win, c) || batch <= 0) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = (size_t)kWinTok * LDA * sizeof(bf16) + kRingBytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(swin_pre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  PreArgs a = {static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-               static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
-               static_cast<const float*>(bias), static_cast<bf16*>(qkv), static_cast<bf16*>(xr),
-               h, wd, win, c, d, eps};
-  dim3 grid(batch * (h / win) * (wd / win), (3 * c + kSlab - 1) / kSlab);
-  swin_pre_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const PreArgs a = {static_cast<const bf16*>(x),     static_cast<const float*>(ln_s),
+                     static_cast<const float*>(ln_b), static_cast<const float*>(bias),
+                     static_cast<bf16*>(qkv),         static_cast<bf16*>(xr),
+                     h, wd, win, c, d, eps};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((c + pre_wgmma::kChunk - 1) / pre_wgmma::kChunk) {
+    case 1: return pre_wgmma::launch<1>(a, w, batch, st);
+    case 2: return pre_wgmma::launch<2>(a, w, batch, st);
+    default: return pre_wgmma::launch<3>(a, w, batch, st);
+  }
 }
 
 extern "C" int edtr_swin_post(const void* attn, const void* xr, const void* wp, const void* bp,
@@ -397,9 +585,8 @@ extern "C" int edtr_swin_post(const void* attn, const void* xr, const void* wp, 
   if (!shape_ok(h, wd, win, c) || batch <= 0 || hidden <= 0 || hidden > kMaxHidden ||
       hidden % 4)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(swin_post_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kPostSmem);
+  static std::atomic<unsigned> raised{0u};
+  const cudaError_t err = edtr::raise_smem_once(swin_post_kernel, kPostSmem, raised);
   if (err != cudaSuccess) return (int)err;
   PostArgs a = {static_cast<const bf16*>(attn), static_cast<const bf16*>(xr),
                 static_cast<const bf16*>(wp),   static_cast<const float*>(bp),

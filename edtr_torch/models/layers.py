@@ -45,7 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from edtr_torch.ops import attention as attention_ops
-from edtr_torch.ops import gn_conv
+from edtr_torch.ops import gn_conv, swin_block
 from edtr_torch.ops._norms import fold_from_moments, gn_stats, ln_f32
 
 _fused_conv = False
@@ -186,6 +186,10 @@ def _fold_conv(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
     return gn_conv.fold_subpixel_weights(ws[0], dtype)
 
 
+def _pad_linear(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    return swin_block.pad_weight(ws[0], dtype)
+
+
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -197,11 +201,18 @@ class Linear(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
         self._packed = DerivedWeight()
+        self._padded = DerivedWeight()
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The weight in ``dtype`` as the projection kernels read it ((out,
         in), contiguous), kept until the weight changes."""
         return self._packed.get((self.weight,), dtype, concat_weights)
+
+    def padded_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """:meth:`packed_weight` zero-padded along ``in`` to a multiple of 64
+        (``swin_block.pad_weight``), as the ``swin_pre`` kernel reads the
+        qkv weight; kept as :meth:`packed_weight` is."""
+        return self._padded.get((self.weight,), dtype, _pad_linear)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)

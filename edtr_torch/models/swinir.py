@@ -179,7 +179,7 @@ class SwinTransformerBlock(nn.Module):
         n, heads = self.win * self.win, attn.num_heads
         qkv, xr = swin_block.swin_pre(x, self.norm1.weight, self.norm1.bias, attn.qkv.weight,
                                       attn.qkv.bias, h, w, self.win, shift - in_offset,
-                                      self.norm1.eps, w_packed=attn.qkv.packed_weight(dt))
+                                      self.norm1.eps, w_packed=attn.qkv.padded_weight(dt))
         q, k, v = qkv.view(-1, n, 3, heads, c // heads).unbind(2)
         out = window_attention(q, k, v, attn.bias(),
                                shift_mask(h, w, self.win, shift, x.device) if shift else None,

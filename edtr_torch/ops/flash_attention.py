@@ -9,11 +9,11 @@ with its own launch count:
   ==============  =====================================  ====================
   wrapper         replaces (edtr_tpu/ops/...)             CUDA symbol
   ==============  =====================================  ====================
-  wholekv_fwd     flash_attention.py:_qblock_wholekv_    edtr_flash_fwd_d64
+  wholekv_fwd     flash_attention.py:_qblock_wholekv_    edtr_flash_fwd_wgmma
                   fwd_flat (2048 <= N <= 4096, D <= 128)
-  whole_fwd       flash_attention.py:_whole_fwd_flat     edtr_flash_fwd_d64
+  whole_fwd       flash_attention.py:_whole_fwd_flat     edtr_flash_fwd_wgmma
                   (N <= 1024, D <= 128)
-  flash_fwd       flash_attention.py:_flash_fwd_flat     edtr_flash_fwd_d64
+  flash_fwd       flash_attention.py:_flash_fwd_flat     edtr_flash_fwd_wgmma
                   (N > 4096, D <= 128)
   streamkv_fwd    flash_attention.py:_streamkv_fwd_flat  edtr_flash_fwd_d512
                   (128 < D <= 512)
@@ -25,12 +25,14 @@ with its own launch count:
                   (``_dkv_kernel``)
   ==============  =====================================  ====================
 
-The forward kernels live in ``edtr_torch/csrc/flash_attention.cu``, the
-backward ones in ``edtr_torch/csrc/flash_attention_bwd.cu`` (see their
-headers for the designs). A forward wrapper given CPU tensors computes
-:func:`plain_fwd`, a backward one :func:`plain_bwd`; given CUDA tensors each
-launches its kernel or raises. The forward kernels take contiguous bf16
-``(BH, N, D)`` with D = 64 (``edtr_flash_fwd_d64``) or D = 512
+The forward kernels live in ``edtr_torch/csrc/flash_attention.cu`` (D =
+64: the wgmma kernel of ``csrc/flash_wgmma.cuh``, one walk for all three
+wrappers, in the tile plan :func:`flash_plan` picks), the backward ones in
+``edtr_torch/csrc/flash_attention_bwd.cu`` (see their headers for the
+designs). A forward wrapper given CPU tensors computes :func:`plain_fwd`, a
+backward one :func:`plain_bwd`; given CUDA tensors each launches its kernel
+or raises. The forward kernels take contiguous bf16 ``(BH, N, D)`` with D =
+64 (``edtr_flash_fwd_wgmma``, N a multiple of 128, scale > 0) or D = 512
 (``edtr_flash_fwd_d512``), the backward ones D = 64; anything else on CUDA
 raises. The D > 128 backward is :func:`plain_bwd` on every device, as JAX
 leaves it to XLA (``_xla_bwd_flat``).
@@ -67,11 +69,28 @@ shapes: Counter = Counter()
 
 # (symbol, head dim, row tile n must divide) of each wrapper's kernel
 _KERNEL = {
-    "wholekv_fwd": ("edtr_flash_fwd_d64", 64, 64),
-    "whole_fwd": ("edtr_flash_fwd_d64", 64, 64),
-    "flash_fwd": ("edtr_flash_fwd_d64", 64, 64),
+    "wholekv_fwd": ("edtr_flash_fwd_wgmma", 64, 128),
+    "whole_fwd": ("edtr_flash_fwd_wgmma", 64, 128),
+    "flash_fwd": ("edtr_flash_fwd_wgmma", 64, 128),
     "streamkv_fwd": ("edtr_flash_fwd_d512", 512, 32),
 }
+# the tile plans of edtr_flash_fwd_wgmma (csrc/flash_wgmma.cuh), by index:
+# (K/V tile rows, ring stages, blocks resident on an SM), each block 64
+# query rows; the row tile 128 is a multiple of 64 and of every K/V tile
+FLASH_PLANS = ((64, 3, 3), (128, 2, 2))
+# grids of up to two 64-row blocks for each of an H100's 132 SMs take the
+# 128-row plan
+_SMALL_GRID = 2 * 132
+
+
+def flash_plan(bh: int, n: int) -> int:
+    """The index into :data:`FLASH_PLANS` the wgmma kernel runs at (BH, N):
+    64-row K/V tiles, three blocks an SM, where the grid fills the card
+    (the restore's 4096-token attention, the step's both); 128-row tiles
+    where it has at most two blocks an SM (the restore's 1024 tokens), the
+    faster plan at each on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, PR
+    9)."""
+    return 1 if bh * (n // 64) <= _SMALL_GRID else 0
 
 
 def shapes_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -131,10 +150,11 @@ def plain_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _symbol(symbol: str):
     """The C entry point, with its signature declared (q, k, v, o, lse
-    pointers; bh, n; scale; stream)."""
+    pointers; bh, n; scale; the wgmma kernel's plan; stream)."""
     fn = getattr(_cuda.load("flash_attention"), symbol)
+    plan = [ctypes.c_int] if symbol == "edtr_flash_fwd_wgmma" else []
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
+                                           ctypes.c_float] + plan + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -147,19 +167,22 @@ def _launch(name: str, qf, kf, vf, scale: float):
                              f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
         if t.shape != qf.shape or t.device != qf.device:
             raise ValueError(f"{name}: q/k/v shapes or devices differ")
-        if t.data_ptr() % 16:  # cp.async copies 16-byte chunks
+        if t.data_ptr() % 16:  # cp.async and TMA copy 16-byte chunks
             raise ValueError(f"{name}: tensor data is not 16-byte aligned")
     bh, n, d = qf.shape
     if d != d_req or n % row_tile or n == 0:
         raise ValueError(f"{name}: kernel takes D={d_req} and N a multiple "
                          f"of {row_tile}, got {tuple(qf.shape)}")
+    if not scale > 0:  # the wgmma kernel takes the row max over the raw logits
+        raise ValueError(f"{name}: the kernel takes a positive scale, got {scale}")
     fn = _symbol(symbol)
+    plan = (flash_plan(bh, n),) if symbol == "edtr_flash_fwd_wgmma" else ()
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), device=qf.device, dtype=torch.float32)
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), bh, n, float(scale), stream)
+                 lse.data_ptr(), bh, n, float(scale), *plan, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     launches[name] += 1

@@ -25,7 +25,9 @@ once (``models/swinir.py``).
 
 Weights are in nn.Linear layout (out, in): the module's fp32 weights for
 the plain versions; the kernels read bf16 copies (``w_packed``/``packed``)
-that the modules cache until a weight changes (``Linear.packed_weight``).
+that the modules cache until a weight changes (``Linear.packed_weight``;
+for ``swin_pre`` the copy zero-padded along ``in`` to a multiple of 64,
+:func:`pad_weight`, ``Linear.padded_weight``, whose rows TMA can read).
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 tokens, window 8
 (64 tokens), h and w multiples of it, C a multiple of 4 up to 192 and an
@@ -93,6 +95,16 @@ def window_reverse(windows: torch.Tensor, win: int, h: int, w: int) -> torch.Ten
     b = windows.shape[0] // ((h // win) * (w // win))
     x = windows.reshape(b, h // win, w // win, win, win, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h, w, c)
+
+
+def pad_weight(w: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(out, in) -> (out, 64 * ceil(in / 64)) in ``dtype``, zeros past
+    ``in``: the qkv weight as the ``swin_pre`` kernel reads it (rows of a
+    multiple of 128 bytes, which a TMA tensor map can describe)."""
+    out, cin = w.shape
+    wp = torch.zeros((out, -(-cin // 64) * 64), dtype=dtype, device=w.device)
+    wp[:, :cin] = w
+    return wp
 
 
 def plain_swin_pre(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
@@ -176,7 +188,8 @@ def _swin_pre(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed
     b, l, c = x.shape
     dev = x.device
     with torch.no_grad():
-        wp = _bf16(wqkv, w_packed, "swin_pre: w_packed", (3 * c, c), dev)
+        wp = pad_weight(wqkv.detach()) if w_packed is None else w_packed
+        check(wp, "swin_pre: w_packed", torch.bfloat16, (3 * c, -(-c // 64) * 64), dev)
         s, sh = _vec(ln_s, "swin_pre: ln_s", c, dev), _vec(ln_b, "swin_pre: ln_b", c, dev)
         bias = _vec(bqkv, "swin_pre: bqkv", 3 * c, dev)
     nw = (h // win) * (w // win)
@@ -264,7 +277,8 @@ def swin_pre(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor, wqkv: torc
     """LN1 + roll(-d) + qkv + window partition: the ``swin_pre`` kernel on
     CUDA tensors, :func:`plain_swin_pre` on CPU tensors; differentiable (the
     plain version's gradients). ``w_packed``: the bf16 copy of ``wqkv``
-    (made here, per call, when not given)."""
+    zero-padded by :func:`pad_weight` (made here, per call, when not
+    given)."""
     if needs_grad(x, ln_s, ln_b, wqkv, bqkv):
         return _SwinPre.apply(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed)
     return _swin_pre(x, ln_s, ln_b, wqkv, bqkv, h, w, win, d, eps, w_packed)

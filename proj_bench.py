@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Time the projection kernels K8a (``ln_matmul.ln_matmuls``), K8b
 (``ln_matmul.affine_matmul``) and K7b (``geglu.ln_geglu_proj``) at every
-shape of the 512² fused+proj restore, and with ``--conv`` the conv kernels
+shape of the 512² fused+proj restore, with ``--conv`` the conv kernels
 K5a/K5b (``gn_conv.gn_silu_conv``: ``gn_conv_whole``, ``gn_conv_band``) and
-K6 (``gn_conv.upsample_conv``) at every shape of the fused restore, on one
-NVIDIA GPU.
+K6 (``gn_conv.upsample_conv``) at every shape of the fused restore, with
+``--flash`` the head-dim-64 flash forward wrappers (K1 ``wholekv_fwd``, K2
+``whole_fwd``, K4 ``flash_fwd``) at the restore's and the bs-2 training
+step's shapes, and with ``--swin`` K10a (``swin_block.swin_pre``) at the
+fused+swin restore's, on one NVIDIA GPU.
 
-    python3 proj_bench.py [--rounds R] [--plans] [--conv]
+    python3 proj_bench.py [--rounds R] [--plans] [--conv] [--flash] [--swin]
 
 Run it from the root of a checkout: it builds that checkout's sources and
 calls that checkout's ``chip_smoke.proj_case`` at each projection shape
@@ -22,12 +25,20 @@ checkouts timed in one call can be timed in turns (parent, change, change,
 parent). ``--plans`` also times each projection kernel at other tile plans
 (``ops/_proj.py:lnproj_plan``'s (bm, bn, groups)) than the one the wrapper
 picks, and with ``--conv`` each K5 shape at the other tiles
-(``gn_conv.GN_TILES``) the kernel takes.
+(``gn_conv.GN_TILES``) the kernel takes, and with ``--flash`` each flash
+shape in every plan of ``flash_attention.FLASH_PLANS``. With ``--flash``
+or ``--swin`` the projection shapes are left out. The flash and Swin
+kernels are held to
+chip_smoke's gates and timed on the same trace clock (``flash_shape``,
+``swin_shape``), with SDPA and ``F.linear`` as the yardsticks; both run in
+a checkout from before these flags (``swin_shape`` hands its kernel the
+weight form it reads).
 
-Prints one ``proj shape:`` (``conv shape:``) JSON line per shape and
-round, then a ``proj summary:`` line per kernel: the launch-weighted device
-ms per restore (the sums of chip_smoke's ``kernels`` line), with the card's
-``nvidia-smi`` name and power limit.
+Prints one ``proj shape:`` (``conv shape:``, ``flash shape:``, ``swin
+shape:``) JSON line per shape and round, then a ``proj summary:`` line per
+kernel: the launch-weighted device ms per restore (the flash wrappers also
+per training step; K4 one call), the sums of chip_smoke's ``kernels`` line,
+with the card's ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
@@ -97,6 +108,134 @@ GN_SHAPES = {
     _k5(128, 512, 128, False, False): 4, _k5(128, 512, 128, False, True): 5,
     _k5(256, 512, 128, False, False): 1,
 }
+
+
+# the flash forward wrappers' launches per shape (wrapper, BH, N; head dim
+# 64): the 512² restore's (bs 1: 4 steps x (UNet 5 + ControlNet 2)
+# self-attentions at 4096 and at 1024 tokens, 5 and 10 heads) and the bs-2
+# training step's (its forward once plus the remat recompute: 12 at each);
+# K4 (N > 4096) runs only at 1024², held at one call
+FLASH_SHAPES = {
+    ("wholekv_fwd", 5, 4096): ("restore", 28), ("whole_fwd", 10, 1024): ("restore", 28),
+    ("wholekv_fwd", 10, 4096): ("training step", 12),
+    ("whole_fwd", 20, 1024): ("training step", 12),
+    ("flash_fwd", 5, 8192): ("one call", 1),
+}
+# the fused+swin 512² restore's swin_pre launches per shape
+# (``swin_block.shapes`` keys: wrapper, B, h, w, C, window, d): 8 RSTBs of 6
+# blocks at 64 x 64 tokens, d = shift - in_offset: 0 for the first block of
+# each, then 4 (the shifted blocks) and -4 (the unshifted ones after them);
+# chip_smoke.py holds the restore to these
+SWIN_SHAPES = {("swin_pre", 1, 64, 64, 180, 8, 0): 8, ("swin_pre", 1, 64, 64, 180, 8, 4): 24,
+               ("swin_pre", 1, 64, 64, 180, 8, -4): 16}
+
+
+def flash_shape(device, key, gen) -> dict:
+    """A flash forward wrapper at (wrapper, BH, N), D 64: held against
+    ``plain_fwd`` with chip_smoke's gates; device ms of the kernel, of the
+    plain version and of SDPA (a yardstick the port never calls), the
+    kernel's CUDA-event ms, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from edtr_torch.ops import flash_attention as FA
+
+    name, bh, n = key
+    d = 64
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=device, dtype=torch.bfloat16)
+               for _ in range(3))
+    scale = d ** -0.5
+    fwd = FA.FWD[name]
+    (o, lse), (o_p, lse_p) = fwd(q, k, v, scale), FA.plain_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = (o.float() - o_p.float()).abs().max().item()
+    o_max = o_p.float().abs().max().item()
+    rel = chip_smoke.rel_l2(o, o_p)
+    err_lse = (lse - lse_p).abs().max().item()
+    chip_smoke.check(err <= chip_smoke.TOL_O_MAX * o_max and rel <= chip_smoke.TOL_O_L2
+                     and err_lse <= chip_smoke.TOL_LSE,
+                     f"{key} vs plain: max abs {err}, rel L2 {rel}, lse {err_lse}")
+    q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
+    t_ops = 4.0 * n * n * d * bh / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    t_bytes = (4 * bh * n * d * 2 + bh * n * 4) / chip_smoke.PEAK_BYTES * 1e3
+    return dict(ms=chip_smoke.device_ms(lambda: fwd(q, k, v, scale), 20),
+                plain_ms=chip_smoke.device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1),
+                library_ms=chip_smoke.device_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20),
+                event_ms=chip_smoke.time_ms(lambda: fwd(q, k, v, scale), 20),
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                max_err_share=err / o_max, rel_l2=rel, err_lse=err_lse)
+
+
+def swin_shape(device, key, gen) -> dict:
+    """``swin_pre`` at one shape key: held against ``plain_swin_pre`` (qkv
+    and xr) with chip_smoke's Swin gates; device ms of the kernel, of the
+    plain version and of ``F.linear`` on the already-normalised bf16 tokens,
+    the kernel's CUDA-event ms, and the bound. The weight goes in the form
+    the checkout's kernel reads: zero-padded (``swin_block.pad_weight``)
+    where it has that, else the plain bf16 copy."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from edtr_torch.ops import swin_block as SB
+    from edtr_torch.ops._norms import ln_f32
+
+    _, b, h, w, c, win, d = key
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    x = (randn(b, h * w, c, scale=2.0) + 0.5).to(bf16)
+    ln_s, ln_b = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+    wq, bias = randn(3 * c, c, scale=c ** -0.5), randn(3 * c, scale=0.05)
+    pad = getattr(SB, "pad_weight", None)
+    wb = wq.to(bf16)
+    wp = pad(wq) if pad is not None else wb
+
+    def kern():
+        return SB.swin_pre(x, ln_s, ln_b, wq, bias, h, w, win, d, w_packed=wp)
+
+    got, want = kern(), SB.plain_swin_pre(x, ln_s, ln_b, wq, bias, h, w, win, d)
+    again = kern()
+    torch.cuda.synchronize()
+    got, again, want = (torch.cat([t.flatten() for t in o]) for o in (got, again, want))
+    err = (got.float() - want.float()).abs().max().item()
+    o_max = want.float().abs().max().item()
+    rel = chip_smoke.rel_l2(got, want)
+    chip_smoke.check(err <= chip_smoke.TOL_SWIN_MAX * o_max and rel <= chip_smoke.TOL_SWIN_L2,
+                     f"{key} vs plain: max abs {err}, rel L2 {rel}")
+    xln = ln_f32(x, ln_s, ln_b).to(bf16)
+    t_ops = 2.0 * b * h * w * c * 3 * c / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    t_bytes = ((5 * b * h * w * c + 3 * c * c) * 2 + 5 * c * 4) / chip_smoke.PEAK_BYTES * 1e3
+    return dict(ms=chip_smoke.device_ms(kern, 20),
+                plain_ms=chip_smoke.device_ms(
+                    lambda: SB.plain_swin_pre(x, ln_s, ln_b, wq, bias, h, w, win, d), 3, 1),
+                library_ms=chip_smoke.device_ms(lambda: F.linear(xln, wb), 20),
+                event_ms=chip_smoke.time_ms(kern, 20), bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                max_err_share=err / o_max, rel_l2=rel, same_twice=bool(torch.equal(got, again)))
+
+
+def flash_plan_sweep(device, key, gen) -> None:
+    """The wgmma flash kernel at ``key`` in each tile plan of
+    ``flash_attention.FLASH_PLANS``: device ms and the error, as
+    :func:`flash_shape` gives them."""
+    from edtr_torch.ops import flash_attention as FA
+
+    real = FA.flash_plan
+    picked = real(*key[1:])
+    for plan, tiles in enumerate(FA.FLASH_PLANS):
+        FA.flash_plan = lambda *a, _p=plan: _p
+        try:
+            r = flash_shape(device, key, gen)
+        finally:
+            FA.flash_plan = real
+        print("flash plan:", json.dumps(dict(key=list(key), plan=plan, tiles=list(tiles),
+                                             picked=plan == picked, ms=r["ms"],
+                                             max_err_share=r["max_err_share"])), flush=True)
 
 
 def plan_sweep(device, key, gen) -> None:
@@ -272,7 +411,10 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--plans", action="store_true")
     ap.add_argument("--conv", action="store_true")
+    ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--swin", action="store_true")
     args = ap.parse_args()
+    proj = not (args.flash or args.swin)
     if not torch.cuda.is_available():
         print("proj_bench: no CUDA device", file=sys.stderr)
         return 1
@@ -281,14 +423,17 @@ def main() -> int:
     print(card, flush=True)
     from edtr_torch.ops import _cuda
 
-    print("nvcc s:", _cuda.build_all(["ln_matmul", "geglu"] + ["gn_conv"] * args.conv),
-          flush=True)
+    print("nvcc s:", _cuda.build_all(["ln_matmul", "geglu"] * proj
+                                     + ["gn_conv"] * args.conv
+                                     + ["flash_attention"] * args.flash
+                                     + ["swin_block"] * args.swin), flush=True)
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(7)
+    from edtr_torch.ops import flash_attention as FA
     keys = ("ms", "event_ms", "library_ms", "plain_ms", "bound_ms")
     sums = {}
     for rnd in range(args.rounds):
-        for key, count in sorted(RESTORE_SHAPES.items(), key=str):
+        for key, count in sorted(RESTORE_SHAPES.items(), key=str) if proj else ():
             r = chip_smoke.proj_case(device, key, gen)
             line = dict(round=rnd, key=list(key), launches=count, tile=r.get("tile"),
                         max_err_share=r["max_abs_err"] / r["out_max"], rel_l2=r["rel_l2"],
@@ -309,11 +454,28 @@ def main() -> int:
                 agg[k] += count * r[k]
             if args.plans and rnd == 0 and key[0] != "upsample_conv":
                 gn_plan_sweep(device, key, gen)
+        for key, (per, count) in sorted(FLASH_SHAPES.items()) if args.flash else ():
+            r = flash_shape(device, key, gen)
+            print("flash shape:", json.dumps(dict(round=rnd, key=list(key), per=per,
+                                                  launches=count, **r)), flush=True)
+            agg = sums.setdefault((rnd, f"{key[0]} per {per}"), dict.fromkeys(keys, 0.0))
+            for k in keys:
+                agg[k] += count * r[k]
+            if args.plans and rnd == 0 and hasattr(FA, "FLASH_PLANS"):
+                flash_plan_sweep(device, key, gen)
+        for key, count in sorted(SWIN_SHAPES.items()) if args.swin else ():
+            r = swin_shape(device, key, gen)
+            print("swin shape:", json.dumps(dict(round=rnd, key=list(key), launches=count, **r)),
+                  flush=True)
+            agg = sums.setdefault((rnd, key[0]), dict.fromkeys(keys, 0.0))
+            for k in keys:
+                agg[k] += count * r[k]
     for (rnd, name), agg in sorted(sums.items()):
-        print("proj summary:", json.dumps(dict(
-            card=card, round=rnd, kernel=name, scope="per fused" + (
-                "" if name in CONV_NAMES else "+proj") + " 512² restore", **agg)),
-            flush=True)
+        scope = ("per fused+swin 512² restore" if name == "swin_pre" else
+                 name.split(" per ", 1)[1] if " per " in name else "per fused" + (
+                     "" if name in CONV_NAMES else "+proj") + " 512² restore")
+        print("proj summary:", json.dumps(dict(card=card, round=rnd, kernel=name.split()[0],
+                                               scope=scope, **agg)), flush=True)
     return 0
 
 

@@ -87,3 +87,37 @@ def test_cpu_calls_take_the_plain_math():
     torch.testing.assert_close(out, A.plain_attention(q, k, v, 64 ** -0.5))
     flat = F.flash_attention(q, k, v, 64 ** -0.5)  # wrapper path, plain on CPU
     torch.testing.assert_close(flat, out, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [30, 64, 128])
+def test_row_tile_divides_every_supported_n(d):
+    """Every N that ``shapes_supported`` admits at D <= 128 (multiples of 128
+    from 512, of 512 from 2048) is a multiple of the row tile of the kernel
+    its wrapper launches, and that row tile of every wgmma plan's query rows
+    (64 a block) and K/V tile."""
+    admitted = []
+    for n in range(64, 16385, 64):
+        q = torch.empty((1, n, 2, d), device="meta")
+        if F.shapes_supported(q, q, q):
+            admitted.append(n)
+            assert n % F._KERNEL[F.kernel_for(n, d)][2] == 0, n
+    assert admitted[0] == 512 and 2048 in admitted and 8192 in admitted
+    tile = F._KERNEL["wholekv_fwd"][2]
+    for bn, _, _ in F.FLASH_PLANS:
+        assert tile % 64 == 0 and tile % bn == 0
+
+
+@pytest.mark.parametrize("name,bh,n,plan", [
+    ("wholekv_fwd", 5, 4096, 0),   # K1, the restore
+    ("wholekv_fwd", 10, 4096, 0),  # K1, the training step
+    ("whole_fwd", 10, 1024, 1),    # K2, the restore: at most two blocks an SM
+    ("whole_fwd", 20, 1024, 0),    # K2, the training step
+    ("flash_fwd", 5, 8192, 0),     # K4, 1024²
+])
+def test_wrappers_launch_the_wgmma_kernel(name, bh, n, plan):
+    """K1, K2 and K4 launch the wgmma kernel, in the plan the card measured
+    faster at their shapes; K3 keeps the head-dim-512 kernel."""
+    assert F.kernel_for(n, 64) == name
+    assert F._KERNEL[name][:2] == ("edtr_flash_fwd_wgmma", 64)
+    assert F.flash_plan(bh, n) == plan
+    assert F._KERNEL["streamkv_fwd"][:2] == ("edtr_flash_fwd_d512", 512)

@@ -338,6 +338,78 @@ def test_swin_unsupported_raises():
         WA.window_attention(q[:, :16], k[:, :16], v[:, :16], bias[:, :16, :16])
 
 
+# flash forward vs plain_fwd (chip_smoke.py's limits): both round O to bf16
+# and the kernel rounds the unnormalised P where plain_fwd rounds the
+# normalised one, so a right kernel differs by about a bf16 ulp of max|O|;
+# lse is fp32 on both sides (exp2 against exp, other summation orders)
+TOL_O_MAX = 2.0 ** -6
+TOL_O_L2 = 1e-2
+TOL_LSE = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [0, 1])
+@pytest.mark.parametrize("name,bh,n", [("wholekv_fwd", 1, 2048), ("wholekv_fwd", 5, 4096),
+                                       ("wholekv_fwd", 10, 4096), ("flash_fwd", 5, 8192),
+                                       ("whole_fwd", 10, 1024), ("whole_fwd", 20, 1024)])
+def test_flash_fwd_matches_plain(name, bh, n, plan, monkeypatch):
+    """The wgmma forward (K1, K4 and K2's wrappers) in each tile plan
+    against ``plain_fwd``, with the logits scaled up (q x 4, scale 1/8) so
+    that the row max moves between K/V tiles and the online rescale runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(F, "flash_plan", lambda *a: plan)
+    g = torch.Generator(device="cuda").manual_seed(n + bh)
+    q, k, v = (torch.randn((bh, n, 64), generator=g, device="cuda") for _ in range(3))
+    q, k, v = (q * 4).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+    before = F.launches[name]
+    o, lse = F.FWD[name](q, k, v, 0.125)
+    assert F.launches[name] == before + 1
+    o_p, lse_p = F.plain_fwd(q, k, v, 0.125)
+    o_max = o_p.float().abs().max()
+    assert (o.float() - o_p.float()).abs().max() <= TOL_O_MAX * o_max
+    assert ((o.float() - o_p.float()).norm() / o_p.float().norm()) <= TOL_O_L2
+    assert (lse - lse_p).abs().max() <= TOL_LSE
+
+
+# swin_pre vs plain_swin_pre (chip_smoke.py's Swin limits): the same fp32
+# LayerNorm and bias, rounded to bf16 at the same places; the products in
+# fp32 in another order
+TOL_SWIN_MAX = 2.0 ** -6
+TOL_SWIN_L2 = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [60, 180, 192])
+@pytest.mark.parametrize("h,w", [(64, 64), (24, 40)])
+@pytest.mark.parametrize("d", [0, 4, -4, 2])
+def test_swin_pre_matches_plain(d, h, w, c):
+    """The wgmma ``swin_pre`` (K10a) at bs 2 against ``plain_swin_pre``:
+    window grids 8 x 8 and 3 x 5, rolls that wrap at the image edge, C with
+    one chunk of K (60), 180 (padded to 192) and 192 (unpadded); qkv and xr
+    bit-identical across two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(c + h + d)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    x = (rnd(2, h * w, c, scale=2.0) + 0.5).to(torch.bfloat16)
+    ln_s, ln_b = 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
+    wq, bias = rnd(3 * c, c, scale=c ** -0.5), rnd(3 * c, scale=0.05)
+    wp = SB.pad_weight(wq)
+    before = SB.launches["swin_pre"]
+    qkv, xr = SB.swin_pre(x, ln_s, ln_b, wq, bias, h, w, 8, d, w_packed=wp)
+    qkv2, xr2 = SB.swin_pre(x, ln_s, ln_b, wq, bias, h, w, 8, d, w_packed=wp)
+    assert SB.launches["swin_pre"] == before + 2
+    assert torch.equal(qkv, qkv2) and torch.equal(xr, xr2)
+    q_p, xr_p = SB.plain_swin_pre(x, ln_s, ln_b, wq, bias, h, w, 8, d)
+    assert torch.equal(xr, xr_p)
+    err = (qkv.float() - q_p.float()).abs().max()
+    assert err <= TOL_SWIN_MAX * q_p.float().abs().max()
+    assert ((qkv.float() - q_p.float()).norm() / q_p.float().norm()) <= TOL_SWIN_L2
+
+
 # flash backward vs plain_bwd: both round p and dS to bf16 at the same places
 # and accumulate in fp32 in other orders, so a right kernel differs by about
 # a bf16 ulp of the largest gradient (chip_smoke.py's limits)
@@ -495,7 +567,7 @@ def test_proj_and_swin_functions_give_the_plain_gradients(name):
     elif name == "swin_pre":
         xs, pre, _ = _swin_args()
         pre = tuple(t.requires_grad_() for t in pre)
-        wp = pre[2].detach().to(torch.bfloat16).requires_grad_()
+        wp = SB.pad_weight(pre[2].detach()).requires_grad_()
         ins, mod, kw = (xs.requires_grad_(), *pre), SB, dict(w_packed=wp)
 
         def fn(*a, **kw):

@@ -27,7 +27,7 @@ def test_summarise_attributes_kernels_to_the_launching_stage():
         _x("kernel", "void at::native::vectorized_elementwise_kernel", 30, 40, corr=1),
         _x("kernel", "sm90_xmma_gemm_bf16", 50, 30, corr=2),
         # launched in scan, runs past the range end: still scan's
-        _x("kernel", "flash_fwd_d64_kernel", 290, 20, corr=3),
+        _x("kernel", "flash_wgmma_kernel", 290, 20, corr=3),
     ]
     out = summarise({"traceEvents": events})
     sw, scan = out["stages"]["swinir"], out["stages"]["scan"]
@@ -94,7 +94,7 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
                    _x("cuda_runtime", "cudaLaunchKernel", t0 + 110, 1, corr=10 * run + 2),
                    _x("cuda_runtime", "cudaLaunchKernel", t0 + 120, 1, corr=10 * run + 3),
                    _x("cuda_runtime", "cudaLaunchKernel", t0 + 210, 1, corr=10 * run + 4),
-                   _x("kernel", "flash_fwd_d64_kernel", t0 + 20, 30, corr=10 * run + 1),
+                   _x("kernel", "flash_wgmma_kernel", t0 + 20, 30, corr=10 * run + 1),
                    _x("kernel", "flash_bwd_dq_kernel", t0 + 130, 20, corr=10 * run + 2),
                    _x("kernel", "flash_bwd_dkv_kernel", t0 + 150, 30, corr=10 * run + 3),
                    _x("kernel", "multi_tensor_apply_kernel", t0 + 220, 10, corr=10 * run + 4)]

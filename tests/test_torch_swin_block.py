@@ -28,7 +28,7 @@ from edtr_tpu.models import swinir as JS
 from edtr_tpu.ops import swin_block as JSB
 from edtr_tpu.ops import window_attention as JWA
 
-from edtr_torch.models.layers import fused_swin
+from edtr_torch.models.layers import Linear, fused_swin
 from edtr_torch.models.swinir import (RSTB, SwinIR, SwinTransformerBlock, WindowAttention,
                                       shift_attention_mask, shift_mask)
 from edtr_torch.ops import swin_block as SB
@@ -292,3 +292,46 @@ def test_bias_and_masks_are_made_once_on_the_device():
     np.testing.assert_array_equal(t2n(m), JS.shift_attention_mask(8, 8, 4, 2))
     np.testing.assert_array_equal(t2n(m), shift_attention_mask(8, 8, 4, 2))
 
+
+
+@pytest.mark.parametrize("c", [60, 180, 192])
+def test_padded_qkv_pack(c):
+    """``Linear.padded_weight``, the qkv weight ``swin_pre``'s kernel reads:
+    ``packed_weight`` in its first C columns, zeros after them up to a
+    multiple of 64 (rows of a multiple of 128 bytes, which TMA can read)."""
+    lin = Linear(c, 3 * c)
+    wp = lin.padded_weight(torch.bfloat16)
+    assert wp.shape == (3 * c, -(-c // 64) * 64) and wp.dtype == torch.bfloat16
+    assert wp.is_contiguous()
+    assert torch.equal(wp[:, :c], lin.packed_weight(torch.bfloat16))
+    assert not wp[:, c:].any()
+    assert torch.equal(SB.pad_weight(lin.weight.detach()), wp)
+
+
+def test_padded_qkv_pack_is_made_once_and_again_after_a_weight_change():
+    lin = Linear(180, 540)
+    wp = lin.padded_weight(torch.bfloat16)
+    assert lin.padded_weight(torch.bfloat16) is wp
+    with torch.no_grad():
+        lin.weight.mul_(2.0)
+    wp2 = lin.padded_weight(torch.bfloat16)
+    assert wp2 is not wp
+    assert torch.equal(wp2[:, :180], lin.weight.detach().to(torch.bfloat16))
+    assert not wp2[:, 180:].any()
+
+
+def test_fused_block_passes_the_padded_pack(monkeypatch):
+    """The fused block hands ``swin_pre`` its qkv weight's padded pack."""
+    blk = SwinTransformerBlock(60, 2, 8, 0)
+    seen = {}
+    real = SB.swin_pre
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return real(*args, **kw)
+    monkeypatch.setattr(SB, "swin_pre", spy)
+    x = torch.randn(1, 16 * 16, 60)
+    with fused_swin():
+        blk(x, (16, 16))
+    assert seen["w_packed"] is blk.attn.qkv.padded_weight(torch.float32)
+    assert seen["w_packed"].shape == (180, 64)
