@@ -16,8 +16,10 @@ no result line):
    (``library_ms``, a yardstick the port never calls) device times from a
    trace (CUDA-event times beside them) and the bound;
    then each flash backward kernel against ``plain_bwd`` at the training
-   step's shapes (bs 2): dq, dk, dv errors, kernel / plain / SDPA's
-   backward alone (``library_ms``) times and the bound;
+   step's shapes (bs 2), as ``proj_bench.py --flash-bwd`` holds them: dq,
+   dk, dv errors, two calls bit-identical, kernel / plain / SDPA's backward
+   alone (``library_ms``) device times from a trace (CUDA-event times
+   beside them) and the bound;
 4. the full-width EDTR-s4 ``EDTRPipeline.restore`` at 512², bs 1, bf16,
    seeded random weights, in four configurations on the same weights,
    input and noise: stock (the pipeline's ``fused_conv``, ``fused_proj``
@@ -98,6 +100,11 @@ import time
 import torch
 import torch.nn.functional as F
 
+# proj_bench's functions, which this script calls, import chip_smoke: run as
+# a script, this module is __main__, so name it chip_smoke too, or they
+# would load a second copy with its own TRACE_STATS
+sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+
 import proj_bench
 
 # NVIDIA H100 SXM data-sheet peaks at the full 700 W: dense bf16 tensor
@@ -106,7 +113,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 FA_SOURCE = "edtr_torch/csrc/flash_attention.cu"
-BWD_SOURCE = "edtr_torch/csrc/flash_attention_bwd.cu"
+FA_BWD_SOURCE = "edtr_torch/csrc/flash_bwd_wgmma.cuh"
 CONV_SOURCE = "edtr_torch/csrc/gn_conv.cu"
 SOURCES = ("flash_attention", "flash_attention_bwd", "gn_conv", "ln_matmul", "geglu",
            "window_attention", "swin_block")
@@ -252,9 +259,10 @@ TOL_EPS_REL = 5e-2
 TOL_FUSED_REL = 5e-2
 # Flash backward kernels vs plain_bwd, in bf16: both compute p = exp(s -
 # lse) in fp32 and round p (for dV) and dS to bf16 at the same places, and
-# accumulate every product in fp32 in other orders (__expf, another logit
-# summation order: ~1e-6 relative), so a rounding of p or dS flips by a bf16
-# ulp here and there and a right kernel differs by about an ulp of the
+# accumulate every product in fp32 in other orders (exp2 with log2(e)
+# folded in, another logit summation order: ~1e-6 relative), so a rounding
+# of p or dS flips by a bf16 ulp here and there and a right kernel differs
+# by about an ulp of the
 # largest gradient; a wrong tile, row block or transpose moves whole rows
 # by O(|grad|). The limits of the forward: max abs error <= 2^-6 *
 # max|grad_plain| for each of dq, dk, dv, relative L2 <= 1e-2.
@@ -466,64 +474,29 @@ def kernel_phase(device) -> dict:
 
 
 def bwd_kernel_phase(device) -> dict:
-    """Each flash backward wrapper against ``plain_bwd`` at its shape in the
-    training step, in bf16, on the (q, k, v, O, lse) of a forward and a
-    random dO: dq, dk, dv errors, times and the bound. ``library_ms``: the
-    backward alone of ``F.scaled_dot_product_attention`` (all three
-    gradients, from a retained graph), a yardstick the port never calls.
-    The bound counts the function each wrapper computes (whole: the five
-    N² D products of the backward, 2.5x the forward's four; dq: S, dP, dS K;
-    dkv: S, dP, P^T dO, dS^T Q), not a split design's recomputes."""
-    from edtr_torch.ops import flash_attention as FA
-
+    """Each flash backward wrapper at its shape in the training step
+    (:data:`BWD_KERNELS`, the shapes ``proj_bench.BWD_SHAPES`` pins), held
+    against ``plain_bwd`` in bf16 by ``proj_bench.bwd_shape``: dq, dk, dv
+    errors, two calls bit-identical, device times of the wrapper, of
+    ``plain_bwd`` and of SDPA's backward alone (``library_ms``, a yardstick
+    the port never calls) from a trace, CUDA-event times beside them, and
+    the bound of the function the wrapper computes."""
+    want = {(name, *shape[:2]): n for name, (shape, _, n) in BWD_KERNELS.items()}
+    check(want == proj_bench.BWD_SHAPES, f"backward shapes {want}, pinned "
+                                         f"{proj_bench.BWD_SHAPES} (proj_bench.py)")
     rows = {}
     gen = torch.Generator(device=device).manual_seed(13)
-    products = {"whole_bwd": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
-    outs = {"whole_bwd": (0, 1, 2), "flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
-    for name, ((bh, n, d), replaces, _) in BWD_KERNELS.items():
-        q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=device,
-                                   dtype=torch.bfloat16) for _ in range(4))
-        scale = d ** -0.5
-        out, lse = FA.FWD[FA.kernel_for(n, d)](q, k, v, scale)
-        dd = (do.float() * out.float()).sum(-1)
-        args = (q, k, v, do, lse, dd, scale)
-        fn = getattr(FA, name)
-        before = FA.launches[name]
-        got = fn(*args)
-        check(FA.launches[name] == before + 1, f"{name} launched its kernel")
-        got = got if isinstance(got, tuple) else (got,)
-        want = [FA.plain_bwd(*args)[i] for i in outs[name]]
-        torch.cuda.synchronize()
-        errs = {}
-        for i, a, b in zip(outs[name], got, want):
-            g_max = b.float().abs().max().item()
-            err = (a.float() - b.float()).abs().max().item()
-            errs["dq dk dv".split()[i]] = dict(max_abs_err=err, grad_max=g_max, rel_l2=rel_l2(a, b))
-        ms = time_ms(lambda: fn(*args), 20)
-        plain_ms = time_ms(lambda: FA.plain_bwd(*args), 3, 1)
-        q4, k4, v4 = (t.view(1, bh, n, d).detach().requires_grad_() for t in (q, k, v))
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-        do4 = do.view(1, bh, n, d)
-        library_ms = time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
-                                                         retain_graph=True), 20)
-        flops = products[name] * 2.0 * n * n * d * bh
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        nbytes = (4 + len(outs[name])) * bh * n * d * 2 + 2 * bh * n * 4
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        ok = all(e["max_abs_err"] <= TOL_BWD_MAX * e["grad_max"] and e["rel_l2"] <= TOL_BWD_L2
-                 for e in errs.values())
+    for name, (shape, replaces, _) in BWD_KERNELS.items():
+        r = proj_bench.bwd_shape(device, (name, *shape[:2]), gen)
         rows[name] = dict(
-            name=name, route="cuda", source=BWD_SOURCE, replaces=replaces, launches=None,
-            on_path=True, scope="one call at the training step's shape; library_ms: SDPA's "
-                                "whole backward (dq, dk, dv)",
-            max_abs_err=max(e["max_abs_err"] for e in errs.values()), ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=library_ms, shape=[bh, n, d], gflop=flops / 1e9, mb=nbytes / 1e6,
-            errors=errs, ok=bool(ok))
-        rows[name]["bound_share"] = rows[name]["bound_ms"] / ms
+            name=name, route="cuda", source=FA_BWD_SOURCE, replaces=replaces, launches=None,
+            on_path=True, scope="one call at the training step's shape; ms, plain_ms, "
+                                "library_ms: device time (profiler), event_ms, "
+                                "library_event_ms: CUDA events; library: SDPA's whole "
+                                "backward (dq, dk, dv)",
+            shape=list(shape), ok=True, **r)
+        rows[name]["bound_share"] = r["bound_ms"] / r["ms"]
         print("bwd kernel:", json.dumps(rows[name]), flush=True)
-        check(ok, f"{name} vs plain_bwd: {errs} (tol max {TOL_BWD_MAX} x max|grad|, "
-                  f"rel L2 {TOL_BWD_L2})")
     return rows
 
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (proj_wgmma.cuh: K8a, K8b, K7b; conv_wgmma.cuh: K6; gnconv_wgmma.cuh:
-// K5; flash_wgmma.cuh: K1, K2, K4; swin_block.cu: K10a): mbarriers, TMA
-// tile loads (2-D and 4-D), the shared-memory descriptors of a K-major
-// operand (128-byte swizzle, and no swizzle) and of an MN-major one, the
+// K5; flash_wgmma.cuh: K1, K2, K4; flash_bwd_wgmma.cuh: K11; swin_block.cu:
+// K10a): mbarriers, TMA tile loads (2-D and 4-D) and 1-D bulk copies, the
+// shared-memory descriptors of a K-major operand (128-byte swizzle, and no
+// swizzle) and of an MN-major one, the
 // wgmma instructions (A from shared memory or from registers) with their
 // fences, 8-element bf16/fp32 loads, the 16 x
 // 16 store staging of a warp's accumulator fragment, and the tensor-map
@@ -90,6 +91,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16) contiguous bytes at `src` -> dst, both 16-byte
+// aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------------
 
 // shared-memory descriptor of a K-major operand in the 128-byte swizzle:
@@ -146,8 +157,9 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
 }
 
 // d (64 x N fp32, N/2 registers a thread) += A (64 x 16, smem) * B^T (N x
-// 16, smem), both K-major bf16. Register 4j + 2h + e of a thread holds row
-// (warp % 4) * 16 + lane / 4 + 8h, column 8j + 2 (lane % 4) + e.
+// 16, smem), both K-major bf16 (N = 64 also takes scale_d: 0 writes d = A
+// B^T). Register 4j + 2h + e of a thread holds row (warp % 4) * 16 + lane /
+// 4 + 8h, column 8j + 2 (lane % 4) + e.
 template <int N>
 struct Wgmma;
 
@@ -167,7 +179,8 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
-  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -178,7 +191,7 @@ struct Wgmma<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

@@ -17,25 +17,27 @@ with its own launch count:
                   (N > 4096, D <= 128)
   streamkv_fwd    flash_attention.py:_streamkv_fwd_flat  edtr_flash_fwd_d512
                   (128 < D <= 512)
-  whole_bwd       flash_attention.py:_whole_bwd_flat     edtr_flash_bwd_dq_d64
-                  (N <= 1024, D <= 128)                  + edtr_flash_bwd_dkv_d64
-  flash_bwd_dq    flash_attention.py:_flash_bwd_flat     edtr_flash_bwd_dq_d64
+  whole_bwd       flash_attention.py:_whole_bwd_flat     edtr_flash_bwd_dq_wgmma
+                  (N <= 1024, D <= 128)                  + edtr_flash_bwd_dkv_wgmma
+  flash_bwd_dq    flash_attention.py:_flash_bwd_flat     edtr_flash_bwd_dq_wgmma
                   (``_dq_kernel``; N > 1024, D <= 128)
-  flash_bwd_dkv   flash_attention.py:_flash_bwd_flat     edtr_flash_bwd_dkv_d64
+  flash_bwd_dkv   flash_attention.py:_flash_bwd_flat     edtr_flash_bwd_dkv_wgmma
                   (``_dkv_kernel``)
   ==============  =====================================  ====================
 
 The forward kernels live in ``edtr_torch/csrc/flash_attention.cu`` (D =
 64: the wgmma kernel of ``csrc/flash_wgmma.cuh``, one walk for all three
 wrappers, in the tile plan :func:`flash_plan` picks), the backward ones in
-``edtr_torch/csrc/flash_attention_bwd.cu`` (see their headers for the
-designs). A forward wrapper given CPU tensors computes :func:`plain_fwd`, a
-backward one :func:`plain_bwd`; given CUDA tensors each launches its kernel
-or raises. The forward kernels take contiguous bf16 ``(BH, N, D)`` with D =
-64 (``edtr_flash_fwd_wgmma``, N a multiple of 128, scale > 0) or D = 512
-(``edtr_flash_fwd_d512``), the backward ones D = 64; anything else on CUDA
-raises. The D > 128 backward is :func:`plain_bwd` on every device, as JAX
-leaves it to XLA (``_xla_bwd_flat``).
+``edtr_torch/csrc/flash_attention_bwd.cu`` (D = 64: the wgmma pair of
+``csrc/flash_bwd_wgmma.cuh``, dq and dk/dv, one tile plan each; see the
+headers for the designs). A forward wrapper given CPU tensors computes
+:func:`plain_fwd`, a backward one :func:`plain_bwd`; given CUDA tensors
+each launches its kernel or raises. The forward kernels take contiguous
+bf16 ``(BH, N, D)`` with D = 64 (``edtr_flash_fwd_wgmma``, N a multiple of
+128, scale > 0) or D = 512 (``edtr_flash_fwd_d512``), the backward ones D
+= 64 and N a multiple of 64, every tensor 16-byte aligned; anything else
+on CUDA raises. The D > 128 backward is :func:`plain_bwd` on every device,
+as JAX leaves it to XLA (``_xla_bwd_flat``).
 
 :func:`flash_attention` is differentiable: a ``torch.autograd.Function``
 whose forward saves q, k, v, the output and the logsumexp, and whose
@@ -91,6 +93,11 @@ def flash_plan(bh: int, n: int) -> int:
     faster plan at each on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, PR
     9)."""
     return 1 if bh * (n // 64) <= _SMALL_GRID else 0
+
+
+# the backward kernels' row block and streamed tile (rows); N must be a
+# multiple of it
+BWD_ROW_TILE = 64
 
 
 def shapes_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -237,14 +244,15 @@ def _bwd_symbol(symbol: str):
     """A backward C entry point, with its signature declared (q, k, v, do,
     lse, dd, then dq or dk + dv pointers; bh, n; scale; stream)."""
     fn = getattr(_cuda.load("flash_attention_bwd"), symbol)
-    outs = 1 if symbol == "edtr_flash_bwd_dq_d64" else 2
+    outs = 1 if symbol == "edtr_flash_bwd_dq_wgmma" else 2
     fn.argtypes = [ctypes.c_void_p] * (6 + outs) + [ctypes.c_int, ctypes.c_int,
                                                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_bwd(name: str, symbol: str, ins, outs, scale: float) -> None:
+def _launch_bwd(name: str, kernel: str, ins, outs, scale: float) -> None:
+    """One launch of the backward ``kernel`` ("dq" or "dkv")."""
     qf, kf, vf, dof, lse, dd = ins
     for t in (qf, kf, vf, dof):
         if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
@@ -252,11 +260,11 @@ def _launch_bwd(name: str, symbol: str, ins, outs, scale: float) -> None:
                              f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
         if t.shape != qf.shape or t.device != qf.device:
             raise ValueError(f"{name}: q/k/v/dO shapes or devices differ")
-        if t.data_ptr() % 16:  # cp.async copies 16-byte chunks
+        if t.data_ptr() % 16:  # TMA copies 16-byte aligned rows
             raise ValueError(f"{name}: tensor data is not 16-byte aligned")
     bh, n, d = qf.shape
-    if d != 64 or n % 64 or n == 0:
-        raise ValueError(f"{name}: kernel takes D=64 and N a multiple of 64, got "
+    if d != 64 or n % BWD_ROW_TILE or n == 0:
+        raise ValueError(f"{name}: kernel takes D=64 and N a multiple of {BWD_ROW_TILE}, got "
                          f"{tuple(qf.shape)}")
     for t in (lse, dd):
         if (t.dtype != torch.float32 or tuple(t.shape) != (bh, n) or t.device != qf.device
@@ -265,8 +273,8 @@ def _launch_bwd(name: str, symbol: str, ins, outs, scale: float) -> None:
                              f"{qf.device}, 16-byte aligned")
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_symbol(symbol)(*(t.data_ptr() for t in (*ins, *outs)), bh, n,
-                                  float(scale), stream)
+        err = _bwd_symbol(f"edtr_flash_bwd_{kernel}_wgmma")(
+            *(t.data_ptr() for t in (*ins, *outs)), bh, n, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
@@ -277,8 +285,7 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, dd, scale: float) -> torch.Tensor:
     if qf.device.type == "cpu":
         return plain_bwd(qf, kf, vf, dof, lse, dd, scale)[0]
     dq = torch.empty_like(qf)
-    _launch_bwd("flash_bwd_dq", "edtr_flash_bwd_dq_d64", (qf, kf, vf, dof, lse, dd), (dq,),
-                scale)
+    _launch_bwd("flash_bwd_dq", "dq", (qf, kf, vf, dof, lse, dd), (dq,), scale)
     launches["flash_bwd_dq"] += 1
     shapes[("flash_bwd_dq", *qf.shape)] += 1
     return dq
@@ -291,8 +298,7 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, dd, scale: float
     if qf.device.type == "cpu":
         return plain_bwd(qf, kf, vf, dof, lse, dd, scale)[1:]
     dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-    _launch_bwd("flash_bwd_dkv", "edtr_flash_bwd_dkv_d64", (qf, kf, vf, dof, lse, dd),
-                (dk, dv), scale)
+    _launch_bwd("flash_bwd_dkv", "dkv", (qf, kf, vf, dof, lse, dd), (dk, dv), scale)
     launches["flash_bwd_dkv"] += 1
     shapes[("flash_bwd_dkv", *qf.shape)] += 1
     return dk, dv
@@ -307,8 +313,8 @@ def whole_bwd(qf, kf, vf, dof, lse, dd, scale: float
         return plain_bwd(qf, kf, vf, dof, lse, dd, scale)
     dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
     ins = (qf, kf, vf, dof, lse, dd)
-    _launch_bwd("whole_bwd", "edtr_flash_bwd_dq_d64", ins, (dq,), scale)
-    _launch_bwd("whole_bwd", "edtr_flash_bwd_dkv_d64", ins, (dk, dv), scale)
+    _launch_bwd("whole_bwd", "dq", ins, (dq,), scale)
+    _launch_bwd("whole_bwd", "dkv", ins, (dk, dv), scale)
     launches["whole_bwd"] += 1
     shapes[("whole_bwd", *qf.shape)] += 1
     return dq, dk, dv

@@ -31,8 +31,8 @@ STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # are not booked as cuDNN's convs nor "proj_gemm_kernel" as cuBLAS's GEMMs
 FAMILIES = (
     ("swin (edtr_torch)", ("window_attention_kernel", "swin_pre_kernel", "swin_post_kernel")),
-    ("flash (edtr_torch)", ("flash_wgmma", "flash_fwd_d512", "flash_bwd_dq",
-                            "flash_bwd_dkv")),
+    ("flash (edtr_torch)", ("flash_wgmma", "flash_fwd_d512", "flash_dq_wgmma",
+                            "flash_dkv_wgmma")),
     ("gn_conv (edtr_torch)", ("gnconv_wgmma_kernel", "upconv_wgmma_kernel")),
     ("proj (edtr_torch)", ("proj_gemm_kernel", "lnproj_kernel")),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "nhwc", "nchw")),

@@ -6,10 +6,13 @@ K5a/K5b (``gn_conv.gn_silu_conv``: ``gn_conv_whole``, ``gn_conv_band``) and
 K6 (``gn_conv.upsample_conv``) at every shape of the fused restore, with
 ``--flash`` the head-dim-64 flash forward wrappers (K1 ``wholekv_fwd``, K2
 ``whole_fwd``, K4 ``flash_fwd``) at the restore's and the bs-2 training
-step's shapes, and with ``--swin`` K10a (``swin_block.swin_pre``) at the
-fused+swin restore's, on one NVIDIA GPU.
+step's shapes, with ``--swin`` K10a (``swin_block.swin_pre``) at the
+fused+swin restore's, and with ``--flash-bwd`` the flash backward wrappers
+(K11a ``whole_bwd``, K11b ``flash_bwd_dq``, K11c ``flash_bwd_dkv``) at the
+bs-2 training step's shapes, on one NVIDIA GPU.
 
     python3 proj_bench.py [--rounds R] [--plans] [--conv] [--flash] [--swin]
+                          [--flash-bwd]
 
 Run it from the root of a checkout: it builds that checkout's sources and
 calls that checkout's ``chip_smoke.proj_case`` at each projection shape
@@ -26,19 +29,21 @@ parent). ``--plans`` also times each projection kernel at other tile plans
 (``ops/_proj.py:lnproj_plan``'s (bm, bn, groups)) than the one the wrapper
 picks, and with ``--conv`` each K5 shape at the other tiles
 (``gn_conv.GN_TILES``) the kernel takes, and with ``--flash`` each flash
-shape in every plan of ``flash_attention.FLASH_PLANS``. With ``--flash``
-or ``--swin`` the projection shapes are left out. The flash and Swin
-kernels are held to
-chip_smoke's gates and timed on the same trace clock (``flash_shape``,
-``swin_shape``), with SDPA and ``F.linear`` as the yardsticks; both run in
-a checkout from before these flags (``swin_shape`` hands its kernel the
-weight form it reads).
+shape in every plan of ``flash_attention.FLASH_PLANS``. With ``--flash``, ``--swin`` or
+``--flash-bwd`` the projection shapes are left out. The flash, Swin and
+backward kernels are held to chip_smoke's gates and timed on the same trace
+clock (``flash_shape``, ``swin_shape``, ``bwd_shape``), with SDPA (its
+backward alone for K11) and ``F.linear`` as the yardsticks; all three run
+in a checkout from before these flags (``swin_shape`` hands its kernel the
+weight form it reads; ``bwd_shape`` calls only the wrappers both have).
 
 Prints one ``proj shape:`` (``conv shape:``, ``flash shape:``, ``swin
-shape:``) JSON line per shape and round, then a ``proj summary:`` line per
-kernel: the launch-weighted device ms per restore (the flash wrappers also
-per training step; K4 one call), the sums of chip_smoke's ``kernels`` line,
-with the card's ``nvidia-smi`` name and power limit.
+shape:``, ``bwd shape:``) JSON line per shape and round, then a ``proj
+summary:`` line per kernel: the launch-weighted device ms per restore (the
+flash wrappers also per training step, the backward ones only; K4 one
+call), the sums of chip_smoke's ``kernels`` line, with the card's
+``nvidia-smi`` name and power limit, and last the count of ``device_ms``
+traces taken again and of calls it timed by CUDA events.
 """
 
 from __future__ import annotations
@@ -121,6 +126,17 @@ FLASH_SHAPES = {
     ("whole_fwd", 20, 1024): ("training step", 12),
     ("flash_fwd", 5, 8192): ("one call", 1),
 }
+# the flash backward wrappers' launches per shape (wrapper, BH, N; head dim
+# 64) in the bs-2 training step: every ControlNet self-attention and the
+# UNet's output blocks', 2 + 3 at 1024 tokens (10 heads x 2) and 2 + 3 at
+# 4096 (5 heads x 2); chip_smoke.py holds the step to these
+BWD_SHAPES = {("whole_bwd", 20, 1024): 5, ("flash_bwd_dq", 10, 4096): 5,
+              ("flash_bwd_dkv", 10, 4096): 5}
+# the backward products each wrapper's function needs (whole: S, dP, dV, dQ,
+# dK; dq: S, dP, dQ; dkv: S, dP, dV, dK), for the bound, and the
+# gradients it returns (of dq, dk, dv)
+BWD_PRODUCTS = {"whole_bwd": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+BWD_OUTS = {"whole_bwd": (0, 1, 2), "flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
 # the fused+swin 512² restore's swin_pre launches per shape
 # (``swin_block.shapes`` keys: wrapper, B, h, w, C, window, d): 8 RSTBs of 6
 # blocks at 64 x 64 tokens, d = shift - in_offset: 0 for the first block of
@@ -166,6 +182,72 @@ def flash_shape(device, key, gen) -> dict:
                 event_ms=chip_smoke.time_ms(lambda: fwd(q, k, v, scale), 20),
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 max_err_share=err / o_max, rel_l2=rel, err_lse=err_lse)
+
+
+def bwd_shape(device, key, gen) -> dict:
+    """A flash backward wrapper at (wrapper, BH, N), D 64, on the (q, k, v,
+    O, lse) of a forward and a random dO: held against ``plain_bwd`` with
+    chip_smoke's gates (each gradient it returns), called twice for
+    bit-identical gradients, launching its kernel once a call; device ms of
+    the wrapper, of ``plain_bwd`` and of SDPA's backward alone (all three
+    gradients, from a retained graph; a yardstick the port never calls), the
+    CUDA-event ms of the wrapper and of SDPA's backward, and the bound: the
+    products of the function the wrapper computes, not a split design's
+    recomputes, and each input read and output written once."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from edtr_torch.ops import flash_attention as FA
+
+    name, bh, n = key
+    d = 64
+    q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=device, dtype=torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    out, lse = FA.FWD[FA.kernel_for(n, d)](q, k, v, scale)
+    dd = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, dd, scale)
+    fn = getattr(FA, name)
+    before = FA.launches[name]
+    got, again = fn(*args), fn(*args)
+    chip_smoke.check(FA.launches[name] == before + 2, f"{name} launched its kernel once a call")
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    want = FA.plain_bwd(*args)
+    torch.cuda.synchronize()
+    errors = {}
+    for i, a, b in zip(BWD_OUTS[name], got, again):
+        w = want[i].float()
+        errors["dq dk dv".split()[i]] = dict(
+            max_abs_err=(a.float() - w).abs().max().item(), grad_max=w.abs().max().item(),
+            rel_l2=chip_smoke.rel_l2(a, w))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = all(e["max_abs_err"] <= chip_smoke.TOL_BWD_MAX * e["grad_max"]
+             and e["rel_l2"] <= chip_smoke.TOL_BWD_L2 for e in errors.values())
+    chip_smoke.check(ok and same, f"{key} vs plain_bwd: {errors} (tol max "
+                                  f"{chip_smoke.TOL_BWD_MAX} x max|grad|, rel L2 "
+                                  f"{chip_smoke.TOL_BWD_L2}), bit-identical twice: {same}")
+    q4, k4, v4 = (t.view(1, bh, n, d).detach().requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    do4 = do.view(1, bh, n, d)
+
+    def library():
+        return torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+    flops = BWD_PRODUCTS[name] * 2.0 * n * n * d * bh
+    nbytes = (4 + len(BWD_OUTS[name])) * bh * n * d * 2 + 2 * bh * n * 4
+    t_ops = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / chip_smoke.PEAK_BYTES * 1e3
+    return dict(ms=chip_smoke.device_ms(lambda: fn(*args), 20),
+                plain_ms=chip_smoke.device_ms(lambda: FA.plain_bwd(*args), 3, 1),
+                library_ms=chip_smoke.device_ms(library, 20),
+                event_ms=chip_smoke.time_ms(lambda: fn(*args), 20),
+                library_event_ms=chip_smoke.time_ms(library, 20),
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mb=nbytes / 1e6, errors=errors,
+                max_abs_err=max(e["max_abs_err"] for e in errors.values()),
+                max_err_share=max(e["max_abs_err"] / e["grad_max"] for e in errors.values()),
+                same_twice=same)
 
 
 def swin_shape(device, key, gen) -> dict:
@@ -413,8 +495,9 @@ def main() -> int:
     ap.add_argument("--conv", action="store_true")
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--swin", action="store_true")
+    ap.add_argument("--flash-bwd", action="store_true")
     args = ap.parse_args()
-    proj = not (args.flash or args.swin)
+    proj = not (args.flash or args.swin or args.flash_bwd)
     if not torch.cuda.is_available():
         print("proj_bench: no CUDA device", file=sys.stderr)
         return 1
@@ -423,10 +506,13 @@ def main() -> int:
     print(card, flush=True)
     from edtr_torch.ops import _cuda
 
-    print("nvcc s:", _cuda.build_all(["ln_matmul", "geglu"] * proj
+    print("nvcc s:", _cuda.build_all(list(dict.fromkeys(
+                                     ["ln_matmul", "geglu"] * proj
                                      + ["gn_conv"] * args.conv
                                      + ["flash_attention"] * args.flash
-                                     + ["swin_block"] * args.swin), flush=True)
+                                     + ["swin_block"] * args.swin
+                                     + ["flash_attention", "flash_attention_bwd"]
+                                     * args.flash_bwd))), flush=True)
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(7)
     from edtr_torch.ops import flash_attention as FA
@@ -470,12 +556,22 @@ def main() -> int:
             agg = sums.setdefault((rnd, key[0]), dict.fromkeys(keys, 0.0))
             for k in keys:
                 agg[k] += count * r[k]
+        for key, count in sorted(BWD_SHAPES.items()) if args.flash_bwd else ():
+            r = bwd_shape(device, key, gen)
+            print("bwd shape:", json.dumps(dict(round=rnd, key=list(key), launches=count, **r)),
+                  flush=True)
+            agg = sums.setdefault((rnd, f"{key[0]} per training step"),
+                                  dict.fromkeys(keys, 0.0))
+            for k in keys:
+                agg[k] += count * r[k]
     for (rnd, name), agg in sorted(sums.items()):
         scope = ("per fused+swin 512² restore" if name == "swin_pre" else
                  name.split(" per ", 1)[1] if " per " in name else "per fused" + (
                      "" if name in CONV_NAMES else "+proj") + " 512² restore")
         print("proj summary:", json.dumps(dict(card=card, round=rnd, kernel=name.split()[0],
                                                scope=scope, **agg)), flush=True)
+    # device_ms's traces taken again and calls timed by CUDA events
+    print("device_ms traces:", json.dumps(chip_smoke.TRACE_STATS), flush=True)
     return 0
 
 

@@ -132,3 +132,59 @@ def test_wrappers_compute_the_plain_backward_on_cpu():
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert F.launches == before
+
+
+# the backward kernels' p: exp2 with log2(e) folded into the scale and into
+# lse (one FFMA and one ex2 an element, csrc/flash_bwd_wgmma.cuh)
+LOG2E = 1.4426950408889634
+
+
+def exp2_bwd(qf, kf, vf, dof, lse, dd, scale):
+    """``plain_bwd`` with p taken as the kernels take it, exp2(s * scale *
+    log2(e) - lse * log2(e)); every other cast and product as
+    ``plain_bwd``'s."""
+    f32 = torch.float32
+    s = torch.matmul(qf.float(), kf.float().transpose(1, 2))
+    p = torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None])
+    dv = torch.matmul(p.to(dof.dtype).to(f32).transpose(1, 2), dof.float()).to(vf.dtype)
+    dp = torch.matmul(dof.float(), vf.float().transpose(1, 2))
+    ds = (p * (dp - dd[..., None])).to(qf.dtype).to(f32)
+    dq = (torch.matmul(ds, kf.float()) * scale).to(qf.dtype)
+    dk = (torch.matmul(ds.transpose(1, 2), qf.float()) * scale).to(kf.dtype)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n,jax_fn", [(256, "_whole_bwd_flat"), (1024, "_flash_bwd_flat")])
+def test_exp2_formula_matches_plain_bwd_and_pallas(n, jax_fn, dtype):
+    """The kernels' exp2 form of p against ``plain_bwd`` and against JAX's
+    Pallas backward (``_whole_bwd_kernel``; ``_dq_kernel`` + ``_dkv_kernel``)
+    in interpret mode, on the lse and D of a forward, with the logits scaled
+    up (q x 3) so that p spans many binades: fp32 within 2e-5, bf16 within
+    2 bf16 ulps of max|grad| (a rounding of p or dS may flip)."""
+    rng = np.random.default_rng(n)
+    q, k, v, do = (rng.standard_normal((1, n, 64)).astype(np.float32) for _ in range(4))
+    q *= 3
+    scale = 0.125
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(_TDT[dtype]) for a in (q, k, v, do))
+    out, lse = F.plain_fwd(tq, tk, tv, scale)
+    dd = (tdo.float() * out.float()).sum(-1)
+    got = exp2_bwd(tq, tk, tv, tdo, lse, dd, scale)
+    want = getattr(JF, jax_fn)(*(jnp.asarray(a, _JDT[dtype]) for a in (q, k, v, do)),
+                               jnp.asarray(lse.numpy())[..., None],
+                               jnp.asarray(dd.numpy())[..., None], scale)
+    plain = F.plain_bwd(tq, tk, tv, tdo, lse, dd, scale)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, plain):
+        _close(a, b, dtype, f"exp2 vs {jax_fn} {dtype} {name}")
+        _close(a, c.float().numpy(), dtype, f"exp2 vs plain_bwd {dtype} {name}")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_row_tile_divides_every_supported_n(d):
+    """Every N that ``shapes_supported`` admits at D <= 128 reaches a
+    backward wrapper whose kernels take it (a multiple of the row tile)."""
+    for n in range(64, 16385, 64):
+        q = torch.empty((1, n, 2, d), device="meta")
+        if F.shapes_supported(q, q, q):
+            assert F.bwd_kernel_for(n, d) in ("whole_bwd", "flash_bwd")
+            assert n % F.BWD_ROW_TILE == 0, n

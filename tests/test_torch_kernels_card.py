@@ -417,35 +417,71 @@ TOL_BWD_MAX = 2.0 ** -6
 TOL_BWD_L2 = 1e-2
 
 
-def _bwd_args(bh, n, seed=0):
+def _bwd_args(bh, n, seed=0, q_mul=1.0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((bh, n, 64), generator=g, device="cuda", dtype=torch.bfloat16)
                    for _ in range(4))
+    q = (q.float() * q_mul).to(torch.bfloat16)
     out, lse = F.plain_fwd(q, k, v, 0.125)
     dd = (do.float() * out.float()).sum(-1)
     return q, k, v, do, lse, dd
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,bh,n", [("whole_bwd", 4, 1024), ("whole_bwd", 2, 256),
+@pytest.mark.parametrize("name,bh,n", [("whole_bwd", 20, 1024), ("flash_bwd", 10, 4096),
+                                       ("whole_bwd", 4, 1024), ("whole_bwd", 2, 256),
+                                       ("whole_bwd", 2, 512), ("whole_bwd", 1, 64),
                                        ("flash_bwd", 2, 2048), ("flash_bwd", 1, 4096)])
 def test_flash_bwd_matches_plain(name, bh, n):
+    """The wgmma backward pair at the training step's shapes ((20, 1024):
+    K11a; (10, 4096): K11b + K11c) and smaller ones, with the logits scaled
+    up (q x 3), against ``plain_bwd``; two calls bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    args = _bwd_args(bh, n)
+    args = _bwd_args(bh, n, q_mul=3.0)
     before = dict(F.launches)
     got = F.BWD[name](*args, 0.125)
+    again = F.BWD[name](*args, 0.125)
     want = F.plain_bwd(*args, 0.125)
     torch.cuda.synchronize()
     launched = {k: F.launches[k] - before[k] for k in before}
-    assert launched == {k: int(k == name or (name == "flash_bwd" and k.startswith("flash_bwd")))
-                        for k in before}
-    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+    assert launched == {
+        k: 2 * int(k == name or (name == "flash_bwd" and k.startswith("flash_bwd")))
+        for k in before}
+    for what, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.equal(a, c), what
         err = (a.float() - b.float()).abs().max().item()
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert err <= TOL_BWD_MAX * b.float().abs().max().item(), (what, err)
         assert rel <= TOL_BWD_L2, (what, rel)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_unsupported_raises():
+    """Shapes and layouts the wgmma backward does not take raise on CUDA
+    tensors: N not a multiple of the row tile (64), head dim 32, a tensor
+    that is not 16-byte aligned (TMA), fp32 q/k/v/dO, bf16 lse, lse of the
+    wrong shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do, lse, dd = _bwd_args(2, 256)
+    fns = (F.whole_bwd, F.flash_bwd_dq, F.flash_bwd_dkv)
+    buf = torch.empty(q.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    q_off = buf[1:].view_as(q)  # contiguous, 2 bytes past a 16-byte boundary
+    q_off.copy_(q)
+    c = [t[:, :160].contiguous() for t in (q, k, v, do, lse, dd)]
+    n32 = [t[..., :32].contiguous() for t in (q, k, v, do)]
+    cases = [c, (*n32, lse, dd), (q_off, k, v, do, lse, dd),
+             (q.float(), k.float(), v.float(), do.float(), lse, dd),
+             (q, k, v, do, lse.to(torch.bfloat16), dd),
+             (q, k, v, do, lse[:, :128].contiguous(), dd)]
+    before = dict(F.launches)
+    for args in cases:
+        for fn in fns:
+            with pytest.raises(ValueError):
+                fn(*args, 0.125)
+    assert F.launches == before
 
 
 # the Function against autograd through plain_attention: autograd rounds dP

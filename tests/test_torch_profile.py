@@ -82,8 +82,8 @@ def test_profile_books_the_swin_kernels_and_counts_host_copies():
 def test_profile_books_the_backward_kernels_and_takes_a_train_step():
     from edtr_torch.profile_restore import TRAIN_STAGES
 
-    for name in ("void (anonymous namespace)::flash_bwd_dq_kernel(...)",
-                 "void (anonymous namespace)::flash_bwd_dkv_kernel(...)"):
+    for name in ("void edtr_flash_bwd::flash_dq_wgmma_kernel<64, 3, 3>(CUtensorMap_st, ...)",
+                 "void edtr_flash_bwd::flash_dkv_wgmma_kernel<64, 4, 1, true>(...)"):
         assert _family(name) == "flash (edtr_torch)", name
     events = []
     for run in range(2):  # two steps, each forward+loss / backward / optimizer
@@ -95,8 +95,8 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
                    _x("cuda_runtime", "cudaLaunchKernel", t0 + 120, 1, corr=10 * run + 3),
                    _x("cuda_runtime", "cudaLaunchKernel", t0 + 210, 1, corr=10 * run + 4),
                    _x("kernel", "flash_wgmma_kernel", t0 + 20, 30, corr=10 * run + 1),
-                   _x("kernel", "flash_bwd_dq_kernel", t0 + 130, 20, corr=10 * run + 2),
-                   _x("kernel", "flash_bwd_dkv_kernel", t0 + 150, 30, corr=10 * run + 3),
+                   _x("kernel", "flash_dq_wgmma_kernel<64, 3, 3>", t0 + 130, 20, corr=10 * run + 2),
+                   _x("kernel", "flash_dkv_wgmma_kernel<64, 4, 1>", t0 + 150, 30, corr=10 * run + 3),
                    _x("kernel", "multi_tensor_apply_kernel", t0 + 220, 10, corr=10 * run + 4)]
     out = summarise({"traceEvents": events}, TRAIN_STAGES)
     assert set(out["stages"]) == set(TRAIN_STAGES)
