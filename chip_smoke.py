@@ -12,9 +12,9 @@ no result line):
    ln_matmul,geglu,window_attention,swin_block}.cu`` (ptxas register, spill
    and wgmma-serialisation lines printed);
 3. each flash kernel against its plain PyTorch version at the 512² bs-1
-   main-path shapes, in bf16: O and lse errors, kernel / plain / SDPA
-   (``library_ms``, a yardstick the port never calls) device times from a
-   trace (CUDA-event times beside them) and the bound;
+   main-path shapes, in bf16: O and lse errors, two calls bit-identical,
+   kernel / plain / SDPA (``library_ms``, a yardstick the port never calls)
+   device times from a trace (CUDA-event times beside them) and the bound;
    then each flash backward kernel against ``plain_bwd`` at the training
    step's shapes (bs 2), as ``proj_bench.py --flash-bwd`` holds them: dq,
    dk, dv errors, two calls bit-identical, kernel / plain / SDPA's backward
@@ -52,7 +52,8 @@ no result line):
 7. each Swin kernel (window attention, swin_pre, swin_post) against its
    plain version at every shape the fused+swin restore launched it with
    (the swin_pre shapes must be the ones ``proj_bench.py`` pins):
-   errors, device times of kernel / plain / library (``library_ms``, never
+   errors, two calls bit-identical, device times of kernel / plain /
+   library (``library_ms``, never
    called by the port: SDPA with the bias and mask as one additive mask;
    the ``F.linear`` GEMMs on already-normalised bf16 tokens) and the bound;
 8. the GroupNorm statistics at every shape of the fused restore, in
@@ -84,6 +85,10 @@ no result line):
 12. a ``{"kernels": [...]}`` line with every ported kernel, then the result
    line.
 
+Every device time comes from :func:`device_ms`, which takes a trace only
+with each launch's kernel in it and times a call by CUDA events, naming it
+in the output's ``device_ms_traces``, where five traces lost kernels.
+
 Needs one CUDA card and ``nvcc`` (``CUDA_HOME``); imports nothing of JAX.
 """
 
@@ -112,18 +117,19 @@ import proj_bench
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-FA_SOURCE = "edtr_torch/csrc/flash_attention.cu"
 FA_BWD_SOURCE = "edtr_torch/csrc/flash_bwd_wgmma.cuh"
 CONV_SOURCE = "edtr_torch/csrc/gn_conv.cu"
 SOURCES = ("flash_attention", "flash_attention_bwd", "gn_conv", "ln_matmul", "geglu",
            "window_attention", "swin_block")
 FA_WGMMA_SOURCE = "edtr_torch/csrc/flash_wgmma.cuh"
+FA_STREAMKV_SOURCE = "edtr_torch/csrc/flash_streamkv.cuh"
 # wrapper -> (flat (BH, N, D) at 512² bs 1, the TPU kernel it replaces,
 #             launches in one 512² restore (None: not on that path), source)
 KERNELS = {
     "wholekv_fwd": ((5, 4096, 64), "edtr_tpu/ops/flash_attention.py:181", 28, FA_WGMMA_SOURCE),
     "whole_fwd": ((10, 1024, 64), "edtr_tpu/ops/flash_attention.py:352", 28, FA_WGMMA_SOURCE),
-    "streamkv_fwd": ((1, 4096, 512), "edtr_tpu/ops/flash_attention.py:264", 2, FA_SOURCE),
+    "streamkv_fwd": ((1, 4096, 512), "edtr_tpu/ops/flash_attention.py:264", 2,
+                     FA_STREAMKV_SOURCE),
     # N > 4096 (1024² inputs); held here at the 1024² ds=2 shape, not run at 512²
     "flash_fwd": ((5, 8192, 64), "edtr_tpu/ops/flash_attention.py:123", None, FA_WGMMA_SOURCE),
 }
@@ -333,52 +339,84 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-# device_ms's traces with a kernel count that was not a whole number of
-# calls', and its calls timed by CUDA events after three such traces
-TRACE_STATS = {"traces_taken_again": 0, "event_timed": 0}
+# device_ms's traces that lost kernels (taken again), and the calls it timed
+# by CUDA events after TRACE_TRIES such traces, by name
+TRACE_STATS = {"traces_taken_again": 0, "event_timed": 0, "event_timed_calls": []}
+TRACE_TRIES = 5
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Device ms per call: the kernels' time in a ``torch.profiler`` trace of
-    ``iters`` back-to-back calls, over ``iters``. Unlike :func:`time_ms` it
-    leaves out the host's time to launch, which sets CUDA-event times of
-    calls shorter than the wrapper's Python. The profiler first runs one
-    cycle of the same calls whose events it drops: without it, late in this
-    script's run, one-kernel calls read 2.2x fast, below their bound, as if
-    11 of a trace's 20 kernels were missing (chip run 6, PR 9). Traces taken
-    again and event-timed calls are counted in :data:`TRACE_STATS`."""
+def trace_accepted(kernels: int, launches: int, per_call: int, iters: int) -> bool:
+    """:func:`device_ms`'s rule for a trace of ``iters`` calls: the call's
+    own count of kernel launches, ``per_call`` (> 0, from the launch records
+    of a trace of one call), times ``iters`` launches recorded, and a kernel
+    for each of them. A trace that lost kernels fails it, also when what it
+    kept is a whole number of calls' (a 3-kernel call that lost one kernel
+    a call, seen on the card)."""
+    return per_call > 0 and launches == per_call * iters and kernels == launches
+
+
+def trace_kernels(fn, iters: int) -> tuple:
+    """(durations in us of the kernels, count of kernel launches) in a
+    ``torch.profiler`` trace of ``iters`` back-to-back calls. The launches
+    are the host's runtime and driver API records (``cudaLaunchKernel``,
+    ``cudaLaunchKernelExC``, ``cuLaunchKernel``...), which CUPTI takes on
+    the launching thread; a kernel counts only with the correlation id of
+    one of them. The profiler first runs one cycle of the same calls whose
+    events it drops: without it, late in this script's run, one-kernel
+    calls read 2.2x fast, below their bound, as if 11 of a trace's 20
+    kernels were missing (on an NVIDIA H100 80GB HBM3)."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        os.remove(path)
+    launched = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e.get("name", "") and "Kernel" in e.get("name", "")}
+    durs = [e["dur"] for e in events if e.get("cat") == "kernel"
+            and e.get("args", {}).get("correlation") in launched]
+    return durs, len(launched)
+
+
+def device_ms(fn, iters: int, warmup: int = 2, what: str = "unnamed call") -> float:
+    """Device ms per call: the kernels' time in a trace of ``iters``
+    back-to-back calls (:func:`trace_kernels`), over ``iters``. Unlike
+    :func:`time_ms` it leaves out the host's time to launch, which sets
+    CUDA-event times of calls shorter than the wrapper's Python. The trace
+    is taken only with the call's own launch count, from a trace of one
+    call, times ``iters``, and every launched kernel in it
+    (:func:`trace_accepted`); else both are taken again, and after
+    :data:`TRACE_TRIES` such traces the call ``what`` is timed by CUDA
+    events, printed and named in :data:`TRACE_STATS`."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a trace whose kernels are not a whole number of calls' lost some (a
-    # trace with no kernel at all was seen once in ~40 on the H100): trace
-    # again, and after three such traces take the CUDA-event time
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        fd, path = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        try:
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        finally:
-            os.remove(path)
-        kernels = [e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
-        if kernels and len(kernels) % iters == 0:
+    for _ in range(TRACE_TRIES):
+        _, per_call = trace_kernels(fn, 1)
+        kernels, launches = trace_kernels(fn, iters)
+        if trace_accepted(len(kernels), launches, per_call, iters):
             return sum(kernels) / 1e3 / iters
         TRACE_STATS["traces_taken_again"] += 1
     TRACE_STATS["event_timed"] += 1
+    TRACE_STATS["event_timed_calls"].append(what)
+    print(f"device_ms: {what} timed by CUDA events ({TRACE_TRIES} traces lost kernels or "
+          f"launched {launches} kernels, {per_call} a call, for {len(kernels)} in the trace)",
+          flush=True)
     return time_ms(fn, iters, 0)
 
 
@@ -430,19 +468,22 @@ def flash_case(device, name, shape, gen) -> dict:
     scale = d ** -0.5
     fwd = FA.FWD[name]
     before = FA.launches[name]
-    o_k, lse_k = fwd(q, k, v, scale)
-    check(FA.launches[name] == before + 1, f"{name} launched its kernel")
+    (o_k, lse_k), (o_2, lse_2) = fwd(q, k, v, scale), fwd(q, k, v, scale)
+    check(FA.launches[name] == before + 2, f"{name} launched its kernel once a call")
     o_p, lse_p = FA.plain_fwd(q, k, v, scale)
     torch.cuda.synchronize()
+    same = bool(torch.equal(o_k, o_2) and torch.equal(lse_k, lse_2))
     diff = o_k.float() - o_p.float()
     err_o = diff.abs().max().item()
     o_max = o_p.float().abs().max().item()
     rel = rel_l2(o_k, o_p)
     err_l = (lse_k - lse_p).abs().max().item()
-    ms = device_ms(lambda: fwd(q, k, v, scale), 20)
-    plain_ms = device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1)
+    ms = device_ms(lambda: fwd(q, k, v, scale), 20, what=f"{name} {shape}")
+    plain_ms = device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1,
+                         what=f"plain_fwd {shape}")
     q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20,
+                           what=f"SDPA {shape}")
     event_ms = time_ms(lambda: fwd(q, k, v, scale), 20)
     t_ops = 4.0 * n * n * d * bh / PEAK_BF16_FLOPS * 1e3
     t_bytes = (4 * bh * n * d * 2 + bh * n * 4) / PEAK_BYTES * 1e3
@@ -450,12 +491,14 @@ def flash_case(device, name, shape, gen) -> dict:
                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                library_ms=library_ms, event_ms=event_ms, err_o=err_o, o_max=o_max,
-               rel_l2_o=rel, err_lse=err_l,
-               ok=bool(err_o <= TOL_O_MAX * o_max and rel <= TOL_O_L2 and err_l <= TOL_LSE))
+               rel_l2_o=rel, err_lse=err_l, same_twice=same,
+               ok=bool(err_o <= TOL_O_MAX * o_max and rel <= TOL_O_L2 and err_l <= TOL_LSE
+                       and same))
     row["bound_share"] = row["bound_ms"] / ms
     print("kernel:", json.dumps(row), flush=True)
     check(row["ok"], f"{name} at {shape} vs plain: err_o {err_o} (tol {TOL_O_MAX * o_max}), "
-                     f"rel L2 {rel} (tol {TOL_O_L2}), err_lse {err_l} (tol {TOL_LSE})")
+                     f"rel L2 {rel} (tol {TOL_O_L2}), err_lse {err_l} (tol {TOL_LSE}), "
+                     f"bit-identical twice: {same}")
     return row
 
 
@@ -556,9 +599,10 @@ def conv_case(device, key, gen) -> dict:
     # calls of 10-400 us, at or below the wrapper's host-side launch at the
     # small sites: device time from a trace, as the projection kernels are
     # timed, CUDA events beside it
-    ms = device_ms(kern, iters)
-    plain_ms = device_ms(plain, 3, 1)
-    library_ms = device_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters)
+    ms = device_ms(kern, iters, what=f"{key}")
+    plain_ms = device_ms(plain, 3, 1, what=f"plain {key}")
+    library_ms = device_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters,
+                           what=f"F.conv2d {key}")
     event_ms = time_ms(kern, iters)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = ((b * hin * win * cin + b * h * w * cout + 9 * cin * cout) * 2 + res_bytes) \
@@ -701,9 +745,9 @@ def proj_case(device, key, gen) -> dict:
     # device time from a trace: these calls (15-100 us) are shorter than
     # the wrapper's host-side launch, which CUDA events would time instead
     iters = 20
-    ms = device_ms(kern, iters)
-    plain_ms = device_ms(plain, 3, 1)
-    library_ms = device_ms(lambda: F.linear(lib_in, wp), iters)
+    ms = device_ms(kern, iters, what=f"{key}")
+    plain_ms = device_ms(plain, 3, 1, what=f"plain {key}")
+    library_ms = device_ms(lambda: F.linear(lib_in, wp), iters, what=f"F.linear {key}")
     event_ms = time_ms(kern, iters)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     # bf16 tokens, outputs and weight; fp32 LN / affine vectors and biases
@@ -839,7 +883,7 @@ def swin_case(device, key, gen) -> dict:
                   1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
                   randn(hidden, c, scale=c ** -0.5), randn(hidden, scale=0.05),
                   randn(c, hidden, scale=hidden ** -0.5), randn(c, scale=0.05)]
-            packed = [ws[i].to(bf16) for i in (0, 4, 6)]
+            packed = [SB.pad_weight(ws[i]) for i in (0, 4, 6)]  # as Linear.padded_weight
 
             def kern():
                 return SB.swin_post(attn, x, *ws, hh, ww, win, packed=packed)
@@ -849,27 +893,30 @@ def swin_case(device, key, gen) -> dict:
             a2 = attn.reshape(b, l, c)
             hid = randn(b, l, hidden).to(bf16)
 
+            wb = [ws[i].to(bf16) for i in (0, 4, 6)]
+
             def lib():
-                return (F.linear(a2, packed[0]), F.linear(x, packed[1]),
-                        F.linear(hid, packed[2]))
+                return (F.linear(a2, wb[0]), F.linear(x, wb[1]), F.linear(hid, wb[2]))
             flops = 2.0 * b * l * (c * c + 2 * c * hidden)
             nbytes = (3 * b * l * c + c * c + 2 * c * hidden) * 2 + (4 * c + hidden) * 4
             shape = dict(b=b, h=hh, w=ww, c=c, win=win, hidden=hidden)
         launched = SB.launches
     before = launched[name]
-    out_k = kern()
-    check(launched[name] == before + 1, f"{name} launched its kernel")
+    out_k, out_2 = kern(), kern()
+    check(launched[name] == before + 2, f"{name} launched its kernel once a call")
     out_p = plain()
     if name == "swin_pre":  # both outputs, outside the timed calls
-        out_k, out_p = (torch.cat([o.flatten() for o in outs]) for outs in (out_k, out_p))
+        out_k, out_2, out_p = (torch.cat([o.flatten() for o in outs])
+                               for outs in (out_k, out_2, out_p))
     torch.cuda.synchronize()
+    same = bool(torch.equal(out_k, out_2))
     err = (out_k.float() - out_p.float()).abs().max().item()
     o_max = out_p.float().abs().max().item()
     rel = rel_l2(out_k, out_p)
     iters = 20
-    ms = device_ms(kern, iters)
-    plain_ms = device_ms(plain, 3, 1)
-    library_ms = device_ms(lib, iters)
+    ms = device_ms(kern, iters, what=f"{key}")
+    plain_ms = device_ms(plain, 3, 1, what=f"plain {key}")
+    library_ms = device_ms(lib, iters, what=f"library {key}")
     event_ms = time_ms(kern, iters)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -877,12 +924,12 @@ def swin_case(device, key, gen) -> dict:
                plain_ms=plain_ms, library_ms=library_ms, event_ms=event_ms,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               gflop=flops / 1e9, mb=nbytes / 1e6,
-               ok=bool(err <= TOL_SWIN_MAX * o_max and rel <= TOL_SWIN_L2))
+               gflop=flops / 1e9, mb=nbytes / 1e6, same_twice=same,
+               ok=bool(err <= TOL_SWIN_MAX * o_max and rel <= TOL_SWIN_L2 and same))
     row["bound_share"] = row["bound_ms"] / ms
     print("swin kernel:", json.dumps(row), flush=True)
     check(row["ok"], f"{key} vs plain: max abs {err} (tol {TOL_SWIN_MAX * o_max}), "
-                     f"rel L2 {rel} (tol {TOL_SWIN_L2})")
+                     f"rel L2 {rel} (tol {TOL_SWIN_L2}), bit-identical twice: {same}")
     return row
 
 
@@ -1194,7 +1241,8 @@ def norm_phase(pipe, device) -> dict:
         for got, ref in zip(gn_stats(x, groups), want):
             err = max(err, ((got - ref).abs() / (ref.abs() + 1e-3)).max().item())
         for name, fn in forms.items():
-            per_restore[name] += n * device_ms(lambda: fn(x, xn, groups), 10)
+            per_restore[name] += n * device_ms(lambda: fn(x, xn, groups), 10,
+                                                what=f"gn_stats {name} {tuple(x.shape)}")
     res = dict(calls_per_restore=sum(calls.values()), shapes=len(calls),
                device_ms_per_restore=per_restore, max_rel_err_vs_nchw=err,
                tol_rel=TOL_GN_STATS)

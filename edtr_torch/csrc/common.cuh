@@ -26,10 +26,6 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // wait until at most N of this thread's committed cp.async groups are pending
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

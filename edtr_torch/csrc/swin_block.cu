@@ -19,37 +19,28 @@
 // on rolled positions throughout, so a block hands its successor tokens
 // rolled by its own shift and the RSTB un-rolls once before its conv.
 //
-// swin_post. SwinIR's widths (C 180, 3C 540, hidden 360) are multiples of
-// neither 16 nor 32, and its 360-byte rows make odd rows only 8-byte
-// aligned. So every operand is staged with 4- or 8-byte copies, the K walk
-// of each GEMM is zero-padded to a multiple of 32 in shared memory, and the
-// ragged column edge is masked in the epilogue. A block owns half a window
-// (32 tokens, so that the 64 windows of a 512² image give 128 blocks for
-// 132 SMs) and computes each projection in slabs of 192 output columns: 8
-// warps of mma.sync m16n8k16 fed by ldmatrix, the weight rows of the slab
-// streaming through a 3-deep cp.async ring of 32-channel chunks (the three
-// weights, 324 KB in bf16, do not fit in shared memory together). x1 = xr +
-// proj, its LN2 and the 32 x 360 GELU hidden stay in shared memory.
+// Both run on wgmma with their weights fed by TMA. SwinIR's widths (C 180,
+// 3C 540, hidden 360) are multiples of neither 16 nor 64, and its 360-byte
+// token rows are only 8-byte aligned, so TMA cannot describe the tokens;
+// the weights come from bf16 copies zero-padded along K to a multiple of 64
+// channels (ops/swin_block.py:pad_weight, cached by
+// models/layers.py:Linear.padded_weight), whose 128-byte-multiple rows a
+// TMA map reads in 64-channel boxes in the 128-byte swizzle. A block owns
+// one window (64 tokens: wgmma's M); its threads gather the tokens with
+// 8-byte loads and write them, or their LayerNorm, straight into the
+// swizzled K-major layout wgmma reads for A, zeros past C.
 //
-// swin_pre (pre_wgmma below), on wgmma with the weights fed by TMA. Its
-// mma.sync predecessor (21.9 us of device time a call at the main-path
-// shape on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md) ran three serial
-// phases a block and streamed the 360-byte weight rows in 8-byte
-// cp.asyncs. Here a block owns
-// one window (64 tokens: wgmma's M) and one slab of 192 qkv columns (grid
-// 64 x 3 at bs 1, two blocks an SM):
-// - the weights come from a bf16 copy zero-padded along K to a multiple of
-//   64 channels (384-byte rows at C 180, ops/swin_block.py:pad_weight, cached
-//   by models/layers.py:Linear.padded_weight), which a TMA map describes:
-//   thread 0 issues the slab's 192 rows (72 KB, zeros past 3C) as 64-channel
-//   boxes in the 128-byte swizzle at block start, so they land while the
-//   block gathers and normalises;
-// - the 256 threads gather the window's rolled rows, 8 lanes a token
-//   (8-byte loads: x, qkv and the unpadded rows have no 16-byte stride, so
-//   TMA cannot describe them; a row's statistics take 3 shuffle steps),
-//   copy them to xr (slab 0 only), and write the LayerNorm, rounded to
-//   bf16, straight into the swizzled K-major layout wgmma reads for A,
-//   zeros past C;
+// swin_pre (pre_wgmma below). Its mma.sync predecessor (21.9 us of device
+// time a call at the main-path shape on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md) ran three serial phases a block and streamed the 360-byte weight
+// rows in 8-byte cp.asyncs. Here a block owns one window and one slab of
+// 192 qkv columns (grid 64 x 3 at bs 1, two blocks an SM):
+// - thread 0 issues the slab's 192 padded weight rows (72 KB, zeros past
+//   3C) at block start, so they land while the block gathers and
+//   normalises;
+// - the 256 threads gather the window's rolled rows, 8 lanes a token (a
+//   row's statistics take 3 shuffle steps), copy them to xr (slab 0 only),
+//   and write the LayerNorm into A;
 // - each warpgroup issues wgmma m64n96k16 over its 96 columns (12 k-steps
 //   at C 180); its epilogue adds the fp32 bias before the one rounding,
 //   stages the 64 x 96 tile in its own (retired) weight rows and writes
@@ -58,10 +49,51 @@
 //   1080 bytes apart, and a warp a token with 5-step reductions were the two
 //   largest costs of a first version on the card; PERF.md, PR 9.)
 //
+// swin_post (post_wgmma below). Its mma.sync predecessor gave a block 32
+// tokens and ran the three GEMMs in 192-column slabs, each streaming the
+// whole weight through a 3-deep ring of 32-channel chunks in 8-byte
+// cp.asyncs: 128 blocks each read all 324 KB of weights from L2, ~41 MB a
+// call in 8-byte pieces, behind a __syncthreads every phase (31.75 us a
+// call at the main-path shape on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md). Here:
+// - a producer warp first brings the window's tokens by 1-D bulk copies:
+//   its attention rows are one contiguous block, and in rolled token space
+//   each of its 8 rows of tokens is 8 contiguous shortcut rows; then it
+//   streams the three padded weights through a ring of 5 stages of 192
+//   rows x 64 channels (24 KB, one TMA box): proj's, fc1's (a 192-column
+//   slab of the hidden at a time) and fc2's, in the order the consumers
+//   read them, so that the next GEMM's weights land during the previous
+//   one's epilogue and LayerNorm;
+// - four consumer warpgroups split every GEMM's output columns, 48 each
+//   (wgmma m64n48k16, A from shared memory, each reading its quarter of
+//   the stage's rows); a stage is freed once all four have retired the
+//   wgmmas that read it. Four and not two: between the small GEMMs the
+//   block's time goes to epilogues, the LayerNorm and the GELU, issue-bound
+//   at one block an SM, and twice the warps halve each thread's share (a
+//   two-warpgroup build took 18.5 us a call, this one 16.7);
+// - x1 = xr + proj stays in shared memory (row-major, over the shortcut);
+//   LN2 is computed in the proj epilogue from the accumulator registers,
+//   each row's sum and squared deviations summed over a quad and across the
+//   warpgroups through shared memory, and written to the swizzled A tile;
+//   the 64 x 360 GELU hidden goes to a swizzled K-major tile that is fc2's
+//   A; the biases are loaded while each GEMM's wgmmas run (in a first
+//   version, loops of dependent loads and a warp a LayerNorm row took 20 of
+//   a block's 23 us on an NVIDIA H100 80GB HBM3 at 700 W);
+// - at bs 1 a window's work is split over a two-block cluster (64 windows
+//   give 128 blocks for 132 SMs): both blocks compute x1 and its LN2, each
+//   takes one 192-column slab of fc1's hidden and the matching 192 rows of
+//   fc2's K, and each finishes half of the output columns from its own
+//   fp32 partial plus its peer's, read through distributed shared memory,
+//   always in the order slab 0 + slab 1, so that two calls agree bit for
+//   bit; a block reads 216 KB of weights instead of 360. Where the windows
+//   alone fill the card (bs 2) or the hidden is one slab, one block takes a
+//   window (ops/swin_block.py:post_split), and writes its 8 rows of tokens
+//   back by bulk copies.
+//
 // What bounds them on an H100: at the main-path shape (1 x 4096 tokens,
 // C 180) swin_pre moves ~7.6 MB for 0.80 GFLOP and swin_post ~4.7 MB for
 // 1.33 GFLOP: under 300 FLOP per byte, so memory bounds both (~2.3 and
-// ~1.4 us at 3.35 TB/s).
+// ~1.4 us at 3.35 TB/s); each block's weights come from L2.
 
 #include "sm90.cuh"
 
@@ -69,154 +101,15 @@ namespace {
 
 using namespace edtr;
 
-constexpr int kThreads = 256;               // 8 warps
+constexpr int kThreads = 256;               // swin_pre: 8 warps
 constexpr int kWinTok = 64;                 // tokens per window (win 8)
-constexpr int BK = 32;                      // K chunk of the weight ring
-constexpr int kStages = 3;                  // weight chunks in flight
-constexpr int kSlab = 192;                  // output columns per GEMM slab
-constexpr int LDW = BK + 8;                 // ring row: 80 B, ldmatrix conflict-free
+constexpr int kSlab = 192;                  // swin_pre: qkv columns a block
 constexpr int kMaxC = 192;                  // channels, padded K of qkv/proj/fc1
 constexpr int kMaxHidden = 384;             // MLP hidden, padded K of fc2
-constexpr int LDA = kMaxC + 8;              // token row: 400 B
-constexpr int LDH = kMaxHidden + 8;         // hidden row: 784 B
-constexpr size_t kRingBytes = (size_t)kStages * kSlab * LDW * sizeof(bf16);
-
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(smem)), "l"(gmem));
-}
-
-__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16(v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float2 unpack2(uint32_t u) {
   const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u);
   return make_float2(__low2float(h), __high2float(h));
-}
-
-// One warp: the LayerNorm of a row of c bf16 channels, held as pairs u[j]
-// at columns (lane + 32 j) * 2 (zero past c), into dst as bf16, columns c to
-// kMaxC zeroed (the K padding of the next GEMM).
-__device__ __forceinline__ void ln_row(const uint32_t (&u)[3], int c, int lane,
-                                       const float* __restrict__ s,
-                                       const float* __restrict__ sh, float eps, bf16* dst) {
-  float f[3][2], sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float2 v = unpack2(u[j]);
-    f[j][0] = v.x;
-    f[j][1] = v.y;
-    sum += v.x + v.y;
-  }
-  const float mean = warp_sum(sum) / (float)c;
-  float q = 0.f;
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    if ((lane + 32 * j) * 2 < c) {
-      const float d0 = f[j][0] - mean, d1 = f[j][1] - mean;
-      q += d0 * d0 + d1 * d1;
-    }
-  const float rstd = rsqrtf(warp_sum(q) / (float)c + eps);
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int cc = (lane + 32 * j) * 2;
-    uint32_t out = 0u;
-    if (cc < c) {
-      const float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[j][0], mean), rstd), s[cc]), sh[cc]);
-      const float y1 =
-          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[j][1], mean), rstd), s[cc + 1]), sh[cc + 1]);
-      out = pack_bf16(y0, y1);
-    }
-    *reinterpret_cast<uint32_t*>(dst + cc) = out;
-  }
-}
-
-// The warp grid of a TM-row tile over a kSlab-column slab
-template <int TM>
-struct Tile {
-  static constexpr int WARPS_M = TM / 16;
-  static constexpr int WARPS_N = (kThreads / 32) / WARPS_M;
-  static constexpr int WN = kSlab / WARPS_N;  // slab columns per warp
-  static constexpr int NT = WN / 8;           // n8 tiles per warp
-  static_assert(NT % 2 == 0, "whole ldmatrix_x4 pairs of n8 tiles");
-};
-
-// acc = this warp's 16 x WN part of A[TM, :k] @ W[n0 : n0 + kSlab, :k]^T.
-// A: shared memory, rows of lda elements, zero in columns k .. the next
-// multiple of 32. W: (n_rows, k) bf16 in device memory (nn.Linear layout),
-// rows past n_rows and columns past k read as zeros; k % 4 == 0 and W 8-byte
-// aligned, so each piece is one 8-byte cp.async. Ends with every thread past
-// its last read of A and of the ring.
-template <int TM>
-__device__ void slab_gemm(float (&acc)[Tile<TM>::NT][4], const bf16* sA, int lda, int k,
-                          const bf16* __restrict__ W, int n_rows, int n0, bf16* ring) {
-  using T = Tile<TM>;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, mi = lane >> 3;
-  const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
-  const int nk = (k + BK - 1) / BK;
-#pragma unroll
-  for (int t = 0; t < T::NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  // ring slot of chunk kc; commits a group every call (empty past the end)
-  auto load = [&](int kc) {
-    if (kc < nk) {
-      bf16* dst = ring + (kc % kStages) * kSlab * LDW;
-      for (int i = tid; i < kSlab * (BK / 4); i += kThreads) {
-        const int r = i / (BK / 4), col = (i % (BK / 4)) * 4;
-        const int gr = n0 + r, gc = kc * BK + col;
-        bf16* d = dst + r * LDW + col;
-        if (gr < n_rows && gc < k)
-          cp_async8(d, W + (size_t)gr * k + gc);
-        else
-          *reinterpret_cast<uint2*>(d) = make_uint2(0u, 0u);
-      }
-    }
-    cp_async_commit();
-  };
-
-  load(0);
-  load(1);
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<1>();
-    __syncthreads();  // chunk kc visible; the slot of chunk kc+2 (read at kc-1) free
-    load(kc + 2);
-    const bf16* Bt = ring + (kc % kStages) * kSlab * LDW;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, sA + (wm * 16 + (lane & 15)) * lda + kc * BK + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < T::NT / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, Bt + (wn * T::WN + np * 16 + (mi >> 1) * 8 + (lane & 7)) * LDW + kk * 16 +
-                           (mi & 1) * 8);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-}
-
-// f(row, col, v0, v1) for each pair of this thread's accumulators: tile
-// row, slab column (even) and the two fp32 sums
-template <int TM, class F>
-__device__ __forceinline__ void for_pairs(const float (&acc)[Tile<TM>::NT][4], F f) {
-  using T = Tile<TM>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
-  const int g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int t = 0; t < T::NT; ++t)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      f(wm * 16 + g + half * 8, wn * T::WN + t * 8 + tig * 2, acc[t][2 * half],
-        acc[t][2 * half + 1]);
 }
 
 struct Geometry {  // a block's window and its tokens' rolled positions
@@ -245,6 +138,7 @@ struct PreArgs {
 
 // swin_pre on wgmma: a block owns one window (64 tokens, wgmma's M) and one
 // slab of kSlab qkv columns, 96 for each of its two warpgroups.
+
 namespace pre_wgmma {
 
 using namespace edtr_sm90;
@@ -444,107 +338,455 @@ int launch(const PreArgs& a, const void* w, int batch, cudaStream_t stream) {
 
 }  // namespace pre_wgmma
 
+// swin_post on wgmma: a block owns one window (64 tokens, wgmma's M) or, in
+// a two-block cluster (SPLIT 2), one window and half of its MLP hidden.
+namespace post_wgmma {
+
+using namespace edtr_sm90;
+
+constexpr int kBoxRows = 192;             // weight rows a stage holds (all warpgroups')
+constexpr int kGroups = 4;                 // consumer warpgroups, each kCols of a stage's rows
+constexpr int kCols = kBoxRows / kGroups;  // a warpgroup's output columns: wgmma m64n48k16
+constexpr int kChunk = 64;                 // channels a 128-byte swizzle row holds
+constexpr int kRow = kChunk * 2;
+constexpr int kSlabChunks = kBoxRows / kChunk;  // fc2 K chunks of one hidden slab
+constexpr int kTile = kWinTok * kRow;      // one 64-channel chunk of the 64 rows: 8 KB
+constexpr int kStage = kBoxRows * kRow;    // 24 KB
+constexpr int kStages = 5;
+constexpr int kMaxKC = kMaxC / kChunk;
+constexpr int kMaxKH = kMaxHidden / kChunk;
+constexpr int kConsumers = 128 * kGroups;
+constexpr int kPostThreads = kConsumers + 32;  // and one producer warp
+// slack, A, the hidden, the ring, x1, the LN2 affine, the row-statistics
+// exchange, the barriers
+constexpr int kSmem = 1024 + kMaxKC * kTile + kMaxKH * kTile + kStages * kStage +
+                      kWinTok * kMaxC * 2 + 2 * kMaxC * 4 + 2 * kGroups * kWinTok * 4 +
+                      (2 * kStages + 1) * 8;
+
 struct PostArgs {
   const bf16* attn;     // (B, nW, 64, C) attention output windows
   const bf16* xr;       // (B, h*w, C) rolled shortcut
-  const bf16* wp;       // (C, C) proj
-  const float* bp;
+  const float* bp;      // (C) proj bias
   const float* ln_s;    // (C) LN2 affine
   const float* ln_b;
-  const bf16* w1;       // (hidden, C) fc1
-  const float* b1;
-  const bf16* w2;       // (C, hidden) fc2
-  const float* b2;
+  const float* b1;      // (hidden) fc1 bias
+  const float* b2;      // (C) fc2 bias
   bf16* out;            // (B, h*w, C), rolled
   int h, w, win, c, hidden;
   float eps;
 };
 
-constexpr int kPostTM = 32;  // tokens per swin_post block
-constexpr size_t kPostSmem = (size_t)kPostTM * (2 * LDA + LDH) * sizeof(bf16) + kRingBytes;
-
-// grid (B * nW * 2): half a window each
-__global__ void __launch_bounds__(kThreads) swin_post_kernel(const PostArgs p) {
-  constexpr int TM = kPostTM;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // [TM][LDA] attention rows, then LN2(x1)
-  bf16* sX = sA + TM * LDA;                      // [TM][LDA] xr, then x1
-  bf16* sH = sX + TM * LDA;                      // [TM][LDH] GELU hidden
-  bf16* ring = sH + TM * LDH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int kParts = kWinTok / TM;
-  const Geometry geo(blockIdx.x / kParts, p.h, p.w, p.win);
-  const int i0 = (blockIdx.x % kParts) * TM;  // first window token of the tile
-  const bf16* attn = p.attn + ((size_t)(blockIdx.x / kParts) * kWinTok + i0) * p.c;
-
-  // attention rows (zero K padding) and the shortcut rows of the tile's tokens
-  for (int i = tid; i < TM * (kMaxC / 4); i += kThreads) {
-    const int r = i / (kMaxC / 4), col = (i % (kMaxC / 4)) * 4;
-    if (col < p.c) {
-      cp_async8(sA + r * LDA + col, attn + (size_t)r * p.c + col);
-      cp_async8(sX + r * LDA + col, p.xr + geo.token(i0 + r) * p.c + col);
-    } else {
-      *reinterpret_cast<uint2*>(sA + r * LDA + col) = make_uint2(0u, 0u);
-    }
-  }
-  const int kh = (p.hidden + BK - 1) / BK * BK;  // fc2's K walk reads up to here
-  for (int i = tid; i < TM * ((kh - p.hidden) / 4); i += kThreads) {
-    const int per = (kh - p.hidden) / 4;
-    *reinterpret_cast<uint2*>(sH + (i / per) * LDH + p.hidden + (i % per) * 4) =
-        make_uint2(0u, 0u);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  float acc[Tile<TM>::NT][4];
-  // x1 = xr + bf16(attn @ Wp^T + bp)
-  slab_gemm<TM>(acc, sA, LDA, p.c, p.wp, p.c, 0, ring);
-  for_pairs<TM>(acc, [&](int row, int col, float v0, float v1) {
-    if (col < p.c) {
-      uint32_t* x = reinterpret_cast<uint32_t*>(sX + row * LDA + col);
-      const float2 r = unpack2(*x);
-      *x = pack_bf16(bf16r(v0 + p.bp[col]) + r.x, bf16r(v1 + p.bp[col + 1]) + r.y);
-    }
-  });
-  __syncthreads();
-
-  for (int r = warp; r < TM; r += kThreads / 32) {
-    uint32_t u[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int cc = (lane + 32 * j) * 2;
-      u[j] = cc < p.c ? *reinterpret_cast<const uint32_t*>(sX + r * LDA + cc) : 0u;
-    }
-    ln_row(u, p.c, lane, p.ln_s, p.ln_b, p.eps, sA + r * LDA);
-  }
-  __syncthreads();
-
-  // hidden = bf16(gelu(LN2(x1) @ W1^T + b1)), kSlab columns at a time
-  for (int n0 = 0; n0 < p.hidden; n0 += kSlab) {
-    slab_gemm<TM>(acc, sA, LDA, p.c, p.w1, p.hidden, n0, ring);
-    for_pairs<TM>(acc, [&](int row, int col, float v0, float v1) {
-      const int n = n0 + col;
-      if (n < p.hidden) {
-        const float a0 = v0 + p.b1[n], a1 = v1 + p.b1[n + 1];
-        *reinterpret_cast<uint32_t*>(sH + row * LDH + n) =
-            pack_bf16(a0 * 0.5f * (1.f + erff(a0 * 0.70710678118654752f)),
-                      a1 * 0.5f * (1.f + erff(a1 * 0.70710678118654752f)));
-      }
-    });
-  }
-  __syncthreads();
-
-  // out = x1 + bf16(hidden @ W2^T + b2), at the tokens' rolled positions
-  slab_gemm<TM>(acc, sH, LDH, p.hidden, p.w2, p.c, 0, ring);
-  for_pairs<TM>(acc, [&](int row, int col, float v0, float v1) {
-    if (col < p.c) {
-      const float2 x1 = unpack2(*reinterpret_cast<const uint32_t*>(sX + row * LDA + col));
-      *reinterpret_cast<uint32_t*>(p.out + geo.token(i0 + row) * p.c + col) =
-          pack_bf16(bf16r(v0 + p.b2[col]) + x1.x, bf16r(v1 + p.b2[col + 1]) + x1.y);
-    }
-  });
+// byte offset of element `col` (even) of token row r in a K-major A tile of
+// 64-channel chunks (8 KB each), the 16-byte units of a row swizzled by the
+// row's index (sw128_desc's layout)
+__device__ __forceinline__ int sw_offset(int r, int col) {
+  return (col >> 6) * kTile + r * kRow + ((((col & 63) >> 3) ^ (r & 7)) << 4) + ((col & 7) << 1);
 }
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p`'s counterpart in block `rank` of the
+// cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_peer4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// `bytes` (a multiple of 16) from shared `src` to `dst`, both 16-byte
+// aligned, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// this thread's bias pairs of a warpgroup's kCols columns (column base + 8t +
+// 2tq, zeros from `limit` on), loaded before the wgmmas whose epilogue adds
+// them, so that their latency hides behind the MMAs
+__device__ __forceinline__ void load_bias(float2 (&b)[kCols / 8], const float* __restrict__ bias,
+                                          int base, int limit, int tq) {
+#pragma unroll
+  for (int t = 0; t < kCols / 8; ++t) {
+    const int col = base + 8 * t + 2 * tq;
+    b[t] = col < limit ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                       : make_float2(0.f, 0.f);
+  }
+}
+
+// the two rows' sums of a quad (the 4 threads that share rows gq, gq + 8)
+__device__ __forceinline__ void quad_sum(float& a, float& b) {
+  a += __shfl_xor_sync(0xffffffffu, a, 1);
+  a += __shfl_xor_sync(0xffffffffu, a, 2);
+  b += __shfl_xor_sync(0xffffffffu, b, 1);
+  b += __shfl_xor_sync(0xffffffffu, b, 2);
+}
+
+struct Ring {
+  uint32_t base;    // shared address of stage 0
+  uint64_t* full;
+  uint64_t* empty;
+  int it;           // stages consumed so far
+};
+
+// acc = A (nk chunks of 64 channels from a0, 8 KB apart) times the next nk
+// ring stages' rows kCols wg .. kCols (wg + 1) - 1 (as B^T, K-major); a
+// stage is released once this warpgroup's wgmmas that read it have retired
+__device__ __forceinline__ void gemm(float (&acc)[kCols / 2], uint32_t a0, int nk, Ring& ring,
+                                     int wg, bool leader) {
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int j = 0; j < nk; ++j, ++ring.it) {
+    const int s = ring.it % kStages;
+    mbar_wait(&ring.full[s], (ring.it / kStages) & 1);
+    const uint32_t b0 = ring.base + s * kStage + wg * kCols * kRow;
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      Wgmma<kCols>::mma(acc, sw128_desc(a0 + j * kTile + kk * 32), sw128_desc(b0 + kk * 32));
+    wgmma_commit();
+    wgmma_wait<1>();  // the chunk before this one has been read
+    fence_operands(acc);
+    if (prev >= 0 && leader) mbar_arrive(&ring.empty[prev]);
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  if (prev >= 0 && leader) mbar_arrive(&ring.empty[prev]);
+}
+
+// grid (B * nW * SPLIT), clusters of SPLIT blocks along x
+template <int SPLIT>
+__global__ void __launch_bounds__(kPostThreads, 1)
+    swin_post_kernel(const __grid_constant__ CUtensorMap wpmap,
+                     const __grid_constant__ CUtensorMap w1map,
+                     const __grid_constant__ CUtensorMap w2map, const PostArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* sA = smem_raw + (((raw + 1023u) & ~1023u) - raw);     // [kMaxKC][64][128 B]
+  uint8_t* sH = sA + kMaxKC * kTile;                                // [kMaxKH][64][128 B]
+  uint8_t* sRing = sH + kMaxKH * kTile;                             // [kStages][192][128 B]
+  bf16* sX = reinterpret_cast<bf16*>(sRing + kStages * kStage);     // [64][C]
+  float* sLn = reinterpret_cast<float*>(sX + kWinTok * kMaxC);       // [2][kMaxC]
+  float* sRed = sLn + 2 * kMaxC;                              // [2 passes][kGroups][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sRed + 2 * kGroups * kWinTok);
+  uint64_t* empty = full + kStages;
+  uint64_t* in_bar = empty + kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int window = blockIdx.x / SPLIT;
+  uint32_t rank = 0;
+  if (SPLIT > 1) asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const Geometry geo(window, p.h, p.w, p.win);
+  const int c = p.c;
+  const int kc_n = (c + kChunk - 1) / kChunk;            // K chunks of proj and fc1
+  const int kh_n = (p.hidden + kChunk - 1) / kChunk;     // K chunks of fc2
+  // this block's 192-column slabs of fc1's output and fc2's K chunks
+  const int nb0 = SPLIT > 1 ? (int)rank : 0;
+  const int nb_n = SPLIT > 1 ? 1 : (p.hidden + kBoxRows - 1) / kBoxRows;
+  const int k3_0 = nb0 * kSlabChunks;
+  const int k3_n = SPLIT > 1 ? min(kSlabChunks, kh_n - k3_0) : kh_n;
+  const bf16* attn = p.attn + (size_t)window * kWinTok * c;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kGroups);  // one arrival a warpgroup
+    }
+    mbar_init(in_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // producer: the tokens, then the weights as they are read
+    if (lane == 0) {
+      // the window's attention rows (contiguous, 64 x C) into sH, free until
+      // fc1's epilogue; the shortcut's 8 window rows (8 contiguous tokens
+      // each, at their rolled positions) into sX
+      mbar_expect_tx(in_bar, 2 * kWinTok * c * 2);
+      bulk_load(sH, attn, kWinTok * c * 2, in_bar);
+      for (int y = 0; y < 8; ++y)
+        bulk_load(sX + 8 * y * c, p.xr + geo.token(8 * y) * c, 8 * c * 2, in_bar);
+      int it = 0;
+      auto push = [&](const CUtensorMap* map, int col, int row) {
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage);
+        tma_load_2d(sRing + s * kStage, map, &full[s], col, row);
+        ++it;
+      };
+      for (int kc = 0; kc < kc_n; ++kc) push(&wpmap, kc * kChunk, 0);
+      for (int nb = nb0; nb < nb0 + nb_n; ++nb)
+        for (int kc = 0; kc < kc_n; ++kc) push(&w1map, kc * kChunk, nb * kBoxRows);
+      for (int kc = k3_0; kc < k3_0 + k3_n; ++kc) push(&w2map, kc * kChunk, 0);
+    }
+    if (SPLIT > 1) {  // every thread of the cluster takes part in its barriers
+      __syncwarp();
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, w4 = warp & 3, gq = lane >> 2, tq = lane & 3;
+  const bool leader = (tid & 127) == 0;
+  const int r0 = w4 * 16 + gq;  // this thread's window rows r0, r0 + 8
+  for (int i = tid; i < 2 * kMaxC; i += kConsumers) {
+    const int ch = i % kMaxC;
+    sLn[i] = ch < c ? __ldg((i < kMaxC ? p.ln_s : p.ln_b) + ch) : 0.f;
+  }
+  // the attention rows from sH into A's swizzled K-major layout, zeros up
+  // to the chunk edge: a thread's 2 kc_n 8-byte pieces (of 64 rows x 16
+  // kc_n)
+  mbar_wait(in_bar, 0);
+  {
+    constexpr int kMaxPer = kWinTok * kMaxKC * (kChunk / 4) / kConsumers;
+    const int pieces = kc_n * (kChunk / 4), per = kMaxPer * kc_n / kMaxKC, units = c / 4;
+#pragma unroll
+    for (int k = 0; k < kMaxPer; ++k) {
+      const int i = tid + k * kConsumers, r = i / pieces, pc = i % pieces;
+      if (k < per)
+        *reinterpret_cast<uint2*>(sA + sw_offset(r, 4 * pc)) =
+            pc < units ? *reinterpret_cast<const uint2*>(sH + (r * c + 4 * pc) * 2)
+                       : make_uint2(0u, 0u);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // A is read by wgmma
+  consumer_sync();
+
+  Ring ring{smem_u32(sRing), full, empty, 0};
+  const uint32_t a0 = smem_u32(sA), h0 = smem_u32(sH);
+  const int cw = wg * kCols;  // the warpgroup's first column of a 192-column slab
+  // SPLIT 2: the warpgroups whose columns this block finishes
+  const bool finisher = SPLIT == 1 || wg / (kGroups / 2) == (int)rank;
+  // accumulator register 4t + 2h + e: window row r0 + 8h, column cw + 8t +
+  // 2tq + e of the slab
+  float acc[kCols / 2];
+  float2 bias[kCols / 8];
+
+  // x1 = xr + bf16(attn @ Wp^T + bp), over xr in sX; then LN2(x1) from the
+  // rows' statistics, summed over each quad and across the warpgroups'
+  // columns (in their order) through shared memory (two passes: mean, then
+  // variance)
+  load_bias(bias, p.bp, cw, c, tq);
+  gemm(acc, a0, kc_n, ring, wg, leader);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < kCols / 8; ++t) {
+    const int col = cw + 8 * t + 2 * tq;
+    if (col < c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t* x = reinterpret_cast<uint32_t*>(sX + (r0 + 8 * h) * c + col);
+        const float2 r = unpack2(*x);
+        const uint32_t v = pack_bf16(bf16r(acc[4 * t + 2 * h] + bias[t].x) + r.x,
+                                     bf16r(acc[4 * t + 2 * h + 1] + bias[t].y) + r.y);
+        *x = v;
+        const float2 f = unpack2(v);
+        (h ? s1 : s0) += f.x + f.y;
+      }
+    }
+  }
+  quad_sum(s0, s1);
+  if (tq == 0) {
+    sRed[wg * kWinTok + r0] = s0;
+    sRed[wg * kWinTok + r0 + 8] = s1;
+  }
+  consumer_sync();  // x1 whole; every warpgroup past its reads of A
+  float mean0 = 0.f, mean1 = 0.f;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    mean0 += sRed[g * kWinTok + r0];
+    mean1 += sRed[g * kWinTok + r0 + 8];
+  }
+  mean0 /= (float)c;
+  mean1 /= (float)c;
+  float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < kCols / 8; ++t) {
+    const int col = cw + 8 * t + 2 * tq;
+    if (col < c) {
+      const float2 f0 = unpack2(*reinterpret_cast<const uint32_t*>(sX + r0 * c + col));
+      const float2 f1 = unpack2(*reinterpret_cast<const uint32_t*>(sX + (r0 + 8) * c + col));
+      q0 += (f0.x - mean0) * (f0.x - mean0) + (f0.y - mean0) * (f0.y - mean0);
+      q1 += (f1.x - mean1) * (f1.x - mean1) + (f1.y - mean1) * (f1.y - mean1);
+    }
+  }
+  quad_sum(q0, q1);
+  if (tq == 0) {
+    sRed[(kGroups + wg) * kWinTok + r0] = q0;
+    sRed[(kGroups + wg) * kWinTok + r0 + 8] = q1;
+  }
+  consumer_sync();
+  // ((x - mean) * rstd) * s + b in fp32 (eps inside the rsqrt), rounded to
+  // bf16 into A; zeros from C to the chunk edge (the weights' K padding is
+  // zero, but 0 * NaN is not)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const float mean = h ? mean1 : mean0;
+    float var = 0.f;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) var += sRed[(kGroups + g) * kWinTok + r];
+    const float rstd = rsqrtf(var / (float)c + p.eps);
+#pragma unroll
+    for (int t = 0; t < kCols / 8; ++t) {
+      const int col = cw + 8 * t + 2 * tq;
+      if (col < kc_n * kChunk) {
+        uint32_t v = 0u;
+        if (col < c) {
+          const float2 f = unpack2(*reinterpret_cast<const uint32_t*>(sX + r * c + col));
+          v = pack_bf16(
+              __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f.x, mean), rstd), sLn[col]),
+                        sLn[kMaxC + col]),
+              __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f.y, mean), rstd), sLn[col + 1]),
+                        sLn[kMaxC + col + 1]));
+        }
+        *reinterpret_cast<uint32_t*>(sA + sw_offset(r, col)) = v;
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumer_sync();
+
+  // hidden = bf16(gelu(LN2(x1) @ W1^T + b1)) into sH, a 192-column slab at
+  // a time (columns past the hidden are zeros: W1's rows past it read as
+  // zeros, their bias is 0 and gelu(0) = 0)
+  for (int nb = nb0; nb < nb0 + nb_n; ++nb) {
+    load_bias(bias, p.b1, nb * kBoxRows + cw, p.hidden, tq);
+    gemm(acc, a0, kc_n, ring, wg, leader);
+#pragma unroll
+    for (int t = 0; t < kCols / 8; ++t) {
+      const int n = nb * kBoxRows + cw + 8 * t + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = acc[4 * t + 2 * h] + bias[t].x, v1 = acc[4 * t + 2 * h + 1] + bias[t].y;
+        *reinterpret_cast<uint32_t*>(sH + sw_offset(r0 + 8 * h, n)) =
+            pack_bf16(v0 * 0.5f * (1.f + erff(v0 * 0.70710678118654752f)),
+                      v1 * 0.5f * (1.f + erff(v1 * 0.70710678118654752f)));
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumer_sync();  // the hidden whole; A free
+
+  // fc2 over this block's hidden chunks
+  load_bias(bias, p.b2, cw, c, tq);
+  gemm(acc, h0 + k3_0 * kTile, k3_n, ring, wg, leader);
+
+  if (SPLIT > 1) {
+    // the fp32 partial of the columns the peer finishes goes to A (free
+    // now), register-major so that the peer's warpgroup of the same index
+    // reads it in its own layout
+    float4* xch = reinterpret_cast<float4*>(sA) + (wg % (kGroups / 2)) * (kCols / 8) * 128;
+    const int t128 = tid & 127;
+    if (!finisher)
+#pragma unroll
+      for (int i = 0; i < kCols / 8; ++i)
+        xch[i * 128 + t128] =
+            make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+    cluster_sync();
+    if (finisher) {
+      const uint32_t peer = peer_addr(xch, rank ^ 1u);
+#pragma unroll
+      for (int i = 0; i < kCols / 8; ++i) {  // slab 0's partial + slab 1's, in either block
+        const float4 v = ld_peer4(peer + (uint32_t)(i * 128 + t128) * 16u);
+        acc[4 * i] += v.x;
+        acc[4 * i + 1] += v.y;
+        acc[4 * i + 2] += v.z;
+        acc[4 * i + 3] += v.w;
+      }
+    }
+  }
+  // out = x1 + bf16(hidden @ W2^T + b2), over x1 in sX
+  if (finisher) {
+#pragma unroll
+    for (int t = 0; t < kCols / 8; ++t) {
+      const int col = cw + 8 * t + 2 * tq;
+      if (col < c) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t* x = reinterpret_cast<uint32_t*>(sX + (r0 + 8 * h) * c + col);
+          const float2 r = unpack2(*x);
+          *x = pack_bf16(bf16r(acc[4 * t + 2 * h] + bias[t].x) + r.x,
+                         bf16r(acc[4 * t + 2 * h + 1] + bias[t].y) + r.y);
+        }
+      }
+    }
+  }
+  if (SPLIT == 1) {
+    // the 8 window rows, 8 contiguous tokens each, by bulk copies
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumer_sync();
+    if (tid == 0) {
+      for (int y = 0; y < 8; ++y)
+        bulk_store(p.out + geo.token(8 * y) * c, sX + 8 * y * c, 8 * c * 2);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    return;
+  }
+  // this block's output columns, 8-byte pieces at a time
+  consumer_sync();
+  {
+    const int lo = min(c, (int)rank * (kBoxRows / 2)), hi = min(c, lo + kBoxRows / 2);
+    const int np = (hi - lo) / 4;
+    for (int i = tid; i < kWinTok * np; i += kConsumers) {
+      const int r = i / np, pc = lo / 4 + i % np;
+      *reinterpret_cast<uint2*>(p.out + geo.token(r) * c + 4 * pc) =
+          *reinterpret_cast<const uint2*>(sX + r * c + 4 * pc);
+    }
+  }
+  cluster_sync();  // the peer has read this block's partial
+}
+
+// the three padded weights ((C, 64 kc), (hidden, 64 kc), (C, 64 kh) bf16),
+// read by TMA in boxes of 64 channels x 192 rows; one block an SM
+template <int SPLIT>
+int launch(const PostArgs& a, const void* wp, const void* w1, const void* w2, int batch,
+           cudaStream_t stream) {
+  static std::atomic<unsigned> raised{0u};
+  int r = (int)edtr::raise_smem_once(swin_post_kernel<SPLIT>, kSmem, raised, true);
+  const int kc = (a.c + kChunk - 1) / kChunk, kh = (a.hidden + kChunk - 1) / kChunk;
+  CUtensorMap m0, m1, m2;
+  if (r == 0) r = cached_matrix_map(wp, a.c, kc * kChunk, kBoxRows, &m0);
+  if (r == 0) r = cached_matrix_map(w1, a.hidden, kc * kChunk, kBoxRows, &m1);
+  if (r == 0) r = cached_matrix_map(w2, a.c, kh * kChunk, kBoxRows, &m2);
+  if (r != 0) return r;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * (a.h / a.win) * (a.w / a.win) * SPLIT);
+  cfg.blockDim = dim3(kPostThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, swin_post_kernel<SPLIT>, m0, m1, m2, a);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace post_wgmma
 
 bool shape_ok(int h, int w, int win, int c) {
   return win * win == kWinTok && h % win == 0 && w % win == 0 && h >= win && w >= win &&
@@ -556,10 +798,12 @@ bool shape_ok(int h, int w, int win, int c) {
 // Plain C interface (loaded with ctypes). Shapes the kernels take (the
 // Python wrappers check them, with dtypes, contiguity and devices): window
 // 8 (64 tokens), h and w multiples of it, C <= 192 and a multiple of 4,
-// hidden <= 384 and a multiple of 4, pointers 16-byte aligned; swin_pre's
-// `w` is the (3C, 64 ceil(C / 64)) zero-padded weight. Launch on `stream`;
-// return cudaGetLastError(), cudaErrorInvalidValue for a shape the kernels
-// do not take, or the error of the one-time raise of a kernel's
+// hidden <= 384 and a multiple of 4, pointers 16-byte aligned; the weights
+// are the zero-padded bf16 copies (ops/swin_block.py:pad_weight): swin_pre's
+// `w` (3C, 64 ceil(C / 64)), swin_post's `wp` (C, 64 ceil(C / 64)), `w1`
+// (hidden, 64 ceil(C / 64)) and `w2` (C, 64 ceil(hidden / 64)). Launch on
+// `stream`; return cudaGetLastError(), cudaErrorInvalidValue for a shape the
+// kernels do not take, or the error of the one-time raise of a kernel's
 // shared-memory limit (or, negated, of encoding a tensor map).
 extern "C" int edtr_swin_pre(const void* x, const void* ln_s, const void* ln_b, const void* w,
                              const void* bias, void* qkv, void* xr, int batch, int h, int wd,
@@ -577,24 +821,25 @@ extern "C" int edtr_swin_pre(const void* x, const void* ln_s, const void* ln_b, 
   }
 }
 
+// `split` (ops/swin_block.py:post_split): 1, a block a window, or 2, a
+// two-block cluster a window, each block one 192-column slab of the hidden
+// (hidden > 192)
 extern "C" int edtr_swin_post(const void* attn, const void* xr, const void* wp, const void* bp,
                               const void* ln_s, const void* ln_b, const void* w1,
                               const void* b1, const void* w2, const void* b2, void* out,
                               int batch, int h, int wd, int win, int c, int hidden, float eps,
-                              void* stream) {
+                              int split, void* stream) {
   if (!shape_ok(h, wd, win, c) || batch <= 0 || hidden <= 0 || hidden > kMaxHidden ||
-      hidden % 4)
+      hidden % 4 || (split != 1 && split != 2) ||
+      (split == 2 && hidden <= post_wgmma::kBoxRows))
     return (int)cudaErrorInvalidValue;
-  static std::atomic<unsigned> raised{0u};
-  const cudaError_t err = edtr::raise_smem_once(swin_post_kernel, kPostSmem, raised);
-  if (err != cudaSuccess) return (int)err;
-  PostArgs a = {static_cast<const bf16*>(attn), static_cast<const bf16*>(xr),
-                static_cast<const bf16*>(wp),   static_cast<const float*>(bp),
-                static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-                static_cast<const bf16*>(w1),   static_cast<const float*>(b1),
-                static_cast<const bf16*>(w2),   static_cast<const float*>(b2),
-                static_cast<bf16*>(out),        h, wd, win, c, hidden, eps};
-  const int blocks = batch * (h / win) * (wd / win) * (kWinTok / kPostTM);
-  swin_post_kernel<<<blocks, kThreads, kPostSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const post_wgmma::PostArgs a = {
+      static_cast<const bf16*>(attn), static_cast<const bf16*>(xr),
+      static_cast<const float*>(bp),  static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<const float*>(b1),
+      static_cast<const float*>(b2),  static_cast<bf16*>(out),
+      h, wd, win, c, hidden, eps};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return split == 2 ? post_wgmma::launch<2>(a, wp, w1, w2, batch, st)
+                    : post_wgmma::launch<1>(a, wp, w1, w2, batch, st);
 }

@@ -291,15 +291,29 @@ class LayerNorm(nn.Module):
         return ln_f32(x, self.weight, self.bias, self.eps).to(x.dtype)
 
 
+def conv_route(x: torch.Tensor, conv: Conv2d, upsample: bool = False) -> bool:
+    """Whether a fused-configuration conv of ``x`` goes to its wrapper (a
+    GroupNorm conv's, or with ``upsample`` the nearest-2x conv's): always on
+    the CPU, where the wrapper is the plain version; elsewhere only where
+    the kernel takes the call (``gn_conv.gn_conv_takes`` /
+    ``upsample_conv_takes``), else the plain version, as JAX takes ``_ref``
+    where no kernel plan exists."""
+    if x.device.type == "cpu":
+        return True
+    takes = gn_conv.upsample_conv_takes if upsample else gn_conv.gn_conv_takes
+    return takes(x.dtype, x.shape[1], conv.weight.shape[0])
+
+
 def norm_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: Conv2d,
                    emb: Optional[torch.Tensor] = None,
                    res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``conv3x3(silu(GN(x))) + b [+ emb] [+ res]`` with the casts of
     ``gn_conv._ref``: affine in fp32, cast to x's dtype, SiLU and conv in
     that dtype, bias/emb/res added in that dtype. GroupNorm statistics are
-    stock ops either way; under :func:`fused_conv` the rest is one kernel."""
+    stock ops either way; under :func:`fused_conv` the rest is one kernel
+    where it takes the call (:func:`conv_route`)."""
     mul, add = norm.fold(x)
-    if _fused_conv:
+    if _fused_conv and conv_route(x, conv):
         return gn_conv.gn_silu_conv(x, mul, add, conv.weight, conv.bias, emb, res,
                                     w_packed=conv.packed_weight(x.dtype))
     return gn_conv.plain_gn_silu_conv(x, mul, add, conv.weight, conv.bias, emb, res)
@@ -308,8 +322,9 @@ def norm_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: Conv2d,
 def upsample_conv3x3(x: torch.Tensor, conv: Conv2d,
                      act: Optional[str] = None) -> torch.Tensor:
     """``act(conv3x3(nearest2x(x)) + b)`` in x's dtype (act None or
-    "lrelu"); under :func:`fused_conv`, one kernel."""
-    if _fused_conv:
+    "lrelu"); under :func:`fused_conv`, one kernel where it takes the call
+    (:func:`conv_route`)."""
+    if _fused_conv and conv_route(x, conv, upsample=True):
         return gn_conv.upsample_conv(x, conv.weight, conv.bias, act,
                                      w_packed=conv.folded_weight(x.dtype))
     return gn_conv.plain_upsample_conv(x, conv.weight, conv.bias, act)

@@ -12,8 +12,11 @@ default). Inside a ``layers.fused_swin`` block it is JAX's fused branch:
 ``swin_pre`` (LN1 + roll + qkv + partition), ``window_attention`` on the
 q/k/v slices of the packed windows and ``swin_post`` (reverse + proj + LN2
 + MLP, both residuals), tokens kept rolled from block to block and
-un-rolled once before each RSTB's conv (``edtr_torch/ops/swin_block.py``).
-The relative-position bias and the shift masks are made on the device once
+un-rolled once before each RSTB's conv (``edtr_torch/ops/swin_block.py``);
+on the card, a block the port's kernels do not take (:func:`swin_kernel_route`:
+fp32 tokens, or the tiny flagship's window 4) runs the same three steps as
+their plain versions, as JAX's Pallas kernels would run it. The
+relative-position bias and the shift masks are made on the device once
 (the bias again when its table changes), so a forward copies nothing from
 the host.
 
@@ -43,6 +46,7 @@ from edtr_torch.models.layers import (Conv2d, DerivedWeight, LayerNorm, Linear,
                                       fused_swin_on, to_conv_layout, upsample_conv3x3)
 from edtr_torch.ops import swin_block
 from edtr_torch.ops.swin_block import roll2d, window_partition, window_reverse
+from edtr_torch.ops import window_attention as window_attention_ops
 from edtr_torch.ops.window_attention import plain_window_attention, window_attention
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -172,23 +176,44 @@ class SwinTransformerBlock(nn.Module):
     def _fused(self, x: torch.Tensor, h: int, w: int, shift: int,
                in_offset: int) -> torch.Tensor:
         """JAX's fused branch (``edtr_tpu/models/swinir.py``
-        ``SwinTransformerBlock``): three kernels on CUDA tensors, their plain
-        versions on CPU tensors."""
+        ``SwinTransformerBlock``): three kernels on CUDA tensors where they
+        take the block (:func:`swin_kernel_route`), their plain versions
+        otherwise and on CPU tensors."""
         attn, mlp, dt = self.attn, self.mlp, x.dtype
         b, _, c = x.shape
         n, heads = self.win * self.win, attn.num_heads
-        qkv, xr = swin_block.swin_pre(x, self.norm1.weight, self.norm1.bias, attn.qkv.weight,
-                                      attn.qkv.bias, h, w, self.win, shift - in_offset,
-                                      self.norm1.eps, w_packed=attn.qkv.padded_weight(dt))
+        mask = shift_mask(h, w, self.win, shift, x.device) if shift else None
+        pre_args = (x, self.norm1.weight, self.norm1.bias, attn.qkv.weight, attn.qkv.bias, h, w,
+                    self.win, shift - in_offset, self.norm1.eps)
+        post_args = (attn.proj.weight, attn.proj.bias, self.norm2.weight, self.norm2.bias,
+                     mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias, h, w, self.win,
+                     self.norm2.eps)
+        if not swin_kernel_route(x, h, w, self.win, mlp.fc1.weight.shape[0], heads):
+            qkv, xr = swin_block.plain_swin_pre(*pre_args)
+            q, k, v = qkv.view(-1, n, 3, heads, c // heads).unbind(2)
+            out = plain_window_attention(q, k, v, attn.bias(), mask, (c // heads) ** -0.5)
+            return swin_block.plain_swin_post(out.reshape(b, -1, n, c), xr, *post_args)
+        qkv, xr = swin_block.swin_pre(*pre_args, w_packed=attn.qkv.padded_weight(dt))
         q, k, v = qkv.view(-1, n, 3, heads, c // heads).unbind(2)
-        out = window_attention(q, k, v, attn.bias(),
-                               shift_mask(h, w, self.win, shift, x.device) if shift else None,
-                               (c // heads) ** -0.5)
+        out = window_attention(q, k, v, attn.bias(), mask, (c // heads) ** -0.5)
         lins = (attn.proj, mlp.fc1, mlp.fc2)
-        return swin_block.swin_post(
-            out.reshape(b, -1, n, c), xr, attn.proj.weight, attn.proj.bias, self.norm2.weight,
-            self.norm2.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias, h, w,
-            self.win, self.norm2.eps, packed=[lin.packed_weight(dt) for lin in lins])
+        return swin_block.swin_post(out.reshape(b, -1, n, c), xr, *post_args,
+                                    packed=[lin.padded_weight(dt) for lin in lins])
+
+
+def swin_kernel_route(x: torch.Tensor, h: int, w: int, win: int, hidden: int,
+                      heads: int) -> bool:
+    """Whether a fused Swin block over (B, h*w, C) tokens ``x`` goes to the
+    three kernel wrappers: always on the CPU, where the wrappers are the
+    plain versions; elsewhere only where ``swin_pre``, ``window_attention``
+    and ``swin_post`` all take it (``swin_block.swin_pre_takes`` /
+    ``swin_post_takes``, ``window_attention.kernel_takes``), else their
+    plain versions in the same rolled token space."""
+    if x.device.type == "cpu":
+        return True
+    c = x.shape[2]
+    return (c % heads == 0 and swin_block.swin_post_takes(x.dtype, h, w, win, c, hidden)
+            and window_attention_ops.kernel_takes(x.dtype, win * win, c // heads))
 
 
 class _ResidualGroup(nn.Module):

@@ -6,7 +6,8 @@ at first use, then loaded with ``ctypes``. The file name carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 kernel or header is rebuilt and a stale library is never loaded. Nothing is
 compiled when a module is imported; :func:`build_all` runs one ``nvcc`` per
-source, all at once.
+source, all at once. :func:`arrival_counters` holds the zeroed counters the
+kernels that combine split work by a last arrival share on a stream.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,8 +29,11 @@ BUILD = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_counters: Dict[Tuple[object, int], object] = {}
 
 
 def _nvcc() -> str:
@@ -85,3 +89,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so_path(name)))
             _libs[name] = lib
         return lib
+
+
+def arrival_counters(device, stream: int):
+    """4 x :data:`SMS` zeroed int32 arrival counters of one CUDA stream, for
+    kernels whose blocks count their arrivals (K5/K6's split K, K3's split
+    KV) and leave the counters zeroed: launches on a stream run one after
+    another, so no two use them at once."""
+    import torch
+
+    key = (device, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(4 * SMS, dtype=torch.int32, device=device)
+    return _counters[key]

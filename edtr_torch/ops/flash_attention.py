@@ -15,7 +15,7 @@ with its own launch count:
                   (N <= 1024, D <= 128)
   flash_fwd       flash_attention.py:_flash_fwd_flat     edtr_flash_fwd_wgmma
                   (N > 4096, D <= 128)
-  streamkv_fwd    flash_attention.py:_streamkv_fwd_flat  edtr_flash_fwd_d512
+  streamkv_fwd    flash_attention.py:_streamkv_fwd_flat  edtr_flash_fwd_streamkv
                   (128 < D <= 512)
   whole_bwd       flash_attention.py:_whole_bwd_flat     edtr_flash_bwd_dq_wgmma
                   (N <= 1024, D <= 128)                  + edtr_flash_bwd_dkv_wgmma
@@ -27,17 +27,22 @@ with its own launch count:
 
 The forward kernels live in ``edtr_torch/csrc/flash_attention.cu`` (D =
 64: the wgmma kernel of ``csrc/flash_wgmma.cuh``, one walk for all three
-wrappers, in the tile plan :func:`flash_plan` picks), the backward ones in
+wrappers, in the tile plan :func:`flash_plan` picks; D = 256, 384, 512: the
+wgmma kernel of ``csrc/flash_streamkv.cuh``, its KV range split as
+:func:`streamkv_splits` says), the backward ones in
 ``edtr_torch/csrc/flash_attention_bwd.cu`` (D = 64: the wgmma pair of
 ``csrc/flash_bwd_wgmma.cuh``, dq and dk/dv, one tile plan each; see the
 headers for the designs). A forward wrapper given CPU tensors computes
 :func:`plain_fwd`, a backward one :func:`plain_bwd`; given CUDA tensors
-each launches its kernel or raises. The forward kernels take contiguous
-bf16 ``(BH, N, D)`` with D = 64 (``edtr_flash_fwd_wgmma``, N a multiple of
-128, scale > 0) or D = 512 (``edtr_flash_fwd_d512``), the backward ones D
-= 64 and N a multiple of 64, every tensor 16-byte aligned; anything else
-on CUDA raises. The D > 128 backward is :func:`plain_bwd` on every device,
-as JAX leaves it to XLA (``_xla_bwd_flat``).
+each launches its kernel or raises. :func:`kernel_takes` says which
+(dtype, BH, N, D) each wrapper's kernel takes: bf16, D 64 and N a multiple
+of 128 (the forward) or of 64 (the backward); bf16, D 256, 384 or 512 and
+N a multiple of 128 (``streamkv_fwd``). The launchers raise exactly where
+it is false (and on tensors that are not contiguous, 16-byte aligned CUDA
+tensors of one shape, or a scale that is not positive), and
+``ops/attention.py:kernel_route`` sends such calls to the plain math. The
+D > 128 backward is :func:`plain_bwd` on every device, as JAX leaves it to
+XLA (``_xla_bwd_flat``).
 
 :func:`flash_attention` is differentiable: a ``torch.autograd.Function``
 whose forward saves q, k, v, the output and the logsumexp, and whose
@@ -69,12 +74,13 @@ launches: Dict[str, int] = {
 # launches per (wrapper, BH, N, D)
 shapes: Counter = Counter()
 
-# (symbol, head dim, row tile n must divide) of each wrapper's kernel
+# (symbol, head dims, row tile n must divide) of each forward wrapper's
+# kernel
 _KERNEL = {
-    "wholekv_fwd": ("edtr_flash_fwd_wgmma", 64, 128),
-    "whole_fwd": ("edtr_flash_fwd_wgmma", 64, 128),
-    "flash_fwd": ("edtr_flash_fwd_wgmma", 64, 128),
-    "streamkv_fwd": ("edtr_flash_fwd_d512", 512, 32),
+    "wholekv_fwd": ("edtr_flash_fwd_wgmma", (64,), 128),
+    "whole_fwd": ("edtr_flash_fwd_wgmma", (64,), 128),
+    "flash_fwd": ("edtr_flash_fwd_wgmma", (64,), 128),
+    "streamkv_fwd": ("edtr_flash_fwd_streamkv", (256, 384, 512), 128),
 }
 # the tile plans of edtr_flash_fwd_wgmma (csrc/flash_wgmma.cuh), by index:
 # (K/V tile rows, ring stages, blocks resident on an SM), each block 64
@@ -82,7 +88,7 @@ _KERNEL = {
 FLASH_PLANS = ((64, 3, 3), (128, 2, 2))
 # grids of up to two 64-row blocks for each of an H100's 132 SMs take the
 # 128-row plan
-_SMALL_GRID = 2 * 132
+_SMALL_GRID = 2 * _cuda.SMS
 
 
 def flash_plan(bh: int, n: int) -> int:
@@ -98,6 +104,38 @@ def flash_plan(bh: int, n: int) -> int:
 # the backward kernels' row block and streamed tile (rows); N must be a
 # multiple of it
 BWD_ROW_TILE = 64
+BWD_NAMES = ("whole_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the largest grid index and flat row count the kernels address
+_MAX_BH = 65535
+_MAX_ROWS = 2 ** 31 - 1
+
+
+def kernel_takes(name: str, dtype: torch.dtype, bh: int, n: int, d: int) -> bool:
+    """Whether wrapper ``name``'s kernel takes (BH, N, D) tensors of
+    ``dtype``: bf16 only; the forward wrappers at the head dims and row tile
+    of :data:`_KERNEL`, the backward ones at D 64 and N a multiple of
+    :data:`BWD_ROW_TILE`. The launchers raise exactly where this is false;
+    JAX's Pallas kernels also take other dtypes and D <= 128, which the
+    route leaves to the plain math here."""
+    if dtype != torch.bfloat16 or not 0 < bh <= _MAX_BH or n <= 0 or bh * n > _MAX_ROWS:
+        return False
+    if name in BWD_NAMES:
+        return d == 64 and n % BWD_ROW_TILE == 0
+    _, dims, row_tile = _KERNEL[name]
+    return d in dims and n % row_tile == 0
+
+
+# streamkv_fwd's query blocks (64 rows) a launch may have and still split
+# its KV range in two (one arrival counter each, of _cuda.arrival_counters):
+# up to half an H100's 132 SMs, one block an SM
+_STREAMKV_SPLIT_MAX = _cuda.SMS // 2
+
+
+def streamkv_splits(bh: int, n: int) -> int:
+    """The KV splits of a ``streamkv_fwd`` launch: 2 where its 64-row query
+    blocks alone would leave more than half the SMs idle (the restore's
+    (1, 4096, 512): 64 blocks), combined in a fixed order; else 1."""
+    return 2 if bh * (n // 64) <= _STREAMKV_SPLIT_MAX else 1
 
 
 def shapes_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -157,39 +195,54 @@ def plain_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _symbol(symbol: str):
     """The C entry point, with its signature declared (q, k, v, o, lse
-    pointers; bh, n; scale; the wgmma kernel's plan; stream)."""
+    pointers; the wgmma kernel: bh, n, scale, plan; the streamed-KV one:
+    the split scratch and counters, bh, n, d, splits, scale; stream)."""
     fn = getattr(_cuda.load("flash_attention"), symbol)
-    plan = [ctypes.c_int] if symbol == "edtr_flash_fwd_wgmma" else []
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float] + plan + [ctypes.c_void_p]
+    if symbol == "edtr_flash_fwd_streamkv":
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(name: str, qf, kf, vf, scale: float):
-    symbol, d_req, row_tile = _KERNEL[name]
+    symbol, dims, row_tile = _KERNEL[name]
     for t in (qf, kf, vf):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous bf16 CUDA tensors, got "
-                             f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
-        if t.shape != qf.shape or t.device != qf.device:
-            raise ValueError(f"{name}: q/k/v shapes or devices differ")
-        if t.data_ptr() % 16:  # cp.async and TMA copy 16-byte chunks
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous CUDA tensors, got {t.device} "
+                             f"contiguous={t.is_contiguous()}")
+        if t.shape != qf.shape or t.device != qf.device or t.dtype != qf.dtype:
+            raise ValueError(f"{name}: q/k/v shapes, dtypes or devices differ")
+        if t.data_ptr() % 16:  # TMA copies 16-byte aligned rows
             raise ValueError(f"{name}: tensor data is not 16-byte aligned")
     bh, n, d = qf.shape
-    if d != d_req or n % row_tile or n == 0:
-        raise ValueError(f"{name}: kernel takes D={d_req} and N a multiple "
-                         f"of {row_tile}, got {tuple(qf.shape)}")
-    if not scale > 0:  # the wgmma kernel takes the row max over the raw logits
+    if not kernel_takes(name, qf.dtype, bh, n, d):
+        raise ValueError(f"{name}: kernel takes bf16 with D in {dims} and N a multiple of "
+                         f"{row_tile}, got {qf.dtype} {tuple(qf.shape)}")
+    if not scale > 0:  # the kernels take the row max over the raw logits
         raise ValueError(f"{name}: the kernel takes a positive scale, got {scale}")
     fn = _symbol(symbol)
-    plan = (flash_plan(bh, n),) if symbol == "edtr_flash_fwd_wgmma" else ()
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), device=qf.device, dtype=torch.float32)
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), bh, n, float(scale), *plan, stream)
+        if symbol == "edtr_flash_fwd_streamkv":
+            splits = streamkv_splits(bh, n)
+            part = ml = cnt = None
+            if splits > 1:
+                part = torch.empty((splits, bh, n, d), device=qf.device, dtype=torch.float32)
+                ml = torch.empty((splits, bh, n, 2), device=qf.device, dtype=torch.float32)
+                cnt = _cuda.arrival_counters(qf.device, stream)
+            err = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), *(None if t is None else t.data_ptr()
+                                       for t in (part, ml, cnt)),
+                     bh, n, d, splits, float(scale), stream)
+        else:
+            err = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), bh, n, float(scale), flash_plan(bh, n), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     launches[name] += 1
@@ -255,17 +308,17 @@ def _launch_bwd(name: str, kernel: str, ins, outs, scale: float) -> None:
     """One launch of the backward ``kernel`` ("dq" or "dkv")."""
     qf, kf, vf, dof, lse, dd = ins
     for t in (qf, kf, vf, dof):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous bf16 CUDA q/k/v/dO, got "
-                             f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
-        if t.shape != qf.shape or t.device != qf.device:
-            raise ValueError(f"{name}: q/k/v/dO shapes or devices differ")
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous CUDA q/k/v/dO, got {t.device} "
+                             f"contiguous={t.is_contiguous()}")
+        if t.shape != qf.shape or t.device != qf.device or t.dtype != qf.dtype:
+            raise ValueError(f"{name}: q/k/v/dO shapes, dtypes or devices differ")
         if t.data_ptr() % 16:  # TMA copies 16-byte aligned rows
             raise ValueError(f"{name}: tensor data is not 16-byte aligned")
     bh, n, d = qf.shape
-    if d != 64 or n % BWD_ROW_TILE or n == 0:
-        raise ValueError(f"{name}: kernel takes D=64 and N a multiple of {BWD_ROW_TILE}, got "
-                         f"{tuple(qf.shape)}")
+    if not kernel_takes(name, qf.dtype, bh, n, d):
+        raise ValueError(f"{name}: kernel takes bf16 with D=64 and N a multiple of "
+                         f"{BWD_ROW_TILE}, got {qf.dtype} {tuple(qf.shape)}")
     for t in (lse, dd):
         if (t.dtype != torch.float32 or tuple(t.shape) != (bh, n) or t.device != qf.device
                 or not t.is_contiguous() or t.data_ptr() % 16):

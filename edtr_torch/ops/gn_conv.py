@@ -43,7 +43,11 @@ Cin) for the nearest-2x conv (:func:`fold_subpixel_weights`,
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 activations, fp32
 ``mul``/``add``/bias and Cout a multiple of 64; Cin a multiple of 64 (the
-GroupNorm conv) or of 32 (the nearest-2x conv).
+GroupNorm conv) or of 32 (the nearest-2x conv): :func:`gn_conv_takes` and
+:func:`upsample_conv_takes`, which the launchers raise on and the routes
+of ``models/layers.py`` read, sending what the kernels do not take to the
+plain versions (JAX's ``gn_silu_conv`` and ``upsample_conv`` take ``_ref``
+where no plan exists).
 
 :func:`gn_silu_conv` and :func:`upsample_conv` are differentiable, on both
 devices: each is a ``torch.autograd.Function`` (JAX's ``custom_vjp``s,
@@ -67,7 +71,7 @@ from edtr_torch.ops import _cuda
 from edtr_torch.ops._grad import recompute_grads
 
 BAND_MIN_H = 16   # ``_call``: h >= 16 takes the row-band tier
-SMS = 132         # streaming multiprocessors of an H100 SXM
+SMS = _cuda.SMS
 # gnconv_wgmma.cuh: input channels a chunk; the stages of its halo ring and
 # of its weight ring
 GN_KC = 64
@@ -162,6 +166,22 @@ def plain_upsample_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return o
 
 
+def gn_conv_takes(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether ``gn_conv_whole``/``gn_conv_band``'s kernel takes an input of
+    ``dtype`` with ``cin`` -> ``cout`` channels: bf16, both multiples of
+    64."""
+    return (dtype == torch.bfloat16 and cin > 0 and cout > 0 and cin % GN_KC == 0
+            and cout % 64 == 0)
+
+
+def upsample_conv_takes(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether ``upsample_conv``'s kernel takes an input of ``dtype`` with
+    ``cin`` -> ``cout`` channels: bf16, Cin a multiple of 32 (TMA zero-fills
+    a half chunk), Cout of :data:`UPS_BN`."""
+    return (dtype == torch.bfloat16 and cin > 0 and cout > 0 and cin % 32 == 0
+            and cout % UPS_BN == 0)
+
+
 def tier(h: int) -> str:
     """The wrapper ``_call`` picks for an H-row image."""
     return "gn_conv_band" if h >= BAND_MIN_H else "gn_conv_whole"
@@ -254,19 +274,6 @@ def _symbol(name: str):
     return fn
 
 
-_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _tile_counters(device: torch.device, stream: int) -> torch.Tensor:
-    """Zeroed split-K arrival counters of one stream: launches on a stream
-    run one after another, so no two use them at once, and each leaves them
-    zeroed."""
-    key = (device, stream)
-    if key not in _counters:
-        _counters[key] = torch.zeros(4 * SMS, dtype=torch.int32, device=device)
-    return _counters[key]
-
-
 def _nhwc(t: torch.Tensor, what: str) -> torch.Tensor:
     """(B, C, H, W) on the card -> its channels-last memory as contiguous
     NHWC (a view; a counted copy if ``t`` is in another layout)."""
@@ -299,9 +306,9 @@ def _launch(name: str, xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     if dev.index != torch.cuda.current_device():  # the launch goes to the current device
         with torch.cuda.device(dev):
             return _launch(name, xh, wp, b, mul, add, emb, res)
-    if cin % GN_KC or cout % 64 or cin == 0 or cout == 0:
-        raise ValueError(f"{name}: kernel takes Cin % {GN_KC} == 0 and Cout % 64 == 0, "
-                         f"got Cin {cin}, Cout {cout}")
+    if not gn_conv_takes(xh.dtype, cin, cout):
+        raise ValueError(f"{name}: kernel takes bf16 with Cin % {GN_KC} == 0 and Cout % 64 "
+                         f"== 0, got {xh.dtype}, Cin {cin}, Cout {cout}")
     if xh.data_ptr() % 16:
         raise ValueError(f"{name}: input data is not 16-byte aligned")
     _check(wp, "w_packed", torch.bfloat16, (3, 3, cout, cin), dev)
@@ -324,10 +331,11 @@ def _launch(name: str, xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    counters = _cuda.arrival_counters(dev, stream)
     err = _symbol("gn_conv")(wn, th, xh.data_ptr(), mul.data_ptr(), add.data_ptr(),
                              wp.data_ptr(), b.data_ptr(), ptr(emb), ptr(res), out.data_ptr(),
-                             ptr(partial), _tile_counters(dev, stream).data_ptr(), batch, h,
-                             wd, cin, cout, splits, per, _sms(dev.index), stream)
+                             ptr(partial), counters.data_ptr(), batch, h, wd, cin, cout, splits,
+                             per, _sms(dev.index), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
     launches[name] += 1
@@ -345,9 +353,9 @@ def _launch_ups(xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     if dev.index != torch.cuda.current_device():  # the launch goes to the current device
         with torch.cuda.device(dev):
             return _launch_ups(xh, wp, b, lrelu)
-    if cin % 32 or cout % UPS_BN or cin == 0 or cout == 0:  # TMA zero-fills a half chunk
-        raise ValueError(f"upsample_conv: kernel takes Cin % 32 == 0 and Cout % {UPS_BN} "
-                         f"== 0, got Cin {cin}, Cout {cout}")
+    if not upsample_conv_takes(xh.dtype, cin, cout):
+        raise ValueError(f"upsample_conv: kernel takes bf16 with Cin % 32 == 0 and Cout % "
+                         f"{UPS_BN} == 0, got {xh.dtype}, Cin {cin}, Cout {cout}")
     if xh.data_ptr() % 16:
         raise ValueError("upsample_conv: input data is not 16-byte aligned")
     _check(wp, "w_packed (fold_subpixel_weights)", torch.bfloat16, (4, 2, 2, cout, cin), dev)
@@ -358,9 +366,10 @@ def _launch_ups(xh: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     partial = (torch.empty((splits, batch * 4 * h * wd, cout), device=dev,
                            dtype=torch.float32) if splits > 1 else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = _cuda.arrival_counters(dev, stream)
     err = _symbol("upsample_conv")(
         tw, xh.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), _tile_counters(dev, stream).data_ptr(),
+        None if partial is None else partial.data_ptr(), counters.data_ptr(),
         batch, h, wd, cin, cout, splits, per, int(lrelu), stream)
     if err != 0:
         raise RuntimeError(f"upsample_conv: CUDA launch failed (cudaError {err})")

@@ -25,13 +25,17 @@ once (``models/swinir.py``).
 
 Weights are in nn.Linear layout (out, in): the module's fp32 weights for
 the plain versions; the kernels read bf16 copies (``w_packed``/``packed``)
-that the modules cache until a weight changes (``Linear.packed_weight``;
-for ``swin_pre`` the copy zero-padded along ``in`` to a multiple of 64,
-:func:`pad_weight`, ``Linear.padded_weight``, whose rows TMA can read).
-A wrapper given CPU tensors computes the plain version; given CUDA tensors
-it launches its kernel or raises. The kernels take bf16 tokens, window 8
-(64 tokens), h and w multiples of it, C a multiple of 4 up to 192 and an
-MLP hidden a multiple of 4 up to 384.
+zero-padded along ``in`` to a multiple of 64 (:func:`pad_weight`), whose
+rows TMA can read, that the modules cache until a weight changes
+(``Linear.padded_weight``): qkv for ``swin_pre``, proj, fc1 and fc2 for
+``swin_post``. A wrapper given CPU tensors computes the plain version;
+given CUDA tensors it launches its kernel or raises. The kernels take bf16
+tokens, window 8 (64 tokens), h and w multiples of it, C a multiple of 4
+up to 192 and an MLP hidden a multiple of 4 up to 384
+(:func:`swin_pre_takes`, :func:`swin_post_takes`; the fused block's route
+sends what they do not take to the plain versions). ``swin_post`` gives a
+window to a two-block cluster where that fills the card
+(:func:`post_split`).
 
 Both wrappers are ``torch.autograd.Function``s whose backward is JAX's
 recompute (``swin_block.py:_pre_bwd``/``_post_bwd``): ``torch.autograd.grad``
@@ -67,6 +71,36 @@ launches: Dict[str, int] = {"swin_pre": 0, "swin_post": 0}
 shapes: Counter = Counter()
 
 
+# swin_post's hidden slab (fc1 columns) a cluster block takes
+POST_SLAB = 192
+
+
+def post_split(b: int, h: int, w: int, win: int, hidden: int) -> int:
+    """Blocks a window of ``swin_post``: 2 (a cluster, each block one
+    192-column slab of the hidden) where the hidden has two slabs and two
+    blocks a window still fit the card one block an SM (bs 1 at 64 x 64
+    tokens: 128 blocks), else 1 (bs 2: 128 windows already)."""
+    windows = b * (h // win) * (w // win)
+    return 2 if hidden > POST_SLAB and 2 * windows <= _cuda.SMS else 1
+
+
+def swin_pre_takes(dtype: torch.dtype, h: int, w: int, win: int, c: int) -> bool:
+    """Whether the ``swin_pre`` kernel takes (B, h*w, C) tokens of
+    ``dtype``: bf16, window 8 over an (h, w) grid of its multiples, C a
+    multiple of 4 up to :data:`MAX_C`."""
+    return (dtype == torch.bfloat16 and win * win == WIN_TOKENS and supported(h, w, win)
+            and 0 < c <= MAX_C and c % 4 == 0)
+
+
+def swin_post_takes(dtype: torch.dtype, h: int, w: int, win: int, c: int,
+                    hidden: int) -> bool:
+    """Whether the ``swin_post`` kernel takes the call: as
+    :func:`swin_pre_takes`, and an MLP hidden a multiple of 4 up to
+    :data:`MAX_HIDDEN`."""
+    return (swin_pre_takes(dtype, h, w, win, c) and 0 < hidden <= MAX_HIDDEN
+            and hidden % 4 == 0)
+
+
 def supported(h: int, w: int, win: int) -> bool:
     """``swin_block.supported`` (JAX) without its VMEM budget, a TPU
     artefact: the token grids the fused block takes."""
@@ -99,8 +133,9 @@ def window_reverse(windows: torch.Tensor, win: int, h: int, w: int) -> torch.Ten
 
 def pad_weight(w: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(out, in) -> (out, 64 * ceil(in / 64)) in ``dtype``, zeros past
-    ``in``: the qkv weight as the ``swin_pre`` kernel reads it (rows of a
-    multiple of 128 bytes, which a TMA tensor map can describe)."""
+    ``in``: a weight as the kernels read it (qkv for ``swin_pre``, proj, fc1
+    and fc2 for ``swin_post``: rows of a multiple of 128 bytes, which a TMA
+    tensor map can describe)."""
     out, cin = w.shape
     wp = torch.zeros((out, -(-cin // 64) * 64), dtype=dtype, device=w.device)
     wp[:, :cin] = w
@@ -148,21 +183,24 @@ def _symbol(name: str):
     else:
         fn = lib.edtr_swin_post
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_tokens(name: str, x: torch.Tensor, h: int, w: int, win: int) -> None:
-    if x.dtype != torch.bfloat16 or x.ndim != 3:
-        raise ValueError(f"{name}: tokens must be (B, L, C) bf16, got {x.dtype} "
+def _check_tokens(name: str, x: torch.Tensor, h: int, w: int, win: int,
+                  hidden: Optional[int] = None) -> None:
+    if x.ndim != 3 or x.shape[1] != h * w:
+        raise ValueError(f"{name}: tokens must be (B, h*w, C) over the grid {(h, w)}, got "
                          f"{tuple(x.shape)}")
     c = x.shape[2]
-    if win * win != WIN_TOKENS or not supported(h, w, win) or x.shape[1] != h * w:
-        raise ValueError(f"{name}: the kernel takes window 8 over an (h, w) grid of its "
-                         f"multiples, got window {win}, grid {(h, w)}, {x.shape[1]} tokens")
-    if c % 4 or not 0 < c <= MAX_C:
-        raise ValueError(f"{name}: C must be a multiple of 4 up to {MAX_C}, got {c}")
+    takes = (swin_pre_takes(x.dtype, h, w, win, c) if hidden is None
+             else swin_post_takes(x.dtype, h, w, win, c, hidden))
+    if not takes:
+        raise ValueError(f"{name}: the kernel takes bf16 tokens, window 8 over an (h, w) grid "
+                         f"of its multiples, C a multiple of 4 up to {MAX_C} and a hidden a "
+                         f"multiple of 4 up to {MAX_HIDDEN}; got {x.dtype}, window {win}, "
+                         f"grid {(h, w)}, C {c}, hidden {hidden}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name}: tokens must be contiguous and 16-byte aligned")
 
@@ -173,10 +211,10 @@ def _vec(t: torch.Tensor, what: str, n: int, dev: torch.device) -> torch.Tensor:
     return t
 
 
-def _bf16(w: torch.Tensor, packed: Optional[torch.Tensor], what: str, shape: tuple,
-          dev: torch.device) -> torch.Tensor:
-    wp = w.detach().to(torch.bfloat16).contiguous() if packed is None else packed
-    check(wp, what, torch.bfloat16, shape, dev)
+def _padded(w: torch.Tensor, packed: Optional[torch.Tensor], what: str, shape: tuple,
+            dev: torch.device) -> torch.Tensor:
+    wp = pad_weight(w.detach()) if packed is None else packed
+    check(wp, f"{what} (pad_weight)", torch.bfloat16, shape, dev)
     return wp
 
 
@@ -210,20 +248,18 @@ def _swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win, ep
     if xr.device.type == "cpu":
         return plain_swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win,
                                eps)
-    _check_tokens("swin_post", xr, h, w, win)
-    b, l, c = xr.shape
     hidden = w1.shape[0]
-    if hidden % 4 or not 0 < hidden <= MAX_HIDDEN:
-        raise ValueError(f"swin_post: hidden must be a multiple of 4 up to {MAX_HIDDEN}, "
-                         f"got {hidden}")
+    _check_tokens("swin_post", xr, h, w, win, hidden)
+    b, l, c = xr.shape
     dev = xr.device
     nw = (h // win) * (w // win)
     check(attn, "swin_post: attn", torch.bfloat16, (b, nw, WIN_TOKENS, c), dev)
     pk = (None, None, None) if packed is None else packed
+    kc, kh = -(-c // 64) * 64, -(-hidden // 64) * 64
     with torch.no_grad():
-        wp = _bf16(wproj, pk[0], "swin_post: proj weight", (c, c), dev)
-        w1p = _bf16(w1, pk[1], "swin_post: fc1 weight", (hidden, c), dev)
-        w2p = _bf16(w2, pk[2], "swin_post: fc2 weight", (c, hidden), dev)
+        wp = _padded(wproj, pk[0], "swin_post: proj weight", (c, kc), dev)
+        w1p = _padded(w1, pk[1], "swin_post: fc1 weight", (hidden, kc), dev)
+        w2p = _padded(w2, pk[2], "swin_post: fc2 weight", (c, kh), dev)
         vecs = [_vec(t, f"swin_post: {what}", n, dev) for t, what, n in (
             (bproj, "proj bias", c), (ln2s, "ln2 scale", c), (ln2b, "ln2 shift", c),
             (b1, "fc1 bias", hidden), (b2, "fc2 bias", c))]
@@ -234,7 +270,8 @@ def _swin_post(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win, ep
                                    wp.data_ptr(), bp.data_ptr(), s.data_ptr(), sh.data_ptr(),
                                    w1p.data_ptr(), bias1.data_ptr(), w2p.data_ptr(),
                                    bias2.data_ptr(), out.data_ptr(), b, h, w, win, c, hidden,
-                                   float(eps), torch.cuda.current_stream(dev).cuda_stream)
+                                   float(eps), post_split(b, h, w, win, hidden),
+                                   torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("swin_post", err)
     launches["swin_post"] += 1
     shapes[("swin_post", b, h, w, c, win, hidden)] += 1
@@ -292,7 +329,8 @@ def swin_post(attn: torch.Tensor, xr: torch.Tensor, wproj: torch.Tensor,
     """Window reverse + proj + residual + LN2 + MLP + residual: the
     ``swin_post`` kernel on CUDA tensors, :func:`plain_swin_post` on CPU
     tensors; differentiable (the plain version's gradients). ``packed``: the
-    bf16 copies of (wproj, w1, w2) (made here, per call, when not given)."""
+    zero-padded bf16 copies (:func:`pad_weight`) of (wproj, w1, w2) (made
+    here, per call, when not given)."""
     if needs_grad(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2):
         return _SwinPost.apply(attn, xr, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, h, w, win,
                                eps, packed)

@@ -73,16 +73,24 @@ def _symbol():
     return fn
 
 
+def kernel_takes(dtype: torch.dtype, n: int, d: int) -> bool:
+    """Whether the kernel takes (BW, n, H, d) windows of ``dtype``: bf16,
+    N = 64 (window 8), D even and at most 32. The launcher raises where this
+    is false; the fused Swin block's route (``models/swinir.py``) sends such
+    blocks to the plain versions."""
+    return dtype == torch.bfloat16 and n == N_TOKENS and 0 < d <= MAX_D and d % 2 == 0
+
+
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or q.ndim != 4:
-        raise ValueError(f"window_attention: q/k/v must be (BW, N, H, D) bf16, got "
+    if q.ndim != 4 or any(t.dtype != q.dtype for t in (k, v)):
+        raise ValueError(f"window_attention: q/k/v must be (BW, N, H, D) of one dtype, got "
                          f"{q.dtype} {tuple(q.shape)}")
     if not q.shape == k.shape == v.shape or not q.stride() == k.stride() == v.stride():
         raise ValueError("window_attention: q, k and v must have one shape and one stride")
     bw, n, h, d = q.shape
-    if n != N_TOKENS or d > MAX_D or d % 2:
-        raise ValueError(f"window_attention: the kernel takes N = {N_TOKENS} and an even "
-                         f"D <= {MAX_D}, got N {n}, D {d}")
+    if not kernel_takes(q.dtype, n, d):
+        raise ValueError(f"window_attention: the kernel takes bf16 with N = {N_TOKENS} and "
+                         f"an even D <= {MAX_D}, got {q.dtype}, N {n}, D {d}")
     if q.stride(3) != 1 or any(s % 2 for s in q.stride()[:3]):
         raise ValueError(f"window_attention: q/k/v need unit stride along D and even "
                          f"strides, got {q.stride()}")

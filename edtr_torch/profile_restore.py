@@ -31,7 +31,7 @@ STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # are not booked as cuDNN's convs nor "proj_gemm_kernel" as cuBLAS's GEMMs
 FAMILIES = (
     ("swin (edtr_torch)", ("window_attention_kernel", "swin_pre_kernel", "swin_post_kernel")),
-    ("flash (edtr_torch)", ("flash_wgmma", "flash_fwd_d512", "flash_dq_wgmma",
+    ("flash (edtr_torch)", ("flash_wgmma", "streamkv_kernel", "flash_dq_wgmma",
                             "flash_dkv_wgmma")),
     ("gn_conv (edtr_torch)", ("gnconv_wgmma_kernel", "upconv_wgmma_kernel")),
     ("proj (edtr_torch)", ("proj_gemm_kernel", "lnproj_kernel")),

@@ -4,10 +4,12 @@
 shape of the 512² fused+proj restore, with ``--conv`` the conv kernels
 K5a/K5b (``gn_conv.gn_silu_conv``: ``gn_conv_whole``, ``gn_conv_band``) and
 K6 (``gn_conv.upsample_conv``) at every shape of the fused restore, with
-``--flash`` the head-dim-64 flash forward wrappers (K1 ``wholekv_fwd``, K2
-``whole_fwd``, K4 ``flash_fwd``) at the restore's and the bs-2 training
-step's shapes, with ``--swin`` K10a (``swin_block.swin_pre``) at the
-fused+swin restore's, and with ``--flash-bwd`` the flash backward wrappers
+``--flash`` the flash forward wrappers (K1 ``wholekv_fwd``, K2
+``whole_fwd``, K4 ``flash_fwd`` at head dim 64, K3 ``streamkv_fwd`` at 512)
+at the restore's and the bs-2 training step's shapes, with ``--swin`` K10a
+(``swin_block.swin_pre``) at the fused+swin restore's and K10b
+(``swin_block.swin_post``) at the restore's and the step's, and with
+``--flash-bwd`` the flash backward wrappers
 (K11a ``whole_bwd``, K11b ``flash_bwd_dq``, K11c ``flash_bwd_dkv``) at the
 bs-2 training step's shapes, on one NVIDIA GPU.
 
@@ -28,14 +30,19 @@ checkouts timed in one call can be timed in turns (parent, change, change,
 parent). ``--plans`` also times each projection kernel at other tile plans
 (``ops/_proj.py:lnproj_plan``'s (bm, bn, groups)) than the one the wrapper
 picks, and with ``--conv`` each K5 shape at the other tiles
-(``gn_conv.GN_TILES``) the kernel takes, and with ``--flash`` each flash
-shape in every plan of ``flash_attention.FLASH_PLANS``. With ``--flash``, ``--swin`` or
+(``gn_conv.GN_TILES``) the kernel takes, and with ``--flash`` each D-64
+flash shape in every plan of ``flash_attention.FLASH_PLANS`` and K3 with
+its KV range whole and split in two (``flash_attention.streamkv_splits``),
+and with ``--swin`` each ``swin_post`` shape at one and two blocks a
+window (``swin_block.post_split``). With ``--flash``, ``--swin`` or
 ``--flash-bwd`` the projection shapes are left out. The flash, Swin and
-backward kernels are held to chip_smoke's gates and timed on the same trace
-clock (``flash_shape``, ``swin_shape``, ``bwd_shape``), with SDPA (its
-backward alone for K11) and ``F.linear`` as the yardsticks; all three run
-in a checkout from before these flags (``swin_shape`` hands its kernel the
-weight form it reads; ``bwd_shape`` calls only the wrappers both have).
+backward kernels are held to chip_smoke's gates, two calls bit-identical,
+and timed on the same trace clock (``flash_shape``, ``swin_shape``,
+``post_shape``, ``bwd_shape``), with SDPA (its backward alone for K11) and
+``F.linear`` as the yardsticks; all run in a checkout from before these
+flags (copy this script and ``chip_smoke.py`` into it: ``swin_shape`` and
+``post_shape`` hand its kernels the weight form they read; ``bwd_shape``
+calls only the wrappers both have).
 
 Prints one ``proj shape:`` (``conv shape:``, ``flash shape:``, ``swin
 shape:``, ``bwd shape:``) JSON line per shape and round, then a ``proj
@@ -43,7 +50,7 @@ summary:`` line per kernel: the launch-weighted device ms per restore (the
 flash wrappers also per training step, the backward ones only; K4 one
 call), the sums of chip_smoke's ``kernels`` line, with the card's
 ``nvidia-smi`` name and power limit, and last the count of ``device_ms``
-traces taken again and of calls it timed by CUDA events.
+traces taken again and of calls it timed by CUDA events, with their names.
 """
 
 from __future__ import annotations
@@ -116,16 +123,19 @@ GN_SHAPES = {
 
 
 # the flash forward wrappers' launches per shape (wrapper, BH, N; head dim
-# 64): the 512² restore's (bs 1: 4 steps x (UNet 5 + ControlNet 2)
-# self-attentions at 4096 and at 1024 tokens, 5 and 10 heads) and the bs-2
-# training step's (its forward once plus the remat recompute: 12 at each);
-# K4 (N > 4096) runs only at 1024², held at one call
+# 64, streamkv_fwd 512): the 512² restore's (bs 1: 4 steps x (UNet 5 +
+# ControlNet 2) self-attentions at 4096 and at 1024 tokens, 5 and 10 heads;
+# the VAE encoder's and decoder's mid-block attention, one head of 512) and
+# the bs-2 training step's (its forward once plus the remat recompute: 12
+# at each; the VAE's 2); K4 (N > 4096) runs only at 1024², held at one call
 FLASH_SHAPES = {
     ("wholekv_fwd", 5, 4096): ("restore", 28), ("whole_fwd", 10, 1024): ("restore", 28),
     ("wholekv_fwd", 10, 4096): ("training step", 12),
     ("whole_fwd", 20, 1024): ("training step", 12),
     ("flash_fwd", 5, 8192): ("one call", 1),
+    ("streamkv_fwd", 1, 4096): ("restore", 2), ("streamkv_fwd", 2, 4096): ("training step", 2),
 }
+FLASH_D = {"streamkv_fwd": 512}  # head dim of a wrapper's shapes (else 64)
 # the flash backward wrappers' launches per shape (wrapper, BH, N; head dim
 # 64) in the bs-2 training step: every ControlNet self-attention and the
 # UNet's output blocks', 2 + 3 at 1024 tokens (10 heads x 2) and 2 + 3 at
@@ -144,6 +154,11 @@ BWD_OUTS = {"whole_bwd": (0, 1, 2), "flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2
 # chip_smoke.py holds the restore to these
 SWIN_SHAPES = {("swin_pre", 1, 64, 64, 180, 8, 0): 8, ("swin_pre", 1, 64, 64, 180, 8, 4): 24,
                ("swin_pre", 1, 64, 64, 180, 8, -4): 16}
+# swin_post's launches per shape (``swin_block.shapes`` keys: wrapper, B, h,
+# w, C, window, hidden): each of the 48 blocks of the restore (bs 1) and of
+# the training step (bs 2, SwinIR's forward under no grad)
+POST_SHAPES = {("swin_post", 1, 64, 64, 180, 8, 360): ("restore", 48),
+               ("swin_post", 2, 64, 64, 180, 8, 360): ("training step", 48)}
 
 
 def flash_shape(device, key, gen) -> dict:
@@ -158,30 +173,36 @@ def flash_shape(device, key, gen) -> dict:
     from edtr_torch.ops import flash_attention as FA
 
     name, bh, n = key
-    d = 64
+    d = FLASH_D.get(name, 64)
     q, k, v = (torch.randn((bh, n, d), generator=gen, device=device, dtype=torch.bfloat16)
                for _ in range(3))
     scale = d ** -0.5
     fwd = FA.FWD[name]
-    (o, lse), (o_p, lse_p) = fwd(q, k, v, scale), FA.plain_fwd(q, k, v, scale)
+    (o, lse), (o_2, lse_2) = fwd(q, k, v, scale), fwd(q, k, v, scale)
+    o_p, lse_p = FA.plain_fwd(q, k, v, scale)
     torch.cuda.synchronize()
+    same = bool(torch.equal(o, o_2) and torch.equal(lse, lse_2))
     err = (o.float() - o_p.float()).abs().max().item()
     o_max = o_p.float().abs().max().item()
     rel = chip_smoke.rel_l2(o, o_p)
     err_lse = (lse - lse_p).abs().max().item()
     chip_smoke.check(err <= chip_smoke.TOL_O_MAX * o_max and rel <= chip_smoke.TOL_O_L2
-                     and err_lse <= chip_smoke.TOL_LSE,
-                     f"{key} vs plain: max abs {err}, rel L2 {rel}, lse {err_lse}")
+                     and err_lse <= chip_smoke.TOL_LSE and same,
+                     f"{key} vs plain: max abs {err}, rel L2 {rel}, lse {err_lse}, "
+                     f"bit-identical twice: {same}")
     q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
     t_ops = 4.0 * n * n * d * bh / chip_smoke.PEAK_BF16_FLOPS * 1e3
     t_bytes = (4 * bh * n * d * 2 + bh * n * 4) / chip_smoke.PEAK_BYTES * 1e3
-    return dict(ms=chip_smoke.device_ms(lambda: fwd(q, k, v, scale), 20),
-                plain_ms=chip_smoke.device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1),
+    what = f"{name} {(bh, n, d)}"
+    return dict(ms=chip_smoke.device_ms(lambda: fwd(q, k, v, scale), 20, what=what),
+                plain_ms=chip_smoke.device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1,
+                                              what=f"plain {what}"),
                 library_ms=chip_smoke.device_ms(
-                    lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20),
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20,
+                    what=f"SDPA {what}"),
                 event_ms=chip_smoke.time_ms(lambda: fwd(q, k, v, scale), 20),
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                max_err_share=err / o_max, rel_l2=rel, err_lse=err_lse)
+                max_err_share=err / o_max, rel_l2=rel, err_lse=err_lse, same_twice=same)
 
 
 def bwd_shape(device, key, gen) -> dict:
@@ -238,9 +259,10 @@ def bwd_shape(device, key, gen) -> dict:
     nbytes = (4 + len(BWD_OUTS[name])) * bh * n * d * 2 + 2 * bh * n * 4
     t_ops = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / chip_smoke.PEAK_BYTES * 1e3
-    return dict(ms=chip_smoke.device_ms(lambda: fn(*args), 20),
-                plain_ms=chip_smoke.device_ms(lambda: FA.plain_bwd(*args), 3, 1),
-                library_ms=chip_smoke.device_ms(library, 20),
+    return dict(ms=chip_smoke.device_ms(lambda: fn(*args), 20, what=f"{key}"),
+                plain_ms=chip_smoke.device_ms(lambda: FA.plain_bwd(*args), 3, 1,
+                                              what=f"plain_bwd {key}"),
+                library_ms=chip_smoke.device_ms(library, 20, what=f"SDPA backward {key}"),
                 event_ms=chip_smoke.time_ms(lambda: fn(*args), 20),
                 library_event_ms=chip_smoke.time_ms(library, 20),
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -292,32 +314,93 @@ def swin_shape(device, key, gen) -> dict:
     xln = ln_f32(x, ln_s, ln_b).to(bf16)
     t_ops = 2.0 * b * h * w * c * 3 * c / chip_smoke.PEAK_BF16_FLOPS * 1e3
     t_bytes = ((5 * b * h * w * c + 3 * c * c) * 2 + 5 * c * 4) / chip_smoke.PEAK_BYTES * 1e3
-    return dict(ms=chip_smoke.device_ms(kern, 20),
+    return dict(ms=chip_smoke.device_ms(kern, 20, what=f"{key}"),
                 plain_ms=chip_smoke.device_ms(
-                    lambda: SB.plain_swin_pre(x, ln_s, ln_b, wq, bias, h, w, win, d), 3, 1),
-                library_ms=chip_smoke.device_ms(lambda: F.linear(xln, wb), 20),
+                    lambda: SB.plain_swin_pre(x, ln_s, ln_b, wq, bias, h, w, win, d), 3, 1,
+                    what=f"plain {key}"),
+                library_ms=chip_smoke.device_ms(lambda: F.linear(xln, wb), 20,
+                                                what=f"F.linear {key}"),
                 event_ms=chip_smoke.time_ms(kern, 20), bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 max_err_share=err / o_max, rel_l2=rel, same_twice=bool(torch.equal(got, again)))
 
 
-def flash_plan_sweep(device, key, gen) -> None:
-    """The wgmma flash kernel at ``key`` in each tile plan of
-    ``flash_attention.FLASH_PLANS``: device ms and the error, as
-    :func:`flash_shape` gives them."""
-    from edtr_torch.ops import flash_attention as FA
+def post_shape(device, key, gen) -> dict:
+    """``swin_post`` at one shape key: held against ``plain_swin_post`` with
+    chip_smoke's Swin gates, two calls bit-identical; device ms of the
+    kernel, of the plain version and of ``F.linear`` alone for proj, fc1
+    and fc2 on bf16 tokens, the kernel's CUDA-event ms, and the bound. The
+    weights go in the form the checkout's kernel reads: zero-padded along K
+    (``swin_block.pad_weight``) where it splits windows
+    (``swin_block.post_split``), else plain bf16 copies."""
+    import torch
+    import torch.nn.functional as F
 
-    real = FA.flash_plan
-    picked = real(*key[1:])
-    for plan, tiles in enumerate(FA.FLASH_PLANS):
-        FA.flash_plan = lambda *a, _p=plan: _p
+    import chip_smoke
+    from edtr_torch.ops import swin_block as SB
+
+    _, b, h, w, c, win, hidden = key
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    nw, l = (h // win) * (w // win), h * w
+    x = (randn(b, l, c, scale=2.0) + 0.5).to(bf16)
+    attn = randn(b, nw, win * win, c).to(bf16)
+    ws = [randn(c, c, scale=c ** -0.5), randn(c, scale=0.05), 1.0 + randn(c, scale=0.1),
+          randn(c, scale=0.1), randn(hidden, c, scale=c ** -0.5), randn(hidden, scale=0.05),
+          randn(c, hidden, scale=hidden ** -0.5), randn(c, scale=0.05)]
+    wb = [ws[i].to(bf16) for i in (0, 4, 6)]
+    packed = [SB.pad_weight(ws[i]) for i in (0, 4, 6)] if hasattr(SB, "post_split") else wb
+
+    def kern():
+        return SB.swin_post(attn, x, *ws, h, w, win, packed=packed)
+
+    got, again = kern(), kern()
+    want = SB.plain_swin_post(attn, x, *ws, h, w, win)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    o_max = want.float().abs().max().item()
+    rel = chip_smoke.rel_l2(got, want)
+    same = bool(torch.equal(got, again))
+    chip_smoke.check(err <= chip_smoke.TOL_SWIN_MAX * o_max and rel <= chip_smoke.TOL_SWIN_L2
+                     and same, f"{key} vs plain: max abs {err}, rel L2 {rel}, "
+                               f"bit-identical twice: {same}")
+    a2, hid = attn.reshape(b, l, c), randn(b, l, hidden).to(bf16)
+
+    def lib():
+        return F.linear(a2, wb[0]), F.linear(x, wb[1]), F.linear(hid, wb[2])
+    flops = 2.0 * b * l * (c * c + 2 * c * hidden)
+    nbytes = (3 * b * l * c + c * c + 2 * c * hidden) * 2 + (4 * c + hidden) * 4
+    t_ops = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / chip_smoke.PEAK_BYTES * 1e3
+    return dict(ms=chip_smoke.device_ms(kern, 20, what=f"{key}"),
+                plain_ms=chip_smoke.device_ms(
+                    lambda: SB.plain_swin_post(attn, x, *ws, h, w, win), 3, 1,
+                    what=f"plain {key}"),
+                library_ms=chip_smoke.device_ms(lib, 20, what=f"F.linear x3 {key}"),
+                event_ms=chip_smoke.time_ms(kern, 20), bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                split=SB.post_split(b, h, w, win, hidden) if hasattr(SB, "post_split") else None,
+                max_err_share=err / o_max, rel_l2=rel, same_twice=same)
+
+
+def sweep(device, key, gen, label: str, mod, attr: str, choices, picked, measure) -> None:
+    """``measure`` (:func:`flash_shape` or :func:`post_shape`) at ``key``
+    with the rule ``mod.attr`` (a tile plan or a split rule) forced to each
+    of ``choices`` in turn: device ms and the error of each, and which one
+    the rule picks."""
+    real = getattr(mod, attr)
+    for choice in choices:
+        setattr(mod, attr, lambda *a, _c=choice: _c)
         try:
-            r = flash_shape(device, key, gen)
+            r = measure(device, key, gen)
         finally:
-            FA.flash_plan = real
-        print("flash plan:", json.dumps(dict(key=list(key), plan=plan, tiles=list(tiles),
-                                             picked=plan == picked, ms=r["ms"],
-                                             max_err_share=r["max_err_share"])), flush=True)
+            setattr(mod, attr, real)
+        print(f"{label}:", json.dumps(dict(key=list(key), choice=choice, picked=choice == picked,
+                                          ms=r["ms"], max_err_share=r["max_err_share"])),
+              flush=True)
 
 
 def plan_sweep(device, key, gen) -> None:
@@ -382,7 +465,7 @@ def plan_sweep(device, key, gen) -> None:
                     torch.cuda.synchronize()
                     err = ((got.float() - want.float()).abs().max()
                            / want.float().abs().max()).item()
-                    ms = chip_smoke.device_ms(kern, 20)
+                    ms = chip_smoke.device_ms(kern, 20, what=f"{key} plan {plan}")
                 finally:
                     LM.lnproj_plan, GG.lnproj_plan = real
                 print("proj plan:", json.dumps(dict(
@@ -452,9 +535,10 @@ def conv_shape(device, key, gen) -> dict:
     t_bytes = ((b * hin * win * cin + b * h * w * cout * (2 if has_res else 1)
                 + 9 * cin * cout) * 2 / chip_smoke.PEAK_BYTES * 1e3)
     iters = max(5, min(20, int(2e12 / flops)))
-    return dict(ms=chip_smoke.device_ms(kern, iters),
-                plain_ms=chip_smoke.device_ms(plain, 3, 1),
-                library_ms=chip_smoke.device_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters),
+    return dict(ms=chip_smoke.device_ms(kern, iters, what=f"{key}"),
+                plain_ms=chip_smoke.device_ms(plain, 3, 1, what=f"plain {key}"),
+                library_ms=chip_smoke.device_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters,
+                                                what=f"F.conv2d {key}"),
                 event_ms=chip_smoke.time_ms(kern, iters), bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 max_err_share=err / o_max, rel_l2=rel)
@@ -516,6 +600,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(7)
     from edtr_torch.ops import flash_attention as FA
+    from edtr_torch.ops import swin_block as SB
     keys = ("ms", "event_ms", "library_ms", "plain_ms", "bound_ms")
     sums = {}
     for rnd in range(args.rounds):
@@ -547,8 +632,13 @@ def main() -> int:
             agg = sums.setdefault((rnd, f"{key[0]} per {per}"), dict.fromkeys(keys, 0.0))
             for k in keys:
                 agg[k] += count * r[k]
-            if args.plans and rnd == 0 and hasattr(FA, "FLASH_PLANS"):
-                flash_plan_sweep(device, key, gen)
+            if args.plans and rnd == 0 and key[0] == "streamkv_fwd" and hasattr(
+                    FA, "streamkv_splits"):  # the KV split: whole or in two
+                sweep(device, key, gen, "streamkv split", FA, "streamkv_splits", (1, 2),
+                      FA.streamkv_splits(*key[1:]), flash_shape)
+            elif args.plans and rnd == 0 and hasattr(FA, "FLASH_PLANS"):  # FLASH_PLANS' index
+                sweep(device, key, gen, "flash plan", FA, "flash_plan",
+                      range(len(FA.FLASH_PLANS)), FA.flash_plan(*key[1:]), flash_shape)
         for key, count in sorted(SWIN_SHAPES.items()) if args.swin else ():
             r = swin_shape(device, key, gen)
             print("swin shape:", json.dumps(dict(round=rnd, key=list(key), launches=count, **r)),
@@ -556,6 +646,18 @@ def main() -> int:
             agg = sums.setdefault((rnd, key[0]), dict.fromkeys(keys, 0.0))
             for k in keys:
                 agg[k] += count * r[k]
+        for key, (per, count) in sorted(POST_SHAPES.items()) if args.swin else ():
+            r = post_shape(device, key, gen)
+            print("swin shape:", json.dumps(dict(round=rnd, key=list(key), per=per,
+                                                 launches=count, **r)), flush=True)
+            agg = sums.setdefault((rnd, f"{key[0]} per {per}"), dict.fromkeys(keys, 0.0))
+            for k in keys:
+                agg[k] += count * r[k]
+            if args.plans and rnd == 0 and hasattr(SB, "post_split"):  # blocks a window
+                b, h, w, _, win, hidden = key[1:]
+                sweep(device, key, gen, "post split", SB, "post_split",
+                      (1, 2) if hidden > SB.POST_SLAB else (1,),
+                      SB.post_split(b, h, w, win, hidden), post_shape)
         for key, count in sorted(BWD_SHAPES.items()) if args.flash_bwd else ():
             r = bwd_shape(device, key, gen)
             print("bwd shape:", json.dumps(dict(round=rnd, key=list(key), launches=count, **r)),
@@ -565,7 +667,8 @@ def main() -> int:
             for k in keys:
                 agg[k] += count * r[k]
     for (rnd, name), agg in sorted(sums.items()):
-        scope = ("per fused+swin 512² restore" if name == "swin_pre" else
+        swin = name in ("swin_pre", "swin_post per restore")
+        scope = ("per fused+swin 512² restore" if swin else
                  name.split(" per ", 1)[1] if " per " in name else "per fused" + (
                      "" if name in CONV_NAMES else "+proj") + " 512² restore")
         print("proj summary:", json.dumps(dict(card=card, round=rnd, kernel=name.split()[0],

@@ -1,0 +1,43 @@
+"""chip_smoke.py's rules that need no card: ``device_ms`` takes a trace only
+with the call's own kernel count times the calls traced
+(``trace_accepted``), and the shapes ``proj_bench.py`` times K3 and K10b at
+are the restore's and the step's."""
+
+import pytest
+
+import chip_smoke
+import proj_bench
+
+
+@pytest.mark.parametrize("kernels,launches,per_call,iters,ok", [
+    (20, 20, 1, 20, True),    # one kernel a call, all there
+    (40, 40, 2, 20, True),    # a two-kernel call (K11a, the F.linear x3 yardstick's pair)
+    (60, 60, 3, 20, True),
+    (20, 40, 2, 20, False),   # half of a two-kernel call's kernels lost: a multiple of iters
+    (40, 60, 3, 20, False),   # a 3-kernel call that lost one a call (seen on the card)
+    (0, 20, 1, 20, False),    # a trace that kept no kernel
+    (19, 20, 1, 20, False),
+    (20, 20, 2, 20, False),   # launches short of the call's own count
+    (20, 20, 0, 20, False),   # the one-call trace recorded no launch
+    (3, 3, 3, 1, True),
+])
+def test_device_ms_takes_only_the_exact_kernel_count(kernels, launches, per_call, iters, ok):
+    assert chip_smoke.trace_accepted(kernels, launches, per_call, iters) is ok
+
+
+def test_trace_stats_name_the_event_timed_calls():
+    stats = chip_smoke.TRACE_STATS
+    assert set(stats) == {"traces_taken_again", "event_timed", "event_timed_calls"}
+    assert isinstance(stats["event_timed_calls"], list)
+
+
+def test_bench_times_k3_and_k10b_at_the_restore_and_step_shapes():
+    assert chip_smoke.KERNELS["streamkv_fwd"][0] == (1, 4096, 512)
+    assert chip_smoke.KERNELS["streamkv_fwd"][3] == "edtr_torch/csrc/flash_streamkv.cuh"
+    k3 = {k: v for k, v in proj_bench.FLASH_SHAPES.items() if k[0] == "streamkv_fwd"}
+    assert k3 == {("streamkv_fwd", 1, 4096): ("restore", 2),
+                  ("streamkv_fwd", 2, 4096): ("training step", 2)}
+    assert proj_bench.FLASH_D["streamkv_fwd"] == 512
+    assert {k[1]: n for k, (_, n) in proj_bench.POST_SHAPES.items()} == {1: 48, 2: 48}
+    assert all(k[0] == "swin_post" and k[2:] == (64, 64, 180, 8, 360)
+               for k in proj_bench.POST_SHAPES)

@@ -532,3 +532,53 @@ def test_folded_weight_follows_the_weight():
     assert f2 is not f1 and torch.equal(f2, G.fold_subpixel_weights(conv.weight,
                                                                     torch.bfloat16))
     assert conv.packed_weight(torch.bfloat16).shape == (3, 3, 64, 32)  # its own cache
+
+
+# (Cin, Cout) of the flagship's fused convs (UNet/ControlNet 320-2560, the
+# VAE 128-512, SwinIR's tail 64) and of the tiny flagship's (32, 64); the
+# nearest-2x conv keeps its channels
+ROUTE_CONVS = [(320, 320), (640, 1280), (2560, 1280), (1920, 640), (128, 256), (512, 512),
+               (64, 64), (32, 32), (32, 64), (64, 32), (96, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cin,cout", ROUTE_CONVS)
+def test_conv_route_follows_the_kernel_predicates(cin, cout, dtype):
+    """Off the CPU (a meta tensor here), a fused-configuration conv goes to
+    its wrapper exactly where its kernel takes the call: K5 bf16 with Cin
+    and Cout multiples of 64, K6 bf16 with Cin a multiple of 32 and Cout of
+    64; else the plain version (JAX's ``_ref``). On the CPU the wrapper,
+    which is the plain version there, takes every call."""
+    from edtr_torch.models import layers
+
+    conv = Conv2d(cin, cout, 3, padding=1)
+    x = torch.empty((1, cin, 16, 16), device="meta", dtype=dtype)
+    bf16 = dtype == torch.bfloat16
+    assert layers.conv_route(x, conv) == (bf16 and cin % 64 == 0 and cout % 64 == 0)
+    assert layers.conv_route(x, conv, upsample=True) == (bf16 and cin % 32 == 0
+                                                         and cout % 64 == 0)
+    assert G.gn_conv_takes(dtype, cin, cout) == layers.conv_route(x, conv)
+    assert G.upsample_conv_takes(dtype, cin, cout) == layers.conv_route(x, conv, upsample=True)
+    assert layers.conv_route(torch.empty((1, cin, 16, 16), dtype=dtype), conv)
+
+
+def test_a_conv_routed_to_the_plain_version_matches_the_wrapper(monkeypatch):
+    """A ResBlock and a nearest-2x conv inside ``fused_conv()`` whose route
+    says plain (as a fp32 or 32-channel call on the card) give the
+    wrapper's numbers: the wrappers are the plain versions on the CPU."""
+    from edtr_torch.models import layers
+    from edtr_torch.models.unet import ResBlock
+
+    blk = ResBlock(32, 128, 64)
+    up = Conv2d(32, 64, 3, padding=1)
+    g = np.random.default_rng(15)
+    x = torch.from_numpy(g.standard_normal((1, 32, 8, 8)).astype(np.float32))
+    emb = torch.from_numpy(g.standard_normal((1, 128)).astype(np.float32))
+    with torch.no_grad(), fused_conv():
+        want = blk(x, emb), layers.upsample_conv3x3(x, up, "lrelu")
+        calls = _record_wrappers(monkeypatch)
+        monkeypatch.setattr(layers, "conv_route", lambda *a, **k: False)
+        got = blk(x, emb), layers.upsample_conv3x3(x, up, "lrelu")
+    assert calls == []
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

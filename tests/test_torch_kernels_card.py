@@ -33,8 +33,18 @@ def test_cuda_call_launches_or_raises():
     before = F.launches["whole_fwd"]
     A.dot_product_attention(q, q, q)
     assert F.launches["whole_fwd"] == before + 1
-    with pytest.raises(ValueError):  # fp32 at a supported shape: no kernel takes it
-        A.dot_product_attention(q.float(), q.float(), q.float())
+    # fp32, or D 128, at a shape JAX's Pallas kernels take: no port kernel
+    # takes it, so the route takes the plain math (no launch)
+    before = dict(F.launches)
+    qf = q.float()
+    torch.testing.assert_close(A.dot_product_attention(qf, qf, qf),
+                               A.plain_attention(qf, qf, qf, 64 ** -0.5))
+    q128 = torch.randn((1, 1024, 2, 128), device="cuda", dtype=torch.bfloat16)
+    torch.testing.assert_close(A.dot_product_attention(q128, q128, q128),
+                               A.plain_attention(q128, q128, q128, 128 ** -0.5))
+    assert F.launches == before
+    with pytest.raises(ValueError):  # the wrapper called directly still raises
+        F.whole_fwd(*(t.reshape(2, 1024, 64).contiguous() for t in (qf, qf, qf)), 0.125)
 
 
 def _conv_args(cin=64, cout=64, h=8):
@@ -615,8 +625,8 @@ def test_proj_and_swin_functions_give_the_plain_gradients(name):
         xs, _, post = _swin_args()
         post = tuple(t.requires_grad_() for t in post)
         attn = torch.randn((2, 4, 64, 60), device="cuda").to(torch.bfloat16).requires_grad_()
-        wp = post[0].detach().to(torch.bfloat16).requires_grad_()
-        packed = [wp, post[4].detach().to(torch.bfloat16), post[6].detach().to(torch.bfloat16)]
+        wp = SB.pad_weight(post[0].detach()).requires_grad_()
+        packed = [wp, SB.pad_weight(post[4].detach()), SB.pad_weight(post[6].detach())]
         ins, mod, kw = (attn, xs.requires_grad_(), *post), SB, dict(packed=packed)
 
         def fn(*a, **kw):
@@ -632,3 +642,144 @@ def test_proj_and_swin_functions_give_the_plain_gradients(name):
     out = fn(*ins, **kw)
     out.backward(cot)
     assert wp.grad is None, name
+
+
+# (h, w, C, hidden, split) of swin_post's card checks: window grids 8 x 8
+# and 3 x 5, C with one chunk of K (60), 180 (padded to 192) and 192; a
+# hidden of one 192-column slab or two, the latter at one and at two blocks
+# a window (a two-block cluster)
+POST_CASES = [(h, w, c, hidden, split) for h, w in ((64, 64), (24, 40))
+              for c, hidden in ((60, 120), (60, 240), (180, 360), (192, 384))
+              for split in ((1, 2) if hidden > 192 else (1,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0, 4, -4])
+@pytest.mark.parametrize("h,w,c,hidden,split", POST_CASES)
+def test_swin_post_matches_plain(h, w, c, hidden, split, d, monkeypatch):
+    """The wgmma ``swin_post`` (K10b) at bs 2 against ``plain_swin_post``
+    (chip_smoke.py's Swin limits), its shortcut as ``swin_pre`` hands it
+    at each roll d of a block, bit-identical across two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(SB, "post_split", lambda *a: split)
+    g = torch.Generator(device="cuda").manual_seed(c + h + hidden + split + d)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    x = SB.roll2d((rnd(2, h * w, c, scale=2.0) + 0.5).to(torch.bfloat16), d, h, w).contiguous()
+    attn = rnd(2, (h // 8) * (w // 8), 64, c).to(torch.bfloat16)
+    ws = [rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.05), 1 + rnd(c, scale=0.1),
+          rnd(c, scale=0.1), rnd(hidden, c, scale=c ** -0.5), rnd(hidden, scale=0.05),
+          rnd(c, hidden, scale=hidden ** -0.5), rnd(c, scale=0.05)]
+    packed = [SB.pad_weight(ws[i]) for i in (0, 4, 6)]
+    before = SB.launches["swin_post"]
+    out = SB.swin_post(attn, x, *ws, h, w, 8, packed=packed)
+    again = SB.swin_post(attn, x, *ws, h, w, 8, packed=packed)
+    assert SB.launches["swin_post"] == before + 2
+    assert torch.equal(out, again)
+    want = SB.plain_swin_post(attn, x, *ws, h, w, 8)
+    err = (out.float() - want.float()).abs().max()
+    assert err <= TOL_SWIN_MAX * want.float().abs().max()
+    assert ((out.float() - want.float()).norm() / want.float().norm()) <= TOL_SWIN_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("bh,n", [(1, 2048), (2, 2048), (1, 4096), (2, 4096)])
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_streamkv_fwd_matches_plain(d, bh, n, split, monkeypatch):
+    """The streamed-KV wgmma forward (K3) at every head dim it takes, its KV
+    range whole and split in two, against ``plain_fwd`` with the logits
+    scaled up (q x 3) so that the row max moves between K/V tiles and the
+    online rescale (and the split combine) runs; bit-identical across two
+    calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(F, "streamkv_splits", lambda *a: split)
+    g = torch.Generator(device="cuda").manual_seed(d + n + bh + split)
+    q, k, v = (torch.randn((bh, n, d), generator=g, device="cuda") for _ in range(3))
+    q, k, v = (q * 3).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+    scale = d ** -0.5
+    before = F.launches["streamkv_fwd"]
+    (o, lse), (o2, lse2) = F.streamkv_fwd(q, k, v, scale), F.streamkv_fwd(q, k, v, scale)
+    assert F.launches["streamkv_fwd"] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_p, lse_p = F.plain_fwd(q, k, v, scale)
+    o_max = o_p.float().abs().max()
+    assert (o.float() - o_p.float()).abs().max() <= TOL_O_MAX * o_max
+    assert ((o.float() - o_p.float()).norm() / o_p.float().norm()) <= TOL_O_L2
+    assert (lse - lse_p).abs().max() <= TOL_LSE
+
+
+@pytest.mark.cuda
+def test_streamkv_and_swin_post_refuse_what_their_predicates_refuse():
+    """K3's and K10b's wrappers called directly raise on what
+    ``kernel_takes`` / ``swin_post_takes`` refuse, and on weights not in
+    the padded form the kernel reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q = torch.randn((1, 2048, 512), device="cuda", dtype=torch.bfloat16)
+    for bad in (q.float(), q[..., :128].contiguous(), q[:, :1000].contiguous()):
+        assert not F.kernel_takes("streamkv_fwd", bad.dtype, *bad.shape)
+        with pytest.raises(ValueError):
+            F.streamkv_fwd(bad, bad, bad, 0.05)
+    x, _, post = _swin_args(c=60, hidden=120)
+    attn = torch.randn((2, 4, 64, 60), device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError):  # fp32 tokens
+        SB.swin_post(attn, x.float(), *post, 16, 16, 8)
+    big = [torch.randn((388, 60), device="cuda"), torch.randn(388, device="cuda"),
+           torch.randn((60, 388), device="cuda")]
+    assert not SB.swin_post_takes(torch.bfloat16, 16, 16, 8, 60, 388)
+    with pytest.raises(ValueError):  # hidden 388 > 384
+        SB.swin_post(attn, x, *post[:4], *big, post[7], 16, 16, 8)
+    with pytest.raises(ValueError):  # unpadded bf16 weights
+        SB.swin_post(attn, x, *post, 16, 16, 8,
+                     packed=[post[i].to(torch.bfloat16) for i in (0, 4, 6)])
+
+
+@pytest.mark.cuda
+def test_tiny_flagship_restores_on_cuda():
+    """``build_flagship(tiny=True)`` on the card (32-channel convs, window-4
+    Swin blocks, 16-dim heads at 64 tokens: calls no port kernel takes)
+    restores in its default configuration, the routes sending those calls
+    to the plain versions, with finite outputs of the restore's shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from edtr_torch.pipeline import build_flagship
+
+    pipe = build_flagship(tiny=True, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lq = torch.rand((1, 64, 64, 3), generator=g, device="cuda")
+    c_txt = torch.randn((1, 77, 64), generator=g, device="cuda")
+    with torch.no_grad():
+        out = pipe.restore(lq, c_txt, generator=g)
+    assert out["restored"].shape == (1, 64, 64, 3)
+    assert out["pre_restored"].shape == (1, 64, 64, 3)
+    for v in out.values():
+        assert torch.isfinite(v.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,kernel", [("flash_attention", "streamkv_kernel"),
+                                           ("swin_block", "swin_post_kernel")])
+def test_new_kernels_issue_hgmma(source, kernel):
+    """The SASS of K3's and K10b's kernels (``cuobjdump -sass`` on the built
+    library) holds HGMMA, the wgmma instruction, in every instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import subprocess
+    from pathlib import Path
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from edtr_torch.ops import _cuda
+
+    _cuda.load(source)
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+                           str(_cuda.so_path(source))], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = sass.split("Function : ")[1:]
+    mine = [f for f in funcs if kernel in f.splitlines()[0]]
+    assert mine, f"no {kernel} in {source}'s SASS"
+    assert all("HGMMA" in f for f in mine)

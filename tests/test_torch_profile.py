@@ -42,7 +42,9 @@ def test_summarise_attributes_kernels_to_the_launching_stage():
 
 
 def test_kernel_families():
-    assert _family("flash_fwd_d512_kernel(...)") == "flash (edtr_torch)"
+    assert (_family("void edtr_streamkv::streamkv_kernel<512>(CUtensorMap_st, "
+                    "CUtensorMap_st, CUtensorMap_st, edtr_streamkv::Args)")
+            == "flash (edtr_torch)")
     # the port's conv kernel, not cuDNN, though its name holds "conv"
     assert (_family("void edtr_gnconv::gnconv_wgmma_kernel<128, false>(CUtensorMap_st, "
                     "CUtensorMap_st, edtr_gnconv::Args)") == "gn_conv (edtr_torch)")

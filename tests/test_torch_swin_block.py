@@ -335,3 +335,98 @@ def test_fused_block_passes_the_padded_pack(monkeypatch):
         blk(x, (16, 16))
     assert seen["w_packed"] is blk.attn.qkv.padded_weight(torch.float32)
     assert seen["w_packed"].shape == (180, 64)
+
+
+@pytest.mark.parametrize("c", [60, 180, 192])
+def test_padded_post_packs(c):
+    """``Linear.padded_weight`` of proj (C -> C), fc1 (C -> 2C) and fc2
+    (2C -> C), the weights ``swin_post``'s kernel reads: ``packed_weight``
+    in the first ``in`` columns, zeros after them up to a multiple of 64."""
+    for lin in (Linear(c, c), Linear(c, 2 * c), Linear(2 * c, c)):
+        out, cin = lin.weight.shape
+        wp = lin.padded_weight(torch.bfloat16)
+        assert wp.shape == (out, -(-cin // 64) * 64) and wp.dtype == torch.bfloat16
+        assert wp.is_contiguous()
+        assert torch.equal(wp[:, :cin], lin.packed_weight(torch.bfloat16))
+        assert not wp[:, cin:].any()
+        assert lin.padded_weight(torch.bfloat16) is wp
+        assert torch.equal(SB.pad_weight(lin.weight.detach()), wp)
+
+
+def test_fused_block_passes_the_padded_post_packs(monkeypatch):
+    """The fused block hands ``swin_post`` the padded packs of proj, fc1 and
+    fc2."""
+    blk = SwinTransformerBlock(60, 2, 8, 4)
+    seen = {}
+    real = SB.swin_post
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return real(*args, **kw)
+    monkeypatch.setattr(SB, "swin_post", spy)
+    x = torch.randn(1, 16 * 16, 60)
+    with fused_swin():
+        blk(x, (16, 16))
+    lins = (blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)
+    assert all(p is lin.padded_weight(torch.float32) for p, lin in zip(seen["packed"], lins))
+    assert [tuple(p.shape) for p in seen["packed"]] == [(60, 64), (120, 64), (60, 128)]
+
+
+# (B, h, w, C, window, heads, hidden) of the flagship's SwinIR blocks (C 180
+# = 6 x 30, window 8, hidden 360), of the tiny flagship's (C 32 = 2 x 16,
+# window 4) and of widths the kernels take at their edges
+SWIN_ROUTES = [((1, 64, 64, 180, 8, 6, 360), True), ((2, 64, 64, 180, 8, 6, 360), True),
+               ((1, 8, 8, 32, 4, 2, 64), False), ((1, 16, 16, 60, 8, 2, 120), True),
+               ((1, 16, 16, 192, 8, 6, 384), True), ((1, 16, 16, 180, 8, 5, 360), False),
+               ((1, 16, 16, 200, 8, 10, 400), False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dims,takes", SWIN_ROUTES)
+def test_swin_kernel_route_follows_the_predicates(dims, takes, dtype):
+    """Off the CPU (a meta tensor here), a fused Swin block goes to the three
+    kernel wrappers exactly where ``swin_pre_takes``, ``swin_post_takes``
+    and the window attention's ``kernel_takes`` all hold: bf16, window 8,
+    C <= 192 (a multiple of 4) with an even head dim up to 32, hidden <=
+    384; else to their plain versions. On the CPU the wrappers, the plain
+    versions there, take every block."""
+    from edtr_torch.models.swinir import swin_kernel_route
+
+    b, h, w, c, win, heads, hidden = dims
+    x = torch.empty((b, h * w, c), device="meta", dtype=dtype)
+    want = takes and dtype == torch.bfloat16
+    assert swin_kernel_route(x, h, w, win, hidden, heads) == want
+    assert SB.swin_post_takes(dtype, h, w, win, c, hidden) == (
+        dtype == torch.bfloat16 and win == 8 and c <= 192 and c % 4 == 0 and hidden <= 384
+        and hidden % 4 == 0)
+    assert swin_kernel_route(torch.empty((b, h * w, c), dtype=dtype), h, w, win, hidden, heads)
+
+
+@pytest.mark.parametrize("b,h,hidden,split", [(1, 64, 360, 2), (2, 64, 360, 1),
+                                              (1, 64, 120, 1), (1, 24, 384, 2),
+                                              (4, 32, 360, 2), (4, 48, 360, 1)])
+def test_post_split_fills_the_card(b, h, hidden, split):
+    """``swin_post`` gives a window to a two-block cluster where the hidden
+    has two 192-column slabs and two blocks a window fit an H100's 132 SMs
+    one block an SM (the restore's 64 windows), else one block (the step's
+    128)."""
+    assert SB.post_split(b, h, h, 8, hidden) == split
+
+
+def test_a_block_routed_to_the_plain_versions_matches_the_wrappers(monkeypatch):
+    """A fused block whose route says plain (as an fp32 or window-4 block on
+    the card) runs the plain versions of the three kernels in the same
+    rolled space: the wrappers' numbers on the CPU, where they are the
+    plain versions, and no wrapper is called."""
+    from edtr_torch.models import swinir
+
+    blk = SwinTransformerBlock(60, 2, 8, 4)
+    x = torch.from_numpy(_tokens(np.random.default_rng(45), 1, 16 * 16, 60))
+    with torch.no_grad(), fused_swin():
+        want = blk(x, (16, 16), 2)
+        for name in ("swin_pre", "swin_post"):
+            monkeypatch.setattr(SB, name, None)
+        monkeypatch.setattr(swinir, "window_attention", None)
+        monkeypatch.setattr(swinir, "swin_kernel_route", lambda *a: False)
+        got = blk(x, (16, 16), 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
