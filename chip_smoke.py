@@ -46,13 +46,16 @@ no result line):
    must be the ones ``proj_bench.py`` pins;
 6. each projection kernel against its plain version at every shape the
    fused+proj restore launched it with (and ``geglu_proj``, which it does
-   not launch, at the 4096-token shape): errors, device times of kernel /
-   plain / ``F.linear`` (``library_ms``: the cuBLAS GEMM alone on the
+   not launch, at the flagship's three token levels, :data:`GEGLU_HELD`):
+   errors, two calls bit-identical, device times of kernel / plain /
+   ``F.linear`` (``library_ms``: the cuBLAS GEMM alone on the
    already-normalised bf16 tokens, never called by the port) and the bound;
 7. each Swin kernel (window attention, swin_pre, swin_post) against its
    plain version at every shape the fused+swin restore launched it with
    (the swin_pre shapes must be the ones ``proj_bench.py`` pins):
-   errors, two calls bit-identical, device times of kernel / plain /
+   errors, two calls bit-identical (the window attention at bs 2 also on a
+   random mask of the same period, each window's row w mod nW), device
+   times of kernel / plain /
    library (``library_ms``, never
    called by the port: SDPA with the bias and mask as one additive mask;
    the ``F.linear`` GEMMs on already-normalised bf16 tokens) and the bound;
@@ -190,15 +193,17 @@ CONV_KERNELS = {
 # ControlNet 2) transformer blocks at 4096, 1024 and 256 tokens = 28 x 3 =
 # 84 blocks, each one affine_matmul (proj_in), two ln_matmuls (K = 3 q/k/v,
 # K = 1 cross query) and one ln_geglu_proj; the 64-token mid blocks stay on
-# the plain math, as in JAX. geglu_proj (no LN) is held at the 4096-token
-# shape and not launched by the restore.
+# the plain math, as in JAX. geglu_proj (no LN; K7a, on the wgmma kernel of
+# proj_wgmma.cuh) is held at the three token levels and not
+# launched by the restore.
 PROJ_KERNELS = {
     "ln_matmuls": ("edtr_torch/csrc/ln_matmul.cu", "edtr_tpu/ops/ln_matmul.py:120", 168),
     "affine_matmul": ("edtr_torch/csrc/ln_matmul.cu", "edtr_tpu/ops/ln_matmul.py:201", 84),
-    "geglu_proj": ("edtr_torch/csrc/geglu.cu", "edtr_tpu/ops/geglu.py:159", None),
+    "geglu_proj": ("edtr_torch/csrc/proj_wgmma.cuh", "edtr_tpu/ops/geglu.py:159", None),
     "ln_geglu_proj": ("edtr_torch/csrc/geglu.cu", "edtr_tpu/ops/geglu.py:218", 84),
 }
-GEGLU_HELD = ("geglu_proj", 1, 4096, 320, 1280)
+GEGLU_HELD = tuple(("geglu_proj", 1, n, c, 4 * c) for n, c in ((4096, 320), (1024, 640),
+                                                                 (256, 1280)))
 # Swin wrapper -> (source, the TPU kernel it replaces, launches in one
 # fused+swin 512² restore): 8 RSTBs x 6 blocks, each one swin_pre, one
 # window attention (masked in the 24 shifted blocks) and one swin_post
@@ -670,7 +675,7 @@ def proj_case(device, key, gen) -> dict:
     from edtr_torch.ops import geglu as GG
     from edtr_torch.ops import ln_matmul as LM
     from edtr_torch.ops._norms import ln_f32
-    from edtr_torch.ops._proj import lnproj_plan, lnproj_stages, plan
+    from edtr_torch.ops._proj import lnproj_plan, lnproj_stages
 
     name, b, n, c = key[:4]
     bf16 = torch.bfloat16
@@ -731,12 +736,13 @@ def proj_case(device, key, gen) -> dict:
             small_bytes = 2 * inner * 4
         launched = GG.launches
     before = launched[name]
-    out_k = kern()
-    check(launched[name] == before + 1, f"{name} launched its kernel")
+    out_k, out_2 = kern(), kern()
+    check(launched[name] == before + 2, f"{name} launched its kernel once a call")
     out_p = plain()
     if name == "ln_matmuls":  # the K outputs side by side, outside the timed calls
-        out_k, out_p = torch.cat(out_k, -1), torch.cat(out_p, -1)
+        out_k, out_2, out_p = (torch.cat(o, -1) for o in (out_k, out_2, out_p))
     torch.cuda.synchronize()
+    same = bool(torch.equal(out_k, out_2))
     err = (out_k.float() - out_p.float()).abs().max().item()
     o_max = out_p.float().abs().max().item()
     rel = rel_l2(out_k, out_p)
@@ -752,25 +758,21 @@ def proj_case(device, key, gen) -> dict:
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     # bf16 tokens, outputs and weight; fp32 LN / affine vectors and biases
     t_bytes = ((m * c + m * out_cols + slab * c) * 2 + small_bytes) / PEAK_BYTES * 1e3
-    if name != "geglu_proj":  # proj_wgmma.cuh: column groups
-        bm, bn, groups = lnproj_plan(m, c, slab, name)
-        tile = dict(bm=bm, bn=bn, groups=groups, blocks=(m // bm) * groups,
-                    stages=lnproj_stages(bn, c))
-    else:
-        bm, bn = plan(m, slab)
-        tile = dict(bm=bm, bn=bn, blocks=(m // bm) * (slab // bn))
+    bm, bn, groups = lnproj_plan(m, c, slab, name)  # proj_wgmma.cuh: column groups
+    tile = dict(bm=bm, bn=bn, groups=groups, blocks=(m // bm) * groups,
+                stages=lnproj_stages(bn, c, max(bm, 64)))
     row = dict(name=name, shape=dict(b=b, n=n, c=c, cols=out_cols, k=key[5] if len(key) > 5
                                      else 1),
                tile=tile,
                max_abs_err=err, out_max=o_max, rel_l2=rel, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, event_ms=event_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               gflop=flops / 1e9, mb=t_bytes * PEAK_BYTES / 1e9,
-               ok=bool(err <= TOL_PROJ_MAX * o_max and rel <= TOL_PROJ_L2))
+               gflop=flops / 1e9, mb=t_bytes * PEAK_BYTES / 1e9, same_twice=same,
+               ok=bool(err <= TOL_PROJ_MAX * o_max and rel <= TOL_PROJ_L2 and same))
     row["bound_share"] = row["bound_ms"] / ms
     print("proj kernel:", json.dumps(row), flush=True)
     check(row["ok"], f"{key} vs plain: max abs {err} (tol {TOL_PROJ_MAX * o_max}), "
-                     f"rel L2 {rel} (tol {TOL_PROJ_L2})")
+                     f"rel L2 {rel} (tol {TOL_PROJ_L2}), bit-identical twice: {same}")
     return row
 
 
@@ -778,12 +780,13 @@ def proj_kernel_phase(device, shape_counts: dict) -> dict:
     """Each projection kernel at every shape of ``shape_counts`` (shape key
     -> launches in one fused+proj restore), plus ``geglu_proj`` at
     :data:`GEGLU_HELD`; per kernel the launch-weighted sums over its shapes,
-    as :func:`conv_kernel_phase` computes them (one call for a kernel the
-    restore does not launch)."""
+    as :func:`conv_kernel_phase` computes them (one call at each shape for a
+    kernel the restore does not launch)."""
     gen = torch.Generator(device=device).manual_seed(7)
     rows = {}
     cases = dict(shape_counts)
-    cases.setdefault(GEGLU_HELD, 0)
+    for key in GEGLU_HELD:
+        cases.setdefault(key, 0)
     for key, count in sorted(cases.items(), key=str):
         r = proj_case(device, key, gen)
         source, replaces, expected = PROJ_KERNELS[key[0]]
@@ -791,7 +794,8 @@ def proj_kernel_phase(device, shape_counts: dict) -> dict:
             name=key[0], route="cuda", source=source, replaces=replaces, launches=None,
             on_path=expected is not None,
             scope=("per restore: launch-weighted sum over its shapes" if expected is not None
-                   else "one call at " + "x".join(map(str, key[1:])))
+                   else "sum of one call at each of " + ", ".join(
+                       "x".join(map(str, k[1:])) for k in GEGLU_HELD))
             + "; ms, plain_ms, library_ms: device time (profiler), event_ms: CUDA events",
             max_abs_err=0.0, max_err_share=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
             library_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0, gflop=0.0, mb=0.0,
@@ -904,6 +908,16 @@ def swin_case(device, key, gen) -> dict:
     before = launched[name]
     out_k, out_2 = kern(), kern()
     check(launched[name] == before + 2, f"{name} launched its kernel once a call")
+    period = None
+    if name == "window_attention" and 0 < nw < bw:
+        # the mask's period: window w takes row w mod nW (a random mask, as
+        # the shift mask is zero in most windows)
+        rmask = randn(nw, n, n, scale=2.0)
+        got = WA.window_attention(q, k, v, bias, rmask, scale)
+        want = WA.plain_window_attention(q, k, v, bias, rmask, scale)
+        period = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        check(period <= TOL_SWIN_MAX and rel_l2(got, want) <= TOL_SWIN_L2,
+              f"{key} with a random mask of period {nw}: max abs {period} of max|out|")
     out_p = plain()
     if name == "swin_pre":  # both outputs, outside the timed calls
         out_k, out_2, out_p = (torch.cat([o.flatten() for o in outs])
@@ -924,7 +938,7 @@ def swin_case(device, key, gen) -> dict:
                plain_ms=plain_ms, library_ms=library_ms, event_ms=event_ms,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               gflop=flops / 1e9, mb=nbytes / 1e6, same_twice=same,
+               gflop=flops / 1e9, mb=nbytes / 1e6, same_twice=same, period_err_share=period,
                ok=bool(err <= TOL_SWIN_MAX * o_max and rel <= TOL_SWIN_L2 and same))
     row["bound_share"] = row["bound_ms"] / ms
     print("swin kernel:", json.dumps(row), flush=True)

@@ -1,13 +1,13 @@
 // Normalisation + projection GEMM for Hopper (sm_90a) on wgmma, with the
 // weights streamed through a TMA ring; shared by ln_matmul.cu (K8a, K8b)
-// and the LN branch of geglu.cu (K7b). bf16 tokens in, bf16 out, fp32
-// accumulation:
+// and geglu.cu (K7a, K7b). bf16 tokens in, bf16 out, fp32 accumulation:
 //
 //   out = EPI(PRO(x) @ W^T)
 //
 // Replaces the Pallas TPU kernels edtr_tpu/ops/ln_matmul.py:_kernel
 // (ln_matmuls, its pallas_call at :120) and _aff_kernel (affine_matmul,
-// :201), and edtr_tpu/ops/geglu.py:_ln_kernel (ln_geglu_proj, :218). x is
+// :201), and edtr_tpu/ops/geglu.py:_kernel (geglu_proj, :159) and
+// _ln_kernel (ln_geglu_proj, :218). x is
 // (M, C) tokens, row-major; W is the module's bf16 weight in nn.Linear
 // layout (rows = output columns, C contiguous), which is already the
 // K-major B operand of wgmma, so nothing is repacked.
@@ -16,9 +16,10 @@
 // 320-1280, 320-10240 weight rows) a product does 2*C FLOP per output on
 // bf16 data, 100-600 FLOP a byte, so the tensor cores bound the wide ones;
 // the single C -> C products (K8b, the cross-attention query) sit at or
-// below the line and the bytes bound them. Their predecessor (proj_gemm.cuh,
-// mma.sync) stayed at 7% of the bound: a barrier every 32 channels, the
-// prologue redone by every column block, no wgmma. Here:
+// below the line and the bytes bound them. Their mma.sync predecessor
+// stayed at 7% of the bound on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+// a barrier every 32 channels, the prologue redone by every column block,
+// no wgmma. Here:
 //
 // 1. The prologue once per block. A block owns 64 (or 32) token rows. The
 //    producer warp brings them into shared memory by TMA, straight into the
@@ -35,8 +36,15 @@
 //    PRO_AFF  the SpatialTransformer's GroupNorm folded to a per-(batch, C)
 //             affine: x * mul + add in fp32 without contraction, with the
 //             (C) row of the block's batch element (N % 256 == 0, so a block
-//             never straddles two); one pass, no statistics.
-//    A stays resident for the whole block (160 KB at C = 1280).
+//             never straddles two); one pass, no statistics;
+//    PRO_NONE nothing (K7a): the chunks TMA lands are already wgmma's A,
+//             and each product starts as soon as its chunk has arrived. With
+//             no prologue to share out, a block may take 128 rows (two
+//             wgmma M tiles a warpgroup, both on each weight stage), which
+//             halves the weight's reads from L2 where the (128, C) tokens
+//             fit beside the ring (C <= 640).
+//    A stays resident for the whole block (160 KB at C = 1280): it is read
+//    once per weight tile, while the weight streams once per block.
 // 2. Weights through a TMA ring. The block walks a range of BN-row tiles of
 //    W (a column group: grid (M / BM) x groups, the prologue done once per
 //    group instead of once per tile). The producer warp keeps a 2-4 stage
@@ -79,7 +87,7 @@ constexpr int AM = 64;              // rows of the A tile: wgmma's M
 constexpr int kConsumers = 256;     // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
-enum { PRO_LN = 0, PRO_AFF = 1 };
+enum { PRO_LN = 0, PRO_AFF = 1, PRO_NONE = 2 };
 enum { EPI_STORE = 0, EPI_GEGLU = 1, EPI_BIAS = 2 };
 
 struct Args {
@@ -122,9 +130,14 @@ __device__ __forceinline__ void store16x16(bf16* stg, const float (&o)[8], int l
   store16x16_rows(stg, o, lane, out + (r0 + (lane >> 1)) * ld + c0);
 }
 
-// Two consumer warpgroups, then one producer warp. BM token rows a block (32
-// or 64): with 32, rows 32-63 of the A tile are left as they are, and their
-// sums are never stored.
+// Two consumer warpgroups, then one producer warp. BM token rows a block (32,
+// 64, or with PRO_NONE 128): with 32, rows 32-63 of the A tile are left as
+// they are, and their sums are never stored.
+template <int BM>
+__host__ __device__ constexpr int a_rows() {  // rows of a 64-channel chunk of A
+  return BM < AM ? AM : BM;
+}
+
 template <int BM, int BN, int PRO, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
     lnproj_kernel(const __grid_constant__ CUtensorMap wmap,
@@ -132,14 +145,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int TPR = kConsumers / BM;  // prologue threads a row
   constexpr int UPT = 8 / TPR;          // their 16-byte units in each 64-channel chunk
   constexpr int STAGE_BYTES = BN * ROW_BYTES;
-  constexpr int R = BN / 2;             // accumulator registers a thread
-  static_assert((BM == 32 || BM == AM) && BN % (EPI == EPI_GEGLU ? 32 : 16) == 0,
+  constexpr int R = BN / 2;             // accumulator registers a thread, an M tile
+  constexpr int AR = a_rows<BM>();
+  constexpr int MT = AR / AM;           // wgmma M tiles a block
+  static_assert((BM == 32 || BM == AM || (BM == 2 * AM && PRO == PRO_NONE)) &&
+                    BN % (EPI == EPI_GEGLU ? 32 : 16) == 0,
                 "tile shape");
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* sA = smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  uint8_t* sB = sA + p.kch * AM * ROW_BYTES;
+  uint8_t* sB = sA + p.kch * AR * ROW_BYTES;
   bf16* stg = reinterpret_cast<bf16*>(sB + p.stages * STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(stg + (kConsumers / 32) * STG_WARP);
   uint64_t* empty = full + kMaxStages;
@@ -167,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) {
       for (int kc = 0; kc < p.kch; ++kc) {
         mbar_expect_tx(&a_full[kc], BM * ROW_BYTES);
-        tma_load_2d(sA + kc * AM * ROW_BYTES, &xmap, &a_full[kc], kc * KC, m0);
+        tma_load_2d(sA + kc * AR * ROW_BYTES, &xmap, &a_full[kc], kc * KC, m0);
       }
       int s = 0;
       uint32_t ph = 0;
@@ -202,25 +218,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t a0 = smem_u32(sA);
   const uint32_t b0 = smem_u32(sB);
   const bool leader = (tid & 127) == 0;
-  float acc[R];
+  float acc[MT][R];
   int prev;  // the ring stage of the chunk before, freed once its MMAs retired
   auto zero_acc = [&]() {
 #pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[mt][i] = 0.f;
+  };
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_operands(acc[mt]);
   };
   auto mma_chunk = [&](int t, int kc) {
     const int n = (t - j0) * p.kch + kc;
     const int s = n % p.stages;
+    if (PRO == PRO_NONE) mbar_wait(&a_full[kc], 0);  // the chunk's tokens have landed
     mbar_wait(&full[s], (n / p.stages) & 1);
-    fence_operands(acc);
+    fence_acc();
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KC / 16; ++kk)
-      Wgmma<BN>::mma(acc, sw128_desc(a0 + kc * AM * ROW_BYTES + kk * 32),
-                     sw128_desc(b0 + s * STAGE_BYTES + kk * 32));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        Wgmma<BN>::mma(acc[mt], sw128_desc(a0 + (kc * AR + mt * AM) * ROW_BYTES + kk * 32),
+                       sw128_desc(b0 + s * STAGE_BYTES + kk * 32));
     wgmma_commit();
     wgmma_wait<1>();  // the chunk before this one has been read
-    fence_operands(acc);
+    fence_acc();
     if (prev >= 0 && leader) mbar_arrive(&empty[prev]);
     prev = s;
   };
@@ -230,7 +255,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // units of every chunk (unit j of chunk kc: j = sub*UPT + i), so that a
   // quarter-warp's 16-byte loads fall in 8 distinct bank groups. The work
   // starts as each chunk lands.
-  if (PRO == PRO_AFF) {
+  if (PRO == PRO_NONE) {
+    // nothing to transform: each product waits for its own chunk
+  } else if (PRO == PRO_AFF) {
     // x * mul + add in fp32, no contraction (plain_affine_matmul's separate
     // multiply and add), rounded to bf16; the block's batch element's row.
     // No product starts before the whole tile is transformed, so the pass
@@ -349,12 +376,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kc = 0; kc < kfull; ++kc) norm_chunk(kc, false);
     if (kfull < p.kch) norm_chunk(kfull, true);
   }
-  // the transformed rows, written by the threads, are read by wgmma (the
-  // async proxy)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  if (PRO != PRO_NONE) {
+    // the transformed rows, written by the threads, are read by wgmma (the
+    // async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  }
 
-  const size_t r0 = (size_t)m0 + w4 * 16;  // the warp's 16 output rows
   bf16* wstg = stg + warp * STG_WARP;
   uint32_t turn = 0;
   for (int t = j0 + wg; t < j1; t += 2) {
@@ -362,67 +390,75 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(&order[wg], turn);
       turn ^= 1;
     }
-    // GEGLU: this thread's biases of the tile, loaded before the MMAs
+    // GEGLU: this thread's biases of the tile, loaded before the MMAs with
+    // one M tile; with two the accumulators leave no room for them (a
+    // 128-row block spilled), and they are loaded after
     float2 bias[EPI == EPI_GEGLU ? BN / 8 : 1];
-    if (EPI == EPI_GEGLU) {
+    auto load_bias = [&]() {
 #pragma unroll
       for (int j = 0; j < BN / 16; ++j) {
         const int oc = t * (BN / 2) + j * 8 + tq * 2;
         bias[j] = __ldg(reinterpret_cast<const float2*>(p.bias + oc));
         bias[BN / 16 + j] = __ldg(reinterpret_cast<const float2*>(p.bias + p.O + oc));
       }
-    }
+    };
+    if (EPI == EPI_GEGLU && MT == 1) load_bias();
     zero_acc();
     prev = -1;
     for (int kc = 0; kc < p.kch; ++kc) mma_chunk(t, kc);
     if (leader && t + 1 < j1) mbar_arrive(&order[wg ^ 1]);  // the other's turn
+    if (EPI == EPI_GEGLU && MT > 1) load_bias();
     wgmma_wait<0>();
-    fence_operands(acc);
+    fence_acc();
     if (leader) mbar_arrive(&empty[prev]);
 
-    // accumulator (64 x BN): register 4j + 2h + e holds row w4*16 + gq + 8h,
-    // column 8j + 2tq + e; written 16 columns at a time
+    // accumulator mt (64 x BN): register 4j + 2h + e holds row mt*64 + w4*16
+    // + gq + 8h, column 8j + 2tq + e; written 16 columns at a time
     if (w4 * 16 >= BM) continue;  // rows past the block's tokens
-    if (EPI == EPI_GEGLU) {
 #pragma unroll
-      for (int j = 0; j < BN / 16; j += 2) {
-        float o[8];
+    for (int mt = 0; mt < MT; ++mt) {
+      const size_t r0 = (size_t)m0 + mt * AM + w4 * 16;  // the warp's 16 output rows
+      if (EPI == EPI_GEGLU) {
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+        for (int j = 0; j < BN / 16; j += 2) {
+          float o[8];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 bh = bias[j + n], bg = bias[BN / 16 + j + n];
-            const float a = acc[4 * (j + n) + i] + (i & 1 ? bh.y : bh.x);
-            const float gt = acc[4 * (BN / 16 + j + n) + i] + (i & 1 ? bg.y : bg.x);
-            o[4 * n + i] = a * (gt * 0.5f * (1.f + erff(gt * 0.70710678118654752f)));
-          }
-        store16x16(wstg, o, lane, p.out0, r0, p.O, t * (BN / 2) + j * 8);
-      }
-    } else if (EPI == EPI_BIAS) {
+          for (int n = 0; n < 2; ++n)
 #pragma unroll
-      for (int j = 0; j < BN / 8; j += 2) {
-        const int n = t * BN + j * 8;
-        float o[8];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n + h * 8 + 2 * tq));
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            o[4 * h + i] = edtr::bf16r(edtr::bf16r(acc[4 * (j + h) + i]) +
-                                       edtr::bf16r(i & 1 ? b.y : b.x));
+            for (int i = 0; i < 4; ++i) {
+              const float2 bh = bias[j + n], bg = bias[BN / 16 + j + n];
+              const float a = acc[mt][4 * (j + n) + i] + (i & 1 ? bh.y : bh.x);
+              const float gt = acc[mt][4 * (BN / 16 + j + n) + i] + (i & 1 ? bg.y : bg.x);
+              o[4 * n + i] = a * (gt * 0.5f * (1.f + erff(gt * 0.70710678118654752f)));
+            }
+          store16x16(wstg, o, lane, p.out0, r0, p.O, t * (BN / 2) + j * 8);
         }
-        store16x16(wstg, o, lane, p.out0, r0, p.O, n);
-      }
-    } else {
+      } else if (EPI == EPI_BIAS) {
 #pragma unroll
-      for (int j = 0; j < BN / 8; j += 2) {
-        const int n = t * BN + j * 8;
-        const int k = n / p.O;  // O % 64 == 0: 16 columns never straddle two outputs
-        float o[8];
+        for (int j = 0; j < BN / 8; j += 2) {
+          const int n = t * BN + j * 8;
+          float o[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) o[i] = acc[4 * j + i];
-        store16x16(wstg, o, lane, k == 0 ? p.out0 : (k == 1 ? p.out1 : p.out2), r0, p.O,
-                   n - k * p.O);
+          for (int h = 0; h < 2; ++h) {
+            const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n + h * 8 + 2 * tq));
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              o[4 * h + i] = edtr::bf16r(edtr::bf16r(acc[mt][4 * (j + h) + i]) +
+                                         edtr::bf16r(i & 1 ? b.y : b.x));
+          }
+          store16x16(wstg, o, lane, p.out0, r0, p.O, n);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 8; j += 2) {
+          const int n = t * BN + j * 8;
+          const int k = n / p.O;  // O % 64 == 0: 16 columns never straddle two outputs
+          float o[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) o[i] = acc[mt][4 * j + i];
+          store16x16(wstg, o, lane, k == 0 ? p.out0 : (k == 1 ? p.out1 : p.out2), r0, p.O,
+                     n - k * p.O);
+        }
       }
     }
   }
@@ -430,10 +466,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host ------------------------------------------------------------------
 
-// Shared memory of a block: the alignment slack, A, the ring, the output
-// staging, the barriers.
-inline int smem_bytes(int bn, int kch, int stages) {
-  return 1024 + kch * AM * ROW_BYTES + stages * bn * ROW_BYTES +
+// Shared memory of a block: the alignment slack, A (chunks of `rows`
+// rows), the ring, the output staging, the barriers.
+inline int smem_bytes(int rows, int bn, int kch, int stages) {
+  return 1024 + kch * rows * ROW_BYTES + stages * bn * ROW_BYTES +
          (kConsumers / 32) * STG_WARP * (int)sizeof(bf16) + (2 * kMaxStages + 2 + kMaxChunks) * 8;
 }
 
@@ -452,7 +488,8 @@ int launch(const void* x, const void* w, int slab_rows, Args a, cudaStream_t str
   a.tiles = slab_rows / BN;
   if (a.kch > kMaxChunks) return (int)cudaErrorInvalidValue;
   if (a.groups < 1 || a.groups > a.tiles || a.M / BM > 65535) return (int)cudaErrorInvalidValue;
-  a.stages = (kSmemLimit - smem_bytes(BN, a.kch, 0)) / (BN * ROW_BYTES);
+  constexpr int AR = a_rows<BM>();
+  a.stages = (kSmemLimit - smem_bytes(AR, BN, a.kch, 0)) / (BN * ROW_BYTES);
   if (a.stages > kMaxStages) a.stages = kMaxStages;
   if (a.stages < 2) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned> raised{0u};
@@ -462,7 +499,8 @@ int launch(const void* x, const void* w, int slab_rows, Args a, cudaStream_t str
   if (r == 0) r = cached_matrix_map(x, a.M, a.C, BM, &xmap);
   if (r != 0) return r;
   dim3 grid(a.M / BM, a.groups);
-  lnproj_kernel<BM, BN, PRO, EPI><<<grid, kThreads, smem_bytes(BN, a.kch, a.stages), stream>>>(
+  lnproj_kernel<BM, BN, PRO, EPI><<<grid, kThreads, smem_bytes(AR, BN, a.kch, a.stages),
+                                    stream>>>(
       wmap, xmap, a);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (proj_wgmma.cuh: K8a, K8b, K7b; conv_wgmma.cuh: K6; gnconv_wgmma.cuh:
-// K5; flash_wgmma.cuh: K1, K2, K4; flash_bwd_wgmma.cuh: K11; swin_block.cu:
-// K10a): mbarriers, TMA tile loads (2-D and 4-D) and 1-D bulk copies, the
+// (proj_wgmma.cuh: K7a, K7b, K8a, K8b; conv_wgmma.cuh: K6;
+// gnconv_wgmma.cuh: K5; flash_wgmma.cuh: K1, K2, K4; flash_streamkv.cuh:
+// K3; flash_bwd_wgmma.cuh: K11; window_attention.cu: K9; swin_block.cu:
+// K10): mbarriers, TMA tile loads (2-D and 4-D) and 1-D bulk copies in and
+// out, the
 // shared-memory descriptors of a K-major operand (128-byte swizzle, and no
 // swizzle) and of an MN-major one, the
 // wgmma instructions (A from shared memory or from registers) with their
@@ -99,6 +101,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared `src` to `dst`, both 16-byte
+// aligned, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 // ---- wgmma -------------------------------------------------------------------
@@ -326,6 +336,21 @@ struct Wgmma<256> {
 // until the wgmma that reads them has been waited for.
 template <int N, int TB>
 struct WgmmaRS;
+
+template <int TB>
+struct WgmmaRS<32, TB> {
+  __device__ static __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
 
 template <int TB>
 struct WgmmaRS<64, TB> {

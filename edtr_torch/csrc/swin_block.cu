@@ -408,14 +408,6 @@ __device__ __forceinline__ float4 ld_peer4(uint32_t addr) {
   return v;
 }
 
-// `bytes` (a multiple of 16) from shared `src` to `dst`, both 16-byte
-// aligned, in this thread's bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-}
-
 // this thread's bias pairs of a warpgroup's kCols columns (column base + 8t +
 // 2tq, zeros from `limit` on), loaded before the wgmmas whose epilogue adds
 // them, so that their latency hides behind the MMAs

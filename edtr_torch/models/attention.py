@@ -12,7 +12,10 @@ math). Inside one, at the token counts the kernels take
 (``ln_matmul.supported``, ``geglu.supported``), they run through the
 projection kernels (JAX with both families forced): LN+q/k/v and LN+query
 (``ln_matmuls``), LN+GEGLU (``ln_geglu_proj``, the split-halves form) and
-GroupNorm-affine+``proj_in`` (``affine_matmul``). Attention runs through
+GroupNorm-affine+``proj_in`` (``affine_matmul``). JAX's rule chooses the
+form; on the card a call in that form which the kernel does not take (its
+predicate, :func:`proj_route`: fp32 tokens, the tiny flagship's 32-wide
+heads) runs the wrapper's plain version, the same math. Attention runs through
 :func:`edtr_torch.ops.attention.dot_product_attention` in ``(B, N, H, D)``
 layout, so self-attention at the shapes the flash kernels take launches
 them on the card.
@@ -33,6 +36,15 @@ from edtr_torch.models.layers import (DerivedWeight, GroupNorm32, LayerNorm, Lin
                                       concat_weights, fused_proj_on)
 from edtr_torch.ops import geglu, ln_matmul
 from edtr_torch.ops.attention import dot_product_attention
+
+
+def proj_route(x: torch.Tensor, takes, *dims: int) -> bool:
+    """Whether a fused-projection call on tokens ``x`` goes to its wrapper:
+    always on the CPU, where the wrapper is the plain version; elsewhere
+    only where the kernel takes it (``takes(x.dtype, *dims)``: one of
+    ``ln_matmul.ln_matmuls_takes`` / ``affine_matmul_takes``,
+    ``geglu.geglu_takes``), else the caller runs the plain version."""
+    return x.device.type == "cpu" or takes(x.dtype, *dims)
 
 
 class CrossAttention(nn.Module):
@@ -64,14 +76,17 @@ class CrossAttention(nn.Module):
         if pre_norm is not None and fused_proj_on() and ln_matmul.supported(x.shape[1]):
             xc = x.to(self.to_q.dtype or x.dtype)
             norm = (pre_norm.weight, pre_norm.bias)
-            if context is None:
-                q, k, v = ln_matmul.ln_matmuls(
-                    xc, *norm, (self.to_q.weight, self.to_k.weight, self.to_v.weight),
-                    pre_norm.eps, w_packed=self.qkv_weight(xc.dtype))
+            ws = ((self.to_q.weight, self.to_k.weight, self.to_v.weight) if context is None
+                  else (self.to_q.weight,))
+            _, n, c = xc.shape
+            if not proj_route(xc, ln_matmul.ln_matmuls_takes, n, c, ws[0].shape[0]):
+                outs = ln_matmul.plain_ln_matmuls(xc, *norm, ws, pre_norm.eps)
             else:
-                (q,) = ln_matmul.ln_matmuls(xc, *norm, (self.to_q.weight,), pre_norm.eps,
-                                            w_packed=self.to_q.packed_weight(xc.dtype))
-                k, v = self.to_k(context), self.to_v(context)
+                wp = (self.qkv_weight(xc.dtype) if context is None
+                      else self.to_q.packed_weight(xc.dtype))
+                outs = ln_matmul.ln_matmuls(xc, *norm, ws, pre_norm.eps, w_packed=wp)
+            q, k, v = outs if context is None else (*outs, self.to_k(context),
+                                                    self.to_v(context))
         else:
             if pre_norm is not None:
                 x = pre_norm(x)
@@ -101,9 +116,10 @@ class FeedForward(nn.Module):
     """GEGLU feed-forward. ``pre_norm``: the block's norm3, and ``x`` the
     pre-norm residual stream. Inside ``fused_proj``, where
     ``geglu.supported`` holds (``geglu.will_fuse`` with the family forced),
-    the split-halves form through the GEGLU kernels: both biases added in
-    fp32 before the GELU; elsewhere the packed form: one projection rounded
-    with its bias added in the compute dtype, then GELU on the rounded gate."""
+    the split-halves form through the GEGLU kernels (their plain versions
+    where :func:`proj_route` refuses the call): both biases added in fp32
+    before the GELU; elsewhere the packed form: one projection rounded with
+    its bias added in the compute dtype, then GELU on the rounded gate."""
 
     def __init__(self, dim: int, mult: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -116,12 +132,19 @@ class FeedForward(nn.Module):
         if fused_proj_on() and geglu.supported(x.shape[1], x.shape[2], self.inner):
             proj = self.net[0].proj
             xc = x.to(proj.dtype or x.dtype)
-            wp = proj.packed_weight(xc.dtype)
-            if pre_norm is not None:
+            if not proj_route(xc, geglu.geglu_takes, xc.shape[1], xc.shape[2], self.inner):
+                if pre_norm is not None:
+                    h = geglu.plain_ln_geglu_proj(xc, pre_norm.weight, pre_norm.bias,
+                                                  proj.weight, proj.bias, pre_norm.eps)
+                else:
+                    h = geglu.plain_geglu_proj(xc, proj.weight, proj.bias)
+            elif pre_norm is not None:
                 h = geglu.ln_geglu_proj(xc, pre_norm.weight, pre_norm.bias, proj.weight,
-                                        proj.bias, pre_norm.eps, w_packed=wp)
+                                        proj.bias, pre_norm.eps,
+                                        w_packed=proj.packed_weight(xc.dtype))
             else:
-                h = geglu.geglu_proj(xc, proj.weight, proj.bias, w_packed=wp)
+                h = geglu.geglu_proj(xc, proj.weight, proj.bias,
+                                     w_packed=proj.packed_weight(xc.dtype))
             return self.net[2](h)
         if pre_norm is not None:
             x = pre_norm(x)
@@ -170,11 +193,15 @@ class SpatialTransformer(nn.Module):
         mul, add = self.norm.fold(xc)
         t = xc.flatten(2).transpose(1, 2)  # (B, HW, C), contiguous on channels-last memory
         if fused_proj_on() and ln_matmul.supported(h * w):
-            if not t.is_contiguous():  # the kernel reads C-contiguous token rows
-                t = t.contiguous()
-                ln_matmul.layout_copies["count"] += 1
-            t = ln_matmul.affine_matmul(t, mul, add, self.proj_in.weight, self.proj_in.bias,
-                                        w_packed=self.proj_in.packed_weight(xc.dtype))
+            w_in, b_in = self.proj_in.weight, self.proj_in.bias
+            if not proj_route(t, ln_matmul.affine_matmul_takes, h * w, c, w_in.shape[0]):
+                t = ln_matmul.plain_affine_matmul(t, mul, add, w_in, b_in)
+            else:
+                if not t.is_contiguous():  # the kernel reads C-contiguous token rows
+                    t = t.contiguous()
+                    ln_matmul.layout_copies["count"] += 1
+                t = ln_matmul.affine_matmul(t, mul, add, w_in, b_in,
+                                            w_packed=self.proj_in.packed_weight(xc.dtype))
         else:
             t = (t.float() * mul[:, None] + add[:, None]).to(xc.dtype)
             t = self.proj_in(t)

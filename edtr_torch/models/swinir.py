@@ -213,7 +213,7 @@ def swin_kernel_route(x: torch.Tensor, h: int, w: int, win: int, hidden: int,
         return True
     c = x.shape[2]
     return (c % heads == 0 and swin_block.swin_post_takes(x.dtype, h, w, win, c, hidden)
-            and window_attention_ops.kernel_takes(x.dtype, win * win, c // heads))
+            and window_attention_ops.kernel_takes(x.dtype, win * win, c // heads, heads))
 
 
 class _ResidualGroup(nn.Module):

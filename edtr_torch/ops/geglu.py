@@ -7,7 +7,8 @@ wrapper here, with its own launch count:
   =============  =================================  =========================
   wrapper        replaces (edtr_tpu/ops/geglu.py)   CUDA kernel
   =============  =================================  =========================
-  geglu_proj     ``geglu_proj`` (``_kernel``)       proj_gemm_kernel
+  geglu_proj     ``geglu_proj`` (``_kernel``)       lnproj_kernel
+                                                    <PRO_NONE, EPI_GEGLU>
   ln_geglu_proj  ``ln_geglu_proj`` (``_ln_kernel``)  lnproj_kernel
                                                     <PRO_LN, EPI_GEGLU>
   =============  =================================  =========================
@@ -17,14 +18,18 @@ LN(x)), where ``wh``/``wg`` and ``bh``/``bg`` are the two halves of the
 FeedForward's packed ``ff.net.0.proj`` Linear: rows [0, inner) and [inner,
 2*inner) of its (2*inner, C) weight. The wrappers take that packed weight
 and bias as the module holds them. The kernels live in
-``edtr_torch/csrc/geglu.cu``: ``geglu_proj`` on the mma.sync GEMM of
-``csrc/proj_gemm.cuh``, ``ln_geglu_proj`` on the wgmma GEMM of
-``csrc/proj_wgmma.cuh`` (LayerNorm once per block, weights through a TMA
-ring).
+``edtr_torch/csrc/geglu.cu``, both on the wgmma GEMM of
+``csrc/proj_wgmma.cuh`` (tokens by TMA, weights through a TMA ring):
+``ln_geglu_proj`` normalises its tokens once per block, ``geglu_proj``
+multiplies them as they land.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. :func:`supported` is JAX's rule, so the
-FeedForward takes the split-halves form exactly where JAX does. Both
+FeedForward takes the split-halves form exactly where JAX does;
+:func:`geglu_takes` says where the kernels take a call, and the
+FeedForward's route sends a call the form admits but the kernels do not
+take (fp32 tokens, an ``inner`` not a multiple of 32) to the plain
+versions on the card. Both
 wrappers are ``torch.autograd.Function``s whose backward is JAX's recompute
 (``geglu.py:_bwd``/``_ln_bwd``): ``torch.autograd.grad`` of the plain
 version at the saved inputs (``ops/_grad.py``), for every tensor input but
@@ -44,8 +49,8 @@ import torch.nn.functional as F
 from edtr_torch.ops import _cuda
 from edtr_torch.ops._grad import needs_grad, recompute_grads
 from edtr_torch.ops._norms import ln_f32
-from edtr_torch.ops._proj import (check, check_tokens, dot32, lnproj_plan, on_device, plan,
-                                  raise_on_error)
+from edtr_torch.ops._proj import (C_MULT, check, check_tokens, dot32, lnproj_fits,
+                                  lnproj_plan, on_device, raise_on_error)
 
 # copies of edtr_tpu/ops/geglu.py's eligibility constants: the kernels take
 # the shapes the TPU kernel takes, so the FeedForward picks the same form
@@ -83,6 +88,16 @@ def supported(n: int, c: int, inner: int) -> bool:
     return n % SEQ_TILE == 0 and _col_tile(c, inner) is not None
 
 
+def geglu_takes(dtype: torch.dtype, n: int, c: int, inner: int) -> bool:
+    """Whether ``geglu_proj``'s and ``ln_geglu_proj``'s kernels take (B, n,
+    c) tokens of ``dtype`` into ``inner`` columns: bf16, :func:`supported`
+    (JAX's rule), C a multiple of 32 whose (64, C) tokens fit a block's
+    shared memory beside a 2-stage weight ring, ``inner`` a multiple of 32.
+    The launchers raise where this is false."""
+    return (dtype == torch.bfloat16 and supported(n, c, inner) and c % C_MULT == 0
+            and lnproj_fits(c) and inner > 0 and inner % 32 == 0)
+
+
 def plain_geglu_proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(x@wh + bh) * gelu(x@wg + bg)`` with the casts of ``geglu._ref``:
     products accumulated in fp32, both biases added in fp32 before the
@@ -118,6 +133,8 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: w must be (2*inner, {c}) with inner % 32 == 0, "
                          f"got {tuple(w.shape)}")
     check_tokens(name, x, supported(n, c, inner))
+    if not geglu_takes(x.dtype, n, c, inner):  # what is left: C past shared memory
+        raise ValueError(f"{c} channels do not fit the GEGLU kernels' shared memory")
     dev = x.device
     with torch.no_grad():
         wp = w.detach().to(torch.bfloat16).contiguous() if w_packed is None else w_packed
@@ -130,10 +147,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         check(s, f"{name}: ln_s", torch.float32, (c,), dev)
         check(sh, f"{name}: ln_b", torch.float32, (c,), dev)
     out = torch.empty((bsz, n, inner), device=dev, dtype=torch.bfloat16)
-    if ln is None:
-        bm, bn, groups = *plan(bsz * n, 2 * inner), 1
-    else:
-        bm, bn, groups = lnproj_plan(bsz * n, c, 2 * inner, "ln_geglu_proj")
+    bm, bn, groups = lnproj_plan(bsz * n, c, 2 * inner, name)
     with on_device(dev):
         err = _symbol()(int(ln is not None), bm, bn, groups, x.data_ptr(),
                         None if s is None else s.data_ptr(),

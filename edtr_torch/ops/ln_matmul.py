@@ -25,7 +25,11 @@ until a weight changes (``models/layers.py``).
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. The kernels take bf16 tokens with N a
 multiple of :data:`SEQ_TILE` (:func:`supported`, JAX's rule), C a multiple
-of 32 and O a multiple of 64.
+of 32 within a block's shared memory and O a multiple of 64
+(:func:`ln_matmuls_takes`, :func:`affine_matmul_takes`); the routes of
+``models/attention.py`` send calls JAX's rule admits but the kernels do
+not take (fp32 tokens, the tiny flagship's 32-wide heads) to the plain
+versions on the card.
 
 Both wrappers are differentiable, on both devices: each is a
 ``torch.autograd.Function`` (JAX's ``custom_vjp``s, ``ln_matmul.py:_fwd/_bwd``
@@ -48,8 +52,8 @@ import torch
 from edtr_torch.ops import _cuda
 from edtr_torch.ops._grad import needs_grad, recompute_grads
 from edtr_torch.ops._norms import ln_f32
-from edtr_torch.ops._proj import (check, check_tokens, dot32, lnproj_plan, on_device,
-                                  raise_on_error)
+from edtr_torch.ops._proj import (C_MULT, check, check_tokens, dot32, lnproj_fits,
+                                  lnproj_plan, on_device, raise_on_error)
 
 # the token counts the kernels take: a copy of edtr_tpu/ops/ln_matmul.py's
 # ``_SEQ_TILE`` rule, so the port fuses exactly where JAX does
@@ -68,6 +72,27 @@ layout_copies: Dict[str, int] = {"count": 0}
 def supported(n: int) -> bool:
     """``ln_matmul.supported``: N tokens the kernels take."""
     return n % SEQ_TILE == 0
+
+
+def ln_matmuls_takes(dtype: torch.dtype, n: int, c: int, o: int) -> bool:
+    """Whether ``ln_matmuls``' kernel takes (B, n, c) tokens of ``dtype``
+    projected to ``o`` columns a weight: bf16, :func:`supported` (JAX's
+    rule), C a multiple of 32 whose (64, C) tokens fit a block's shared
+    memory beside a 2-stage weight ring, O a multiple of 64. The launcher
+    raises where this is false."""
+    return (dtype == torch.bfloat16 and supported(n) and c % C_MULT == 0 and lnproj_fits(c)
+            and o > 0 and o % 64 == 0)
+
+
+def affine_matmul_takes(dtype: torch.dtype, n: int, c: int, o: int) -> bool:
+    """Whether ``affine_matmul``'s kernel takes (B, n, c) tokens of
+    ``dtype`` projected to ``o`` columns: bf16, :func:`supported` (JAX's
+    rule), C a multiple of 32 whose (64, C) tokens fit a block's shared
+    memory beside a 2-stage ring of 64-row weight tiles (the narrowest tile
+    its plan takes), O a multiple of 64. The launcher raises where this is
+    false."""
+    return (dtype == torch.bfloat16 and supported(n) and c % C_MULT == 0 and lnproj_fits(c)
+            and o > 0 and o % 64 == 0)
 
 
 def plain_ln_matmuls(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
@@ -116,6 +141,8 @@ def _ln_matmuls(x, ln_s, ln_b, ws, eps, w_packed) -> Tuple[torch.Tensor, ...]:
         raise ValueError(f"ln_matmuls: 1-3 weights of one (O, C), O % 64 == 0, C = {c}; "
                          f"got {[tuple(w.shape) for w in ws]}")
     check_tokens("ln_matmuls", x, supported(n))
+    if not ln_matmuls_takes(x.dtype, n, c, o):  # what is left: C past shared memory
+        raise ValueError(f"{c} channels do not fit the LayerNorm kernels' shared memory")
     dev = x.device
     with torch.no_grad():
         wp = (torch.cat([w.detach().to(torch.bfloat16) for w in ws])
@@ -146,6 +173,8 @@ def _affine_matmul(x, mul, add, w, b, w_packed) -> torch.Tensor:
         raise ValueError(f"affine_matmul: w must be (O, {c}) with O % 64 == 0, "
                          f"got {tuple(w.shape)}")
     check_tokens("affine_matmul", x, supported(n))
+    if not affine_matmul_takes(x.dtype, n, c, o):  # what is left: C past shared memory
+        raise ValueError(f"{c} channels do not fit the affine kernel's shared memory")
     dev = x.device
     with torch.no_grad():
         wp = w.detach().to(torch.bfloat16).contiguous() if w_packed is None else w_packed

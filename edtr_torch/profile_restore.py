@@ -28,13 +28,13 @@ from edtr_torch.train.edtr_step import STAGES as TRAIN_STAGES
 STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
 # kernel family by substring of the kernel name, first match wins: the
 # port's own kernels first, so "gnconv_wgmma_kernel" and "upconv_wgmma_kernel"
-# are not booked as cuDNN's convs nor "proj_gemm_kernel" as cuBLAS's GEMMs
+# are not booked as cuDNN's convs
 FAMILIES = (
     ("swin (edtr_torch)", ("window_attention_kernel", "swin_pre_kernel", "swin_post_kernel")),
     ("flash (edtr_torch)", ("flash_wgmma", "streamkv_kernel", "flash_dq_wgmma",
                             "flash_dkv_wgmma")),
     ("gn_conv (edtr_torch)", ("gnconv_wgmma_kernel", "upconv_wgmma_kernel")),
-    ("proj (edtr_torch)", ("proj_gemm_kernel", "lnproj_kernel")),
+    ("proj (edtr_torch)", ("lnproj_kernel",)),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "nhwc", "nchw")),
     ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("norm / reduce", ("reduce", "norm", "softmax")),

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Time the projection kernels K8a (``ln_matmul.ln_matmuls``), K8b
 (``ln_matmul.affine_matmul``) and K7b (``geglu.ln_geglu_proj``) at every
-shape of the 512² fused+proj restore, with ``--conv`` the conv kernels
+shape of the 512² fused+proj restore and K7a (``geglu.geglu_proj``, on no
+path) at the flagship's three token levels at bs 1 and 2, with ``--conv``
+the conv kernels
 K5a/K5b (``gn_conv.gn_silu_conv``: ``gn_conv_whole``, ``gn_conv_band``) and
 K6 (``gn_conv.upsample_conv``) at every shape of the fused restore, with
 ``--flash`` the flash forward wrappers (K1 ``wholekv_fwd``, K2
 ``whole_fwd``, K4 ``flash_fwd`` at head dim 64, K3 ``streamkv_fwd`` at 512)
 at the restore's and the bs-2 training step's shapes, with ``--swin`` K10a
-(``swin_block.swin_pre``) at the fused+swin restore's and K10b
-(``swin_block.swin_post``) at the restore's and the step's, and with
+(``swin_block.swin_pre``) at the fused+swin restore's, K10b
+(``swin_block.swin_post``) and K9 (``window_attention``, with and without
+the shift mask) at the restore's and the step's, and with
 ``--flash-bwd`` the flash backward wrappers
 (K11a ``whole_bwd``, K11b ``flash_bwd_dq``, K11c ``flash_bwd_dkv``) at the
 bs-2 training step's shapes, on one NVIDIA GPU.
@@ -28,18 +31,22 @@ device ms from a trace, so that the host's launch time does not count, and
 (K5) or 4-tap (K6) bound. ``--rounds`` repeats the shape walk, so that two
 checkouts timed in one call can be timed in turns (parent, change, change,
 parent). ``--plans`` also times each projection kernel at other tile plans
-(``ops/_proj.py:lnproj_plan``'s (bm, bn, groups)) than the one the wrapper
-picks, and with ``--conv`` each K5 shape at the other tiles
+(``ops/_proj.py:lnproj_plan``'s (bm, bn, groups), K7a's 128-row blocks
+among them) than the one the wrapper picks, and with ``--conv`` each K5
+shape at the other tiles
 (``gn_conv.GN_TILES``) the kernel takes, and with ``--flash`` each D-64
 flash shape in every plan of ``flash_attention.FLASH_PLANS`` and K3 with
 its KV range whole and split in two (``flash_attention.streamkv_splits``),
-and with ``--swin`` each ``swin_post`` shape at one and two blocks a
-window (``swin_block.post_split``). With ``--flash``, ``--swin`` or
+and with ``--swin`` each ``swin_post`` and K9 shape at one and two blocks
+a window (``swin_block.post_split``, ``window_attention.window_split``).
+With ``--flash``, ``--swin`` or
 ``--flash-bwd`` the projection shapes are left out. The flash, Swin and
 backward kernels are held to chip_smoke's gates, two calls bit-identical,
 and timed on the same trace clock (``flash_shape``, ``swin_shape``,
-``post_shape``, ``bwd_shape``), with SDPA (its backward alone for K11) and
-``F.linear`` as the yardsticks; all run in a checkout from before these
+``post_shape``, ``bwd_shape``; K9 through ``chip_smoke.swin_case``), with
+SDPA (its backward alone for K11; with the bias and mask as one additive
+mask for K9) and ``F.linear`` as the yardsticks; all run in a checkout from
+before these
 flags (copy this script and ``chip_smoke.py`` into it: ``swin_shape`` and
 ``post_shape`` hand its kernels the weight form they read; ``bwd_shape``
 calls only the wrappers both have).
@@ -73,6 +80,11 @@ RESTORE_SHAPES = {
     **{("affine_matmul", 1, n, c, c, 1): 28 for n, c in TOKENS},
     **{("ln_geglu_proj", 1, n, c, 4 * c): 28 for n, c in TOKENS},
 }
+# K7a (``geglu_proj``, a FeedForward without ``pre_norm``: on no path of the
+# flagship) at JAX's supported shapes of the three token levels, bs 1 and 2,
+# one call each (``geglu.shapes`` keys: wrapper, B, N, C, inner)
+GEGLU_SHAPES = {("geglu_proj", b, n, c, 4 * c): ("one call", 1) for n, c in TOKENS
+                for b in (1, 2)}
 # the fused 512² restore's K6 launches per shape (``gn_conv.shapes`` keys:
 # wrapper, B, Cin, output H, W, Cout, emb, res, act): the UNet decoder's 3
 # upsamples in each of 4 steps, the VAE decoder's 3, the SwinIR tail's 3
@@ -159,6 +171,11 @@ SWIN_SHAPES = {("swin_pre", 1, 64, 64, 180, 8, 0): 8, ("swin_pre", 1, 64, 64, 18
 # the training step (bs 2, SwinIR's forward under no grad)
 POST_SHAPES = {("swin_post", 1, 64, 64, 180, 8, 360): ("restore", 48),
                ("swin_post", 2, 64, 64, 180, 8, 360): ("training step", 48)}
+# K9's launches per shape (``window_attention.shapes`` keys: wrapper, BW, N,
+# H, D, mask windows, 0 without the mask): the 48 blocks of the restore (64
+# windows) and of the training step (128), half of them shifted (masked)
+WIN_SHAPES = {("window_attention", bw, 64, 6, 30, nw): (per, 24)
+              for bw, per in ((64, "restore"), (128, "training step")) for nw in (0, 64)}
 
 
 def flash_shape(device, key, gen) -> dict:
@@ -386,8 +403,22 @@ def post_shape(device, key, gen) -> dict:
                 max_err_share=err / o_max, rel_l2=rel, same_twice=same)
 
 
+def win_shape(device, key, gen) -> dict:
+    """K9 (``window_attention``) at one shape key through
+    ``chip_smoke.swin_case``: packed q/k/v slices as swin_pre writes them,
+    the restore's shift mask, held to chip_smoke's Swin gates, two calls
+    bit-identical (at bs 2 also with a random mask of the same period);
+    device ms of the kernel, of the plain version and of SDPA with the bias
+    and mask as one additive mask, CUDA-event ms and the bound."""
+    import chip_smoke
+
+    r = chip_smoke.swin_case(device, key, gen)
+    return dict(r, max_err_share=r["max_abs_err"] / r["out_max"])
+
+
 def sweep(device, key, gen, label: str, mod, attr: str, choices, picked, measure) -> None:
-    """``measure`` (:func:`flash_shape` or :func:`post_shape`) at ``key``
+    """``measure`` (:func:`flash_shape`, :func:`post_shape` or
+    :func:`win_shape`) at ``key``
     with the rule ``mod.attr`` (a tile plan or a split rule) forced to each
     of ``choices`` in turn: device ms and the error of each, and which one
     the rule picks."""
@@ -415,7 +446,7 @@ def plan_sweep(device, key, gen) -> None:
     from edtr_torch.ops import ln_matmul as LM
 
     name, b, n, c = key[:4]
-    geglu = name == "ln_geglu_proj"
+    geglu = name in ("ln_geglu_proj", "geglu_proj")
     affine = name == "affine_matmul"
     x = (torch.randn((b, n, c), generator=gen, device=device) * 2 + 0.5).to(torch.bfloat16)
     s = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
@@ -426,9 +457,14 @@ def plan_sweep(device, key, gen) -> None:
         bias = 0.05 * torch.randn(slab, generator=gen, device=device)
         wp = w.to(torch.bfloat16)
 
-        def kern():
-            return GG.ln_geglu_proj(x, s, sh, w, bias, w_packed=wp)
-        want = GG.plain_ln_geglu_proj(x, s, sh, w, bias)
+        if name == "geglu_proj":
+            def kern():
+                return GG.geglu_proj(x, w, bias, w_packed=wp)
+            want = GG.plain_geglu_proj(x, w, bias)
+        else:
+            def kern():
+                return GG.ln_geglu_proj(x, s, sh, w, bias, w_packed=wp)
+            want = GG.plain_ln_geglu_proj(x, s, sh, w, bias)
     elif affine:
         slab = key[4]
         w = torch.randn((slab, c), generator=gen, device=device) * c ** -0.5
@@ -451,9 +487,9 @@ def plan_sweep(device, key, gen) -> None:
         want = torch.cat(LM.plain_ln_matmuls(x, s, sh, ws), -1)
     m = b * n
     picked = _proj.lnproj_plan(m, c, slab, name)
-    for bm in (32, 64):
+    for bm in (64, 128) if name == "geglu_proj" else (32, 64):
         for bn in (128, 64) if geglu else ((160, 128, 64) if affine else (160, 64)):
-            if m % bm or slab % bn or _proj.lnproj_stages(bn, c) < 2:
+            if m % bm or slab % bn or _proj.lnproj_stages(bn, c, max(bm, 64)) < 2:
                 continue
             tiles = slab // bn
             for groups in sorted({-(-tiles // q) for q in range(1, min(tiles, 8) + 1)}):
@@ -594,13 +630,14 @@ def main() -> int:
                                      ["ln_matmul", "geglu"] * proj
                                      + ["gn_conv"] * args.conv
                                      + ["flash_attention"] * args.flash
-                                     + ["swin_block"] * args.swin
+                                     + ["swin_block", "window_attention"] * args.swin
                                      + ["flash_attention", "flash_attention_bwd"]
                                      * args.flash_bwd))), flush=True)
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(7)
     from edtr_torch.ops import flash_attention as FA
     from edtr_torch.ops import swin_block as SB
+    from edtr_torch.ops import window_attention as WA
     keys = ("ms", "event_ms", "library_ms", "plain_ms", "bound_ms")
     sums = {}
     for rnd in range(args.rounds):
@@ -613,6 +650,14 @@ def main() -> int:
             agg = sums.setdefault((rnd, key[0]), dict.fromkeys(keys, 0.0))
             for k in keys:
                 agg[k] += count * r[k]
+            if args.plans and rnd == 0:
+                plan_sweep(device, key, gen)
+        for key, (per, count) in sorted(GEGLU_SHAPES.items()) if proj else ():
+            r = chip_smoke.proj_case(device, key, gen)
+            print("proj shape:", json.dumps(dict(
+                round=rnd, key=list(key), per=per, launches=count, tile=r.get("tile"),
+                max_err_share=r["max_abs_err"] / r["out_max"], rel_l2=r["rel_l2"],
+                bound_by=r["bound_by"], **{k: r[k] for k in keys})), flush=True)
             if args.plans and rnd == 0:
                 plan_sweep(device, key, gen)
         conv = {**GN_SHAPES, **CONV_SHAPES} if args.conv else {}
@@ -658,6 +703,20 @@ def main() -> int:
                 sweep(device, key, gen, "post split", SB, "post_split",
                       (1, 2) if hidden > SB.POST_SLAB else (1,),
                       SB.post_split(b, h, w, win, hidden), post_shape)
+        for key, (per, count) in sorted(WIN_SHAPES.items()) if args.swin else ():
+            r = win_shape(device, key, gen)
+            print("swin shape:", json.dumps(dict(
+                round=rnd, key=list(key), per=per, launches=count,
+                split=WA.window_split(key[1], key[3]),
+                max_err_share=r["max_err_share"], rel_l2=r["rel_l2"],
+                same_twice=r["same_twice"], bound_by=r["bound_by"],
+                **{k: r[k] for k in keys})), flush=True)
+            agg = sums.setdefault((rnd, f"{key[0]} per {per}"), dict.fromkeys(keys, 0.0))
+            for k in keys:
+                agg[k] += count * r[k]
+            if args.plans and rnd == 0:  # blocks a window
+                sweep(device, key, gen, "window split", WA, "window_split", (1, 2),
+                      WA.window_split(key[1], key[3]), win_shape)
         for key, count in sorted(BWD_SHAPES.items()) if args.flash_bwd else ():
             r = bwd_shape(device, key, gen)
             print("bwd shape:", json.dumps(dict(round=rnd, key=list(key), launches=count, **r)),
@@ -667,7 +726,7 @@ def main() -> int:
             for k in keys:
                 agg[k] += count * r[k]
     for (rnd, name), agg in sorted(sums.items()):
-        swin = name in ("swin_pre", "swin_post per restore")
+        swin = name in ("swin_pre", "swin_post per restore", "window_attention per restore")
         scope = ("per fused+swin 512² restore" if swin else
                  name.split(" per ", 1)[1] if " per " in name else "per fused" + (
                      "" if name in CONV_NAMES else "+proj") + " 512² restore")

@@ -41,3 +41,23 @@ def test_bench_times_k3_and_k10b_at_the_restore_and_step_shapes():
     assert {k[1]: n for k, (_, n) in proj_bench.POST_SHAPES.items()} == {1: 48, 2: 48}
     assert all(k[0] == "swin_post" and k[2:] == (64, 64, 180, 8, 360)
                for k in proj_bench.POST_SHAPES)
+
+
+def test_bench_and_smoke_hold_k9_and_k7a_at_their_shapes():
+    """``proj_bench.py --swin`` times K9 at the restore's 64 windows and the
+    step's 128, each with and without the shift mask (24 + 24 launches of
+    each); its projection set and chip_smoke hold K7a (on no path) at the
+    flagship's three token levels, bs 1 and 2 and bs 1, on the wgmma
+    projection kernel's source."""
+    assert {k: v for k, v in proj_bench.WIN_SHAPES.items()} == {
+        ("window_attention", bw, 64, 6, 30, nw): (per, 24)
+        for bw, per in ((64, "restore"), (128, "training step")) for nw in (0, 64)}
+    assert sum(n for per, n in proj_bench.WIN_SHAPES.values() if per == "restore") == (
+        chip_smoke.SWIN_KERNELS["window_attention"][2])
+    levels = {(4096, 320, 1280), (1024, 640, 2560), (256, 1280, 5120)}
+    assert {k[2:] for k in proj_bench.GEGLU_SHAPES} == levels
+    assert {k[1] for k in proj_bench.GEGLU_SHAPES} == {1, 2}
+    assert {k[2:] for k in chip_smoke.GEGLU_HELD} == levels
+    assert all(k[:2] == ("geglu_proj", 1) for k in chip_smoke.GEGLU_HELD)
+    assert chip_smoke.PROJ_KERNELS["geglu_proj"][0] == "edtr_torch/csrc/proj_wgmma.cuh"
+    assert chip_smoke.SWIN_KERNELS["window_attention"][0] == "edtr_torch/csrc/window_attention.cu"

@@ -164,3 +164,75 @@ def test_feedforward_forms_match_jax_bf16(monkeypatch, n):
         # the split form rounds where JAX's does, so (nearly) every element is
         # equal; the packed form at this shape leaves ~4% a bf16 ulp apart
         assert (t2n(y_t) == r).mean() >= 0.99
+
+
+# (N, C, inner) of calls around the GEGLU kernels' conditions: the
+# flagship's three levels, JAX's rule (the 64-token mid block), C % 32, C
+# within a block's shared memory (<= 1600), inner % 32 (80 passes JAX's
+# rule and not the kernels'), inner % 64 (64-row weight tiles)
+GEGLU_CALLS = [(4096, 320, 1280), (1024, 640, 2560), (256, 1280, 5120), (64, 320, 1280),
+               (256, 32, 80), (256, 48, 192), (256, 1600, 640), (256, 1632, 640),
+               (512, 96, 224)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["geglu_proj", "ln_geglu_proj"])
+@pytest.mark.parametrize("n,c,inner", GEGLU_CALLS)
+def test_launchers_raise_exactly_where_geglu_takes_refuses(monkeypatch, n, c, inner, name,
+                                                           dtype):
+    """``geglu_takes`` holds exactly where both GEGLU launchers take a call
+    (bf16, JAX's ``supported``, C % 32 up to 1600, inner % 32): the
+    launcher, on meta tensors with a stub for the kernel, launches once
+    where it holds and raises ValueError where it does not."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(GG, "_symbol", lambda: (lambda *args: 0))
+    monkeypatch.setattr(GG, "on_device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    takes = GG.geglu_takes(dtype, n, c, inner)
+    assert takes == (dtype == torch.bfloat16 and GG.supported(n, c, inner) and c % 32 == 0
+                     and c <= 1600 and inner % 32 == 0)
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dt)
+    x, w, b = meta(1, n, c, dt=dtype), meta(2 * inner, c), meta(2 * inner)
+    wp = meta(2 * inner, c, dt=torch.bfloat16)
+    if name == "geglu_proj":
+        def call():
+            return GG.geglu_proj(x, w, b, w_packed=wp)
+    else:
+        def call():
+            return GG.ln_geglu_proj(x, meta(c), meta(c), w, b, w_packed=wp)
+    before = GG.launches[name]
+    if takes:
+        call()
+        assert GG.launches[name] == before + 1
+    else:
+        with pytest.raises(ValueError):
+            call()
+        assert GG.launches[name] == before
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n,c,inner,plan", [
+    (4096, 320, 1280, (128, 128, 4)), (1024, 640, 2560, (128, 128, 16)),
+    (256, 1280, 5120, (64, 128, 33)), (512, 96, 224, (128, 64, 7))])
+def test_geglu_proj_plan(b, n, c, inner, plan):
+    """K7a's tile plan (``lnproj_plan(..., "geglu_proj")``): 128-token blocks
+    where the (128, C) tokens fit beside a 2-stage weight ring (C <= 640),
+    else 64; 128 weight rows a tile (64 h + 64 gate) where inner % 64 == 0;
+    as many column groups as one wave of 132 blocks takes. The plan fits
+    the block's shared memory and never asks for more blocks than SMs."""
+    from edtr_torch.ops import _proj
+
+    m = b * n
+    bm, bn, groups = _proj.lnproj_plan(m, c, 2 * inner, "geglu_proj")
+    if b == 1:
+        assert (bm, bn, groups) == plan
+    assert (bm, bn) == plan[:2]
+    assert m % bm == 0 and (2 * inner) % bn == 0 and inner % (bn // 2) == 0
+    assert 1 <= groups <= 2 * inner // bn and (m // bm) * groups <= _proj.SMS
+    assert _proj.lnproj_stages(bn, c, bm) >= 2
+    assert _proj.lnproj_smem(bn, c, _proj.lnproj_stages(bn, c, bm), bm) <= _proj.SMEM_LIMIT

@@ -346,6 +346,8 @@ def test_swin_unsupported_raises():
         WA.window_attention(q.float(), k.float(), v.float(), bias)
     with pytest.raises(ValueError):  # 16 tokens a window (window 4)
         WA.window_attention(q[:, :16], k[:, :16], v[:, :16], bias[:, :16, :16])
+    with pytest.raises(ValueError):  # separate q/k/v, not one packed tensor's slices
+        WA.window_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias)
 
 
 # flash forward vs plain_fwd (chip_smoke.py's limits): both round O to bf16
@@ -760,14 +762,9 @@ def test_tiny_flagship_restores_on_cuda():
         assert torch.isfinite(v.float()).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("source,kernel", [("flash_attention", "streamkv_kernel"),
-                                           ("swin_block", "swin_post_kernel")])
-def test_new_kernels_issue_hgmma(source, kernel):
-    """The SASS of K3's and K10b's kernels (``cuobjdump -sass`` on the built
-    library) holds HGMMA, the wgmma instruction, in every instance."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+def _sass(source):
+    """The SASS of ``csrc/<source>.cu``'s built library, one string per
+    function (``cuobjdump -sass``)."""
     import subprocess
     from pathlib import Path
 
@@ -779,7 +776,148 @@ def test_new_kernels_issue_hgmma(source, kernel):
     sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
                            str(_cuda.so_path(source))], capture_output=True, text=True,
                           check=True).stdout
-    funcs = sass.split("Function : ")[1:]
-    mine = [f for f in funcs if kernel in f.splitlines()[0]]
+    return sass.split("Function : ")[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,kernel", [("flash_attention", "streamkv_kernel"),
+                                           ("swin_block", "swin_post_kernel"),
+                                           ("window_attention", "window_attention_kernel"),
+                                           ("geglu", "lnproj_kernel")])
+def test_new_kernels_issue_hgmma(source, kernel):
+    """The SASS of K3's, K10b's, K9's and K7a/K7b's kernels (``cuobjdump
+    -sass`` on the built library) holds HGMMA, the wgmma instruction, in
+    every instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    mine = [f for f in _sass(source) if kernel in f.splitlines()[0]]
     assert mine, f"no {kernel} in {source}'s SASS"
     assert all("HGMMA" in f for f in mine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["flash_attention", "flash_attention_bwd", "gn_conv",
+                                    "ln_matmul", "geglu", "window_attention", "swin_block"])
+def test_no_kernel_issues_mma_sync(source):
+    """No kernel of the port is left on mma.sync: no function in any built
+    library's SASS holds HMMA, the instruction mma.sync compiles to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    funcs = _sass(source)
+    assert funcs
+    assert not [f.splitlines()[0] for f in funcs if "HMMA" in f]
+
+
+# K9's card cases on the packed slices swin_pre writes: the restore's 64
+# windows and the step's 128 at SwinIR's 6 heads x 30, no mask or a random
+# one of period 64, one block a window and two; and the widest C the kernel
+# takes (53 heads x 6 = WA.MAX_C, 318)
+K9_CASES = [(bw, h, d, masked, split) for bw in (64, 128) for h, d in ((6, 30), (53, 6))
+            for masked in (False, True) for split in (1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw,h,d,masked,split", K9_CASES)
+def test_window_attention_matches_plain(bw, h, d, masked, split, monkeypatch):
+    """The wgmma window attention (K9) against ``plain_window_attention``
+    (chip_smoke's Swin limits), two calls bit-identical, window w taking
+    mask row w mod 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(WA, "window_split", lambda *a: split)
+    g = torch.Generator(device="cuda").manual_seed(bw + split)
+    assert WA.kernel_takes(torch.bfloat16, 64, d, h)
+    packed = torch.randn((bw, 64, 3 * h * d), generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = packed.view(bw, 64, 3, h, d).unbind(2)
+    assert WA.packed_layout(q, k, v)
+    bias = torch.randn((h, 64, 64), generator=g, device="cuda") * 0.5
+    mask = torch.randn((64, 64, 64), generator=g, device="cuda") * 2 if masked else None
+    before = WA.launches["window_attention"]
+    out, again = (WA.window_attention(q, k, v, bias, mask) for _ in range(2))
+    want = WA.plain_window_attention(q, k, v, bias, mask, d ** -0.5)
+    torch.cuda.synchronize()
+    assert WA.launches["window_attention"] == before + 2
+    assert out.shape == (bw, 64, h, d) and out.is_contiguous()
+    assert torch.equal(out, again)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL_SWIN_MAX * want.float().abs().max().item(), err
+    rel = ((out.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= TOL_SWIN_L2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n,c", [(4096, 320), (1024, 640), (256, 1280)])
+def test_geglu_proj_matches_plain(n, c, b):
+    """K7a on the wgmma projection kernel (``lnproj_kernel<.., PRO_NONE,
+    EPI_GEGLU>``) at the flagship's three token levels, inner 4C, against
+    ``plain_geglu_proj`` (chip_smoke's limits), two calls bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, _, _, w, bias = _proj_args(n, c, 8 * c, b)
+    before = GG.launches["geglu_proj"]
+    out, again = GG.geglu_proj(x, w, bias), GG.geglu_proj(x, w, bias)
+    want = GG.plain_geglu_proj(x, w, bias)
+    torch.cuda.synchronize()
+    assert GG.launches["geglu_proj"] == before + 2
+    assert out.shape == (b, n, 4 * c) and torch.equal(out, again)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL_PROJ_MAX * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_projection_wrappers_refuse_what_their_predicates_refuse():
+    """The projection wrappers called directly raise where
+    ``ln_matmuls_takes`` / ``affine_matmul_takes`` / ``geglu_takes`` refuse
+    (fp32 tokens, O 32, inner 80), as the routes' plain fallback assumes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, s, sh, w, b = _proj_args(256, 64, 160, 2)  # 160 rows: inner 80 for GEGLU
+    mul, add = s[None].expand(2, -1).contiguous(), sh[None].expand(2, -1).contiguous()
+    assert not LM.ln_matmuls_takes(torch.float32, 256, 64, 128)
+    with pytest.raises(ValueError):
+        LM.ln_matmuls(x.float(), s, sh, [w[:128]])
+    assert not LM.affine_matmul_takes(torch.bfloat16, 256, 64, 32)
+    with pytest.raises(ValueError):
+        LM.affine_matmul(x, mul, add, w[:32], b[:32])
+    assert not GG.geglu_takes(torch.bfloat16, 256, 64, 80)
+    with pytest.raises(ValueError):
+        GG.geglu_proj(x, w, b)
+    with pytest.raises(ValueError):
+        GG.ln_geglu_proj(x, s, sh, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_proj_flagship_restores_on_cuda(dtype):
+    """``build_flagship(tiny=True, fused_proj=True)`` on the card in bf16 and
+    in fp32, at 128²: the tiny UNet's 16 transformer blocks see 256 tokens,
+    a size JAX fuses, with 32-wide heads (O 32) and, in fp32, tokens the
+    projection kernels do not take. The routes run those calls as the plain
+    versions in JAX's form (no LN+q/k/v, LN+query or affine launch; in fp32
+    no launch at all), the bf16 LN+GEGLU (C 32, inner 128) launches K7b
+    once a block, and the restore matches the same pipeline with fused_proj
+    off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from edtr_torch.pipeline import build_flagship
+
+    pipe = build_flagship(tiny=True, dtype=dtype, fused_proj=True, device="cuda")
+
+    def restore():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        lq = torch.rand((1, 128, 128, 3), generator=g, device="cuda")
+        c_txt = torch.randn((1, 77, 64), generator=g, device="cuda")
+        with torch.no_grad():
+            return pipe.restore(lq, c_txt, generator=g)
+    before = {**LM.launches, **GG.launches}
+    out = restore()
+    taken = 16 if dtype == torch.bfloat16 else 0
+    assert {**LM.launches, **GG.launches} == {**before,
+                                              "ln_geglu_proj": before["ln_geglu_proj"] + taken}
+    pipe.fused_proj = False
+    want = restore()
+    for name in ("restored", "pre_restored", "z"):
+        assert torch.isfinite(out[name].float()).all()
+        rel = ((out[name].float() - want[name].float()).norm() / want[name].float().norm())
+        assert rel.item() <= 5e-2, (name, rel.item())

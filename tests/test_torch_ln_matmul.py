@@ -394,13 +394,9 @@ def test_gn_stats_channels_last_matches_nchw_and_jax(shape):
 def test_profile_books_the_projection_kernels():
     from edtr_torch.profile_restore import _family
 
-    # "gemm" in the name, but the port's own kernel, not cuBLAS's
-    assert (_family("void edtr_proj::proj_gemm_kernel<128, 64, 1, 0>(edtr_proj::ProjArgs)")
-            == "proj (edtr_torch)")
-    assert (_family("void edtr_proj::proj_gemm_kernel<128, 128>(edtr_proj::ProjArgs)")
-            == "proj (edtr_torch)")
-    # the wgmma kernel of K8a, K7b and K8b (it was booked as "other")
-    for tmpl in ("64, 160, 0, 0", "64, 128, 0, 1", "32, 160, 1, 2"):
+    # the wgmma kernel of K8a, K7b, K8b and K7a (PRO_NONE, 128-row blocks)
+    for tmpl in ("64, 160, 0, 0", "64, 128, 0, 1", "32, 160, 1, 2", "128, 128, 2, 1",
+                 "64, 64, 2, 1"):
         assert (_family(f"void edtr_lnproj::lnproj_kernel<{tmpl}>(CUtensorMap_st, "
                         "CUtensorMap_st, edtr_lnproj::Args)") == "proj (edtr_torch)")
     assert _family("sm90_xmma_gemm_bf16bf16_bf16f32") == "gemm (cuBLAS)"
@@ -433,3 +429,114 @@ def test_conv_and_proj_configurations_restore_alike(monkeypatch):
         for name in ("pre_restored", "z", "restored"):
             np.testing.assert_allclose(t2n(out[name]), t2n(outs[0][name]), rtol=0, atol=1e-5,
                                        err_msg=name)
+
+
+# (N, C, O) of calls around the projection kernels' conditions: the
+# flagship's three levels, JAX's token rule (N % 256), C % 32, C within a
+# block's shared memory (<= 1600), O % 64 (the tiny flagship's 32-wide
+# heads)
+PROJ_CALLS = [(4096, 320, 320), (1024, 640, 640), (256, 1280, 1280), (64, 320, 320),
+              (256, 48, 64), (256, 32, 32), (512, 1600, 64), (256, 1632, 64), (768, 96, 192)]
+
+
+def _stub_launch(monkeypatch, mod):
+    """A wrapper's launcher on meta tensors: its checks run as on the card,
+    and the kernel's C entry point is a stub that returns 0."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(mod, "_symbol", lambda *a: (lambda *args: 0))
+    monkeypatch.setattr(mod, "on_device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["ln_matmuls", "affine_matmul"])
+@pytest.mark.parametrize("n,c,o", PROJ_CALLS)
+def test_launchers_raise_exactly_where_the_predicates_refuse(monkeypatch, n, c, o, name,
+                                                             dtype):
+    """``ln_matmuls_takes`` / ``affine_matmul_takes`` hold exactly where the
+    launchers take a call (bf16, N % 256, C % 32 up to 1600, O % 64): the
+    launcher, on meta tensors with a stub for the kernel, launches once
+    where the predicate holds and raises ValueError where it does not."""
+    _stub_launch(monkeypatch, LM)
+    takes = getattr(LM, name + "_takes")(dtype, n, c, o)
+    assert takes == (dtype == torch.bfloat16 and n % 256 == 0 and c % 32 == 0 and c <= 1600
+                     and o % 64 == 0)
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dt)
+    x, w, wp = meta(1, n, c, dt=dtype), meta(o, c), meta(o, c, dt=torch.bfloat16)
+    if name == "ln_matmuls":
+        def call():
+            return LM.ln_matmuls(x, meta(c), meta(c), [w], w_packed=wp)
+    else:
+        def call():
+            return LM.affine_matmul(x, meta(1, c), meta(1, c), w, meta(o), w_packed=wp)
+    before = LM.launches[name]
+    if takes:
+        call()
+        assert LM.launches[name] == before + 1
+    else:
+        with pytest.raises(ValueError):
+            call()
+        assert LM.launches[name] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_proj_route_reads_the_predicates(dtype):
+    """Off the CPU (a meta tensor here) a fused-projection call goes to its
+    wrapper exactly where the kernel's predicate holds; on the CPU, where
+    the wrappers are the plain versions, always."""
+    from edtr_torch.models.attention import proj_route
+
+    for n, c, o in PROJ_CALLS:
+        for takes in (LM.ln_matmuls_takes, LM.affine_matmul_takes):
+            x = torch.empty((1, n, c), device="meta", dtype=dtype)
+            assert proj_route(x, takes, n, c, o) == takes(dtype, n, c, o)
+            assert proj_route(torch.empty((1, n, c), dtype=dtype), takes, n, c, o)
+        x = torch.empty((1, n, c), device="meta", dtype=dtype)
+        assert proj_route(x, GG.geglu_takes, n, c, 4 * c) == GG.geglu_takes(dtype, n, c, 4 * c)
+
+
+@pytest.mark.parametrize("refused", [False, True], ids=["kernels", "refused"])
+def test_fused_proj_routes_send_refused_calls_to_the_plain_versions(monkeypatch, refused):
+    """Inside ``fused_proj()`` at a token count JAX fuses, a call whose
+    kernel refuses it (the predicates patched to refuse, the route as on
+    the card) runs the wrapper's plain version in JAX's form: the same
+    split-halves GEGLU, LN+q/k/v, LN+query and folded-affine calls, with
+    the numbers of the wrapper path, and no wrapper is called."""
+    from edtr_torch.models import attention
+    from edtr_torch.models.attention import FeedForward, SpatialTransformer
+
+    g = np.random.default_rng(34)
+    st, ff = SpatialTransformer(32, 2, 16, context_dim=16), FeedForward(32)
+    with torch.no_grad():
+        for p in [*st.parameters(), *ff.parameters()]:
+            p.copy_(_t(g.standard_normal(tuple(p.shape)).astype(np.float32) * 0.1))
+    x = nchw(g.standard_normal((1, 16, 16, 32)).astype(np.float32))
+    ctx = _t(g.standard_normal((1, 7, 16)).astype(np.float32))
+    t = _t(_tokens(g, 1, 256, 32))
+    with torch.no_grad(), fused_proj():
+        want = st(x, ctx), ff(t)
+    seen = []
+    if refused:
+        for mod, name in ((LM, "ln_matmuls"), (LM, "affine_matmul"), (GG, "geglu_proj"),
+                          (GG, "ln_geglu_proj")):
+            monkeypatch.setattr(mod, name, None)
+            if hasattr(mod, name + "_takes"):
+                monkeypatch.setattr(mod, name + "_takes",
+                                    lambda *a, _n=name: seen.append(_n) and False)
+        monkeypatch.setattr(GG, "geglu_takes", lambda *a: seen.append("geglu") and False)
+        monkeypatch.setattr(attention, "proj_route",
+                            lambda x, takes, *dims: takes(x.dtype, *dims))
+    calls = _record_plain(monkeypatch)
+    with torch.no_grad(), fused_proj():
+        got = st(x, ctx), ff(t)
+    assert calls == ["affine_matmul", "ln_matmuls_k3", "ln_matmuls_k1", "ln_geglu_proj",
+                     "geglu_proj"]
+    assert seen == (["affine_matmul", "ln_matmuls", "ln_matmuls", "geglu", "geglu"]
+                    if refused else [])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

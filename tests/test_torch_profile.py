@@ -120,7 +120,8 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
      "gn_conv (edtr_torch)"),
     ("void edtr_lnproj::lnproj_kernel<64, 160, 1, 2>(CUtensorMap_st, CUtensorMap_st, "
      "edtr_lnproj::Args)", "proj (edtr_torch)"),
-    ("void edtr_proj::proj_gemm_kernel<128, 128>(edtr_proj::ProjArgs)", "proj (edtr_torch)"),
+    ("void edtr_lnproj::lnproj_kernel<128, 128, 2, 1>(CUtensorMap_st, CUtensorMap_st, "
+     "edtr_lnproj::Args)", "proj (edtr_torch)"),
     # cuDNN's and cuBLAS's, which the stock path runs
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "conv (cuDNN)"),
     ("void cudnn::cnn::conv2d_grouped_direct_kernel<true>", "conv (cuDNN)"),

@@ -94,6 +94,92 @@ def test_window_attention_matches_jax_kernel(nw_mask, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_window_attention_matches_jax_kernel_on_packed_slices(dtype):
+    """As above, on q/k/v that are the three strided slices of one packed
+    (BW, N, 3C) tensor, as swin_pre writes them (the layout the card kernel
+    brings in by one bulk copy a window, ``packed_layout``), with a mask
+    period of 4 over 8 windows."""
+    bw, n, h, d, nw = 8, 64, 3, 30, 4
+    g = np.random.default_rng(46)
+    packed = g.standard_normal((bw, n, 3, h, d)).astype(np.float32)
+    (pj,), (pt,) = _cast([packed], dtype)
+    qt, kt, vt = pt.view(bw, n, 3 * h * d).view(bw, n, 3, h, d).unbind(2)
+    assert WA.packed_layout(qt, kt, vt) and not qt.is_contiguous()
+    bias = (0.1 * g.standard_normal((h, n, n))).astype(np.float32)
+    mask = (g.standard_normal((nw, n, n)) * 2).astype(np.float32)
+    with jax.default_matmul_precision("float32"):
+        want = JWA._win_fwd(pj[:, :, 0], pj[:, :, 1], pj[:, :, 2], jnp.asarray(bias),
+                            jnp.asarray(mask), d ** -0.5)
+    got = WA.window_attention(qt, kt, vt, _t(bias), _t(mask))
+    assert got.shape == (bw, n, h, d)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("bw,heads,split", [(64, 6, 2), (128, 6, 1), (66, 6, 2), (67, 6, 1),
+                                            (64, 1, 1), (8, 2, 2)])
+def test_window_split_fills_the_card(bw, heads, split):
+    """K9 gives a window to two blocks of half its heads where two blocks a
+    window still fit an H100's 132 SMs one block an SM (the restore's 64
+    windows), else one block (the step's 128)."""
+    assert WA.window_split(bw, heads) == split
+
+
+@pytest.mark.parametrize("n,d,heads,takes", [(64, 30, 6, True), (64, 6, 53, True),
+                                             (64, 32, 10, False), (64, 32, 11, False),
+                                             (64, 16, 19, True), (64, 31, 6, False),
+                                             (16, 16, 2, False), (64, 36, 5, False),
+                                             (64, 2, 1, True)])
+def test_window_attention_kernel_takes(n, d, heads, takes):
+    """The window kernel takes bf16 windows of 64 tokens with an even head
+    dim up to 32 and C = heads * d up to 318, the widest C whose block (the
+    window's packed rows, its output rows, three warpgroups' K/V tiles, the
+    mask rows) fits the shared memory the launcher allows; fp32 never."""
+    assert WA.MAX_C == 318
+    assert WA.smem_bytes(WA.MAX_C) <= WA.SMEM_LIMIT < WA.smem_bytes(WA.MAX_C + 2)
+    assert WA.kernel_takes(torch.bfloat16, n, d, heads) == takes
+    assert not WA.kernel_takes(torch.float32, n, d, heads)
+
+
+@pytest.mark.parametrize("layout", ["packed", "contiguous", "heads_first"])
+@pytest.mark.parametrize("bw", [64, 128])
+def test_window_attention_launch_reads_the_layout(monkeypatch, layout, bw):
+    """On meta tensors with a stub for the kernel, the wrapper hands the
+    kernel the packed rows (one bulk copy a window), the shape and
+    ``window_split``'s blocks a window; q/k/v in any other layout it
+    refuses, launching nothing."""
+    import contextlib
+    import types
+
+    seen = []
+    monkeypatch.setattr(WA, "_symbol", lambda: (lambda *a: seen.append(a) or 0))
+    monkeypatch.setattr(WA, "on_device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    h, d = 6, 30
+    packed = torch.empty((bw, 64, 3 * h * d), device="meta", dtype=torch.bfloat16)
+    q, k, v = packed.view(bw, 64, 3, h, d).unbind(2)
+    if layout == "contiguous":
+        q, k, v = (torch.empty((bw, 64, h, d), device="meta", dtype=torch.bfloat16)
+                   for _ in range(3))
+    elif layout == "heads_first":
+        q, k, v = (torch.empty((bw, h, 64, d), device="meta",
+                               dtype=torch.bfloat16).transpose(1, 2) for _ in range(3))
+    mask = torch.empty((64, 64, 64), device="meta")
+    bias = torch.empty((h, 64, 64), device="meta")
+    if layout != "packed":
+        assert not WA.packed_layout(q, k, v)
+        with pytest.raises(ValueError, match="packed"):
+            WA.window_attention(q, k, v, bias, mask)
+        assert not seen
+        return
+    out = WA.window_attention(q, k, v, bias, mask)
+    assert out.shape == (bw, 64, h, d) and out.is_contiguous()
+    (args,) = seen
+    assert args[0] == q.data_ptr() and args[4:8] == (bw, h, d, 64)
+    assert args[9] == WA.window_split(bw, h)
+
+
 def _pre_args(g, b, h, w, c):
     return (_tokens(g, b, h * w, c), _vec(g, c, mean=1.0), _vec(g, c),
             (g.standard_normal((c, 3 * c)) * c ** -0.5).astype(np.float32), _vec(g, 3 * c))
