@@ -64,7 +64,23 @@ no result line):
 9. one full-width ControlLDM eps forward through the flash kernels and
    through the plain attention (test hook), and fused and fused+proj
    against stock;
-10. the full-width EDTR-s4 training step (``build_flagship(train=True)``,
+10. restore then detect, as ``bench.py:_run_split`` runs it: the restore in
+   the pipeline's default configuration (bs 1, 512²), clamped to [0, 1],
+   then the Faster R-CNN MobileNetV3-Large-FPN detector (21 classes, bf16,
+   seeded random weights, the heads scaled on the restored image:
+   ``faster_rcnn.calibrate_heads_``) at 800²: its parameter count; one
+   restore+detect counted (exact launches of the restore's kernels; the
+   detector launches none of the port's: its box ops, RoIAlign, convs and
+   GEMMs are stock PyTorch, as JAX leaves them to XLA), its NMS calls and
+   host synchronisations, its detections checked (valid ones, scores,
+   labels, boxes in the image); the bf16 detector against the fp32 one on
+   the same image (FPN maps, objectness, deltas, class logits at the bf16
+   run's proposals); the stage split swinir / vae_encode / scan /
+   decode+wavelet / detect over 21 rounds with the restore+detect ms/img,
+   and a trace of 3 (device-busy ms, idle share, kernels; no host-to-device
+   copy in the ``swinir`` and ``detect`` stages); one detect call at
+   ``bench.py``'s batch of 8: ms and peak memory;
+11. the full-width EDTR-s4 training step (``build_flagship(train=True)``,
    ``EDTRTrainState``, ``make_edtr_train_step``; the restore's pipeline is
    freed first) at 512², bs 2, bf16 compute, seeded weights, batch, t and
    noise: one step's gradients on the kernel path, in the pipeline's
@@ -80,12 +96,13 @@ no result line):
    memory; a traced step, whose ranges (set inside the step) split it into
    forward+loss / backward / optimizer; then every trainable parameter
    moved and every frozen one bit-identical;
-11. each forward kernel of the training step (flash, conv, Swin; the
+12. each forward kernel of the training step (flash, conv, Swin; the
    projection kernels of the fused_proj step) against its plain version at
    every bs-2 shape the counted steps launched it with, as phases 3, 5, 6
    and 7 hold them at the restore's shapes; the step's backward shapes must
    be those phase 3 held;
-12. a ``{"kernels": [...]}`` line with every ported kernel, then the result
+13. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+   most of any counted path, restore+detect among them), then the result
    line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
@@ -292,6 +309,16 @@ TOL_TRAIN_LOSS = 1e-2
 # up to 2^21 elements a group; a dropped or doubled row moves them by
 # more than 1e-4
 TOL_GN_STATS = 1e-5
+# the detector of bench.py's main path (bench.py:176-201): Faster R-CNN
+# MobileNetV3-Large-FPN on VOC's 21 classes, the restored 512² image resized
+# to 800²; bench.py's batch (bench.py:45) for one batched call
+DETECT_CLASSES = 21
+DETECT_BATCH = 8
+# bf16 vs fp32 detector on the same image and weights: FPN maps, objectness,
+# deltas, and class logits at the bf16 run's proposals; every one of the
+# ~60 convs and GEMMs may flip bf16 roundings, through up to ~25 layers: the
+# configuration bound above
+TOL_DETECT_REL = 5e-2
 IMAGE = 512
 # restores per configuration in the interleaved timing (single host times
 # of one configuration spread over 300-550 ms on the card's machine), and
@@ -1302,8 +1329,175 @@ def cldm_phase(pipe, device) -> dict:
     return res
 
 
+def detector_pair(device, images: torch.Tensor) -> tuple:
+    """(bf16, fp32) detectors on one set of seeded random weights
+    (``randomize_``: N(0, 1/fan_in) kernels), the layers after the body
+    scaled to unit output RMS on ``images`` in fp32 (``calibrate_heads_``),
+    so the heads' features stay O(1) and class scores pass the 0.05
+    threshold, as trained weights' do."""
+    from edtr_torch.models.faster_rcnn import calibrate_heads_, fasterrcnn_mobilenet_v3_large_fpn
+    from edtr_torch.models.layers import randomize_
+
+    fp32 = fasterrcnn_mobilenet_v3_large_fpn(num_classes=DETECT_CLASSES, device=device)
+    randomize_(fp32, torch.Generator(device=device).manual_seed(7))
+    calibrate_heads_(fp32, images)
+    bf16 = fasterrcnn_mobilenet_v3_large_fpn(num_classes=DETECT_CLASSES, dtype=torch.bfloat16,
+                                             device=device)
+    bf16.load_state_dict(fp32.state_dict(), strict=True)
+    return bf16, fp32
+
+
+def detect_phase(pipe, device) -> tuple:
+    """Restore then detect (module docstring, phase 10): (the phase's
+    results, the counted restore+detect's launches, shapes and copies)."""
+    from torch.profiler import record_function
+
+    from edtr_torch.ops import boxes
+    from edtr_torch.pipeline import FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT
+    from edtr_torch.profile_restore import RESTORE_DETECT_STAGES, trace_restores
+
+    flags = (FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT)
+    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
+    lq, c_txt, noise, step_noise = restore_args(device)
+    x, noise, step_noise = (lq.permute(0, 3, 1, 2), noise.permute(0, 3, 1, 2),
+                            step_noise.permute(0, 1, 4, 2, 3))
+
+    def restore():  # NCHW, as bench.py:_run_split's stages
+        pre = pipe.pre_restore(x)
+        return pipe.decode(pipe.denoise(pipe.encode(pre), c_txt, noise, step_noise), pre)
+
+    def detect(img):  # the restored image clamped to [0, 1], as a detector takes it
+        with torch.no_grad():
+            return det(img.clamp(0, 1))
+
+    t0 = time.perf_counter()
+    restored = restore().clamp(0, 1)
+    det, det32 = detector_pair(device, restored)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in det.parameters())
+    print(f"detector: Faster R-CNN MobileNetV3-Large-FPN, {DETECT_CLASSES} classes, {n_params} "
+          f"params (fp32), bf16 compute, built + randomised + calibrated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    detect(restored)  # its anchors are made once per input shape
+
+    # the main path, restore then detect: counts set to 0 just before, read just after
+    zero_counts()
+    boxes.host_syncs.update(calls=0, syncs=0)
+    dets = {}
+    ms = host_ms(lambda: dets.update(detect(restore())[0]))
+    launches, shapes, copies = read_counts()
+    syncs = dict(boxes.host_syncs)
+    print(f"restore+detect counted: {ms:.1f} ms, launches {launches}, layout copies {copies}, "
+          f"NMS calls {syncs['calls']} with {syncs['syncs']} host synchronisations",
+          flush=True)
+    check(launches == expected_launches(flags), f"restore+detect launches {launches}")
+    if flags[0]:
+        check(copies == dict(conv=0, proj=0), f"restore+detect layout copies {copies}")
+    check(syncs["calls"] == 2, f"NMS calls per detect {syncs['calls']}, want 2 (RPN, box head)")
+    check(tuple(dets["boxes"].shape) == (1, 100, 4), "detections' shape")
+    check(all(bool(torch.isfinite(dets[k]).all()) for k in ("boxes", "scores")),
+          "detections finite")
+    valid = dets["valid"][0]
+    labels = dets["labels"][0][valid]
+    check(int(valid.sum()) > 0, "no valid detection")
+    check(bool((dets["scores"][0][valid] > 0.05).all()), "valid scores above the threshold")
+    check(bool(((labels >= 1) & (labels < DETECT_CLASSES)).all()), "valid labels are classes")
+    bx = dets["boxes"][0][valid]
+    check(bool((bx >= 0).all() and (bx <= IMAGE).all() and (bx[:, 2:] >= bx[:, :2]).all()),
+          "valid boxes inside the 512² image")
+
+    # bf16 against fp32 on the same image and weights; the class logits at
+    # the bf16 run's proposals (manual_proposals), which the RPN's discrete
+    # choices would otherwise move
+    with torch.no_grad():
+        _, _, f16 = det(restored)
+        d32, _, f32 = det32(restored)
+        ones = torch.ones(f16["proposals"].shape[:2], dtype=torch.bool, device=device)
+        _, _, f32m = det32(restored, manual_proposals=(f16["proposals"], ones))
+    rels = {f"fpn_{k}": rel_l2(f16["features"][k], f32["features"][k])
+            for k in ("0", "1", "pool")}
+    for key in ("objectness", "pred_bbox_deltas"):
+        rels.update({f"{key}_{i}": rel_l2(a, b) for i, (a, b) in enumerate(zip(f16[key],
+                                                                                f32[key]))})
+    rels["class_logits_at_bf16_proposals"] = rel_l2(f16["class_logits"], f32m["class_logits"])
+    for name, rel in rels.items():
+        check(rel <= TOL_DETECT_REL, f"detector bf16 vs fp32 {name}: {rel} > {TOL_DETECT_REL}")
+    check(int(d32["valid"].sum()) > 0, "no valid fp32 detection")
+
+    # the stage split, named as bench.py:_run_split names it, and the
+    # restore+detect ms/img; each stage under its own profiler range
+    stages = {s: [] for s in RESTORE_DETECT_STAGES}
+    out = {}
+
+    def timed(stage, fn):
+        with record_function(stage):
+            stages[stage].append(host_ms(lambda: out.update({stage: fn()})))
+        return out[stage]
+
+    def chain():
+        pre = timed("swinir", lambda: pipe.pre_restore(x))
+        z = timed("vae_encode", lambda: pipe.encode(pre))
+        z0 = timed("scan", lambda: pipe.denoise(z, c_txt, noise, step_noise))
+        img = timed("decode+wavelet", lambda: pipe.decode(z0, pre))
+        timed("detect", lambda: detect(img))
+
+    e2e = []
+    boxes.host_syncs.update(calls=0, syncs=0)
+    for _ in range(TIME_ITERS):
+        chain()
+        e2e.append(host_ms(lambda: detect(restore())))
+    sync_stats = dict(boxes.host_syncs)
+    stage_ms = {s: statistics.median(v) for s, v in stages.items()}
+    t0 = time.perf_counter()
+    trace = trace_restores(chain, TRACE_ITERS, RESTORE_DETECT_STAGES)
+    print(f"stages_ms restore+detect (pipeline defaults {flags}):", json.dumps(stage_ms),
+          flush=True)
+    print(f"e2e restore+detect: {statistics.median(e2e):.2f} ms/img (median of {len(e2e)}: "
+          f"{e2e}; bs 1, 512² -> 800², host clock around synchronised calls)", flush=True)
+    print(f"trace restore+detect of {TRACE_ITERS} ({time.perf_counter() - t0:.1f} s):",
+          json.dumps(trace), flush=True)
+    for stage in ("swinir", "detect"):
+        htod = trace["stages"][stage]["htod_memcpy"]
+        check(htod == 0, f"restore+detect: {htod} host-to-device copies per {stage} stage")
+
+    # one call at bench.py's batch: eight placements of the restored image
+    batch = torch.cat([restored.roll((37 * i, 53 * i), (2, 3)) for i in range(DETECT_BATCH)])
+    detect(batch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    boxes.host_syncs.update(calls=0, syncs=0)
+    res8 = {}
+    runs8 = [host_ms(lambda: res8.update(dets=detect(batch)[0])) for _ in range(5)]
+    peak = torch.cuda.max_memory_allocated()
+    valid8 = res8["dets"]["valid"].sum(1).tolist()
+    check(min(valid8) > 0, f"bs {DETECT_BATCH}: valid detections per image {valid8}")
+    det_trace = trace["stages"]["detect"]
+    res = dict(
+        params=n_params, configuration=dict(zip(("fused_conv", "fused_proj", "fused_swin"),
+                                                flags)),
+        rel_l2_vs_fp32=rels, tol_rel_l2=TOL_DETECT_REL, valid_detections=int(valid.sum()),
+        valid_detections_fp32=int(d32["valid"].sum()), stage_ms=stage_ms,
+        e2e_ms=statistics.median(e2e), e2e_runs_ms=e2e,
+        detect_stage=dict(host_ms=stage_ms["detect"], host_ms_traced=det_trace["host_ms"],
+                          device_busy_ms=det_trace["device_busy_ms"],
+                          idle_share=det_trace["idle_share"], kernels=det_trace["kernels"],
+                          htod_memcpy=det_trace["htod_memcpy"]),
+        nms_host_syncs_per_call=sync_stats["syncs"] / sync_stats["calls"], trace=trace,
+        batch=dict(bs=DETECT_BATCH, ms=statistics.median(runs8), runs_ms=runs8,
+                   ms_per_img=statistics.median(runs8) / DETECT_BATCH,
+                   peak_memory_gib=peak / 2 ** 30,
+                   call_peak_gib=(peak - before) / 2 ** 30,
+                   valid_detections_per_img=valid8,
+                   nms_host_syncs_per_call=boxes.host_syncs["syncs"] / boxes.host_syncs["calls"]))
+    print("detect (bf16, bs 1, restored 512² -> 800²; bs-8 call):",
+          json.dumps({k: v for k, v in res.items() if k != "trace"}), flush=True)
+    counts = dict(launches=launches, shapes=shapes, copies=copies)
+    return res, counts
+
+
 def train_phase(device) -> dict:
-    """The full-width training step (module docstring, phase 10)."""
+    """The full-width training step (module docstring, phase 11)."""
     from edtr_torch.models.layers import randomize_
     from edtr_torch.ops.attention import force_plain
     from edtr_torch.pipeline import build_flagship
@@ -1513,6 +1707,7 @@ def main() -> int:
     swin_rows = swin_kernel_phase(device, counted["fused+swin"]["shapes"]["swin"])
     norms = norm_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
+    detect, counted["restore+detect"] = detect_phase(pipe, device)
     del pipe  # the training pipeline does not fit beside it with its optimizer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1533,7 +1728,8 @@ def main() -> int:
     check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")
     check(set(bwd_rows) == set(BWD_KERNELS), f"backward kernels timed: {sorted(bwd_rows)}")
     check(len(all_rows) == 17, f"kernels line: {sorted(all_rows)}")
-    print(json.dumps({"card": card, "restore": timing, "cldm_eps": cldm, "gn_stats": norms,
+    print(json.dumps({"card": card, "restore": timing, "detect": detect, "cldm_eps": cldm,
+                      "gn_stats": norms,
                       "train": train, "device_ms_traces": TRACE_STATS,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},

@@ -225,14 +225,15 @@ class Linear(nn.Module):
 class Conv2d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, groups: int = 1):
         super().__init__()
         self.dtype = dtype
         self.stride, self.padding = stride, padding
+        self.groups = groups
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel_size, kernel_size))
+            out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
-        nn.init.normal_(self.weight, std=(in_channels * kernel_size ** 2) ** -0.5)
+        nn.init.normal_(self.weight, std=(in_channels // groups * kernel_size ** 2) ** -0.5)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
         self._packed = DerivedWeight()
@@ -253,7 +254,8 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
-        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                     groups=self.groups)
         if self.bias is not None:
             y = y + self.bias.to(dt)[:, None, None]
         return y

@@ -53,6 +53,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import torch
 from torch import nn
 
+from edtr_torch.device import resolve_device
 from edtr_torch.diffusion.sampler import make_spaced_schedule, sample_loop
 from edtr_torch.diffusion.schedule import Diffusion
 from edtr_torch.models.cldm import ControlLDM
@@ -72,17 +73,6 @@ FUSED_PROJ_DEFAULT = False
 # the Swin configuration, by the same rule on the SwinIR stage's pairs of
 # fused vs fused+swin, the only stage it changes (chip_smoke.py, PERF.md)
 FUSED_SWIN_DEFAULT = True
-
-
-def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
-    """``device`` as given, else the current CUDA device; raises when no
-    device is given and no card is present (never a quiet CPU run)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("edtr_torch runs on a CUDA device and none is "
-                               "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 def edtr_used_timesteps(start_timestep: int, num_timesteps: int) -> List[int]:

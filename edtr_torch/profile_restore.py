@@ -1,16 +1,17 @@
 """Where a restore or a training step spends its time on the card: a
 ``torch.profiler`` trace summarised per stage.
 
-:func:`trace_restores` runs a caller's chain (one restore, or one training
-step) under the profiler; the chain puts each stage under a
-``record_function`` range: a restore's named as ``bench.py:_run_split``
-names them (:data:`STAGES`), a training step's :data:`TRAIN_STAGES`.
+:func:`trace_restores` runs a caller's chain (one restore, one restore
+and detection, or one training step) under the profiler; the chain puts
+each stage under a ``record_function`` range: a restore's named as
+``bench.py:_run_split`` names them (:data:`STAGES`, with ``detect`` after
+them :data:`RESTORE_DETECT_STAGES`), a training step's :data:`TRAIN_STAGES`.
 :func:`summarise` reads the Chrome trace: per stage the host ms, the
 device-busy ms (union of kernel intervals), the idle share, the kernel
 count and the host-to-device copies (each one a stall of the host: a copy
 from pageable memory synchronises the stream); the device time by kernel
 family; and the top kernels by device time. ``chip_smoke.py`` prints it for
-the full-width 512² restore and training step.
+the full-width 512² restore, restore and detection, and training step.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from typing import Callable, Sequence
 from edtr_torch.train.edtr_step import STAGES as TRAIN_STAGES
 
 STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
+# restore then detect, bench.py:_run_split's five stages
+RESTORE_DETECT_STAGES = STAGES + ("detect",)
 # kernel family by substring of the kernel name, first match wins: the
 # port's own kernels first, so "gnconv_wgmma_kernel" and "upconv_wgmma_kernel"
 # are not booked as cuDNN's convs
@@ -37,6 +40,7 @@ FAMILIES = (
     ("proj (edtr_torch)", ("lnproj_kernel",)),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "nhwc", "nchw")),
     ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
+    ("sort / top-k", ("sort", "radix", "topk")),
     ("norm / reduce", ("reduce", "norm", "softmax")),
     ("elementwise / copy", ("elementwise", "vectorized", "copy", "cat", "index",
                             "upsample", "fill", "pad")),

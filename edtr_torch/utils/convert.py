@@ -1,11 +1,14 @@
 """Weight bridge: ``edtr_tpu`` parameter trees -> the port's state dicts.
 
 The inverse of ``edtr_tpu/utils/convert.py``'s ``convert_ldm_unet``,
-``convert_controlnet``, ``convert_autoencoder_kl`` and ``convert_swinir``,
-written without importing them: a JAX tree (nested dicts of numpy arrays,
-flax names, HWIO conv kernels, (in, out) dense kernels) becomes a state
-dict under the reference LDM/SD key names, which the port's modules load
-with ``load_state_dict(strict=True)``.
+``convert_controlnet``, ``convert_autoencoder_kl``, ``convert_swinir``,
+``convert_mobilenetv3`` and ``convert_fasterrcnn_mobilenet``, written
+without importing them: a JAX tree (nested dicts of numpy arrays, flax
+names, HWIO conv kernels, (in, out) dense kernels) becomes a state dict
+under the reference LDM/SD or torchvision key names, which the port's
+modules load with ``load_state_dict(strict=True)``. The detector and its
+backbone take full flax variables, ``{"params", "batch_stats"}``: the
+BatchNorm ``mean``/``var`` become ``running_mean``/``running_var``.
 
 :func:`strip_swinir_lanes` undoes ``edtr_tpu.utils.convert.pad_swinir_lanes``
 (the JAX flagship's 180 -> 192 lane padding) so a padded tree loads into
@@ -14,6 +17,7 @@ the unpadded port.
 
 from __future__ import annotations
 
+import itertools
 import re
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
@@ -61,6 +65,26 @@ _RULES = {
     ] + _LEAF,
 }
 _RULES["controlnet"] = _RULES["unet"]
+_MOBILENET = [
+    (r"(^|/)features_(\d+)/", r"\1features/\2/"),
+    (r"/block_(\d+)/", r"/block/\1/"),
+    (r"/conv/", "/0/"),
+    (r"/bn/", "/1/"),
+]
+_STATS = [(r"/mean$", "/running_mean"), (r"/var$", "/running_var")]
+_RULES["mobilenetv3"] = _MOBILENET + _LEAF + _STATS
+# the body's rules run first: the RPN's names gain a "/conv/" of their own
+_RULES["fasterrcnn"] = [(r"^body/", "backbone/body/")] + _MOBILENET + [
+    (r"^fpn/inner_(\d+)/", r"backbone/fpn/inner_blocks/\1/0/"),
+    (r"^fpn/layer_(\d+)/", r"backbone/fpn/layer_blocks/\1/0/"),
+    (r"^rpn_head/conv_(\d+)/", r"rpn/head/conv/\1/0/"),
+    (r"^rpn_head/", "rpn/head/"),
+    (r"^box_(head|predictor)/", r"roi_heads/box_\1/"),
+] + _LEAF + _STATS
+# the box head's fc6 reads pooled RoIs (256, 7, 7) flattened channel-major
+# in the port (torchvision) and spatial-major in JAX
+_FC6 = "roi_heads.box_head.fc6.weight"
+_POOLED = (7, 7, 256)
 
 
 def _leaves(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -73,11 +97,15 @@ def _leaves(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
 
 
 def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
-    """State dict of the port's ``model`` ("unet", "controlnet", "vae" or
-    "swinir") from that model's ``edtr_tpu`` parameter tree."""
+    """State dict of the port's ``model`` ("unet", "controlnet", "vae",
+    "swinir", "mobilenetv3" or "fasterrcnn") from that model's
+    ``edtr_tpu`` parameter tree (for the last two, its full variables)."""
     rules = _RULES[model]
+    leaves = _leaves(tree)
+    if model in ("mobilenetv3", "fasterrcnn"):
+        leaves = itertools.chain(_leaves(tree["params"]), _leaves(tree["batch_stats"]))
     out = {}
-    for path, value in _leaves(tree):
+    for path, value in leaves:
         key = path
         for pattern, repl in rules:
             key = re.sub(pattern, repl, key)
@@ -86,6 +114,9 @@ def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
             value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
         out[key.replace("/", ".")] = torch.from_numpy(
             np.ascontiguousarray(value, dtype=np.float32))
+    if _FC6 in out:
+        w = out[_FC6]
+        out[_FC6] = w.reshape(-1, *_POOLED).permute(0, 3, 1, 2).reshape(w.shape).contiguous()
     return out
 
 

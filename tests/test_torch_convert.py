@@ -16,7 +16,7 @@ from edtr_tpu.utils import convert as C
 from edtr_torch.models.swinir import SwinIR
 from edtr_torch.pipeline import flagship_configs
 from edtr_torch.utils.convert import from_jax, strip_swinir_lanes
-from torch_port_helpers import IMAGE, jax_tiny, nchw, nhwc, port_tiny
+from torch_port_helpers import IMAGE, jax_tiny, nchw, nhwc, port_tiny, random_tree
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -54,6 +54,51 @@ def test_bridge_round_trips_through_reference_keys(model):
     sd = {k: v.numpy() for k, v in module.state_dict().items()}
     assert set(sd) == set(from_jax(params[model], model))
     back, orig = _flat(CONVERTERS[model](sd)), _flat(params[model])
+    assert set(back) == set(orig)
+    for key in orig:
+        np.testing.assert_array_equal(back[key], orig[key], err_msg=key)
+
+
+def _detector_variables(model):
+    """Random full variables of the tiny detector (full widths, 6 classes)
+    or of its MobileNetV3 body, and the port's module for them."""
+    import __graft_entry__ as G
+    import jax
+
+    from edtr_tpu.models.mobilenetv3 import MobileNetV3 as JMobileNetV3
+    from edtr_torch.models.faster_rcnn import fasterrcnn_mobilenet_v3_large_fpn
+    from edtr_torch.models.mobilenetv3 import MobileNetV3
+
+    x = jnp.zeros((1, 64, 64, 3))
+    if model == "fasterrcnn":
+        net = G._tiny_detnet(64)
+        shapes = jax.eval_shape(lambda k: net.init({"params": k}, x), jax.random.PRNGKey(0))
+        port = fasterrcnn_mobilenet_v3_large_fpn(num_classes=6, device="cpu")
+    else:
+        net = JMobileNetV3()
+        shapes = jax.eval_shape(lambda k: net.init(k, x, features=True), jax.random.PRNGKey(0))
+        port = MobileNetV3()
+    return random_tree(shapes, seed=21), port
+
+
+@pytest.mark.parametrize("model", ["fasterrcnn", "mobilenetv3"])
+def test_detector_bridge_round_trips_through_torchvision_keys(model):
+    """JAX variables -> bridge -> the port (strict load) -> its state_dict
+    -> ``convert_fasterrcnn_mobilenet`` / ``convert_mobilenetv3`` -> the
+    same variables, BatchNorm statistics and fc6's row order included: the
+    port's names are torchvision's."""
+    variables, port = _detector_variables(model)
+    sd = from_jax(variables, model)
+    port.load_state_dict(sd, strict=True)
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    if model == "fasterrcnn":
+        assert "backbone.body.features.4.block.2.fc1.weight" in sd  # the SE layer
+        assert sd["backbone.body.features.4.block.1.0.weight"].shape == (72, 1, 5, 5)
+        assert sd["backbone.body.features.16.1.running_var"].shape == (960,)
+        back = C.convert_fasterrcnn_mobilenet(sd)
+    else:
+        back = C.convert_mobilenetv3(sd, with_classifier=False)
+    back, orig = _flat(back), _flat(variables)
     assert set(back) == set(orig)
     for key in orig:
         np.testing.assert_array_equal(back[key], orig[key], err_msg=key)
@@ -112,7 +157,10 @@ def test_port_imports_no_jax():
                 "edtr_torch.ops.flash_attention", "edtr_torch.ops.gn_conv",
                 "edtr_torch.ops.ln_matmul", "edtr_torch.ops.geglu",
                 "edtr_torch.ops.window_attention", "edtr_torch.ops.swin_block",
-                "edtr_torch.train.edtr_step", "edtr_torch.utils.convert"):
+                "edtr_torch.train.edtr_step", "edtr_torch.utils.convert",
+                "edtr_torch.ops.boxes", "edtr_torch.ops.roi_align",
+                "edtr_torch.models.mobilenetv3", "edtr_torch.models.faster_rcnn",
+                "edtr_torch.device"):
         assert mod in res.stdout
 
 

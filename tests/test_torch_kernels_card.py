@@ -4,7 +4,9 @@ one no kernel takes raises. (``chip_smoke.py`` holds each kernel against its
 plain version; here the projection kernels are also held to theirs at the
 main path's token counts and widths.) The flash backward wrappers match
 ``plain_bwd``; the K5/K6 and K7-K10 autograd Functions give the plain
-versions' gradients.
+versions' gradients. The detector's NMS and rankings on the card equal
+the CPU's, and the full-width detector runs on the card with no
+host-to-device copy.
 The kernels have no CPU mode: without a card this test skips. This file
 imports no JAX, so on a card host without JAX it runs alone, without the
 suite's conftest:
@@ -921,3 +923,90 @@ def test_fused_proj_flagship_restores_on_cuda(dtype):
         assert torch.isfinite(out[name].float()).all()
         rel = ((out[name].float() - want[name].float()).norm() / want[name].float().norm())
         assert rel.item() <= 5e-2, (name, rel.item())
+
+
+def _tied_rows(rows, n, device):
+    """Rows of boxes with duplicates, scores on a coarse grid (exact ties),
+    about a fifth invalid."""
+    g = torch.Generator().manual_seed(n)
+    xy = torch.rand((rows, n, 2), generator=g) * 100
+    boxes = torch.cat([xy, xy + torch.rand((rows, n, 2), generator=g) * 33 + 1], -1)
+    boxes[:, n - n // 8:] = boxes[:, torch.randint(0, n - n // 8, (n // 8,), generator=g)]
+    scores = torch.randint(0, 12, (rows, n), generator=g) / 4.0
+    valid = torch.rand((rows, n), generator=g) > 0.2
+    return boxes.to(device), scores.to(device), valid.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 300, 1000])
+def test_nms_and_top_k_on_the_card_equal_the_cpu(n):
+    """The detector's rankings and NMS keep masks on the card are the CPU's
+    on the same tensors, ties, duplicates and invalid entries included (the
+    CPU's are held to JAX's in tests/test_torch_detection.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from edtr_torch.ops import boxes as B
+
+    cpu = _tied_rows(3, n, "cpu")
+    card = tuple(t.cuda() for t in cpu)
+    for thr in (0.5, 0.7):
+        keep = B.nms_mask(*card[:2], thr, card[2])
+        assert keep.is_cuda
+        assert torch.equal(keep.cpu(), B.nms_mask(*cpu[:2], thr, cpu[2]))
+    idx, iv = B.top_k_by_score(card[1], n // 2, card[2])
+    want_idx, want_iv = B.top_k_by_score(cpu[1], n // 2, cpu[2])
+    assert torch.equal(idx.cpu(), want_idx) and torch.equal(iv.cpu(), want_iv)
+
+
+def _full_detector(dtype=torch.bfloat16):
+    from edtr_torch.models.faster_rcnn import calibrate_heads_, fasterrcnn_mobilenet_v3_large_fpn
+    from edtr_torch.models.layers import randomize_
+
+    det = fasterrcnn_mobilenet_v3_large_fpn(num_classes=21, dtype=dtype, device="cuda")
+    randomize_(det, torch.Generator(device="cuda").manual_seed(7))
+    img = torch.rand((1, 3, 512, 512), generator=torch.Generator(device="cuda").manual_seed(8),
+                     device="cuda")
+    return calibrate_heads_(det, img), img
+
+
+@pytest.mark.cuda
+def test_full_width_detector_runs_on_the_card():
+    """The bench's detector (21 classes, bf16, 512² -> 800²) on a CUDA
+    tensor: every output on the card, of JAX's static shapes, finite, with
+    valid detections."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    det, img = _full_detector()
+    with torch.no_grad():
+        dets, losses, feats = det(img)
+    assert losses == {}
+    assert dets["boxes"].shape == (1, 100, 4) and dets["valid"].shape == (1, 100)
+    assert feats["proposals"].shape == (1, 1000, 4)
+    assert tuple(feats["features"]["0"].shape) == (1, 256, 25, 25)
+    outs = [*dets.values(), feats["proposals"], feats["class_logits"],
+            *feats["features"].values(), *feats["objectness"], *feats["pred_bbox_deltas"]]
+    assert all(t.is_cuda for t in outs)
+    assert all(torch.isfinite(t.float()).all() for t in outs if t.is_floating_point())
+    assert dets["valid"].any()
+
+
+@pytest.mark.cuda
+def test_detect_makes_no_host_to_device_copy():
+    """After its first call at a shape (the anchors, made once per shape), a
+    detect call copies nothing from the host: the profiler's trace of a
+    ``detect`` range holds no host-to-device copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import record_function
+
+    from edtr_torch.profile_restore import trace_restores
+
+    det, img = _full_detector()
+
+    def chain():
+        with record_function("detect"), torch.no_grad():
+            det(img)
+    chain()
+    torch.cuda.synchronize()
+    stage = trace_restores(chain, 2, ("detect",))["stages"]["detect"]
+    assert stage["kernels"] > 0 and stage["htod_memcpy"] == 0, stage

@@ -129,3 +129,26 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
 ])
 def test_kernel_families_of_the_port_and_the_libraries(name, family):
     assert _family(name) == family
+
+
+def test_summarise_books_the_detect_stage():
+    """A restore-and-detect trace (``RESTORE_DETECT_STAGES``): the detect
+    range's kernels and copies are its own, and the detector's sorts book
+    as the sort family."""
+    from edtr_torch.profile_restore import RESTORE_DETECT_STAGES
+
+    assert RESTORE_DETECT_STAGES == ("swinir", "vae_encode", "scan", "decode+wavelet",
+                                     "detect")
+    events = [_x("user_annotation", s, 100 * i, 100)
+              for i, s in enumerate(RESTORE_DETECT_STAGES)]
+    events += [_x("cuda_runtime", "cudaLaunchKernel", 410, 1, corr=1),
+               _x("cuda_runtime", "cudaLaunchKernel", 420, 1, corr=2),
+               _x("kernel", "void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel", 430, 10,
+                  corr=1),
+               _x("kernel", "sm90_xmma_fprop_implicit_gemm_bf16", 445, 20, corr=2)]
+    out = summarise({"traceEvents": events}, RESTORE_DETECT_STAGES)
+    det = out["stages"]["detect"]
+    assert det["kernels"] == 2 and abs(det["device_busy_ms"] - 0.03) < 1e-9
+    assert det["htod_memcpy"] == 0 and abs(det["idle_share"] - 0.7) < 1e-9
+    assert out["stages"]["swinir"]["kernels"] == 0
+    assert set(out["by_family_ms"]) == {"sort / top-k", "conv (cuDNN)"}
