@@ -21,8 +21,10 @@ no result line):
    alone (``library_ms``) device times from a trace (CUDA-event times
    beside them) and the bound;
 4. the full-width EDTR-s4 ``EDTRPipeline.restore`` at 512², bs 1, bf16,
-   seeded random weights, in four configurations on the same weights,
-   input and noise: stock (the pipeline's ``fused_conv``, ``fused_proj``
+   seeded random weights, the empty prompt's CLIP embedding computed by
+   the restore (``c_txt=None``; its ``text`` stage, the OpenCLIP ViT-H
+   text tower), in four configurations on the same weights, input and
+   noise: stock (the pipeline's ``fused_conv``, ``fused_proj``
    and ``fused_swin`` False), fused (the gn_conv kernels), fused+proj (also
    the projection kernels) and fused+swin (the gn_conv and Swin kernels,
    the projections as ``pipeline.FUSED_PROJ_DEFAULT``). Each is counted
@@ -61,7 +63,10 @@ no result line):
    the ``F.linear`` GEMMs on already-normalised bf16 tokens) and the bound;
 8. the GroupNorm statistics at every shape of the fused restore, in
    channels-last memory and on an NCHW copy: equal, and device ms of each;
-9. one full-width ControlLDM eps forward through the flash kernels and
+   the text tower alone on the empty prompt: bf16 against fp32 on the same
+   weights, no port-kernel launch, host ms (median of 21), device-busy ms,
+   kernels and host-to-device copies from a trace of 3;
+9. one full-width ControlLDM eps forward (on the empty prompt's embedding) through the flash kernels and
    through the plain attention (test hook), and fused and fused+proj
    against stock;
 10. restore then detect, as ``bench.py:_run_split`` runs it: the restore in
@@ -75,7 +80,7 @@ no result line):
    host synchronisations, its detections checked (valid ones, scores,
    labels, boxes in the image); the bf16 detector against the fp32 one on
    the same image (FPN maps, objectness, deltas, class logits at the bf16
-   run's proposals); the stage split swinir / vae_encode / scan /
+   run's proposals); the stage split swinir / vae_encode / text / scan /
    decode+wavelet / detect over 21 rounds with the restore+detect ms/img,
    and a trace of 3 (device-busy ms, idle share, kernels; no host-to-device
    copy in the ``swinir`` and ``detect`` stages); one detect call at
@@ -96,14 +101,30 @@ no result line):
    memory; a traced step, whose ranges (set inside the step) split it into
    forward+loss / backward / optimizer; then every trainable parameter
    moved and every frozen one bit-identical;
-12. each forward kernel of the training step (flash, conv, Swin; the
+12. on the same pipeline, the step with a detector: student and teacher
+   Faster R-CNN MobileNetV3-Large-FPN (21 classes, bf16, no named weights
+   so ``norm_frozen`` False; the teacher a copy of the student, both
+   randomised and calibrated as ``detector_pair`` does), seeded targets
+   (up to 8 boxes an image, sides 32-256 px inside 512², labels 1-20, a
+   slot padded at least), ``cast_frozen_bf16`` on (frozen bytes before
+   and after). Kernel path against plain path on the same weights, batch
+   and draws: the EDTR half's ControlNet and decoder gradients for the
+   plain path's cotangent of its restored image, and the task-net half's
+   walk image, each within the limit; the step's own gradients printed.
+   One step counted (exact launches ``TRAIN_LAUNCHES_DET``), its losses
+   finite; 2 warm-up and 5 timed steps; a traced step split into
+   forward+loss / sample / backward / optimizer; peak memory; then the
+   ControlNet, decoder and trainable detnet tensors moved, the frozen
+   detnet stages bit-identical while their BatchNorm running statistics
+   moved, the teacher and every frozen pipeline tensor bit-identical;
+13. each forward kernel of the training step (flash, conv, Swin; the
    projection kernels of the fused_proj step) against its plain version at
    every bs-2 shape the counted steps launched it with, as phases 3, 5, 6
    and 7 hold them at the restore's shapes; the step's backward shapes must
    be those phase 3 held;
-13. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
-   most of any counted path, restore+detect among them), then the result
-   line.
+14. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+   most of any counted path, restore+detect and the step with a detector
+   among them), then the result line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
 with each launch's kernel in it and times a call by CUDA events, naming it
@@ -165,7 +186,6 @@ BWD_KERNELS = {
     "flash_bwd_dkv": ((10, 4096, 64), "edtr_tpu/ops/flash_attention.py:413", 5),
 }
 TRAIN_BATCH = 2
-CONTEXT_DIM = 1024  # SD2.1's text-embedding width
 # launches of every kernel in one training step (fused_conv, the Swin
 # kernels on, fused_proj off: the pipeline's defaults). Forward: K1/K2 at
 # 4096/1024 tokens in ControlNet 2 + UNet 2 + 3 self-attentions each, then
@@ -193,8 +213,23 @@ TRAIN_LAUNCHES = {
 # Functions, whose backward recomputes the plain versions
 TRAIN_LAUNCHES_PROJ = {**TRAIN_LAUNCHES, "ln_matmuls": 72, "affine_matmul": 36,
                        "ln_geglu_proj": 36}
+# the step with a detector adds, after the EDTR half, the task-net half's
+# no-grad walk at bs 1 (bs2 = max(bs // 2, 1)): 4 steps of ControlNet + UNet
+# (K1, K2: 7 self-attentions each a step; K5: 88 at the 8² level and 168 in
+# bands; K6: 3 UNet upsamples a step) and the decoder (K3 1, K5 28 bands,
+# K6 3); its SwinIR and encoder outputs are the EDTR half's, reused. The
+# detector launches none of the port's kernels.
+WALK_LAUNCHES = {"wholekv_fwd": 28, "whole_fwd": 28, "streamkv_fwd": 1,
+                 "gn_conv_whole": 88, "gn_conv_band": 196, "upsample_conv": 15}
+TRAIN_LAUNCHES_DET = {name: n + WALK_LAUNCHES.get(name, 0)
+                      for name, n in TRAIN_LAUNCHES.items()}
 TRAIN_WARMUP = 2
 TRAIN_TIMED = 5
+# the detector step's seeded targets: up to DET_BOXES boxes an image, sides
+# DET_SIDES pixels, inside the 512² image, VOC's 20 classes, one slot
+# padded at least
+DET_BOXES = 8
+DET_SIDES = (32, 256)
 # conv wrapper -> (the TPU kernel it replaces, launches in one fused 512²
 # restore): 4 steps x (UNet 22 + ControlNet 10 ResBlocks) x 2 halves, of
 # them 4 x 22 at the 8² latent level (whole-image tier), plus the VAE's
@@ -304,6 +339,10 @@ TOL_BWD_L2 = 1e-2
 # 2 x 512² x 3 pixels: within 1e-2 relative.
 TOL_GRAD_REL = 5e-2
 TOL_TRAIN_LOSS = 1e-2
+# the CLIP text tower on the empty prompt, bf16 compute against fp32 on the
+# same weights: 23 pre-LN blocks of bf16 GEMMs (~100 layers) on one
+# 77-token sequence; the detector's bf16 bound
+TOL_TEXT_REL = 5e-2
 # GroupNorm statistics, channels-last (Welford) vs two-pass on NCHW: both
 # fp32 over the same bf16 values, in other orders (~1e-7 relative), over
 # up to 2^21 elements a group; a dropped or doubled row moves them by
@@ -1100,11 +1139,12 @@ def verdict(base_runs: list, new_runs: list, default: bool) -> dict:
 
 
 def restore_args(device) -> tuple:
-    """The restore's seeded inputs: (lq, c_txt, noise, step_noise)."""
+    """The restore's seeded inputs: (lq, c_txt, noise, step_noise); c_txt
+    None, so the restore computes the empty prompt's CLIP embedding (its
+    ``text`` stage), as JAX's restore does."""
     g = torch.Generator(device=device).manual_seed(1)
     lat = IMAGE // 8
-    return (torch.rand((1, IMAGE, IMAGE, 3), generator=g, device=device),
-            torch.randn((1, 77, CONTEXT_DIM), generator=g, device=device),
+    return (torch.rand((1, IMAGE, IMAGE, 3), generator=g, device=device), None,
             torch.randn((1, lat, lat, 4), generator=g, device=device),
             torch.randn((4, 1, lat, lat, 4), generator=g, device=device))
 
@@ -1133,7 +1173,7 @@ def restore_phase(device) -> tuple:
         return pipe
 
     args = restore_args(device)
-    lq, c_txt, noise, step_noise = args
+    lq, _, noise, step_noise = args
     lat = IMAGE // 8
 
     # the main paths: counts set to 0 just before each, read just after
@@ -1190,6 +1230,7 @@ def restore_phase(device) -> tuple:
             configured(cfg)
             pre = timed("swinir", lambda: pipe.pre_restore(x))
             z = timed("vae_encode", lambda: pipe.encode(pre))
+            c_txt = timed("text", lambda: pipe.text(1))
             z0 = timed("scan", lambda: pipe.denoise(z, c_txt, noise.permute(0, 3, 1, 2),
                                                     step_noise.permute(0, 1, 4, 2, 3)))
             timed("decode+wavelet", lambda: pipe.decode(z0, pre))
@@ -1299,8 +1340,7 @@ def cldm_phase(pipe, device) -> dict:
     g = torch.Generator(device=device).manual_seed(3)
     lat = (1, 4, IMAGE // 8, IMAGE // 8)
     x = torch.randn(lat, generator=g, device=device)
-    cond = dict(c_img=torch.randn(lat, generator=g, device=device),
-                c_txt=torch.randn((1, 77, 1024), generator=g, device=device))
+    cond = dict(c_img=torch.randn(lat, generator=g, device=device), c_txt=pipe.text(1))
     t = torch.full((1,), 200, dtype=torch.long, device=device)
     with torch.no_grad():
         with fused_conv(False):
@@ -1326,6 +1366,53 @@ def cldm_phase(pipe, device) -> dict:
     check(res["rel_l2"] <= TOL_EPS_REL, f"eps relative L2 {res['rel_l2']} > {TOL_EPS_REL}")
     for k in ("fused_vs_stock_rel_l2", "fused_proj_vs_stock_rel_l2"):
         check(res[k] <= TOL_FUSED_REL, f"{k} {res[k]} > {TOL_FUSED_REL}")
+    return res
+
+
+def text_phase(pipe, device) -> dict:
+    """The CLIP text tower at full width (OpenCLIP ViT-H's, penultimate), the
+    restore's ``text`` stage: the empty prompt's embedding in bf16 against
+    an fp32 tower on the same weights, the port's kernels it launches
+    (none: its biased 77-token attention and its GEMMs are stock, as JAX
+    leaves them to XLA), host ms (median of 21) and a trace of 3
+    (device-busy ms, kernels, host-to-device copies)."""
+    from torch.profiler import record_function
+
+    from edtr_torch.models.clip import CLIPTextEncoder
+    from edtr_torch.profile_restore import trace_restores
+
+    clip = pipe.cldm.clip
+    zero_counts()
+    got = pipe.text(1)
+    launches, _, _ = read_counts()
+    with torch.device(device):
+        fp32 = CLIPTextEncoder(vocab_size=clip.vocab_size, width=clip.width,
+                               heads=clip.transformer.resblocks[0].attn.heads,
+                               layers=len(clip.transformer.resblocks) + 1)
+    fp32.load_state_dict(clip.state_dict(), strict=True)
+    with torch.no_grad():
+        want = fp32.encode([""])
+    del fp32
+    check(tuple(got.shape) == (1, 77, clip.width) and got.dtype == torch.float32,
+          f"text embedding {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), "text embedding finite")
+    check(not any(launches.values()), f"the text tower launched port kernels: {launches}")
+    rel = rel_l2(got, want)
+    runs = [host_ms(lambda: pipe.text(1)) for _ in range(TIME_ITERS)]
+
+    def chain():
+        with record_function("text"):
+            pipe.text(1)
+    trace = trace_restores(chain, TRACE_ITERS, ("text",))
+    st = trace["stages"]["text"]
+    res = dict(params=sum(p.numel() for p in clip.parameters()), rel_l2_bf16_vs_fp32=rel,
+               tol_rel_l2=TOL_TEXT_REL, host_ms=statistics.median(runs), runs_ms=runs,
+               host_ms_traced=st["host_ms"], device_busy_ms=st["device_busy_ms"],
+               idle_share=st["idle_share"], kernels=st["kernels"],
+               htod_memcpy=st["htod_memcpy"], by_family_ms=trace["by_family_ms"])
+    print("text (CLIP ViT-H text tower, empty prompt, bs 1, bf16 vs fp32):", json.dumps(res),
+          flush=True)
+    check(rel <= TOL_TEXT_REL, f"text bf16 vs fp32: relative L2 {rel} > {TOL_TEXT_REL}")
     return res
 
 
@@ -1358,13 +1445,14 @@ def detect_phase(pipe, device) -> tuple:
 
     flags = (FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT)
     pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
-    lq, c_txt, noise, step_noise = restore_args(device)
+    lq, _, noise, step_noise = restore_args(device)
     x, noise, step_noise = (lq.permute(0, 3, 1, 2), noise.permute(0, 3, 1, 2),
                             step_noise.permute(0, 1, 4, 2, 3))
 
-    def restore():  # NCHW, as bench.py:_run_split's stages
+    def restore():  # NCHW, as bench.py:_run_split's stages, the text one added
         pre = pipe.pre_restore(x)
-        return pipe.decode(pipe.denoise(pipe.encode(pre), c_txt, noise, step_noise), pre)
+        z = pipe.encode(pre)
+        return pipe.decode(pipe.denoise(z, pipe.text(1), noise, step_noise), pre)
 
     def detect(img):  # the restored image clamped to [0, 1], as a detector takes it
         with torch.no_grad():
@@ -1437,6 +1525,7 @@ def detect_phase(pipe, device) -> tuple:
     def chain():
         pre = timed("swinir", lambda: pipe.pre_restore(x))
         z = timed("vae_encode", lambda: pipe.encode(pre))
+        c_txt = timed("text", lambda: pipe.text(1))
         z0 = timed("scan", lambda: pipe.denoise(z, c_txt, noise, step_noise))
         img = timed("decode+wavelet", lambda: pipe.decode(z0, pre))
         timed("detect", lambda: detect(img))
@@ -1524,7 +1613,7 @@ def train_phase(device) -> dict:
     lat = IMAGE // 8
     batch = dict(lq=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
                  gt=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
-                 c_txt=torch.randn((TRAIN_BATCH, 77, CONTEXT_DIM), generator=g, device=device))
+                 c_txt=pipe.text(TRAIN_BATCH))  # the empty prompt's, once
     t, noise = step.draw(torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
 
     # one step's gradients on the plain path (plain attention, stock convs,
@@ -1629,7 +1718,221 @@ def train_phase(device) -> dict:
     check(ups and not stale, f"{len(stale)} of {len(ups)} cached folded conv weights stale")
     return dict(launches=launches, shapes=shapes, loss_hlf=loss, kernel_vs_plain=cmp,
                 launches_fused_proj=launches_proj, shapes_fused_proj=shapes_proj["proj"],
-                timing=timing, trace=trace, steps=state.step)
+                timing=timing, trace=trace, steps=state.step, pipe=pipe)
+
+
+def det_targets(device, gen: torch.Generator) -> dict:
+    """Seeded padded targets of the detector step: 1 to DET_BOXES - 1 valid
+    boxes an image (a slot padded at least), sides in DET_SIDES, inside the
+    512² image, labels 1-20."""
+    lo, hi = DET_SIDES
+    n = torch.randint(1, DET_BOXES, (TRAIN_BATCH,), generator=gen, device=device)
+    wh = lo + torch.rand((TRAIN_BATCH, DET_BOXES, 2), generator=gen, device=device) * (hi - lo)
+    xy = torch.rand((TRAIN_BATCH, DET_BOXES, 2), generator=gen, device=device) * (IMAGE - wh)
+    valid = torch.arange(DET_BOXES, device=device)[None] < n[:, None]
+    labels = torch.randint(1, DETECT_CLASSES, (TRAIN_BATCH, DET_BOXES), generator=gen,
+                           device=device)
+    return dict(boxes=torch.cat([xy, xy + wh], -1) * valid[..., None], labels=labels * valid,
+                valid=valid)
+
+
+def train_det_phase(pipe, device) -> dict:
+    """The full-width EDTR step with a detector (module docstring, phase
+    12), on the training pipeline of :func:`train_phase`."""
+    import copy
+
+    from edtr_torch.ops import boxes
+    from edtr_torch.ops.attention import force_plain
+    from edtr_torch.ops.gn_conv import pack_weight
+    from edtr_torch.profile_restore import TRAIN_STAGES, trace_restores
+    from edtr_torch.train.edtr_step import (EDTRTrainState, cast_frozen_bf16,
+                                            make_edtr_train_step)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(4)
+    lat = IMAGE // 8
+    batch = dict(lq=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
+                 gt=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
+                 c_txt=pipe.text(TRAIN_BATCH), targets=det_targets(device, g))
+    student, _ = detector_pair(device, batch["gt"].permute(0, 3, 1, 2))
+    teacher = copy.deepcopy(student)
+    state = EDTRTrainState.create(pipe, detnet=student, teacher_detnet=teacher)
+    step = make_edtr_train_step(pipe, detnet=student, teacher_detnet=teacher)
+    params = dict(pipe.named_parameters())
+    trainable = {n: p for n, p in params.items() if p.requires_grad}
+    frozen = {n: p for n, p in params.items() if not p.requires_grad}
+    det_params = dict(student.named_parameters())
+    det_train = {n: p for n, p in det_params.items() if p.requires_grad}
+    det_frozen = {n: p for n, p in det_params.items() if not p.requires_grad}
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    bytes_before = nbytes(list(frozen.values()) + list(teacher.state_dict().values()))
+    cast_frozen_bf16(pipe, pipe.cldm.vae.train_decoder, teacher)
+    bytes_after = nbytes(list(frozen.values()) + list(teacher.state_dict().values()))
+    # the kernels' cached bf16 weights follow the cast weights
+    convs = [m for name, m in pipe.named_modules() if name.startswith("cldm.unet.")
+             and hasattr(m, "packed_weight") and m.weight.ndim == 4 and m.weight.shape[-1] == 3]
+    stale = [c for c in convs if not torch.equal(c.packed_weight(torch.bfloat16),
+                                                 pack_weight(c.weight, torch.bfloat16))]
+    check(convs and not stale and all(c.weight.dtype == torch.bfloat16 for c in convs),
+          f"{len(stale)} of {len(convs)} cast UNet conv weights' caches stale")
+    torch.cuda.synchronize()
+    print(f"train with a detector: student and teacher Faster R-CNN MobileNetV3-Large-FPN, "
+          f"{DETECT_CLASSES} classes, bf16 compute, norm_frozen {student.norm_frozen}, "
+          f"{sum(p.numel() for p in det_train.values())} trainable and "
+          f"{sum(p.numel() for p in det_frozen.values())} frozen detnet params; "
+          f"cast_frozen_bf16: frozen pipeline + teacher {bytes_before / 2 ** 30:.3f} -> "
+          f"{bytes_after / 2 ** 30:.3f} GiB; targets valid per image "
+          f"{batch['targets']['valid'].sum(1).tolist()}; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t, noise = step.draw(torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
+    draws = dict(noise=torch.randn((1, 4, lat, lat), generator=g, device=device),
+                 step_noise=torch.randn((4, 1, 4, lat, lat), generator=g, device=device),
+                 uniforms=None)
+
+    # the kernel path against the plain path, on the same weights, batch
+    # and draws. Gated: (1) the EDTR half's ControlNet and decoder gradients
+    # for one cotangent of its restored image (the plain path's d loss_hlf /
+    # d restored), the kernels' forward and backward as the detnet=None
+    # step holds them; (2) the task-net half's restored image from the
+    # walk. Reported, not gated: the step's own gradients of both halves,
+    # where the feature L1's signs and the random detector's discrete
+    # choices (top-k, NMS, matching) turn the paths' ~1e-2 differences of
+    # the restored images into larger ones (PERF.md, §6)
+    stats0 = {n: b.clone() for n, b in student.named_buffers()}
+
+    def edtr_vjp(cot):
+        state.tx_edtr.zero_grad(set_to_none=True)
+        with pipe.configuration():
+            sh = step.shared(batch)
+            res = step.restored(sh, t, noise)
+            if cot is None:
+                leaf = res.detach().requires_grad_()
+                cot = torch.autograd.grad(step.hlf(leaf, sh[0]), leaf)[0]
+            res.backward(cot)
+        return cot, {n: p.grad.detach().clone() for n, p in trainable.items()}
+
+    def walk():
+        sh = step.shared(batch)
+        z = pipe.denoise(sh[2][:1], sh[3][:1], draws["noise"], draws["step_noise"])
+        return pipe.decode(z, sh[1][:1])
+
+    def halves():
+        loss = step.grads(state, batch, t, noise).item()
+        eg = {n: p.grad.detach().clone() for n, p in trainable.items()}
+        shared = [step.shared(batch)]
+        m = step.det_grads(state, batch, shared, [draws],
+                           torch.Generator(device=device).manual_seed(6))
+        dg = {n: p.grad.detach().clone() for n, p in det_train.items()}
+        with torch.no_grad():
+            for n, b in student.named_buffers():
+                b.copy_(stats0[n])
+        return dict(loss_hlf=loss, **{k: v.item() for k, v in m.items()}), eg, dg
+
+    flags = pipe.fused_conv, pipe.fused_proj, pipe.fused_swin
+    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
+    with force_plain():
+        cot, vjp_p = edtr_vjp(None)
+        walk_p = walk()
+        m_p, eg_p, dg_p = halves()
+    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
+    _, vjp_k = edtr_vjp(cot)
+    walk_k = walk()
+    m_k, eg_k, dg_k = halves()
+
+    def rel(a, b, names):
+        num = sum((a[n] - b[n]).float().pow(2).sum() for n in names)
+        return (num / sum(b[n].float().pow(2).sum() for n in names)).sqrt().item()
+
+    parts = {part: [n for n in trainable if n.startswith(f"cldm.{part}.")]
+             for part in ("controlnet", "vae.decoder")}
+    gated = {part: rel(vjp_k, vjp_p, names) for part, names in parts.items() if names}
+    gated["walk_restored"] = rel_l2(walk_k, walk_p)
+    reported = {part: rel(eg_k, eg_p, names) for part, names in parts.items() if names}
+    reported["detnet"] = rel(dg_k, dg_p, list(det_train))
+    cmp = dict(losses_kernel=m_k, losses_plain=m_p, tol_rel_l2=TOL_GRAD_REL,
+               gated_rel_l2=gated, step_grads_rel_l2_reported=reported)
+    del vjp_p, vjp_k, eg_p, eg_k, dg_p, dg_k
+    print("train with a detector, kernel path vs plain path (gated: the EDTR half's "
+          "gradients for the plain path's cotangent of the restored image, the walk's "
+          "restored image; reported: the step's own gradients):", json.dumps(cmp), flush=True)
+    for what, m in (("kernel", m_k), ("plain", m_p)):
+        check(all(math.isfinite(v) for v in m.values()), f"{what} detector-step losses {m}")
+    for part, r in gated.items():
+        check(r <= TOL_GRAD_REL, f"detector step kernel vs plain, {part}: relative L2 {r}")
+
+    before = {n: p.detach().clone() for n, p in params.items()}
+    det_before = {n: v.clone() for n, v in student.state_dict().items()}
+    teacher_before = {n: v.clone() for n, v in teacher.state_dict().items()}
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch, generator=g)
+    # the main path: counts set to 0 just before the step, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    boxes.host_syncs.update(calls=0, syncs=0)
+    out = {}
+    first_ms = host_ms(lambda: out.update(step(state, batch, t, noise, generator=g,
+                                                det_draws=[draws])))
+    launches, shapes, _ = read_counts()
+    syncs = dict(boxes.host_syncs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: v.item() for k, v in out.items()}
+    print(f"train step with a detector counted: {first_ms:.1f} ms, metrics {metrics}, launches "
+          f"{launches}, NMS calls {syncs['calls']} with {syncs['syncs']} host synchronisations, "
+          f"peak memory {peak:.2f} GiB (max_memory_allocated)", flush=True)
+    check(set(metrics) == {"loss_hlf", "loss_det", "loss_fm", "loss_objectness",
+                           "loss_rpn_box_reg", "loss_classifier", "loss_box_reg"},
+          f"detector step metrics {sorted(metrics)}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"detector step losses {metrics}")
+    check(launches == TRAIN_LAUNCHES_DET,
+          f"detector step launches {launches}, want {TRAIN_LAUNCHES_DET}")
+
+    steps = [host_ms(lambda: step(state, batch, generator=g)) for _ in range(TRAIN_TIMED)]
+    t0 = time.perf_counter()
+    trace = trace_restores(lambda: step(state, batch, generator=g), 1, TRAIN_STAGES)
+    timing = dict(step_ms=statistics.median(steps), step_runs_ms=steps,
+                  phase_host_ms_traced={s: trace["stages"][s]["host_ms"] for s in TRAIN_STAGES},
+                  phase_device_busy_ms_traced={s: trace["stages"][s]["device_busy_ms"]
+                                               for s in TRAIN_STAGES},
+                  peak_memory_gib=peak, batch=TRAIN_BATCH, image=IMAGE,
+                  frozen_bytes_before_cast=bytes_before, frozen_bytes_after_cast=bytes_after)
+    print(f"train step with a detector: {timing['step_ms']:.2f} ms (median of {TRAIN_TIMED}, bs "
+          f"{TRAIN_BATCH}, 512², host clock around synchronised steps; phases from the traced "
+          f"step):", json.dumps(timing), flush=True)
+    print(f"trace of one train step with a detector ({time.perf_counter() - t0:.1f} s):",
+          json.dumps(trace), flush=True)
+
+    moved = [n for n in trainable if not torch.equal(params[n], before[n])]
+    changed = [n for n in frozen if not torch.equal(params[n], before[n])]
+    det_now = student.state_dict()
+    det_moved = [n for n in det_train if not torch.equal(det_now[n], det_before[n])]
+    det_changed = [n for n in det_frozen if not torch.equal(det_now[n], det_before[n])]
+    frozen_stages = {n.split(".")[3] for n in det_frozen if n.startswith("backbone.body.")}
+    stats = [n for n in det_now if n.endswith(("running_mean", "running_var"))
+             and n.startswith("backbone.body.features.") and n.split(".")[3] in frozen_stages]
+    stats_moved = [n for n in stats if not torch.equal(det_now[n], det_before[n])]
+    teacher_changed = [n for n, v in teacher.state_dict().items()
+                       if not torch.equal(v, teacher_before[n])]
+    res = dict(moved=len(moved), trainable=len(trainable), frozen_changed=len(changed),
+               detnet_moved=len(det_moved), detnet_trainable=len(det_train),
+               detnet_frozen_changed=len(det_changed), frozen_stages=sorted(frozen_stages, key=int),
+               frozen_stage_stats_moved=len(stats_moved), frozen_stage_stats=len(stats),
+               teacher_changed=len(teacher_changed), steps=state.step)
+    print("train with a detector, after the steps:", json.dumps(res), flush=True)
+    check(len(moved) == len(trainable), "every ControlNet and decoder tensor moved")
+    check(not changed, f"frozen pipeline tensors changed: {changed[:5]}")
+    check(len(det_moved) == len(det_train), f"trainable detnet tensors moved: {len(det_moved)} "
+                                            f"of {len(det_train)}")
+    check(not det_changed and frozen_stages, f"frozen detnet stages changed: {det_changed[:5]}")
+    check(stats and len(stats_moved) == len(stats),
+          f"frozen stages' running statistics moved: {len(stats_moved)} of {len(stats)}")
+    check(not teacher_changed, f"teacher tensors changed: {teacher_changed[:5]}")
+    return dict(launches=launches, shapes=shapes, metrics=metrics, kernel_vs_plain=cmp,
+                timing=timing, trace=trace, checks=res,
+                nms_host_syncs_per_call=syncs["syncs"] / max(syncs["calls"], 1))
 
 
 def train_shape_phase(device, shapes: dict, proj_shapes: dict) -> dict:
@@ -1706,6 +2009,7 @@ def main() -> int:
                                          f"{proj_bench.SWIN_SHAPES} (proj_bench.py)")
     swin_rows = swin_kernel_phase(device, counted["fused+swin"]["shapes"]["swin"])
     norms = norm_phase(pipe, device)
+    text = text_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
     detect, counted["restore+detect"] = detect_phase(pipe, device)
     del pipe  # the training pipeline does not fit beside it with its optimizer
@@ -1714,23 +2018,29 @@ def main() -> int:
     train = train_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
+    train_det = train_det_phase(train.pop("pipe"), device)
+    gc.collect()
+    torch.cuda.empty_cache()
     train["held_at_step_shapes"] = train_shape_phase(device, train.pop("shapes"),
                                                      train.pop("shapes_fused_proj"))
 
     all_rows = {**rows, **bwd_rows, **conv_rows, **proj_rows, **swin_rows}
     for name, row in all_rows.items():  # from the path that runs it most
         row["launches"] = max([c["launches"][name] for c in counted.values()]
-                              + [train["launches"][name]])
+                              + [train["launches"][name], train_det["launches"][name]])
         row["launches_train_step"] = train["launches"][name]
+        row["launches_train_step_detnet"] = train_det["launches"][name]
         row["launches_train_step_fused_proj"] = train["launches_fused_proj"][name]
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
     check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
     check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")
     check(set(bwd_rows) == set(BWD_KERNELS), f"backward kernels timed: {sorted(bwd_rows)}")
     check(len(all_rows) == 17, f"kernels line: {sorted(all_rows)}")
-    print(json.dumps({"card": card, "restore": timing, "detect": detect, "cldm_eps": cldm,
-                      "gn_stats": norms,
-                      "train": train, "device_ms_traces": TRACE_STATS,
+    train_det.pop("shapes")
+    print(json.dumps({"card": card, "restore": timing, "text": text, "detect": detect,
+                      "cldm_eps": cldm, "gn_stats": norms,
+                      "train": train, "train_detnet": train_det,
+                      "device_ms_traces": TRACE_STATS,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},
                       "conv_shapes": [dict(key=list(k), launches=n) for k, n in

@@ -1,4 +1,4 @@
-"""Faster R-CNN MobileNetV3-Large-FPN, inference (NCHW, static shapes).
+"""Faster R-CNN MobileNetV3-Large-FPN (NCHW, static shapes).
 
 Counterpart of ``edtr_tpu/models/faster_rcnn.py`` for the MobileNet
 variant the flagship detects with (``fasterrcnn_mobilenet_v3_large_fpn``,
@@ -16,13 +16,24 @@ Numerics as in JAX: fp32 params; the body, FPN, heads compute in ``dtype``;
 the backbone's norms in fp32; head outputs, boxes, scores and NMS in fp32;
 the FPN maps and pooled RoIs in ``dtype``.
 
-Not ported yet: training (targets, matching, sampling, losses) and the
-ResNet50-FPN-v2 variant (ROADMAP.md, Queue 1 items 4 and 5).
+Training (``forward(images, targets=...)``), as JAX's ``targets is not
+None`` branches: the boxes resized with the image, the train-mode proposal
+counts, anchor matching (:func:`match_boxes`) and balanced sampling
+(:func:`balanced_sample`) for the RPN loss, the GT boxes appended to the
+detached proposals and the sampled ones gathered first for the box head's
+loss. ``train=True`` runs the body's BatchNorms on batch statistics and
+updates their running ones, unless ``norm_frozen``. The sampler's uniform
+draws can be given (``sampler_uniforms``) or come from ``generator``.
+:func:`detnet_trainable_mask` freezes the body's early stages as
+torchvision's ``trainable_layers`` does.
+
+Not ported yet: the ResNet50-FPN-v2 variant (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -179,6 +190,64 @@ class FastRCNNPredictor(nn.Module):
         return self.cls_score(x).float(), self.bbox_pred(x).float()
 
 
+BELOW_LOW = -1
+BETWEEN = -2
+
+
+def match_boxes(iou: torch.Tensor, high: float, low: float, allow_low_quality: bool,
+                gt_valid: torch.Tensor) -> torch.Tensor:
+    """torchvision's ``Matcher``, batched: ``iou`` (..., G, N) GT x
+    candidates, ``gt_valid`` (..., G) -> (..., N) the best GT's index, or
+    :data:`BELOW_LOW` under ``low``, :data:`BETWEEN` in [low, high). The
+    best is the first maximum; with ``allow_low_quality`` a candidate that
+    is a (tied, by ``==``) best for any valid GT keeps its best GT whatever
+    its IoU (``set_low_quality_matches_``)."""
+    iou = iou.masked_fill(~gt_valid[..., None], -1.0)
+    best_val, best_gt = iou.max(dim=-2)
+    matches = best_gt.masked_fill(best_val < low, BELOW_LOW)
+    matches = matches.masked_fill((best_val >= low) & (best_val < high), BETWEEN)
+    if allow_low_quality:
+        is_best = (iou == iou.amax(dim=-1, keepdim=True)) & gt_valid[..., None]
+        matches = torch.where(is_best.any(dim=-2), best_gt, matches)
+    return matches
+
+
+def _pick(u: torch.Tensor, mask: torch.Tensor, k) -> torch.Tensor:
+    """The first ``k`` of ``mask``'s candidates in the order of their
+    uniforms ``u`` (a stable sort: ties by index)."""
+    n = mask.shape[-1]
+    order = torch.sort(u + (~mask) * 10.0, dim=-1, stable=True).indices
+    pos = torch.arange(n, device=u.device).expand_as(order)
+    ranks = torch.empty_like(order).scatter_(-1, order, pos)
+    avail = mask.sum(-1, keepdim=True)
+    k = avail.clamp(max=k) if isinstance(k, int) else torch.minimum(k, avail)
+    return mask & (ranks < k)
+
+
+def balanced_sample(pos: torch.Tensor, neg: torch.Tensor, batch_size: int,
+                    fraction: float, u_pos: torch.Tensor, u_neg: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torchvision's ``BalancedPositiveNegativeSampler`` on static shapes,
+    batched over leading axes: masks (..., N) of the sampled positives (at
+    most ``int(batch_size * fraction)``) and negatives (the rest of
+    ``batch_size``), each picked in the order of its uniform draws (..., N)
+    as JAX's ``balanced_sample`` picks them."""
+    sampled_pos = _pick(u_pos, pos, int(batch_size * fraction))
+    n_pos = sampled_pos.sum(-1, keepdim=True)
+    return sampled_pos, _pick(u_neg, neg, batch_size - n_pos)
+
+
+def smooth_l1(x: torch.Tensor, beta: float = 1.0 / 9) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * ax ** 2 / beta, ax - 0.5 * beta)
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross-entropy on logits, JAX's form."""
+    return (logits.clamp(min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
 def _nhwc_flat(t: torch.Tensor, last: int) -> torch.Tensor:
     """A head output (B, A·last, H, W) flattened in JAX's NHWC order,
     index (h·W + w)·A + a, which is the anchors' order: (B, H·W·A, last)."""
@@ -186,29 +255,42 @@ def _nhwc_flat(t: torch.Tensor, last: int) -> torch.Tensor:
 
 
 class FasterRCNN(nn.Module):
-    """The MobileNetV3-Large-FPN detector, inference. :meth:`forward` takes
-    (B, 3, H, W) images in [0, 1] and returns ``(detections, losses,
-    feats)`` as JAX's ``__call__`` does."""
+    """The MobileNetV3-Large-FPN detector. :meth:`forward` takes (B, 3, H, W)
+    images in [0, 1] and returns ``(detections, losses, feats)`` as JAX's
+    ``__call__`` does. The fields are JAX's (its ``box_pre_nms_top_n`` is
+    not ported)."""
 
     def __init__(self, num_classes: int = 91, min_size: int = 800, max_size: int = 1333,
-                 rpn_pre_nms_top_n_test: int = 1000, rpn_post_nms_top_n_test: int = 1000,
-                 rpn_nms_thresh: float = 0.7, rpn_score_thresh: float = 0.0,
+                 rpn_pre_nms_top_n_train: int = 2000, rpn_pre_nms_top_n_test: int = 1000,
+                 rpn_post_nms_top_n_train: int = 2000, rpn_post_nms_top_n_test: int = 1000,
+                 rpn_nms_thresh: float = 0.7, rpn_fg_iou_thresh: float = 0.7,
+                 rpn_bg_iou_thresh: float = 0.3, rpn_batch_size_per_image: int = 256,
+                 rpn_positive_fraction: float = 0.5, rpn_score_thresh: float = 0.0,
                  box_score_thresh: float = 0.05, box_nms_thresh: float = 0.5,
-                 box_detections_per_img: int = 100,
+                 box_detections_per_img: int = 100, box_fg_iou_thresh: float = 0.5,
+                 box_bg_iou_thresh: float = 0.5, box_batch_size_per_image: int = 512,
+                 box_positive_fraction: float = 0.25,
                  bbox_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0),
                  norm_frozen: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_classes = num_classes
-        self.rpn_pre_nms_top_n_test = rpn_pre_nms_top_n_test
-        self.rpn_post_nms_top_n_test = rpn_post_nms_top_n_test
+        self.rpn_pre_nms_top_n = dict(train=rpn_pre_nms_top_n_train,
+                                      test=rpn_pre_nms_top_n_test)
+        self.rpn_post_nms_top_n = dict(train=rpn_post_nms_top_n_train,
+                                       test=rpn_post_nms_top_n_test)
         self.rpn_nms_thresh, self.rpn_score_thresh = rpn_nms_thresh, rpn_score_thresh
+        self.rpn_iou_thresh = (rpn_fg_iou_thresh, rpn_bg_iou_thresh)
+        self.rpn_batch_size_per_image = rpn_batch_size_per_image
+        self.rpn_positive_fraction = rpn_positive_fraction
         self.box_score_thresh, self.box_nms_thresh = box_score_thresh, box_nms_thresh
         self.box_detections_per_img = box_detections_per_img
+        self.box_iou_thresh = (box_fg_iou_thresh, box_bg_iou_thresh)
+        self.box_batch_size_per_image = box_batch_size_per_image
+        self.box_positive_fraction = box_positive_fraction
         self.bbox_reg_weights = tuple(bbox_reg_weights)
-        # FrozenBatchNorm2d: read by nothing yet. Inference runs every norm
-        # on its running statistics either way; the training half
-        # (ROADMAP.md, Queue 1 item 4) will keep frozen norms' statistics
+        # FrozenBatchNorm2d: every norm on its running statistics, never
+        # updated, whatever forward's ``train`` says
         self.norm_frozen = norm_frozen
         self.dtype = dtype
         self.transform = RCNNTransform(min_size, max_size)
@@ -237,12 +319,13 @@ class FasterRCNN(nn.Module):
 
     def proposals(self, objectness: Sequence[torch.Tensor],
                   deltas: Sequence[torch.Tensor], anchors: Sequence[torch.Tensor],
-                  img_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per image and level the top ``rpn_pre_nms_top_n_test`` anchors,
+                  img_hw: Tuple[int, int], mode: str = "test"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per image and level the top ``rpn_pre_nms_top_n_{mode}`` anchors,
         decoded, clipped, masked (sides >= 1e-3, sigmoid >= the score
         threshold), padded to one size with -inf scores, NMS per level,
-        then the top ``rpn_post_nms_top_n_test``: (B, P, 4), (B, P)."""
-        pre_nms = self.rpn_pre_nms_top_n_test
+        then the top ``rpn_post_nms_top_n_{mode}``: (B, P, 4), (B, P)."""
+        pre_nms = self.rpn_pre_nms_top_n[mode]
         max_k = min(pre_nms, max(a.shape[0] for a in anchors))
         lvl_boxes, lvl_scores, lvl_valid = [], [], []
         for obj, dlt, anc in zip(objectness, deltas, anchors):
@@ -268,14 +351,33 @@ class FasterRCNN(nn.Module):
         b = lb.shape[0]
         all_boxes, all_scores = lb.reshape(b, -1, 4), ls.reshape(b, -1)
         idx, valid = box_ops.top_k_by_score(
-            all_scores, min(self.rpn_post_nms_top_n_test, all_scores.shape[1]),
+            all_scores, min(self.rpn_post_nms_top_n[mode], all_scores.shape[1]),
             keep.reshape(b, -1))
         return all_boxes.gather(1, idx[..., None].expand(-1, -1, 4)), valid
 
-    def forward(self, images: torch.Tensor, targets=None,
+    def _fpn(self, images: torch.Tensor, train_bn: bool = False) -> tuple:
+        """(FPN maps, the resized and padded images, the resized (h, w)) of
+        (B, 3, H, W) images in [0, 1]; ``train_bn``: the body's norms on
+        batch statistics."""
+        tfm = self.transform
+        images_r, img_hw, _ = tfm.resize(tfm.normalize(images))
+        images_r = images_r.to(self.dtype or images_r.dtype)
+        feats_all = self.backbone.body(images_r, train_bn)
+        return self.backbone.fpn([feats_all[i] for i in self.stage_taps]), images_r, img_hw
+
+    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The FPN maps ``'0'``, ``'1'`` and ``'pool'`` of (B, 3, H, W)
+        images in [0, 1], norms on running statistics: an inference
+        :meth:`forward`'s ``feats["features"]`` alone (the outputs JAX's
+        feature passes keep of a whole call)."""
+        return dict(zip(("0", "1", "pool"), self._fpn(images)[0]))
+
+    def forward(self, images: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None,
                 manual_proposals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                return_feat: bool = False):
-        """``images`` (B, 3, H, W) in [0, 1] -> ``(detections, {}, feats)``.
+                return_feat: bool = False, train: bool = False,
+                sampler_uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        """``images`` (B, 3, H, W) in [0, 1] -> ``(detections, losses, feats)``.
 
         ``detections``: ``boxes`` (B, D, 4) in input pixels, ``scores``,
         ``labels`` and ``valid`` (B, D), D = ``box_detections_per_img``,
@@ -285,18 +387,23 @@ class FasterRCNN(nn.Module):
         head pooled and their ``class_logits`` (B, P, num_classes).
         ``manual_proposals``: (boxes (B, P, 4), valid (B, P)) in the resized
         image's pixels, pooled in place of the RPN's. As in JAX, ``feats``
-        come back whatever ``return_feat`` says."""
-        if targets is not None:
-            raise NotImplementedError(
-                "the port's detector runs inference only; training (targets, "
-                "matching, sampling, losses) is ROADMAP.md Queue 1 item 4")
-        b, _, orig_h, orig_w = images.shape
-        tfm = self.transform
-        images_r, img_hw, _ = tfm.resize(tfm.normalize(images))
-        images_r = images_r.to(self.dtype or images_r.dtype)
+        come back whatever ``return_feat`` says.
 
-        feats_all = self.backbone.body(images_r)
-        fpn_feats = self.backbone.fpn([feats_all[i] for i in self.stage_taps])
+        ``targets``: ``boxes`` (B, G, 4) in input pixels, ``labels`` (B, G)
+        and ``valid`` (B, G), padded. Given, the call trains as JAX's does:
+        ``losses`` holds ``loss_objectness``, ``loss_rpn_box_reg``,
+        ``loss_classifier`` and ``loss_box_reg``, the proposals are the
+        train-mode counts' (detached), the sampled ones gathered first, and
+        ``detections`` is empty (the jitted JAX step computes none it
+        uses). ``sampler_uniforms``: ``rpn`` (B, 2, anchors) and ``roi``
+        (B, 2, P + G) uniforms in [0, 1), each pair (positives, negatives)
+        of one image's :func:`balanced_sample`; else drawn from
+        ``generator``. ``train``: the body's norms on batch statistics,
+        their running ones updated (not under ``norm_frozen``)."""
+        training_mode = targets is not None
+        train_bn = train and not self.norm_frozen
+        b, _, orig_h, orig_w = images.shape
+        fpn_feats, images_r, img_hw = self._fpn(images, train_bn)
         objectness, pred_deltas = self.rpn.head(fpn_feats)
 
         # anchor strides: padded image size // grid size, per axis; the
@@ -305,7 +412,32 @@ class FasterRCNN(nn.Module):
         feat_shapes = [tuple(f.shape[-2:]) for f in fpn_feats]
         strides = [(pad_h // fh, pad_w // fw) for fh, fw in feat_shapes]
         anchors = self.anchors(feat_shapes, strides, images_r.device)
-        proposals, prop_valid = self.proposals(objectness, pred_deltas, anchors, img_hw)
+        proposals, prop_valid = self.proposals(objectness, pred_deltas, anchors, img_hw,
+                                               "train" if training_mode else "test")
+        # detached, as torchvision's RPN detaches them: no box-head
+        # gradient reaches the RPN through the proposals
+        proposals = proposals.detach()
+
+        losses: Dict[str, torch.Tensor] = {}
+        if training_mode:
+            nh, nw = img_hw
+            sx, sy = nw / orig_w, nh / orig_h
+            b_in = targets["boxes"].to(images.device, torch.float32)
+            gt_boxes = torch.stack([b_in[..., 0] * sx, b_in[..., 1] * sy,
+                                    b_in[..., 2] * sx, b_in[..., 3] * sy], dim=-1)
+            gt_labels = targets["labels"].to(images.device)
+            gt_valid = targets["valid"].to(images.device, torch.bool)
+            anchors_cat = torch.cat(anchors)
+            n_cand = proposals.shape[1] + gt_boxes.shape[1]
+            if sampler_uniforms is None:
+                sampler_uniforms = dict(
+                    rpn=torch.rand((b, 2, anchors_cat.shape[0]), generator=generator,
+                                   device=images.device),
+                    roi=torch.rand((b, 2, n_cand), generator=generator, device=images.device))
+            losses.update(self.rpn_loss(objectness, pred_deltas, anchors_cat, gt_boxes,
+                                        gt_valid, sampler_uniforms["rpn"]))
+            proposals, prop_valid, box_labels, reg_targets = self.select_training_samples(
+                proposals, prop_valid, gt_boxes, gt_labels, gt_valid, sampler_uniforms["roi"])
         if manual_proposals is not None:
             proposals, prop_valid = manual_proposals
 
@@ -324,9 +456,80 @@ class FasterRCNN(nn.Module):
         feats = {"features": {"0": fpn_feats[0], "1": fpn_feats[1], "pool": fpn_feats[2]},
                  "objectness": objectness, "pred_bbox_deltas": pred_deltas,
                  "proposals": proposals, "class_logits": class_logits}
+        if training_mode:
+            losses.update(self.box_loss(class_logits, box_deltas, box_labels, reg_targets,
+                                        prop_valid))
+            return {}, losses, feats
         detections = self.postprocess(class_logits, box_deltas, proposals, prop_valid,
                                       img_hw, (orig_h, orig_w))
-        return detections, {}, feats
+        return detections, losses, feats
+
+    def rpn_loss(self, objectness: Sequence[torch.Tensor], deltas: Sequence[torch.Tensor],
+                 anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                 uniforms: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The RPN's objectness BCE and box smooth-L1 over the sampled
+        anchors of each image, each over the sampled count, then the mean
+        over the batch. ``anchors`` (N, 4), the levels concatenated in the
+        order of the flattened head outputs."""
+        obj = torch.cat([_nhwc_flat(o, 1)[..., 0] for o in objectness], 1)   # (B, N)
+        dlt = torch.cat([_nhwc_flat(d, 4) for d in deltas], 1)                # (B, N, 4)
+        high, low = self.rpn_iou_thresh
+        matches = match_boxes(box_ops.box_iou(gt_boxes, anchors), high, low, True, gt_valid)
+        pos, neg = matches >= 0, matches == BELOW_LOW
+        matched = gt_boxes.gather(1, matches.clamp(min=0)[..., None].expand(-1, -1, 4))
+        reg_targets = box_ops.encode_boxes(matched, anchors)
+        sp, sn = balanced_sample(pos, neg, self.rpn_batch_size_per_image,
+                                 self.rpn_positive_fraction, uniforms[:, 0], uniforms[:, 1])
+        sampled = sp | sn
+        n_sampled = sampled.sum(-1).clamp(min=1)
+        box_l = (smooth_l1(dlt - reg_targets).sum(-1) * sp).sum(-1) / n_sampled
+        obj_l = (bce_with_logits(obj, pos.float()) * sampled).sum(-1) / n_sampled
+        return dict(loss_objectness=obj_l.mean(), loss_rpn_box_reg=box_l.mean())
+
+    def select_training_samples(self, proposals: torch.Tensor, prop_valid: torch.Tensor,
+                                gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                                gt_valid: torch.Tensor, uniforms: torch.Tensor) -> tuple:
+        """GT boxes appended to the proposals, matched and sampled, the
+        sampled ones first (a stable order) and the first
+        ``box_batch_size_per_image`` kept: (proposals, valid, labels: the
+        matched class, 0 background, -1 padding, regression targets)."""
+        props = torch.cat([proposals, gt_boxes], 1)
+        pvalid = torch.cat([prop_valid, gt_valid], 1)
+        iou = box_ops.box_iou(gt_boxes, props).masked_fill(~pvalid[:, None, :], -1.0)
+        high, low = self.box_iou_thresh
+        matches = match_boxes(iou, high, low, False, gt_valid)
+        pos, neg = (matches >= 0) & pvalid, (matches == BELOW_LOW) & pvalid
+        sp, sn = balanced_sample(pos, neg, self.box_batch_size_per_image,
+                                 self.box_positive_fraction, uniforms[:, 0], uniforms[:, 1])
+        sampled = sp | sn
+        order = torch.sort((~sampled).to(torch.uint8), dim=-1, stable=True).indices
+        idx = order[:, :self.box_batch_size_per_image]
+        sel_valid = sampled.gather(1, idx)
+        sel_props = props.gather(1, idx[..., None].expand(-1, -1, 4))
+        sel_matches = matches.gather(1, idx).clamp(min=0)
+        labels = torch.where(matches.gather(1, idx) >= 0, gt_labels.gather(1, sel_matches),
+                             torch.zeros_like(sel_matches))
+        labels = labels.masked_fill(~sel_valid, -1)
+        matched = gt_boxes.gather(1, sel_matches[..., None].expand(-1, -1, 4))
+        reg_targets = box_ops.encode_boxes(matched, sel_props, self.bbox_reg_weights)
+        return sel_props, sel_valid, labels, reg_targets
+
+    def box_loss(self, class_logits: torch.Tensor, box_deltas: torch.Tensor,
+                 labels: torch.Tensor, reg_targets: torch.Tensor, valid: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        """The box head's cross-entropy over the valid samples and its box
+        smooth-L1 over the positives' own class, each over the valid count,
+        then the mean over the batch."""
+        b, n, nc = class_logits.shape
+        lbl = labels.clamp(min=0)
+        ce = -torch.log_softmax(class_logits, -1).gather(-1, lbl[..., None])[..., 0]
+        n_valid = valid.sum(-1).clamp(min=1)
+        cls_l = (ce * valid).sum(-1) / n_valid
+        d = box_deltas.reshape(b, n, nc, 4).gather(
+            2, lbl[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+        pos = (labels > 0) & valid
+        box_l = (smooth_l1(d - reg_targets).sum(-1) * pos).sum(-1) / n_valid
+        return dict(loss_classifier=cls_l.mean(), loss_box_reg=box_l.mean())
 
     def postprocess(self, class_logits: torch.Tensor, box_deltas: torch.Tensor,
                     proposals: torch.Tensor, prop_valid: torch.Tensor,
@@ -374,9 +577,10 @@ def fasterrcnn_mobilenet_v3_large_fpn(weights=None, weights_backbone=None,
     naming ``weights`` or ``weights_backbone`` raises. Trained weights load
     through ``model.load_state_dict(from_jax(variables, "fasterrcnn"))``;
     pass ``norm_frozen=True`` with them, as torchvision's rule freezes the
-    norms of named weights (read by nothing at inference). Other keyword
-    arguments set :class:`FasterRCNN`'s fields; JAX's training knobs and
-    ``box_pre_nms_top_n`` are not ported, and naming one raises."""
+    norms of named weights (train-mode calls then keep every norm on its
+    running statistics). Other keyword arguments set :class:`FasterRCNN`'s
+    fields, JAX's training knobs among them; ``box_pre_nms_top_n`` is not
+    ported, and naming it raises."""
     if weights is not None or weights_backbone is not None:
         raise ValueError("fasterrcnn_mobilenet_v3_large_fpn loads no weights by name; "
                          "load them with edtr_torch.utils.convert.from_jax(variables, "
@@ -384,6 +588,24 @@ def fasterrcnn_mobilenet_v3_large_fpn(weights=None, weights_backbone=None,
     kwargs.setdefault("rpn_score_thresh", 0.05)
     model = FasterRCNN(num_classes=num_classes, dtype=dtype, **kwargs)
     return model.to(resolve_device(device)).eval()
+
+
+def detnet_trainable_mask(model: FasterRCNN, trainable_layers: int = 3) -> Dict[str, bool]:
+    """torchvision's backbone freezing (``trainable_layers`` of the
+    MobileNet's stages train), as JAX's ``detnet_trainable_mask``: the body's
+    ``features.i`` with ``i < stage_indices[num_stages - trainable_layers]``
+    (every one when 0) are frozen, everything else trains. Sets each
+    parameter's ``requires_grad`` and returns name -> trainable. Frozen
+    stages' BatchNorm running statistics still update in train-mode calls,
+    as torchvision's plain BatchNorm does."""
+    si = model.backbone.body.stage_indices()
+    freeze_before = si[-1] + 1 if trainable_layers == 0 else si[len(si) - trainable_layers]
+    mask = {}
+    for name, p in model.named_parameters():
+        m = re.match(r"backbone\.body\.features\.(\d+)\.", name)
+        mask[name] = m is None or int(m.group(1)) >= freeze_before
+        p.requires_grad_(mask[name])
+    return mask
 
 
 @torch.no_grad()

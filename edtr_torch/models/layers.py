@@ -135,7 +135,8 @@ def remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
 class DerivedWeight:
     """A tensor made from some parameters (a cast, a packing, a
     concatenation), made once and made again when one of them is changed
-    in place (its version) or replaced (its storage)."""
+    in place (its version) or replaced (its storage or its dtype, as a
+    cast of the stored weights replaces them)."""
 
     def __init__(self):
         self.key: Optional[tuple] = None
@@ -145,7 +146,7 @@ class DerivedWeight:
             make: Callable[[Sequence[torch.Tensor], torch.dtype], torch.Tensor]
             ) -> torch.Tensor:
         """``make(params, dtype)``, from the cache while no param changed."""
-        key = tuple((p.data_ptr(), p._version, p.device) for p in params) + (dtype,)
+        key = tuple((p.data_ptr(), p._version, p.device, p.dtype) for p in params) + (dtype,)
         if self.key != key:
             with torch.no_grad():
                 self.value = make([p.detach() for p in params], dtype)

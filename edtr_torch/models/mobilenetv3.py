@@ -9,9 +9,15 @@ The classification head (JAX's ``features=False``) is not ported yet.
 
 Numerics as in JAX: convs compute in ``dtype`` (fp32 params, input and
 kernel cast, bias added in ``dtype``); every BatchNorm normalises in fp32
-with running statistics (eps 1e-3) and returns fp32 whatever ``dtype`` is,
-so activations, residual adds and the squeeze-excitation gate's product
-are fp32 and the next conv casts its input back.
+(eps 1e-3) and returns fp32 whatever ``dtype`` is, so activations,
+residual adds and the squeeze-excitation gate's product are fp32 and the
+next conv casts its input back.
+
+BatchNorm mode is chosen per call, ``forward(x, train=...)``, as JAX's
+``train`` argument, not by ``nn.Module.train()``: ``train=False``
+normalises with the running statistics; ``train=True`` with the batch's
+and updates the running ones (JAX's ``TorchBatchNorm``, torch's
+momentum convention, m = 0.01).
 """
 
 from __future__ import annotations
@@ -83,23 +89,39 @@ def hard_swish(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm2d(nn.Module):
-    """Inference BatchNorm (torchvision's FrozenBatchNorm2d) with the
-    arithmetic of JAX's ``TorchBatchNorm`` on running statistics:
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in fp32, returned in
-    fp32."""
+    """BatchNorm with the arithmetic of JAX's ``TorchBatchNorm``, in fp32
+    whatever the input's and the buffers' dtypes, returned in fp32:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
+    ``train=False``: the running statistics (torchvision's
+    FrozenBatchNorm2d, and eval mode). ``train=True``: the batch's mean
+    and biased variance over (B, H, W), and the running statistics updated
+    in place, ``new = (1 - m) old + m batch`` with the unbiased variance
+    (Bessel's n / (n - 1)), as ``nn.BatchNorm2d`` writes them."""
+
+    def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
-                + self.bias[:, None, None])
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            n = xf.numel() // xf.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean.float() + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var.float()
+                                       + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (xf - mean[:, None, None]) * inv[:, None, None] + self.bias.float()[:, None, None]
 
 
 _ACTS = {None: lambda x: x, "relu": torch.relu, "hardswish": hard_swish}
@@ -118,8 +140,8 @@ class ConvBNAct(nn.Sequential):
             BatchNorm2d(out_ch))
         self.act = _ACTS[act]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self[1](self[0](x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.act(self[1](self[0](x), train))
 
 
 class SqueezeExcitation(nn.Module):
@@ -151,8 +173,10 @@ class InvertedResidual(nn.Module):
         self.block = nn.Sequential(*layers)
         self.use_res = cnf.stride == 1 and cnf.in_ch == cnf.out_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.block(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = x
+        for layer in self.block:
+            y = layer(y, train) if isinstance(layer, ConvBNAct) else layer(y)
         return y + x if self.use_res else y
 
 
@@ -172,12 +196,13 @@ class MobileNetV3(nn.Module):
             *(InvertedResidual(cnf, dtype=dtype) for cnf in self.setting),
             ConvBNAct(self.setting[-1].out_ch, last, 1, act="hardswish", dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x (B, 3, H, W) -> the 17 stage outputs, fp32 (the norms')."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
+        """x (B, 3, H, W) -> the 17 stage outputs, fp32 (the norms');
+        ``train``: the norms' mode (:class:`BatchNorm2d`)."""
         x = x.to(self.dtype or x.dtype)
         feats = []
         for layer in self.features:
-            x = layer(x)
+            x = layer(x, train)
             feats.append(x)
         return feats
 

@@ -1,6 +1,6 @@
 """Box operations of the detector, on static shapes.
 
-Counterpart of ``edtr_tpu/ops/boxes.py`` (inference half): fixed-size
+Counterpart of ``edtr_tpu/ops/boxes.py``: fixed-size
 padded box tensors with validity masks, never a shape that depends on the
 data. Boxes are (x1, y1, x2, y2) in pixels, tensors of shape (..., N, 4).
 These are stock PyTorch ops, as the JAX package leaves them to XLA.
@@ -59,6 +59,26 @@ def small_box_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
     """True for boxes with both sides >= ``min_size``."""
     return ((boxes[..., 2] - boxes[..., 0]) >= min_size) & (
         (boxes[..., 3] - boxes[..., 1]) >= min_size)
+
+
+def encode_boxes(gt: torch.Tensor, anchors: torch.Tensor,
+                 weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """The regression targets of ``gt`` against ``anchors`` or proposals
+    (``BoxCoder.encode``): both (..., N, 4) -> deltas (..., N, 4), widths
+    floored at 1e-9 as JAX floors them."""
+    wx, wy, ww, wh = weights
+    pw = anchors[..., 2] - anchors[..., 0]
+    ph = anchors[..., 3] - anchors[..., 1]
+    pcx = anchors[..., 0] + 0.5 * pw
+    pcy = anchors[..., 1] + 0.5 * ph
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    gcx = gt[..., 0] + 0.5 * gw
+    gcy = gt[..., 1] + 0.5 * gh
+    pw, ph = pw.clamp(min=1e-9), ph.clamp(min=1e-9)
+    return torch.stack([wx * (gcx - pcx) / pw, wy * (gcy - pcy) / ph,
+                        ww * torch.log(gw.clamp(min=1e-9) / pw),
+                        wh * torch.log(gh.clamp(min=1e-9) / ph)], dim=-1)
 
 
 def decode_boxes(deltas: torch.Tensor, boxes: torch.Tensor,

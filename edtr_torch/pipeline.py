@@ -5,13 +5,14 @@ Counterpart of ``edtr_tpu/pipeline.py`` (``EDTRPipeline.restore``) and of
 
     pre_res  = swinir(lq)                              # pre-restoration
     z_pre    = vae_encode(pre_res*2-1)                 # posterior mode, scaled
+    c_txt    = clip("") unless the caller gives it     # empty-prompt embedding
     z_T      = q_sample(z_pre, t=start_timestep, noise)
     z_0      = K spaced posterior steps, each ControlNet + UNet
     restored = wavelet_reconstruction((vae_decode(z_0)+1)/2, pre_res)
 
 ``restore`` keeps the JAX layout: NHWC images in [0, 1], NHWC latents and
-noise. The stage methods (``pre_restore``, ``encode``, ``denoise``,
-``decode``) are NCHW. The pipeline runs on CUDA unless it is built with
+noise. The stage methods (``pre_restore``, ``encode``, ``text``,
+``denoise``, ``decode``) are NCHW. The pipeline runs on CUDA unless it is built with
 ``device="cpu"``; with no card and no explicit device it raises.
 
 The pipeline (and :func:`build_flagship`) takes ``fused_conv``, the conv
@@ -143,6 +144,13 @@ class EDTRPipeline(nn.Module):
 
     @torch.no_grad()
     @_in_config
+    def text(self, batch: int) -> torch.Tensor:
+        """The empty prompt's embedding for each of ``batch`` images, (batch,
+        77, context_dim) fp32 (JAX's ``cldm.encode_text([""] * B)``)."""
+        return self.cldm.encode_text([""] * batch)
+
+    @torch.no_grad()
+    @_in_config
     def denoise(self, z_pre: torch.Tensor, c_txt: torch.Tensor, noise: torch.Tensor,
                 step_noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -158,13 +166,14 @@ class EDTRPipeline(nn.Module):
         return wavelet_reconstruction((self.cldm.vae_decode(z) + 1) / 2, pre_res)
 
     @torch.no_grad()
-    def restore(self, lq: torch.Tensor, c_txt: torch.Tensor,
+    def restore(self, lq: torch.Tensor, c_txt: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
                 step_noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Restore an NHWC [0, 1] batch.
 
-        ``c_txt``: (B, 77, context_dim) text embedding. ``noise``: the
+        ``c_txt``: (B, 77, context_dim) text embedding; None computes the
+        empty prompt's (:meth:`text`), as JAX's ``restore`` does. ``noise``: the
         q_sample draw, NHWC latent shape; ``step_noise``: (K,) + that shape,
         one per posterior step in walk order. Draws missing noise from
         ``generator``. Returns NHWC ``restored``, ``pre_restored`` and ``z``.
@@ -172,6 +181,7 @@ class EDTRPipeline(nn.Module):
         dev = self.device
         pre = self.pre_restore(_nchw(lq.to(dev, torch.float32)))
         z_pre = self.encode(pre)
+        c_txt = self.text(lq.shape[0]) if c_txt is None else c_txt.to(dev, torch.float32)
         if noise is None:
             noise = torch.randn(z_pre.shape, generator=generator, device=dev,
                                 dtype=z_pre.dtype)
@@ -179,14 +189,15 @@ class EDTRPipeline(nn.Module):
             noise = _nchw(noise.to(dev, z_pre.dtype))
         if step_noise is not None:
             step_noise = step_noise.to(dev, z_pre.dtype).permute(0, 1, 4, 2, 3)
-        z = self.denoise(z_pre, c_txt.to(dev, torch.float32), noise, step_noise, generator)
+        z = self.denoise(z_pre, c_txt, noise, step_noise, generator)
         restored = self.decode(z, pre)
         return dict(restored=_nhwc(restored), pre_restored=_nhwc(pre), z=_nhwc(z))
 
 
 def flagship_configs(tiny: bool = False, train: bool = False) -> Dict[str, Any]:
     """Model configs of ``__graft_entry__._flagship_pipeline``: SD2.1 /
-    EDTR-s4 dims, or the toy dims of its ``tiny=True``. SwinIR unpadded.
+    EDTR-s4 dims, or the toy dims of its ``tiny=True``, the text tower's
+    ``clip`` among them. SwinIR unpadded.
     At full width, as there, the VAE decoder is trainable and ``train``
     turns on ``use_checkpoint`` (UNet, ControlNet, VAE decoder); the toy
     dims set neither."""
@@ -212,9 +223,13 @@ def flagship_configs(tiny: bool = False, train: bool = False) -> Dict[str, Any]:
                                  use_checkpoint=train))
         swinir = dict(embed_dim=180, depths=(6,) * 8, num_heads=(6,) * 8,
                       window_size=8, mlp_ratio=2, sf=8)
+    # __graft_entry__'s clip_cfg: OpenCLIP ViT-H's text tower, or the toy one
+    text = (dict(context_length=77, vocab_size=512, width=64, heads=4, layers=2) if tiny
+            else dict(context_length=77, vocab_size=49408, width=1024, heads=16, layers=24))
+    clip = dict(layer="penultimate", text_cfg=text)
     controlnet = {k: v for k, v in unet.items() if k != "out_channels"}
     controlnet["hint_channels"] = 4
-    return dict(unet=unet, controlnet=controlnet, vae=vae, swinir=swinir)
+    return dict(unet=unet, controlnet=controlnet, vae=vae, swinir=swinir, clip=clip)
 
 
 def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bfloat16,
@@ -232,7 +247,7 @@ def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bflo
     with torch.device(device):
         swinir = SwinIR(dtype=dtype, **cfg["swinir"])
         cldm = ControlLDM(cfg["unet"], cfg["vae"], cfg["controlnet"],
-                          latent_scale_factor=0.18215, dtype=dtype)
+                          latent_scale_factor=0.18215, dtype=dtype, clip_cfg=cfg["clip"])
     diffusion = Diffusion.create(1000, linear_start=0.00085, linear_end=0.0120,
                                  device=device)
     return EDTRPipeline(swinir, cldm, diffusion, start_timestep=200, num_timesteps=4,

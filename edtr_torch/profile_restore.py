@@ -20,13 +20,16 @@ import json
 import os
 import tempfile
 from collections import defaultdict
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 # a training step's ranges, set inside the step: frozen SwinIR + encode and
-# the loss's forward, the backward (recomputes included), the optimizer
+# each half's forward and loss, the task-net half's no-grad walk, the
+# backwards (recomputes included), the optimizers
 from edtr_torch.train.edtr_step import STAGES as TRAIN_STAGES
 
-STAGES = ("swinir", "vae_encode", "scan", "decode+wavelet")
+# ``text``: the empty prompt's CLIP embedding, which a restore without a
+# given c_txt computes after the encode, as JAX's does
+STAGES = ("swinir", "vae_encode", "text", "scan", "decode+wavelet")
 # restore then detect, bench.py:_run_split's five stages
 RESTORE_DETECT_STAGES = STAGES + ("detect",)
 # kernel family by substring of the kernel name, first match wins: the
@@ -65,9 +68,10 @@ def _union_ms(intervals) -> float:
     return busy / 1e3
 
 
-def summarise(trace: dict, stages: Sequence[str] = STAGES) -> dict:
-    """The summary of a trace of runs of a chain whose stages are
-    ``stages``, per run (the runs counted by their first stage; the
+def summarise(trace: dict, stages: Sequence[str] = STAGES, runs: Optional[int] = None
+              ) -> dict:
+    """The summary of a trace of ``runs`` runs of a chain whose stages are
+    ``stages``, per run (``runs`` None: counted by their first stage; the
     ``*_per_restore`` keys are per run, a restore or a training step)."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     ranges = [e for e in events if e.get("cat") == "user_annotation"
@@ -77,7 +81,7 @@ def summarise(trace: dict, stages: Sequence[str] = STAGES) -> dict:
     # host timestamp of the runtime call that launched each kernel
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-    n_runs = max(1, sum(r["name"] == stages[0] for r in ranges))
+    n_runs = runs or max(1, sum(r["name"] == stages[0] for r in ranges))
     per_stage = {}
     for stage in stages:
         wins = [(r["ts"], r["ts"] + r["dur"]) for r in ranges if r["name"] == stage]
@@ -122,6 +126,6 @@ def trace_restores(chain: Callable[[], None], iters: int,
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return summarise(json.load(f), stages)
+            return summarise(json.load(f), stages, iters)
     finally:
         os.remove(path)

@@ -1,50 +1,78 @@
-"""EDTR training step of the port: the EDTR half, with no detection net.
+"""EDTR training step of the port: the two alternating updates.
 
-Counterpart of ``edtr_tpu/train/edtr_step.py`` with ``detnet=None`` (the
-restoration-only recipes, ``tests/test_convergence.py::
-test_edtr_hlf_overfit``): AdamW (lr 1e-4, cosine to 1e-7, weight decay
-1e-2) over the ControlNet and, with ``train_decoder``, the VAE decoder:
+Counterpart of ``edtr_tpu/train/edtr_step.py`` (``make_edtr_train_step``):
+
+* **EDTR half**: AdamW (lr 1e-4, cosine to 1e-7, weight decay 1e-2) over
+  the ControlNet and, with ``train_decoder``, the VAE decoder::
 
     pre_res  = swinir(lq); z_pre = vae_encode(pre_res*2-1)   # frozen, no grad
     t        = used_timesteps[randint]                        # per sample
     x_pred   = diffusion.reverse(cldm, t, z_pre, cond, noise)["x_pred"]
     restored = wavelet_reconstruction((vae_decode(x_pred)+1)/2, pre_res)
-    loss_hlf = weight_hlf * L1(restored, gt)                  # or hlf_loss_fn
+    loss_hlf = weight_hlf * (L1 of the student detnet's FPN maps '0', '1'
+               on restored vs gt + the same for the frozen teacher's)
 
-then backward and one optimizer update. ``accum_steps=K`` splits the batch
-into K microbatches and takes the mean of their mean gradients before the
-one update (JAX's global-batch semantics on one card). The step runs its
-forward and its backward inside ``pipe.configuration()``, so the
-recomputes of ``use_checkpoint`` see the kernels their forward ran.
+  without a detnet, ``weight_hlf * L1(restored, gt)`` (or ``hlf_loss_fn``).
+  The detector passes run their norms on running statistics, every one
+  recomputed in the backward (``torch.utils.checkpoint``), those of gt
+  under no grad; no gradient of this loss reaches a detnet parameter.
+* **task-net half** (with a detnet), after the AdamW update, on the updated
+  ControlNet: SGD (lr 5e-3, momentum 0.9, weight decay 1e-4, cosine to
+  1e-7) over the detnet parameters ``detnet_trainable_mask`` leaves
+  trainable. Under no grad the first ``bs2 = max(bs // 2, 1)`` images are
+  noised to ``start_timestep``, walked down by the sampler and decoded (the
+  ``sample`` range); the detector then trains on ``[restored ; gt[bs2:]]``
+  with the batch's ``targets`` (norms on batch statistics, their running
+  ones updated): ``loss_det = weight_det * (its four losses)`` plus
+  ``loss_fm = weight_fm * L1`` of its FPN maps against the teacher's on gt.
 
-Partition (``split_trainable``, JAX's :84-92 parity): trainable are
+``accum_steps=K`` splits the batch into K microbatches: the frozen shared
+activations (pre_res, z_pre) are made once per microbatch and reused by
+both halves; each half takes the mean of the microbatches' mean gradients
+before its one update, and the detector's running statistics update
+microbatch by microbatch (JAX's global-batch semantics on one card). The
+step runs its forwards and backwards inside ``pipe.configuration()``, so
+the recomputes of ``use_checkpoint`` see the kernels their forward ran.
+
+Every random draw can be given: t and noise of the EDTR half, and per
+microbatch of the task-net half the q_sample noise, the walk's step noises
+and the sampler's uniforms (:meth:`EDTRTrainStep.det_draw`); each one not
+given is drawn from one ``generator``.
+
+Partition (``split_trainable``, JAX's parity): trainable are
 ``cldm.controlnet.*`` and, with ``train_decoder``, ``cldm.vae.decoder.*``;
-frozen are the UNet, the VAE encoder, ``quant_conv``, ``post_quant_conv``
-(outside the decoder subtree) and SwinIR, as ``requires_grad`` flags.
-
-The detection half (SGD on Faster R-CNN, feature HLF and feature matching)
-waits for the detection port; given a detnet, :meth:`EDTRTrainState.create`
-raises. Images are NHWC in [0, 1] in the batch, as JAX's; the noise and the
-restored image the loss sees are NCHW, as the port's modules.
+frozen are the UNet, the CLIP tower, the VAE encoder, ``quant_conv``,
+``post_quant_conv`` (outside the decoder subtree) and SwinIR, as
+``requires_grad`` flags. :func:`cast_frozen_bf16` stores the frozen ones
+(and a teacher detnet) in bf16. Images are NHWC in [0, 1] in the batch, as
+JAX's; the noise and the restored image the loss sees are NCHW.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
+from edtr_torch.models.faster_rcnn import detnet_trainable_mask
+from edtr_torch.models.layers import remat
 from edtr_torch.utils.image import wavelet_reconstruction
 
 Params = Dict[str, nn.Parameter]
 Batch = Dict[str, torch.Tensor]
 # the step's phases, each under a ``record_function`` range of this name
-# (``edtr_torch.profile_restore.TRAIN_STAGES`` reads them from a trace)
-STAGES = ("forward+loss", "backward", "optimizer")
+# (``edtr_torch.profile_restore.TRAIN_STAGES`` reads them from a trace):
+# each half's forward and loss, the task-net half's no-grad walk, each
+# half's backward, each optimizer update
+STAGES = ("forward+loss", "sample", "backward", "optimizer")
+# the FPN maps the HLF and feature-matching losses compare: [-3:-1] of
+# ('0', '1', 'pool')
+FEATURE_KEYS = ("0", "1")
 
 
 def split_trainable(pipe: nn.Module, train_decoder: bool = True) -> Tuple[Params, Params]:
@@ -60,6 +88,38 @@ def split_trainable(pipe: nn.Module, train_decoder: bool = True) -> Tuple[Params
     return trainable, frozen
 
 
+def _bf16_(module: nn.Module, buffers: bool = False) -> None:
+    """Every fp32 parameter (and with ``buffers`` every fp32 persistent
+    buffer) of ``module`` stored in bf16, in place."""
+    with torch.no_grad():
+        tensors = list(module.parameters())
+        if buffers:
+            tensors += [b for name, b in module.named_buffers()
+                        if name.rsplit(".", 1)[-1] in ("running_mean", "running_var")]
+        for t in tensors:
+            if t.dtype == torch.float32:
+                t.data = t.data.to(torch.bfloat16)
+
+
+def cast_frozen_bf16(pipe: nn.Module, train_decoder: bool = True,
+                     teacher_detnet: Optional[nn.Module] = None) -> None:
+    """JAX's ``cast_frozen_bf16``: the modules that never receive updates
+    keep their weights in bf16 (no fp32 masters): the UNet, the CLIP tower,
+    SwinIR, the teacher detnet (its BatchNorm running statistics too) and
+    the VAE, all but the decoder when it trains. The modules compute in
+    their ``dtype`` whatever their storage, and every norm and bias that
+    needs fp32 casts it (``.float()``), as JAX's counterparts do; the
+    kernels' cached bf16 weights are made anew from the cast ones."""
+    cldm = pipe.cldm
+    for module in (cldm.unet, cldm.clip, pipe.swinir):
+        _bf16_(module)
+    for name, child in cldm.vae.named_children():
+        if not (train_decoder and name == "decoder"):
+            _bf16_(child)
+    if teacher_detnet is not None:
+        _bf16_(teacher_detnet, buffers=True)
+
+
 def cosine_decay(count: int, init_value: float, decay_steps: int, alpha: float) -> float:
     """``optax.cosine_decay_schedule(init_value, decay_steps, alpha)`` at
     ``count``."""
@@ -67,51 +127,98 @@ def cosine_decay(count: int, init_value: float, decay_steps: int, alpha: float) 
     return init_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps)) + alpha)
 
 
+def _cosine(tx: torch.optim.Optimizer, lr: float, train_steps: int
+            ) -> torch.optim.lr_scheduler.LambdaLR:
+    alpha = 1e-7 / lr
+    return torch.optim.lr_scheduler.LambdaLR(
+        tx, lambda count: cosine_decay(count, 1.0, train_steps, alpha))
+
+
 @dataclass
 class EDTRTrainState:
     """The pipeline (its trainable parameters updated in place), the EDTR
-    optimizer and its schedule, and the number of updates made."""
+    optimizer and its schedule, the detnet, its teacher, their optimizer
+    and schedule (None without a detnet), and the number of updates."""
 
     pipe: nn.Module
     tx_edtr: torch.optim.AdamW
     schedule: torch.optim.lr_scheduler.LambdaLR
+    detnet: Optional[nn.Module] = None
+    teacher_detnet: Optional[nn.Module] = None
+    tx_detnet: Optional[torch.optim.SGD] = None
+    schedule_detnet: Optional[torch.optim.lr_scheduler.LambdaLR] = None
     step: int = 0
 
     @classmethod
     def create(cls, pipe: nn.Module, learning_rate_edtr: float = 1e-4,
                train_steps: int = 10000, train_decoder: Optional[bool] = None,
-               detnet: Optional[nn.Module] = None) -> "EDTRTrainState":
+               detnet: Optional[nn.Module] = None,
+               teacher_detnet: Optional[nn.Module] = None,
+               learning_rate_detnet: float = 5e-3) -> "EDTRTrainState":
         """AdamW (betas 0.9/0.999, eps 1e-8, weight decay 1e-2: torch's
         defaults, as the reference passes lr only) with the cosine schedule
         from ``learning_rate_edtr`` to 1e-7 over ``train_steps``, over
         :func:`split_trainable`. ``train_decoder`` defaults to the VAE's
-        flag."""
-        if detnet is not None:
-            raise NotImplementedError("the detection half of the EDTR step (SGD on the "
-                                      "detnet, feature HLF and matching) waits for the "
-                                      "port of detection (models/faster_rcnn.py)")
+        flag. With ``detnet`` (and its frozen ``teacher_detnet``): SGD
+        (momentum 0.9, weight decay 1e-4) with the cosine schedule from
+        ``learning_rate_detnet`` to 1e-7 over the detnet parameters
+        :func:`detnet_trainable_mask` leaves trainable; the frozen stages
+        get neither an update nor decay."""
+        if (detnet is None) != (teacher_detnet is None):
+            raise ValueError("the task-net half needs both a detnet and its teacher")
         if train_decoder is None:
             train_decoder = pipe.cldm.vae.train_decoder
         trainable, _ = split_trainable(pipe, train_decoder)
         tx = torch.optim.AdamW(list(trainable.values()), lr=learning_rate_edtr,
                                betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
-        alpha = 1e-7 / learning_rate_edtr
-        sched = torch.optim.lr_scheduler.LambdaLR(
-            tx, lambda count: cosine_decay(count, 1.0, train_steps, alpha))
-        return cls(pipe=pipe, tx_edtr=tx, schedule=sched)
+        state = cls(pipe=pipe, tx_edtr=tx, schedule=_cosine(tx, learning_rate_edtr,
+                                                            train_steps))
+        if detnet is not None:
+            mask = detnet_trainable_mask(detnet)
+            teacher_detnet.requires_grad_(False)
+            params = [p for name, p in detnet.named_parameters() if mask[name]]
+            tx_d = torch.optim.SGD(params, lr=learning_rate_detnet, momentum=0.9,
+                                   weight_decay=1e-4)
+            state.detnet, state.teacher_detnet, state.tx_detnet = detnet, teacher_detnet, tx_d
+            state.schedule_detnet = _cosine(tx_d, learning_rate_detnet, train_steps)
+        return state
+
+
+def _feat_l1(fa: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return sum((fa[k].float() - fb[k].float()).abs().mean() * 0.5 for k in FEATURE_KEYS)
+
+
+@contextlib.contextmanager
+def _no_param_grads(module: Optional[nn.Module]) -> Iterator[None]:
+    """``module``'s parameters take no gradient inside the block (their
+    ``requires_grad`` restored after it)."""
+    flags = [] if module is None else [(p, p.requires_grad) for p in module.parameters()]
+    for p, _ in flags:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)
 
 
 class EDTRTrainStep:
-    """The EDTR update of :func:`make_edtr_train_step`; its parts
-    (:meth:`shared`, :meth:`draw`, :meth:`loss`, :meth:`grads`) are public
-    so a caller can compare them; a trace splits the step by the ranges of
-    :data:`STAGES`."""
+    """The update of :func:`make_edtr_train_step`; its parts
+    (:meth:`shared`, :meth:`draw`, :meth:`restored`, :meth:`hlf`,
+    :meth:`loss`, :meth:`grads`, :meth:`det_draw`, :meth:`det_loss`,
+    :meth:`det_grads`) are public so a caller can compare them; a trace
+    splits the step by the ranges of :data:`STAGES`."""
 
-    def __init__(self, pipe: nn.Module, weight_hlf: float = 0.5,
+    def __init__(self, pipe: nn.Module, detnet: Optional[nn.Module] = None,
+                 teacher_detnet: Optional[nn.Module] = None, weight_hlf: float = 0.5,
+                 weight_det: float = 1.0, weight_fm: float = 0.2,
                  hlf_loss_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
                  = None, accum_steps: int = 1):
+        if (detnet is None) != (teacher_detnet is None):
+            raise ValueError("the task-net half needs both a detnet and its teacher")
         self.pipe = pipe
-        self.weight_hlf = weight_hlf
+        self.detnet, self.teacher_detnet = detnet, teacher_detnet
+        self.weight_hlf, self.weight_det, self.weight_fm = weight_hlf, weight_det, weight_fm
         self.hlf_loss_fn = hlf_loss_fn
         self.accum_steps = int(accum_steps)
         self.used_ts = torch.tensor(pipe.used_timesteps, dtype=torch.long, device=pipe.device)
@@ -136,69 +243,199 @@ class EDTRTrainStep:
                             dtype=z_pre.dtype)
         return self.used_ts[idx], noise
 
-    def loss(self, shared: Tuple[torch.Tensor, ...], t: torch.Tensor,
-             noise: torch.Tensor) -> torch.Tensor:
-        """JAX's ``edtr_loss`` (``detnet=None``) at given t and NCHW noise."""
+    def det_feats(self, net: nn.Module, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A detector's FPN maps on running statistics, recomputed in the
+        backward (JAX's ``jax.checkpoint`` of ``det_feats``)."""
+        return remat(net.features, images)
+
+    def restored(self, shared: Tuple[torch.Tensor, ...], t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """The EDTR half's restored image (NCHW) at given t and NCHW noise:
+        one-step reverse, decode, wavelet fix."""
         pipe = self.pipe
-        gt, pre_res, z_pre, c_txt = shared
+        _, pre_res, z_pre, c_txt = shared
         out = pipe.diffusion.reverse(pipe.cldm, t.to(z_pre.device), z_pre,
                                      dict(c_txt=c_txt, c_img=z_pre),
                                      noise=noise.to(z_pre.device, z_pre.dtype))
         decoded = (pipe.cldm.vae_decode(out["x_pred"]) + 1) / 2
-        res = wavelet_reconstruction(decoded, pre_res)
-        if self.hlf_loss_fn is not None:
-            return self.weight_hlf * self.hlf_loss_fn(res, gt)
-        return self.weight_hlf * (res - gt).abs().mean()
+        return wavelet_reconstruction(decoded, pre_res)
 
-    def grads(self, state: EDTRTrainState, batch: Batch, t: Optional[torch.Tensor] = None,
-              noise: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The mean over ``accum_steps`` microbatches of their loss and mean
-        gradients, the gradients left in the trainable parameters' ``.grad``
-        (set anew). ``t`` (B,) and ``noise`` (B, 4, h, w) cover the whole
-        batch; each is drawn from ``generator`` per microbatch when not
-        given. Each microbatch's forward and loss, and its backward, run
-        under the ``record_function`` ranges of :data:`STAGES`. Returns the
-        mean loss (detached)."""
+    def hlf(self, res: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        """The HLF loss of a restored image against gt: the student's and
+        the teacher's feature L1 with a detnet, else the pixel L1 (or
+        ``hlf_loss_fn``), times ``weight_hlf``."""
+        if self.detnet is None:
+            if self.hlf_loss_fn is not None:
+                return self.weight_hlf * self.hlf_loss_fn(res, gt)
+            return self.weight_hlf * (res - gt).abs().mean()
+        loss = 0.0
+        for net in (self.detnet, self.teacher_detnet):
+            with torch.no_grad():
+                f_gt = self.det_feats(net, gt)
+            loss = loss + _feat_l1(self.det_feats(net, res), f_gt)
+        return self.weight_hlf * loss
+
+    def loss(self, shared: Tuple[torch.Tensor, ...], t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+        """JAX's ``edtr_loss`` at given t and NCHW noise."""
+        return self.hlf(self.restored(shared, t, noise), shared[0])
+
+    def _microbatches(self, batch: Batch) -> List[Batch]:
         k = self.accum_steps
         n = batch["lq"].shape[0]
         if n % k:
             raise ValueError(f"batch of {n} does not split into {k} microbatches")
         m = n // k
+        return [{key: _slice(v, slice(i * m, (i + 1) * m)) for key, v in batch.items()}
+                for i in range(k)]
+
+    def grads(self, state: EDTRTrainState, batch: Batch, t: Optional[torch.Tensor] = None,
+              noise: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The EDTR half: the mean over ``accum_steps`` microbatches of
+        their loss and mean gradients, the gradients left in the trainable
+        parameters' ``.grad`` (set anew). ``t`` (B,) and ``noise`` (B, 4, h,
+        w) cover the whole batch; each is drawn from ``generator`` per
+        microbatch when not given. Each microbatch's shared activations,
+        forward and loss, and its backward, run under the
+        ``record_function`` ranges of :data:`STAGES`. Returns the mean loss
+        (detached)."""
+        return self._edtr_half(state, batch, t, noise, generator)[0]
+
+    def _edtr_half(self, state: EDTRTrainState, batch: Batch, t: Optional[torch.Tensor],
+                   noise: Optional[torch.Tensor], generator: Optional[torch.Generator]
+                   ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, ...]]]:
+        """:meth:`grads`, and each microbatch's :meth:`shared` for the
+        task-net half."""
+        k = self.accum_steps
+        micro = self._microbatches(batch)
+        m = batch["lq"].shape[0] // k
         state.tx_edtr.zero_grad(set_to_none=True)
         total = torch.zeros((), device=self.pipe.device)
-        with self.pipe.configuration():
+        shared = []
+        with self.pipe.configuration(), _no_param_grads(self.detnet):
             for i in range(k):
                 sl = slice(i * m, (i + 1) * m)
                 with record_function(STAGES[0]):
-                    shared = self.shared({key: v[sl] for key, v in batch.items()})
+                    shared.append(self.shared(micro[i]))
                     t_i, noise_i = ((t[sl], noise[sl]) if t is not None and noise is not None
-                                    else self.draw(shared[2], generator))
-                    loss = self.loss(shared, t_i, noise_i)
-                with record_function(STAGES[1]):
+                                    else self.draw(shared[i][2], generator))
+                    loss = self.loss(shared[i], t_i, noise_i)
+                with record_function(STAGES[2]):
                     (loss / k).backward()
                 total += loss.detach() / k
-        return total
+        return total, shared
+
+    def det_draw(self, shared: Tuple[torch.Tensor, ...], generator: Optional[torch.Generator]
+                 = None) -> Dict[str, object]:
+        """The task-net half's draws for a microbatch: ``noise`` (bs2, 4, h,
+        w) of the q_sample, ``step_noise`` (K, bs2, 4, h, w) of the walk,
+        and ``uniforms`` of the detector's sampler (None: the detector
+        draws them from ``generator``)."""
+        z = shared[2][:max(shared[2].shape[0] // 2, 1)]
+        k = len(self.pipe.used_timesteps)
+        noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+        step_noise = torch.randn((k,) + tuple(z.shape), generator=generator, device=z.device,
+                                 dtype=z.dtype)
+        return dict(noise=noise, step_noise=step_noise, uniforms=None)
+
+    def det_loss(self, shared: Tuple[torch.Tensor, ...], targets: Dict[str, torch.Tensor],
+                 draws: Dict[str, object], generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """JAX's ``detnet_loss`` for a microbatch at given draws: the walk
+        and decode under no grad (the ``sample`` range), then the detector
+        in train mode on ``[restored ; gt[bs2:]]`` with ``targets`` and the
+        feature matching against the teacher on gt (the ``forward+loss``
+        range). Returns (loss, metrics)."""
+        pipe = self.pipe
+        gt, pre_res, z_pre, c_txt = shared
+        bs2 = max(gt.shape[0] // 2, 1)
+        with record_function(STAGES[1]):
+            z = pipe.denoise(z_pre[:bs2], c_txt[:bs2], draws["noise"], draws["step_noise"],
+                             generator)
+            res = pipe.decode(z, pre_res[:bs2])
+        with record_function(STAGES[0]):
+            images = torch.cat([res, gt[bs2:]])
+            _, losses, feats = self.detnet(images, targets=targets, train=True,
+                                           sampler_uniforms=draws["uniforms"],
+                                           generator=generator)
+            loss_det = self.weight_det * sum(losses.values())
+            with torch.no_grad():
+                tf_gt = self.det_feats(self.teacher_detnet, gt)
+            loss_fm = self.weight_fm * _feat_l1(feats["features"], tf_gt)
+        metrics = dict(loss_det=loss_det.detach(), loss_fm=loss_fm.detach(),
+                       **{k: v.detach() for k, v in losses.items()})
+        return loss_det + loss_fm, metrics
+
+    def det_grads(self, state: EDTRTrainState, batch: Batch,
+                  shared: Sequence[Tuple[torch.Tensor, ...]],
+                  draws: Optional[Sequence[Dict[str, object]]] = None,
+                  generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The task-net half: the mean over the microbatches of their
+        metrics and mean detnet gradients (left in ``.grad``, set anew),
+        the running statistics updated microbatch by microbatch.
+        ``draws``: each microbatch's :meth:`det_draw`, drawn from
+        ``generator`` when not given."""
+        k = self.accum_steps
+        micro = self._microbatches(batch)
+        state.tx_detnet.zero_grad(set_to_none=True)
+        totals: Dict[str, torch.Tensor] = {}
+        with self.pipe.configuration():
+            for i in range(k):
+                d = draws[i] if draws is not None else self.det_draw(shared[i], generator)
+                loss, metrics = self.det_loss(shared[i], micro[i]["targets"], d, generator)
+                with record_function(STAGES[2]):
+                    (loss / k).backward()
+                for name, v in metrics.items():
+                    totals[name] = totals.get(name, 0.0) + v / k
+        return totals
 
     def __call__(self, state: EDTRTrainState, batch: Batch,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """One update: :meth:`grads`, then AdamW and the schedule (under the
-        ``optimizer`` range). Returns ``{"loss_hlf": mean loss}``."""
-        loss = self.grads(state, batch, t, noise, generator)
-        with record_function(STAGES[2]):
+                 generator: Optional[torch.Generator] = None,
+                 det_draws: Optional[Sequence[Dict[str, object]]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """One update: :meth:`grads`, AdamW and its schedule (under the
+        ``optimizer`` range); with a detnet then :meth:`det_grads` on the
+        updated ControlNet, SGD and its schedule. The shared activations
+        are made once per microbatch for both halves. Returns
+        ``{"loss_hlf": ...}`` and, with a detnet, ``loss_det``,
+        ``loss_fm`` and the detector's four losses (means over the
+        microbatches)."""
+        if self.detnet is not state.detnet:
+            raise ValueError("the step and its state hold different detnets")
+        loss, shared = self._edtr_half(state, batch, t, noise, generator)
+        metrics = {"loss_hlf": loss}
+        with record_function(STAGES[3]):
             state.tx_edtr.step()
             state.schedule.step()
+        if self.detnet is not None:
+            metrics.update(self.det_grads(state, batch, shared, det_draws, generator))
+            with record_function(STAGES[3]):
+                state.tx_detnet.step()
+                state.schedule_detnet.step()
         state.step += 1
-        return {"loss_hlf": loss}
+        return metrics
 
 
-def make_edtr_train_step(pipe: nn.Module, weight_hlf: float = 0.5,
+def _slice(v, sl: slice):
+    """A microbatch of a batch entry: a tensor, or a dict of tensors (the
+    targets)."""
+    return {k: x[sl] for k, x in v.items()} if isinstance(v, dict) else v[sl]
+
+
+def make_edtr_train_step(pipe: nn.Module, detnet: Optional[nn.Module] = None,
+                         teacher_detnet: Optional[nn.Module] = None, weight_hlf: float = 0.5,
+                         weight_det: float = 1.0, weight_fm: float = 0.2,
                          hlf_loss_fn: Optional[Callable] = None,
                          accum_steps: int = 1) -> EDTRTrainStep:
-    """``edtr_tpu.train.edtr_step.make_edtr_train_step(pipe, detnet=None)``:
-    ``step(state, batch, t=None, noise=None, generator=None)`` makes one
-    update of ``state`` in place and returns ``{"loss_hlf": ...}``.
-    ``batch``: ``lq``/``gt`` (B, H, W, 3) in [0, 1] and ``c_txt``;
-    ``hlf_loss_fn(restored, gt)`` on NCHW images replaces the pixel L1."""
-    return EDTRTrainStep(pipe, weight_hlf, hlf_loss_fn, accum_steps)
+    """``edtr_tpu.train.edtr_step.make_edtr_train_step``: ``step(state,
+    batch, t=None, noise=None, generator=None, det_draws=None)`` makes one
+    update of ``state`` in place and returns the metrics. ``batch``:
+    ``lq``/``gt`` (B, H, W, 3) in [0, 1], ``c_txt`` and, with a detnet,
+    padded ``targets`` (``boxes`` (B, G, 4) in pixels, ``labels``,
+    ``valid`` (B, G)); ``hlf_loss_fn(restored, gt)`` on NCHW images
+    replaces the pixel L1 without a detnet. ``detnet`` and
+    ``teacher_detnet`` are those of :meth:`EDTRTrainState.create`."""
+    return EDTRTrainStep(pipe, detnet, teacher_detnet, weight_hlf, weight_det, weight_fm,
+                         hlf_loss_fn, accum_steps)

@@ -2,13 +2,18 @@
 
 The inverse of ``edtr_tpu/utils/convert.py``'s ``convert_ldm_unet``,
 ``convert_controlnet``, ``convert_autoencoder_kl``, ``convert_swinir``,
-``convert_mobilenetv3`` and ``convert_fasterrcnn_mobilenet``, written
-without importing them: a JAX tree (nested dicts of numpy arrays, flax
+``convert_clip_text``, ``convert_mobilenetv3`` and
+``convert_fasterrcnn_mobilenet``, written without importing them: a JAX tree (nested dicts of numpy arrays, flax
 names, HWIO conv kernels, (in, out) dense kernels) becomes a state dict
 under the reference LDM/SD or torchvision key names, which the port's
 modules load with ``load_state_dict(strict=True)``. The detector and its
 backbone take full flax variables, ``{"params", "batch_stats"}``: the
-BatchNorm ``mean``/``var`` become ``running_mean``/``running_var``.
+BatchNorm ``mean``/``var`` become ``running_mean``/``running_var``. The
+CLIP text tower's keys are OpenCLIP's (``cond_stage_model.model.*`` of an
+SD2.1 checkpoint without that prefix), its q/k/v kernels fused again into
+the reference's ``in_proj_weight``/``in_proj_bias``.
+:func:`pipeline_from_jax` converts a whole pipeline's tree
+(``swinir``, ``unet``, ``controlnet``, ``vae``, ``clip``) at once.
 
 :func:`strip_swinir_lanes` undoes ``edtr_tpu.utils.convert.pad_swinir_lanes``
 (the JAX flagship's 180 -> 192 lane padding) so a padded tree loads into
@@ -96,10 +101,56 @@ def _leaves(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
             yield path, np.asarray(node)
 
 
+def _tensor(value) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+
+def _clip_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
+    """The OpenCLIP text keys of a JAX ``CLIPTextEncoder`` tree."""
+    def norm(prefix, node):
+        return {f"{prefix}.weight": _tensor(node["scale"]), f"{prefix}.bias": _tensor(node["bias"])}
+
+    def linear(prefix, node):
+        return {f"{prefix}.weight": _tensor(np.asarray(node["kernel"]).T),
+                f"{prefix}.bias": _tensor(node["bias"])}
+
+    out = {"token_embedding.weight": _tensor(tree["token_embedding"]),
+           "positional_embedding": _tensor(tree["positional_embedding"]),
+           **norm("ln_final", tree["ln_final"])}
+    blocks = sorted(int(k.rsplit("_", 1)[1]) for k in tree if k.startswith("resblocks_"))
+    for i in blocks:
+        node, p = tree[f"resblocks_{i}"], f"transformer.resblocks.{i}"
+        proj = [node[f"{n}_proj"] for n in "qkv"]
+        out.update(norm(f"{p}.ln_1", node["ln_1"]))
+        out[f"{p}.attn.in_proj_weight"] = _tensor(
+            np.concatenate([np.asarray(m["kernel"]).T for m in proj]))
+        out[f"{p}.attn.in_proj_bias"] = _tensor(np.concatenate([np.asarray(m["bias"])
+                                                                for m in proj]))
+        out.update(linear(f"{p}.attn.out_proj", node["out_proj"]))
+        out.update(norm(f"{p}.ln_2", node["ln_2"]))
+        out.update(linear(f"{p}.mlp.c_fc", node["c_fc"]))
+        out.update(linear(f"{p}.mlp.c_proj", node["c_proj"]))
+    return out
+
+
+def pipeline_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``EDTRPipeline`` from a JAX pipeline's
+    parameter tree: ``swinir.*`` and ``cldm.{unet,controlnet,vae,clip}.*``,
+    each group the tree holds."""
+    out = {}
+    for group in ("swinir", "unet", "controlnet", "vae", "clip"):
+        if group in params:
+            prefix = "swinir." if group == "swinir" else f"cldm.{group}."
+            out.update({prefix + k: v for k, v in from_jax(params[group], group).items()})
+    return out
+
+
 def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``model`` ("unet", "controlnet", "vae",
-    "swinir", "mobilenetv3" or "fasterrcnn") from that model's
+    "swinir", "clip", "mobilenetv3" or "fasterrcnn") from that model's
     ``edtr_tpu`` parameter tree (for the last two, its full variables)."""
+    if model == "clip":
+        return _clip_from_jax(tree)
     rules = _RULES[model]
     leaves = _leaves(tree)
     if model in ("mobilenetv3", "fasterrcnn"):
@@ -112,8 +163,7 @@ def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
         if path.endswith("/kernel"):
             # HWIO -> OIHW conv kernels, (in, out) -> (out, in) dense kernels
             value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
-        out[key.replace("/", ".")] = torch.from_numpy(
-            np.ascontiguousarray(value, dtype=np.float32))
+        out[key.replace("/", ".")] = _tensor(value)
     if _FC6 in out:
         w = out[_FC6]
         out[_FC6] = w.reshape(-1, *_POOLED).permute(0, 3, 1, 2).reshape(w.shape).contiguous()

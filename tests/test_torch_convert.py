@@ -159,6 +159,7 @@ def test_port_imports_no_jax():
                 "edtr_torch.ops.window_attention", "edtr_torch.ops.swin_block",
                 "edtr_torch.train.edtr_step", "edtr_torch.utils.convert",
                 "edtr_torch.ops.boxes", "edtr_torch.ops.roi_align",
+                "edtr_torch.data.tokenizer", "edtr_torch.models.clip",
                 "edtr_torch.models.mobilenetv3", "edtr_torch.models.faster_rcnn",
                 "edtr_torch.device"):
         assert mod in res.stdout

@@ -359,7 +359,7 @@ def _margins(port, feats, dets):
     smallest |IoU - threshold| among valid candidates of one NMS row (RPN
     levels, box-head classes), and the smallest |score - threshold|."""
     gaps, ious = [], []
-    k = port.rpn_pre_nms_top_n_test
+    k = port.rpn_pre_nms_top_n["test"]
     for obj in feats["objectness"]:
         s = torch.sort(TF._nhwc_flat(obj, 1)[..., 0], descending=True).values
         if s.shape[1] > k:
@@ -421,10 +421,10 @@ def test_tiny_detector_on_jax_proposals():
 
 
 def test_detector_contract(monkeypatch):
-    """Training raises, naming the queue item; the factory's MobileNet
-    settings, ``norm_frozen``, and its refusal of named weights and of
-    unported knobs; the outputs' static shapes; no card and no device
-    raises."""
+    """Targets train: the four losses of JAX's detector come back, finite,
+    and no detections; the factory's MobileNet settings, ``norm_frozen``,
+    and its refusal of named weights and of the unported knob; the outputs'
+    static shapes; no card and no device raises."""
     port = _port_loaded()
     assert port.rpn_score_thresh == 0.05 and port.norm_frozen is False
     assert TF.fasterrcnn_mobilenet_v3_large_fpn(norm_frozen=True, num_classes=21,
@@ -432,11 +432,15 @@ def test_detector_contract(monkeypatch):
     for named in (dict(weights="coco"), dict(weights_backbone="imagenet")):
         with pytest.raises(ValueError, match="from_jax"):  # never random weights asked for
             TF.fasterrcnn_mobilenet_v3_large_fpn(device="cpu", **named)
-    with pytest.raises(TypeError):  # a training knob: not ported, never dropped silently
-        TF.fasterrcnn_mobilenet_v3_large_fpn(device="cpu", rpn_batch_size_per_image=32)
+    with pytest.raises(TypeError):  # not ported, never dropped silently
+        TF.fasterrcnn_mobilenet_v3_large_fpn(device="cpu", box_pre_nms_top_n=100)
     x = torch.rand(1, 3, DET_IMAGE, DET_IMAGE)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        port(x, targets={})
+    targets = dict(boxes=torch.tensor([[[8.0, 8.0, 60.0, 70.0], [0.0, 0.0, 0.0, 0.0]]]),
+                   labels=torch.tensor([[2, 0]]), valid=torch.tensor([[True, False]]))
+    dets, losses, _ = port(x, targets=targets, generator=torch.Generator().manual_seed(0))
+    assert dets == {} and set(losses) == {"loss_objectness", "loss_rpn_box_reg",
+                                          "loss_classifier", "loss_box_reg"}
+    assert all(bool(torch.isfinite(v)) and v.requires_grad for v in losses.values())
     with torch.no_grad():
         dets, _, feats = port(x)
     assert dets["boxes"].shape == (1, 8, 4) and dets["valid"].dtype == torch.bool

@@ -1010,3 +1010,73 @@ def test_detect_makes_no_host_to_device_copy():
     torch.cuda.synchronize()
     stage = trace_restores(chain, 2, ("detect",))["stages"]["detect"]
     assert stage["kernels"] > 0 and stage["htod_memcpy"] == 0, stage
+
+
+@pytest.mark.cuda
+def test_clip_on_cuda_matches_the_cpu():
+    """The CLIP text tower (real vocabulary, width 64, 2 layers) on the card
+    against the same tower on the CPU, fp32, the empty prompt and a
+    worded one; ids outside the vocabulary raise before reaching the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from edtr_torch.models.clip import CLIPTextEncoder
+    from edtr_torch.models.layers import randomize_
+
+    cpu = randomize_(CLIPTextEncoder(width=64, heads=4, layers=2),
+                     torch.Generator().manual_seed(8))
+    gpu = CLIPTextEncoder(width=64, heads=4, layers=2).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        want = cpu.encode(["", "a restored photo"])
+        got = gpu.encode(["", "a restored photo"])
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        gpu(torch.full((1, 77), 49408))
+
+
+@pytest.mark.cuda
+def test_tiny_step_with_a_detnet_on_cuda():
+    """One EDTR step with a detector and its teacher on the card: the tiny
+    flagship (train=True) and a small-knob detector, seeded targets; every
+    metric finite, the ControlNet and the detnet's trainable parameters
+    moved, the teacher and the frozen detnet stages unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import copy
+
+    from edtr_torch.models.faster_rcnn import fasterrcnn_mobilenet_v3_large_fpn
+    from edtr_torch.models.layers import randomize_
+    from edtr_torch.pipeline import build_flagship
+    from edtr_torch.train.edtr_step import (EDTRTrainState, cast_frozen_bf16,
+                                            make_edtr_train_step)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    pipe = build_flagship(tiny=True, dtype=None, device="cuda", train=True)
+    det = fasterrcnn_mobilenet_v3_large_fpn(num_classes=6, device="cuda", min_size=128,
+                                            rpn_pre_nms_top_n_train=64,
+                                            rpn_post_nms_top_n_train=32)
+    randomize_(det, g)
+    teacher = copy.deepcopy(det)
+    state = EDTRTrainState.create(pipe, detnet=det, teacher_detnet=teacher)
+    cast_frozen_bf16(pipe, pipe.cldm.vae.train_decoder, teacher)
+    step = make_edtr_train_step(pipe, detnet=det, teacher_detnet=teacher)
+    boxes = torch.tensor([[[4.0, 6.0, 40.0, 50.0], [20.0, 10.0, 60.0, 44.0], [0, 0, 0, 0]]] * 2,
+                         device="cuda")
+    batch = dict(lq=torch.rand((2, 64, 64, 3), generator=g, device="cuda"),
+                 gt=torch.rand((2, 64, 64, 3), generator=g, device="cuda"),
+                 c_txt=torch.randn((2, 77, 64), generator=g, device="cuda"),
+                 targets=dict(boxes=boxes, labels=torch.tensor([[1, 3, 0]] * 2, device="cuda"),
+                              valid=torch.tensor([[True, True, False]] * 2, device="cuda")))
+    before = {n: v.clone() for n, v in det.state_dict().items()}
+    cn = {n: p.detach().clone() for n, p in pipe.cldm.controlnet.named_parameters()}
+    teacher_before = {n: v.clone() for n, v in teacher.state_dict().items()}
+    metrics = step(state, batch, generator=g)
+    assert set(metrics) == {"loss_hlf", "loss_det", "loss_fm", "loss_objectness",
+                            "loss_rpn_box_reg", "loss_classifier", "loss_box_reg"}
+    assert all(torch.isfinite(v) for v in metrics.values()), metrics
+    assert all(not torch.equal(p, cn[n]) for n, p in pipe.cldm.controlnet.named_parameters())
+    now = det.state_dict()
+    for n, p in det.named_parameters():
+        assert torch.equal(now[n], before[n]) != p.requires_grad, n
+    assert all(torch.equal(v, teacher_before[n]) for n, v in teacher.state_dict().items())

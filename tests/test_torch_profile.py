@@ -77,7 +77,7 @@ def test_profile_books_the_swin_kernels_and_counts_host_copies():
                ev("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 310, 5, 4)]
     stages = summarise({"traceEvents": events})["stages"]
     assert {s: v["htod_memcpy"] for s, v in stages.items()} == {
-        "swinir": 1, "vae_encode": 0, "scan": 1, "decode+wavelet": 0}
+        "swinir": 1, "vae_encode": 0, "text": 0, "scan": 1, "decode+wavelet": 0}
     assert stages["swinir"]["kernels"] == 1
 
 
@@ -88,10 +88,10 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
                  "void edtr_flash_bwd::flash_dkv_wgmma_kernel<64, 4, 1, true>(...)"):
         assert _family(name) == "flash (edtr_torch)", name
     events = []
-    for run in range(2):  # two steps, each forward+loss / backward / optimizer
+    for run in range(2):  # two steps without a detnet: no sample range
         t0 = 1000 * run
         events += [_x("user_annotation", s, t0 + 100 * i, 100)
-                   for i, s in enumerate(TRAIN_STAGES)]
+                   for i, s in enumerate(("forward+loss", "backward", "optimizer"))]
         events += [_x("cuda_runtime", "cudaLaunchKernel", t0 + 10, 1, corr=10 * run + 1),
                    _x("cuda_runtime", "cudaLaunchKernel", t0 + 110, 1, corr=10 * run + 2),
                    _x("cuda_runtime", "cudaLaunchKernel", t0 + 120, 1, corr=10 * run + 3),
@@ -102,7 +102,8 @@ def test_profile_books_the_backward_kernels_and_takes_a_train_step():
                    _x("kernel", "multi_tensor_apply_kernel", t0 + 220, 10, corr=10 * run + 4)]
     out = summarise({"traceEvents": events}, TRAIN_STAGES)
     assert set(out["stages"]) == set(TRAIN_STAGES)
-    assert [out["stages"][s]["kernels"] for s in TRAIN_STAGES] == [1, 2, 1]
+    assert {s: out["stages"][s]["kernels"] for s in TRAIN_STAGES} == {
+        "forward+loss": 1, "sample": 0, "backward": 2, "optimizer": 1}
     bwd = out["stages"]["backward"]
     assert abs(bwd["device_busy_ms"] - 0.05) < 1e-9 and abs(bwd["idle_share"] - 0.5) < 1e-9
     assert abs(out["by_family_ms"]["flash (edtr_torch)"] - 0.08) < 1e-9
@@ -137,15 +138,16 @@ def test_summarise_books_the_detect_stage():
     as the sort family."""
     from edtr_torch.profile_restore import RESTORE_DETECT_STAGES
 
-    assert RESTORE_DETECT_STAGES == ("swinir", "vae_encode", "scan", "decode+wavelet",
-                                     "detect")
+    assert RESTORE_DETECT_STAGES == ("swinir", "vae_encode", "text", "scan",
+                                     "decode+wavelet", "detect")
     events = [_x("user_annotation", s, 100 * i, 100)
               for i, s in enumerate(RESTORE_DETECT_STAGES)]
-    events += [_x("cuda_runtime", "cudaLaunchKernel", 410, 1, corr=1),
-               _x("cuda_runtime", "cudaLaunchKernel", 420, 1, corr=2),
-               _x("kernel", "void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel", 430, 10,
-                  corr=1),
-               _x("kernel", "sm90_xmma_fprop_implicit_gemm_bf16", 445, 20, corr=2)]
+    at = 100 * RESTORE_DETECT_STAGES.index("detect")  # the detect range's start
+    events += [_x("cuda_runtime", "cudaLaunchKernel", at + 10, 1, corr=1),
+               _x("cuda_runtime", "cudaLaunchKernel", at + 20, 1, corr=2),
+               _x("kernel", "void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel", at + 30,
+                  10, corr=1),
+               _x("kernel", "sm90_xmma_fprop_implicit_gemm_bf16", at + 45, 20, corr=2)]
     out = summarise({"traceEvents": events}, RESTORE_DETECT_STAGES)
     det = out["stages"]["detect"]
     assert det["kernels"] == 2 and abs(det["device_busy_ms"] - 0.03) < 1e-9

@@ -13,7 +13,9 @@ trainable on both sides, ``train_decoder=True``).
 * The optimizer: five AdamW + cosine updates fed the same numpy gradients
   against ``EDTRTrainState.create(...).tx_edtr``, at 1e-6.
 * The partition: frozen parameters bit-identical after a step, every
-  trainable one moved, the cached bf16 conv weights re-packed.
+  trainable one moved, the cached bf16 conv weights re-packed; with a
+  detnet and its teacher, the state's SGD over the detnet's trainable
+  parameters.
 * ``accum_steps=2`` against one batch of 2; ``use_checkpoint`` on against
   off; the recompute runs in the configuration of its forward even when the
   backward runs outside it; the K5/K6 autograd Functions against autograd
@@ -68,7 +70,8 @@ def _port(use_checkpoint: bool = False, fused_conv: bool = False,
     cfg["vae"]["ddconfig"]["use_checkpoint"] = use_checkpoint
     cfg["vae"]["train_decoder"] = True
     pipe = EDTRPipeline(SwinIR(**cfg["swinir"]),
-                        ControlLDM(cfg["unet"], cfg["vae"], cfg["controlnet"], 0.18215),
+                        ControlLDM(cfg["unet"], cfg["vae"], cfg["controlnet"], 0.18215,
+                                   clip_cfg=cfg["clip"]),
                         Diffusion.create(1000, linear_start=0.00085, linear_end=0.0120),
                         device="cpu", fused_conv=fused_conv, fused_proj=fused_proj)
     load_port(pipe, params)
@@ -228,9 +231,22 @@ def test_step_moves_trainable_and_keeps_frozen():
     assert not torch.equal(conv.packed_weight(torch.bfloat16), packed)
     torch.testing.assert_close(conv.packed_weight(torch.bfloat16),
                                G.pack_weight(conv.weight, torch.bfloat16), rtol=0, atol=0)
-    # the detection half is not ported: a detnet is refused, not ignored
-    with pytest.raises(NotImplementedError, match="detection"):
-        EDTRTrainState.create(pipe, detnet=torch.nn.Identity())
+    # with a detnet and its teacher, the state holds SGD over the detnet's
+    # trainable parameters (the body's early stages frozen), none of the
+    # teacher's
+    from edtr_torch.models.faster_rcnn import fasterrcnn_mobilenet_v3_large_fpn
+
+    det = fasterrcnn_mobilenet_v3_large_fpn(num_classes=6, device="cpu")
+    teacher = fasterrcnn_mobilenet_v3_large_fpn(num_classes=6, device="cpu")
+    state = EDTRTrainState.create(pipe, train_decoder=True, detnet=det, teacher_detnet=teacher)
+    sgd = state.tx_detnet.param_groups[0]
+    assert isinstance(state.tx_detnet, torch.optim.SGD)
+    assert (sgd["momentum"], sgd["weight_decay"]) == (0.9, 1e-4)
+    assert {id(p) for p in sgd["params"]} == {id(p) for p in det.parameters() if p.requires_grad}
+    assert any(not p.requires_grad for p in det.parameters())
+    assert not any(p.requires_grad for p in teacher.parameters())
+    with pytest.raises(ValueError, match="teacher"):
+        EDTRTrainState.create(pipe, detnet=det)
 
 
 def _grads(pipe, accum_steps=1, batch=None, t=None, noise=None):
@@ -276,9 +292,9 @@ def test_step_phases_are_profiler_ranges(tmp_path):
     ranges = [e["name"] for e in trace["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     assert {s: ranges.count(s) for s in TRAIN_STAGES} == {
-        "forward+loss": 2, "backward": 2, "optimizer": 1}
-    stages = summarise(trace, TRAIN_STAGES)["stages"]
-    assert all(stages[s]["host_ms"] > 0 for s in TRAIN_STAGES), stages
+        "forward+loss": 2, "sample": 0, "backward": 2, "optimizer": 1}
+    stages = summarise(trace, TRAIN_STAGES, runs=1)["stages"]
+    assert all(stages[s]["host_ms"] > 0 for s in TRAIN_STAGES if s != "sample"), stages
 
 
 def test_checkpointing_gives_the_same_gradients():

@@ -1,7 +1,7 @@
 """Shared set-up of the edtr_torch parity tests: the tiny flagship on both
 sides, with every leaf of the JAX parameter tree drawn from a seeded numpy
 generator (normal x 0.05, so zero-initialised convs carry signal) and
-carried into the port through ``edtr_torch.utils.convert.from_jax``."""
+carried into the port through ``edtr_torch.utils.convert.pipeline_from_jax``."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 
 import __graft_entry__ as G
 from edtr_torch.pipeline import build_flagship
-from edtr_torch.utils.convert import from_jax
+from edtr_torch.utils.convert import pipeline_from_jax
 
 IMAGE = 64  # tiny flagship input size; latents are IMAGE // 8
 CTX = (77, 64)  # tiny text-embedding shape
@@ -43,10 +43,7 @@ def jax_tiny():
 
 def load_port(pipe_t, params) -> None:
     """Load the JAX tree into a port pipeline, strictly."""
-    pipe_t.swinir.load_state_dict(from_jax(params["swinir"], "swinir"), strict=True)
-    for name in ("unet", "controlnet", "vae"):
-        getattr(pipe_t.cldm, name).load_state_dict(from_jax(params[name], name),
-                                                   strict=True)
+    pipe_t.load_state_dict(pipeline_from_jax(params), strict=True)
 
 
 @functools.lru_cache(maxsize=1)
