@@ -85,7 +85,24 @@ no result line):
    and a trace of 3 (device-busy ms, idle share, kernels; no host-to-device
    copy in the ``swinir`` and ``detect`` stages); one detect call at
    ``bench.py``'s batch of 8: ms and peak memory;
-11. the full-width EDTR-s4 training step (``build_flagship(train=True)``,
+11. restore then segment, built from ``configs/seg/voc2012/test/
+   007_edtr-s4.yaml`` (``load_config``, ``build_pipeline_from_config``: its
+   parameter names and shapes those of ``build_flagship()``, whose weights
+   it takes; ``instantiate_from_config`` of its ``segnet``:
+   DeepLabV3-MobileNetV3-Large, 21 classes, no auxiliary head, seeded
+   weights calibrated on the input, :func:`task_net`, its logits moving
+   with the input, :func:`input_sensitivity`), bf16, 512², the config's
+   batch of 1: one run counted (exact
+   launches, no layout copies), the logits' shape, the bf16 net against
+   an fp32 one on the same restored image, the restored image against the
+   stock configuration, every kernel the run launched held against its
+   plain version at its shapes (untimed), the stage split over
+   :data:`TASK_ROUNDS` rounds and a trace (no host-to-device copy in
+   ``swinir`` or ``segment``);
+12. restore then classify, the same from ``configs/cls/cub200/test/
+   007_edtr-s4.yaml`` (ResNet-18, 200 classes) at the config's batch of 8:
+   the restore's kernels at bs-8 shapes;
+13. the full-width EDTR-s4 training step (``build_flagship(train=True)``,
    ``EDTRTrainState``, ``make_edtr_train_step``; the restore's pipeline is
    freed first) at 512², bs 2, bf16 compute, seeded weights, batch, t and
    noise: one step's gradients on the kernel path, in the pipeline's
@@ -101,30 +118,49 @@ no result line):
    memory; a traced step, whose ranges (set inside the step) split it into
    forward+loss / backward / optimizer; then every trainable parameter
    moved and every frozen one bit-identical;
-12. on the same pipeline, the step with a detector: student and teacher
+14. on the same pipeline, the step with a detector: student and teacher
    Faster R-CNN MobileNetV3-Large-FPN (21 classes, bf16, no named weights
    so ``norm_frozen`` False; the teacher a copy of the student, both
-   randomised and calibrated as ``detector_pair`` does), seeded targets
-   (up to 8 boxes an image, sides 32-256 px inside 512², labels 1-20, a
+   randomised and calibrated as ``detector_pair`` does), a batch of seeded
+   coloured boxes on noise (gt; lq a noisier copy) with their boxes as
+   targets (up to 8 an image, sides 32-256 px inside 512², labels 1-20, a
    slot padded at least), ``cast_frozen_bf16`` on (frozen bytes before
    and after). Kernel path against plain path on the same weights, batch
-   and draws: the EDTR half's ControlNet and decoder gradients for the
-   plain path's cotangent of its restored image, and the task-net half's
-   walk image, each within the limit; the step's own gradients printed.
+   and draws (:func:`step_kernel_vs_plain`): the EDTR half's ControlNet
+   and decoder gradients for the plain path's cotangent of its restored
+   image under the step's HLF, and the task-net half's walk image, each
+   within the limit; printed: the same for the pixel L1's cotangent, the
+   step's own gradients, and each of these for the plain path run again
+   and computing in fp32 (the control).
    One step counted (exact launches ``TRAIN_LAUNCHES_DET``), its losses
    finite; 2 warm-up and 5 timed steps; a traced step split into
    forward+loss / sample / backward / optimizer; peak memory; then the
    ControlNet, decoder and trainable detnet tensors moved, the frozen
    detnet stages bit-identical while their BatchNorm running statistics
    moved, the teacher and every frozen pipeline tensor bit-identical;
-13. each forward kernel of the training step (flash, conv, Swin; the
+15. on phase 13's seeded weights, the generic step of each task, built
+   from its train config (``configs/{seg/voc2012,cls/cub200}/train/
+   007_edtr-s4.yaml`` through ``build_pipeline_from_config``, parameter
+   names and shapes those of ``build_flagship(train=True)``): the config's
+   student and teacher (DeepLabV3-MobileNetV3-Large, 21 classes;
+   ResNet-18, 200 classes; bf16, seeded weights of their own calibrated
+   on gt, the student's logits moving with the input), the config's
+   learning rates and loss weights, ``cast_frozen_bf16``, 512², bs 2,
+   seeded masks with 255 borders or labels: kernel path against plain
+   path as phase 14 holds it (gated: the HLF's cotangent, the walk's
+   image; printed: the rest and the fp32 control); one step
+   counted (exact launches, those of the detector step), losses finite;
+   step ms (median of 5), a traced step's split, peak memory; the
+   ControlNet, decoder and task-net tensors moved, the student's running
+   statistics moved, the teacher and the frozen pipeline bit-identical;
+16. each forward kernel of the training step (flash, conv, Swin; the
    projection kernels of the fused_proj step) against its plain version at
    every bs-2 shape the counted steps launched it with, as phases 3, 5, 6
    and 7 hold them at the restore's shapes; the step's backward shapes must
    be those phase 3 held;
-14. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
-   most of any counted path, restore+detect and the step with a detector
-   among them), then the result line.
+17. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+   most of any counted path, restore+detect, the bs-8 restore+classify and
+   the training steps among them), then the result line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
 with each launch's kernel in it and times a call by CUDA events, naming it
@@ -135,6 +171,7 @@ Needs one CUDA card and ``nvcc`` (``CUDA_HOME``); imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -230,6 +267,24 @@ TRAIN_TIMED = 5
 # padded at least
 DET_BOXES = 8
 DET_SIDES = (32, 256)
+# the detector step's batch: seeded coloured rectangles on noise (each class
+# one colour, boxes as det_targets draws them) as gt, a noisier copy as lq,
+# their boxes the targets
+# the configs this slice builds from: restore then segment (bs 1) and
+# restore then classify (the config's batch of 8), and the generic step of
+# each task (bs 2)
+SEG_TEST_CONFIG = "configs/seg/voc2012/test/007_edtr-s4.yaml"
+CLS_TEST_CONFIG = "configs/cls/cub200/test/007_edtr-s4.yaml"
+SEG_TRAIN_CONFIG = "configs/seg/voc2012/train/007_edtr-s4.yaml"
+CLS_TRAIN_CONFIG = "configs/cls/cub200/train/007_edtr-s4.yaml"
+# task -> (the config's node of its task net, its classes, its stage name)
+TASK_NETS = {"seg": ("segnet", 21, "segment"), "cls": ("clsnet", 200, "classify")}
+# the restore then segment / classify phases: stage split over TASK_ROUNDS
+# rounds, a trace of TASK_TRACE_ITERS
+TASK_ROUNDS = 7
+TASK_TRACE_ITERS = 2
+# VOC's 255 border of the seeded segmentation masks, in pixels
+SEG_BORDER = 16
 # conv wrapper -> (the TPU kernel it replaces, launches in one fused 512²
 # restore): 4 steps x (UNet 22 + ControlNet 10 ResBlocks) x 2 halves, of
 # them 4 x 22 at the 8² latent level (whole-image tier), plus the VAE's
@@ -358,6 +413,16 @@ DETECT_BATCH = 8
 # ~60 convs and GEMMs may flip bf16 roundings, through up to ~25 layers: the
 # configuration bound above
 TOL_DETECT_REL = 5e-2
+# bf16 vs fp32 segmentation and classification nets on the same restored
+# image: DeepLabV3-MobileNetV3 (~60 layers) and ResNet-18 (~20), the
+# detector's bound
+TOL_TASK_REL = 5e-2
+# the calibrated random segmentation and classification nets' fp32 logits
+# must move with their input: by at least TOL_TASK_MOVES relative L2 for
+# input noise of std TASK_NOISE (DeepLabV3-MobileNetV3 on randomize_'s
+# weights alone stays below it: its biases, not its input, set its output)
+TOL_TASK_MOVES = 1e-2
+TASK_NOISE = 0.1
 IMAGE = 512
 # restores per configuration in the interleaved timing (single host times
 # of one configuration spread over 300-550 ms on the card's machine), and
@@ -527,10 +592,11 @@ def build() -> None:
                 print(f"ptxas {name}:", line.strip())
 
 
-def flash_case(device, name, shape, gen) -> dict:
+def flash_case(device, name, shape, gen, timed: bool = True) -> dict:
     """One flash forward kernel against :func:`plain_fwd` at one (BH, N, D),
     in bf16: O and lse errors, kernel / plain / SDPA device times from a
-    trace (the kernel's CUDA-event time beside them) and the bound."""
+    trace (the kernel's CUDA-event time beside them; None unless
+    ``timed``) and the bound."""
     from edtr_torch.ops import flash_attention as FA
 
     bh, n, d = shape
@@ -549,13 +615,15 @@ def flash_case(device, name, shape, gen) -> dict:
     o_max = o_p.float().abs().max().item()
     rel = rel_l2(o_k, o_p)
     err_l = (lse_k - lse_p).abs().max().item()
-    ms = device_ms(lambda: fwd(q, k, v, scale), 20, what=f"{name} {shape}")
-    plain_ms = device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1,
-                         what=f"plain_fwd {shape}")
-    q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 20,
-                           what=f"SDPA {shape}")
-    event_ms = time_ms(lambda: fwd(q, k, v, scale), 20)
+    ms = plain_ms = library_ms = event_ms = None
+    if timed:
+        ms = device_ms(lambda: fwd(q, k, v, scale), 20, what=f"{name} {shape}")
+        plain_ms = device_ms(lambda: FA.plain_fwd(q, k, v, scale), 3, 1,
+                             what=f"plain_fwd {shape}")
+        q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
+                               20, what=f"SDPA {shape}")
+        event_ms = time_ms(lambda: fwd(q, k, v, scale), 20)
     t_ops = 4.0 * n * n * d * bh / PEAK_BF16_FLOPS * 1e3
     t_bytes = (4 * bh * n * d * 2 + bh * n * 4) / PEAK_BYTES * 1e3
     row = dict(name=name, shape=[bh, n, d], max_abs_err=max(err_o, err_l), ms=ms,
@@ -565,7 +633,7 @@ def flash_case(device, name, shape, gen) -> dict:
                rel_l2_o=rel, err_lse=err_l, same_twice=same,
                ok=bool(err_o <= TOL_O_MAX * o_max and rel <= TOL_O_L2 and err_l <= TOL_LSE
                        and same))
-    row["bound_share"] = row["bound_ms"] / ms
+    row["bound_share"] = row["bound_ms"] / ms if timed else None
     print("kernel:", json.dumps(row), flush=True)
     check(row["ok"], f"{name} at {shape} vs plain: err_o {err_o} (tol {TOL_O_MAX * o_max}), "
                      f"rel L2 {rel} (tol {TOL_O_L2}), err_lse {err_l} (tol {TOL_LSE}), "
@@ -614,9 +682,10 @@ def bwd_kernel_phase(device) -> dict:
     return rows
 
 
-def conv_case(device, key, gen) -> dict:
+def conv_case(device, key, gen, timed: bool = True) -> dict:
     """One conv kernel against its plain version at one shape ``key``
-    (``gn_conv.shapes``' key): errors, times and the bound."""
+    (``gn_conv.shapes``' key): errors, times (None unless ``timed``) and the
+    bound."""
     from edtr_torch.ops import gn_conv as GC
 
     name, b, cin, h, w, cout, has_emb, has_res, act = key
@@ -670,11 +739,13 @@ def conv_case(device, key, gen) -> dict:
     # calls of 10-400 us, at or below the wrapper's host-side launch at the
     # small sites: device time from a trace, as the projection kernels are
     # timed, CUDA events beside it
-    ms = device_ms(kern, iters, what=f"{key}")
-    plain_ms = device_ms(plain, 3, 1, what=f"plain {key}")
-    library_ms = device_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters,
-                           what=f"F.conv2d {key}")
-    event_ms = time_ms(kern, iters)
+    ms = plain_ms = library_ms = event_ms = None
+    if timed:
+        ms = device_ms(kern, iters, what=f"{key}")
+        plain_ms = device_ms(plain, 3, 1, what=f"plain {key}")
+        library_ms = device_ms(lambda: F.conv2d(lib_in, wb, None, 1, 1), iters,
+                               what=f"F.conv2d {key}")
+        event_ms = time_ms(kern, iters)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = ((b * hin * win * cin + b * h * w * cout + 9 * cin * cout) * 2 + res_bytes) \
         / PEAK_BYTES * 1e3
@@ -695,7 +766,7 @@ def conv_case(device, key, gen) -> dict:
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                gflop=flops / 1e9, mb=t_bytes * PEAK_BYTES / 1e9,
                ok=bool(err <= TOL_CONV_MAX * o_max and rel <= TOL_CONV_L2))
-    row["bound_share"] = row["bound_ms"] / ms
+    row["bound_share"] = row["bound_ms"] / ms if timed else None
     print("conv kernel:", json.dumps(row), flush=True)
     check(row["ok"], f"{key} vs plain: max abs {err} (tol {TOL_CONV_MAX * o_max}), "
                      f"rel L2 {rel} (tol {TOL_CONV_L2})")
@@ -881,13 +952,14 @@ def proj_kernel_phase(device, shape_counts: dict) -> dict:
     return rows
 
 
-def swin_case(device, key, gen) -> dict:
+def swin_case(device, key, gen, timed: bool = True) -> dict:
     """One Swin kernel against its plain version at one shape ``key``
     (``window_attention.shapes``' or ``swin_block.shapes``' key): errors,
     device times, the bound. ``library_ms``: for the window attention, SDPA
     on contiguous (BW, H, N, D) copies with bias + mask as one bf16 additive
     mask; for the block halves, ``F.linear`` alone on already-normalised
-    bf16 tokens (qkv; proj + fc1 + fc2), yardsticks the port never calls."""
+    bf16 tokens (qkv; proj + fc1 + fc2), yardsticks the port never calls.
+    The times are None unless ``timed``."""
     from edtr_torch.models.swinir import shift_mask
     from edtr_torch.ops import swin_block as SB
     from edtr_torch.ops import window_attention as WA
@@ -994,10 +1066,12 @@ def swin_case(device, key, gen) -> dict:
     o_max = out_p.float().abs().max().item()
     rel = rel_l2(out_k, out_p)
     iters = 20
-    ms = device_ms(kern, iters, what=f"{key}")
-    plain_ms = device_ms(plain, 3, 1, what=f"plain {key}")
-    library_ms = device_ms(lib, iters, what=f"library {key}")
-    event_ms = time_ms(kern, iters)
+    ms = plain_ms = library_ms = event_ms = None
+    if timed:
+        ms = device_ms(kern, iters, what=f"{key}")
+        plain_ms = device_ms(plain, 3, 1, what=f"plain {key}")
+        library_ms = device_ms(lib, iters, what=f"library {key}")
+        event_ms = time_ms(kern, iters)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     row = dict(name=name, shape=shape, max_abs_err=err, out_max=o_max, rel_l2=rel, ms=ms,
@@ -1006,7 +1080,7 @@ def swin_case(device, key, gen) -> dict:
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                gflop=flops / 1e9, mb=nbytes / 1e6, same_twice=same, period_err_share=period,
                ok=bool(err <= TOL_SWIN_MAX * o_max and rel <= TOL_SWIN_L2 and same))
-    row["bound_share"] = row["bound_ms"] / ms
+    row["bound_share"] = row["bound_ms"] / ms if timed else None
     print("swin kernel:", json.dumps(row), flush=True)
     check(row["ok"], f"{key} vs plain: max abs {err} (tol {TOL_SWIN_MAX * o_max}), "
                      f"rel L2 {rel} (tol {TOL_SWIN_L2}), bit-identical twice: {same}")
@@ -1586,7 +1660,7 @@ def detect_phase(pipe, device) -> tuple:
 
 
 def train_phase(device) -> dict:
-    """The full-width training step (module docstring, phase 11)."""
+    """The full-width training step (module docstring, phase 13)."""
     from edtr_torch.models.layers import randomize_
     from edtr_torch.ops.attention import force_plain
     from edtr_torch.pipeline import build_flagship
@@ -1596,6 +1670,7 @@ def train_phase(device) -> dict:
     t0 = time.perf_counter()
     pipe = build_flagship(tiny=False, dtype=torch.bfloat16, device=device, train=True)
     randomize_(pipe, torch.Generator(device=device).manual_seed(0))
+    seeded = host_weights(pipe)  # the generic steps start from them
     state = EDTRTrainState.create(pipe)
     step = make_edtr_train_step(pipe)
     params = dict(pipe.named_parameters())
@@ -1718,31 +1793,166 @@ def train_phase(device) -> dict:
     check(ups and not stale, f"{len(stale)} of {len(ups)} cached folded conv weights stale")
     return dict(launches=launches, shapes=shapes, loss_hlf=loss, kernel_vs_plain=cmp,
                 launches_fused_proj=launches_proj, shapes_fused_proj=shapes_proj["proj"],
-                timing=timing, trace=trace, steps=state.step, pipe=pipe)
+                timing=timing, trace=trace, steps=state.step, pipe=pipe, seeded_weights=seeded)
 
 
-def det_targets(device, gen: torch.Generator) -> dict:
+def det_targets(device, gen: torch.Generator, batch: int = TRAIN_BATCH) -> dict:
     """Seeded padded targets of the detector step: 1 to DET_BOXES - 1 valid
     boxes an image (a slot padded at least), sides in DET_SIDES, inside the
     512² image, labels 1-20."""
     lo, hi = DET_SIDES
-    n = torch.randint(1, DET_BOXES, (TRAIN_BATCH,), generator=gen, device=device)
-    wh = lo + torch.rand((TRAIN_BATCH, DET_BOXES, 2), generator=gen, device=device) * (hi - lo)
-    xy = torch.rand((TRAIN_BATCH, DET_BOXES, 2), generator=gen, device=device) * (IMAGE - wh)
+    n = torch.randint(1, DET_BOXES, (batch,), generator=gen, device=device)
+    wh = lo + torch.rand((batch, DET_BOXES, 2), generator=gen, device=device) * (hi - lo)
+    xy = torch.rand((batch, DET_BOXES, 2), generator=gen, device=device) * (IMAGE - wh)
     valid = torch.arange(DET_BOXES, device=device)[None] < n[:, None]
-    labels = torch.randint(1, DETECT_CLASSES, (TRAIN_BATCH, DET_BOXES), generator=gen,
+    labels = torch.randint(1, DETECT_CLASSES, (batch, DET_BOXES), generator=gen,
                            device=device)
     return dict(boxes=torch.cat([xy, xy + wh], -1) * valid[..., None], labels=labels * valid,
                 valid=valid)
 
 
+def box_images(device, gen: torch.Generator, targets: dict) -> torch.Tensor:
+    """(B, 3, 512, 512) images in [0, 1]: noise around grey, each valid box
+    of ``targets`` painted in its class's colour (later boxes over
+    earlier ones)."""
+    palette = torch.rand((DETECT_CLASSES, 3), generator=torch.Generator().manual_seed(3))
+    colours = palette.to(device)[targets["labels"]]
+    b = targets["boxes"].shape[0]
+    img = (0.5 + 0.2 * torch.randn((b, 3, IMAGE, IMAGE), generator=gen, device=device)).clamp(0, 1)
+    pix = torch.arange(IMAGE, device=device) + 0.5
+    for j in range(targets["boxes"].shape[1]):
+        x0, y0, x1, y1 = (c[:, None, None] for c in targets["boxes"][:, j].unbind(-1))
+        inside = ((pix[None, None] >= x0) & (pix[None, None] < x1) & (pix[None, :, None] >= y0)
+                  & (pix[None, :, None] < y1) & targets["valid"][:, j, None, None])
+        img = torch.where(inside[:, None], colours[:, j, :, None, None], img)
+    return img
+
+
+@contextlib.contextmanager
+def computing_in(dtype: torch.dtype, *modules):
+    """Inside the block every submodule of ``modules`` that computes in a
+    dtype of its own (``.dtype``: bf16 here) computes in ``dtype``, its
+    stored weights cast at each call as ever: the plain path's fp32 run,
+    the control that reads how far bf16 alone moves a result."""
+    saved = [(m, m.dtype) for module in modules for m in module.modules()
+             if isinstance(getattr(m, "dtype", None), torch.dtype)]
+    for m, _ in saved:
+        m.dtype = dtype
+    try:
+        yield
+    finally:
+        for m, d in saved:
+            m.dtype = d
+
+
+def step_kernel_vs_plain(step, state, batch: dict, t: torch.Tensor, noise: torch.Tensor,
+                         draws: dict, trainable: dict, task_params: dict,
+                         seed: int = None) -> dict:
+    """A two-half step's kernel path against its plain path (plain
+    attention, stock convs, stock SwinIR, stock projections) on the same
+    weights, batch and draws (a detector's sampler draws from a generator
+    seeded ``seed`` anew for each path), the task net's running statistics
+    put back after each half; and the control: the plain path computing in
+    fp32 (:func:`computing_in`) on the same stored weights and draws.
+
+    ``gated_rel_l2``: (1) the EDTR half's ControlNet and decoder gradients
+    for one cotangent of its restored image, the plain path's d loss / d
+    restored of the step's HLF, the kernels' forward and backward as the
+    restoration-only step holds them; (2) the task-net half's restored image
+    from the walk, the kernels' only way into that half.
+    ``cotangent_rel_l2_reported``: (1) for the pixel L1's cotangent.
+    ``step_grads_rel_l2``: the step's own gradients of both halves, where
+    the L1 losses' signs, the nets' ReLU gates and train-mode norms (and a
+    detector's top-k, NMS and matching) turn the paths' ~1e-2 differences
+    of the restored images into larger ones. ``control``: each of these for
+    the plain path against its fp32 run (bf16's own distance) and for the
+    kernel path against it. Every path's losses must be finite."""
+    from edtr_torch.ops.attention import force_plain
+
+    pipe = step.pipe
+    student, teacher = step.task.student, step.task.teacher
+    stats0 = {n: b.clone() for n, b in student.named_buffers()}
+    losses = {"hlf": step.hlf, "pixel": lambda res, gt: (res - gt).abs().mean()}
+
+    def edtr_vjp(kind, cot=None):
+        state.tx_edtr.zero_grad(set_to_none=True)
+        with pipe.configuration():
+            sh = step.shared(batch)
+            res = step.restored(sh, t, noise)
+            if cot is None:
+                leaf = res.detach().requires_grad_()
+                cot = torch.autograd.grad(losses[kind](leaf, sh[0]), leaf)[0]
+            res.backward(cot.to(res.dtype))
+        return cot, {n: p.grad.detach().clone() for n, p in trainable.items()}
+
+    def walk():
+        sh = step.shared(batch)
+        z = pipe.denoise(sh[2][:1], sh[3][:1], draws["noise"], draws["step_noise"])
+        return pipe.decode(z, sh[1][:1])
+
+    def run(cots=None):
+        """(d loss / d restored of each loss, the EDTR half's gradients for
+        each, the walk's image, the step's losses, its own gradients of the
+        EDTR half and of the task net)."""
+        vjps = {kind: edtr_vjp(kind, None if cots is None else cots[kind])
+                for kind in ("hlf", "pixel")}
+        img = walk()
+        gen = None if seed is None else torch.Generator(device=t.device).manual_seed(seed)
+        loss = step.grads(state, batch, t, noise).item()
+        eg = {n: p.grad.detach().clone() for n, p in trainable.items()}
+        m = step.task_grads(state, batch, [step.shared(batch)], [draws], gen)
+        tg = {n: p.grad.detach().clone() for n, p in task_params.items()}
+        with torch.no_grad():
+            for n, b in student.named_buffers():
+                b.copy_(stats0[n])
+        m = dict(loss_hlf=loss, **{k: v.item() for k, v in m.items()})
+        return ({k: v[0] for k, v in vjps.items()}, {k: v[1] for k, v in vjps.items()},
+                img, m, eg, tg)
+
+    flags = pipe.fused_conv, pipe.fused_proj, pipe.fused_swin
+    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
+    with force_plain():
+        plain = run()
+        again = run(plain[0])
+        with computing_in(torch.float32, pipe, student, teacher):
+            fp32 = run(plain[0])
+    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
+    kernel = run(plain[0])
+
+    def rel(a, b, names):
+        num = sum((a[n] - b[n]).float().pow(2).sum() for n in names)
+        return (num / sum(b[n].float().pow(2).sum() for n in names)).sqrt().item()
+
+    parts = {part: [n for n in trainable if n.startswith(f"cldm.{part}.")]
+             for part in ("controlnet", "vae.decoder")}
+
+    def compare(a, b):
+        by_cot = {kind: {part: rel(a[1][kind], b[1][kind], names)
+                         for part, names in parts.items() if names} for kind in a[1]}
+        own = {part: rel(a[4], b[4], names) for part, names in parts.items() if names}
+        own["tasknet"] = rel(a[5], b[5], list(task_params))
+        return dict(hlf=by_cot["hlf"], pixel=by_cot["pixel"], walk_restored=rel_l2(a[2], b[2]),
+                    step_grads=own)
+
+    for what, r in (("kernel", kernel), ("plain", plain), ("fp32 plain", fp32)):
+        check(all(math.isfinite(v) for v in r[3].values()), f"{what}-path step losses {r[3]}")
+    kp = compare(kernel, plain)
+    return dict(losses_kernel=kernel[3], losses_plain=plain[3], losses_plain_fp32=fp32[3],
+                tol_rel_l2=TOL_GRAD_REL, gated_cotangent="hlf",
+                gated_rel_l2=dict(kp["hlf"], walk_restored=kp["walk_restored"]),
+                cotangent_rel_l2_reported=dict(pixel=kp["pixel"]),
+                step_grads_rel_l2=kp["step_grads"],
+                control=dict(plain_vs_plain_again=compare(again, plain),
+                             plain_vs_fp32=compare(plain, fp32),
+                             kernel_vs_fp32=compare(kernel, fp32)))
+
+
 def train_det_phase(pipe, device) -> dict:
     """The full-width EDTR step with a detector (module docstring, phase
-    12), on the training pipeline of :func:`train_phase`."""
+    14), on the training pipeline of :func:`train_phase`."""
     import copy
 
     from edtr_torch.ops import boxes
-    from edtr_torch.ops.attention import force_plain
     from edtr_torch.ops.gn_conv import pack_weight
     from edtr_torch.profile_restore import TRAIN_STAGES, trace_restores
     from edtr_torch.train.edtr_step import (EDTRTrainState, cast_frozen_bf16,
@@ -1751,10 +1961,14 @@ def train_det_phase(pipe, device) -> dict:
     t0 = time.perf_counter()
     g = torch.Generator(device=device).manual_seed(4)
     lat = IMAGE // 8
-    batch = dict(lq=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
-                 gt=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
-                 c_txt=pipe.text(TRAIN_BATCH), targets=det_targets(device, g))
-    student, _ = detector_pair(device, batch["gt"].permute(0, 3, 1, 2))
+    targets = det_targets(device, g)
+    gt = box_images(device, g, targets)
+    lq = (gt + 0.1 * torch.randn(gt.shape, generator=g, device=device)).clamp(0, 1)
+    batch = dict(lq=lq.permute(0, 2, 3, 1), gt=gt.permute(0, 2, 3, 1),
+                 c_txt=pipe.text(TRAIN_BATCH), targets=targets)
+    t, noise = make_edtr_train_step(pipe).draw(
+        torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
+    student, _ = detector_pair(device, gt)
     teacher = copy.deepcopy(student)
     state = EDTRTrainState.create(pipe, detnet=student, teacher_detnet=teacher)
     step = make_edtr_train_step(pipe, detnet=student, teacher_detnet=teacher)
@@ -1787,80 +2001,18 @@ def train_det_phase(pipe, device) -> dict:
           f"{bytes_after / 2 ** 30:.3f} GiB; targets valid per image "
           f"{batch['targets']['valid'].sum(1).tolist()}; set up in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t, noise = step.draw(torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
     draws = dict(noise=torch.randn((1, 4, lat, lat), generator=g, device=device),
                  step_noise=torch.randn((4, 1, 4, lat, lat), generator=g, device=device),
                  uniforms=None)
 
-    # the kernel path against the plain path, on the same weights, batch
-    # and draws. Gated: (1) the EDTR half's ControlNet and decoder gradients
-    # for one cotangent of its restored image (the plain path's d loss_hlf /
-    # d restored), the kernels' forward and backward as the detnet=None
-    # step holds them; (2) the task-net half's restored image from the
-    # walk. Reported, not gated: the step's own gradients of both halves,
-    # where the feature L1's signs and the random detector's discrete
-    # choices (top-k, NMS, matching) turn the paths' ~1e-2 differences of
-    # the restored images into larger ones (PERF.md, §6)
-    stats0 = {n: b.clone() for n, b in student.named_buffers()}
-
-    def edtr_vjp(cot):
-        state.tx_edtr.zero_grad(set_to_none=True)
-        with pipe.configuration():
-            sh = step.shared(batch)
-            res = step.restored(sh, t, noise)
-            if cot is None:
-                leaf = res.detach().requires_grad_()
-                cot = torch.autograd.grad(step.hlf(leaf, sh[0]), leaf)[0]
-            res.backward(cot)
-        return cot, {n: p.grad.detach().clone() for n, p in trainable.items()}
-
-    def walk():
-        sh = step.shared(batch)
-        z = pipe.denoise(sh[2][:1], sh[3][:1], draws["noise"], draws["step_noise"])
-        return pipe.decode(z, sh[1][:1])
-
-    def halves():
-        loss = step.grads(state, batch, t, noise).item()
-        eg = {n: p.grad.detach().clone() for n, p in trainable.items()}
-        shared = [step.shared(batch)]
-        m = step.det_grads(state, batch, shared, [draws],
-                           torch.Generator(device=device).manual_seed(6))
-        dg = {n: p.grad.detach().clone() for n, p in det_train.items()}
-        with torch.no_grad():
-            for n, b in student.named_buffers():
-                b.copy_(stats0[n])
-        return dict(loss_hlf=loss, **{k: v.item() for k, v in m.items()}), eg, dg
-
-    flags = pipe.fused_conv, pipe.fused_proj, pipe.fused_swin
-    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
-    with force_plain():
-        cot, vjp_p = edtr_vjp(None)
-        walk_p = walk()
-        m_p, eg_p, dg_p = halves()
-    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
-    _, vjp_k = edtr_vjp(cot)
-    walk_k = walk()
-    m_k, eg_k, dg_k = halves()
-
-    def rel(a, b, names):
-        num = sum((a[n] - b[n]).float().pow(2).sum() for n in names)
-        return (num / sum(b[n].float().pow(2).sum() for n in names)).sqrt().item()
-
-    parts = {part: [n for n in trainable if n.startswith(f"cldm.{part}.")]
-             for part in ("controlnet", "vae.decoder")}
-    gated = {part: rel(vjp_k, vjp_p, names) for part, names in parts.items() if names}
-    gated["walk_restored"] = rel_l2(walk_k, walk_p)
-    reported = {part: rel(eg_k, eg_p, names) for part, names in parts.items() if names}
-    reported["detnet"] = rel(dg_k, dg_p, list(det_train))
-    cmp = dict(losses_kernel=m_k, losses_plain=m_p, tol_rel_l2=TOL_GRAD_REL,
-               gated_rel_l2=gated, step_grads_rel_l2_reported=reported)
-    del vjp_p, vjp_k, eg_p, eg_k, dg_p, dg_k
+    cmp = step_kernel_vs_plain(step, state, batch, t, noise, draws, trainable, det_train,
+                               seed=6)
     print("train with a detector, kernel path vs plain path (gated: the EDTR half's "
-          "gradients for the plain path's cotangent of the restored image, the walk's "
-          "restored image; reported: the step's own gradients):", json.dumps(cmp), flush=True)
-    for what, m in (("kernel", m_k), ("plain", m_p)):
-        check(all(math.isfinite(v) for v in m.values()), f"{what} detector-step losses {m}")
-    for part, r in gated.items():
+          "gradients for the plain path's cotangent of the restored image under the step's "
+          "HLF, the walk's restored image; reported: the same under the pixel L1, the step's "
+          "own gradients, and each of them for the plain path computing in fp32):",
+          json.dumps(cmp), flush=True)
+    for part, r in cmp["gated_rel_l2"].items():
         check(r <= TOL_GRAD_REL, f"detector step kernel vs plain, {part}: relative L2 {r}")
 
     before = {n: p.detach().clone() for n, p in params.items()}
@@ -1875,7 +2027,7 @@ def train_det_phase(pipe, device) -> dict:
     boxes.host_syncs.update(calls=0, syncs=0)
     out = {}
     first_ms = host_ms(lambda: out.update(step(state, batch, t, noise, generator=g,
-                                                det_draws=[draws])))
+                                                task_draws=[draws])))
     launches, shapes, _ = read_counts()
     syncs = dict(boxes.host_syncs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1933,6 +2085,330 @@ def train_det_phase(pipe, device) -> dict:
     return dict(launches=launches, shapes=shapes, metrics=metrics, kernel_vs_plain=cmp,
                 timing=timing, trace=trace, checks=res,
                 nms_host_syncs_per_call=syncs["syncs"] / max(syncs["calls"], 1))
+
+
+def config_pipeline(path: str, weights: dict, device) -> tuple:
+    """(the config at ``path``, the pipeline ``build_pipeline_from_config``
+    builds from it on the card in bf16, ``weights`` loaded): its parameter
+    names and shapes must be those of ``weights``, a ``build_flagship``
+    pipeline's state dict."""
+    from edtr_torch.config import load_config
+    from edtr_torch.pipeline import build_pipeline_from_config
+
+    cfg = load_config(path)
+    pipe = build_pipeline_from_config(cfg, dtype=torch.bfloat16, device=device)
+    got = {n: tuple(t.shape) for n, t in pipe.state_dict().items()}
+    want = {n: tuple(t.shape) for n, t in weights.items()}
+    check(got == want, f"{path}: parameters other than build_flagship's "
+                       f"({sorted(set(got) ^ set(want))[:5]})")
+    pipe.load_state_dict(weights, strict=True)
+    return cfg, pipe
+
+
+def host_weights(pipe) -> dict:
+    """``pipe``'s state dict copied to host memory, so the pipeline can be
+    freed before the next one is built from it."""
+    return {n: t.detach().cpu() for n, t in pipe.state_dict().items()}
+
+
+def task_net(cfg, task: str, device, images: torch.Tensor, node: str = None,
+             seed: int = 9) -> tuple:
+    """(bf16, fp32) task nets of ``cfg.model[node]`` (the task's own node by
+    default) through the registry on one set of weights: random from
+    ``seed`` (``randomize_``; BatchNorm running statistics 0 and 1), then
+    each conv and linear layer scaled to unit output RMS on ``images``
+    (NCHW in [0, 1]) in fp32, eval mode (``calibrate_unit_rms_``), so the
+    logits move with the input, as trained weights' do."""
+    from edtr_torch.config import instantiate_from_config
+    from edtr_torch.models.layers import Conv2d, Linear, calibrate_unit_rms_, randomize_
+
+    node = cfg.model[node or TASK_NETS[task][0]]
+    fp32 = instantiate_from_config(node, device=device)
+    randomize_(fp32, torch.Generator(device=device).manual_seed(seed))
+    calibrate_unit_rms_([m for m in fp32.modules() if isinstance(m, (Conv2d, Linear))],
+                        lambda: task_logits(fp32, task, images))
+    bf16 = instantiate_from_config(node, dtype=torch.bfloat16, device=device)
+    bf16.load_state_dict(fp32.state_dict(), strict=True)
+    return bf16, fp32
+
+
+def task_logits(net, task: str, img: torch.Tensor) -> torch.Tensor:
+    """A segmentation net's ``out`` logits (B, classes, H, W), or a
+    classification net's (B, classes), of NCHW images in [0, 1]."""
+    out = net(img)
+    return out["out"] if task == "seg" else out
+
+
+@torch.no_grad()
+def input_sensitivity(net, task: str, images: torch.Tensor, seed: int = 23) -> float:
+    """Relative L2 by which ``net``'s logits of ``images`` move for input
+    noise of std :data:`TASK_NOISE` (clamped to [0, 1]); must reach
+    :data:`TOL_TASK_MOVES`."""
+    g = torch.Generator(device=images.device).manual_seed(seed)
+    noisy = (images + TASK_NOISE * torch.randn(images.shape, generator=g,
+                                               device=images.device)).clamp(0, 1)
+    moved = rel_l2(task_logits(net, task, noisy), task_logits(net, task, images))
+    check(moved >= TOL_TASK_MOVES, f"{type(net).__name__} logits moved {moved} for input "
+                                   f"noise {TASK_NOISE}, want >= {TOL_TASK_MOVES}")
+    return moved
+
+
+def hold_shapes(device, shapes: dict) -> dict:
+    """Each flash forward, conv and Swin kernel (and projection kernel, if
+    the run launched one) against its plain version at every shape of
+    ``shapes`` (:func:`read_counts`), untimed: per kernel the shapes held
+    and its largest error over its largest output."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    held = {}
+
+    def add(name, share):
+        agg = held.setdefault(name, dict(shapes=0, max_err_share=0.0))
+        agg["shapes"] += 1
+        agg["max_err_share"] = max(agg["max_err_share"], share)
+
+    for key in sorted(shapes["flash"], key=str):
+        if key[0] in KERNELS:
+            r = flash_case(device, key[0], key[1:], gen, timed=False)
+            add(key[0], r["err_o"] / r["o_max"])
+    for key in sorted(shapes["conv"], key=str):
+        r = conv_case(device, key, gen, timed=False)
+        add(key[0], r["max_abs_err"] / r["out_max"])
+    for key in sorted(shapes["swin"], key=str):
+        r = swin_case(device, key, gen, timed=False)
+        add(key[0], r["max_abs_err"] / r["out_max"])
+    for key in sorted(shapes["proj"], key=str):
+        r = proj_case(device, key, gen)
+        add(key[0], r["max_abs_err"] / r["out_max"])
+    return held
+
+
+def restore_task_phase(task: str, path: str, weights: dict, device) -> tuple:
+    """Restore then segment or classify, built from the test config at
+    ``path`` (module docstring, phases 11-12): (the phase's results, the
+    counted run's launches, shapes and copies)."""
+    from torch.profiler import record_function
+
+    from edtr_torch.profile_restore import (RESTORE_CLASSIFY_STAGES, RESTORE_SEGMENT_STAGES,
+                                            trace_restores)
+
+    t0 = time.perf_counter()
+    cfg, pipe = config_pipeline(path, weights, device)
+    _, classes, stage = TASK_NETS[task]
+    stages_all = RESTORE_SEGMENT_STAGES if task == "seg" else RESTORE_CLASSIFY_STAGES
+    bs = int(cfg.test.batch_size)
+    flags = (pipe.fused_conv, pipe.fused_proj, pipe.fused_swin)
+    g = torch.Generator(device=device).manual_seed(1)
+    lat = IMAGE // 8
+    x = torch.rand((bs, 3, IMAGE, IMAGE), generator=g, device=device)
+    noise = torch.randn((bs, 4, lat, lat), generator=g, device=device)
+    step_noise = torch.randn((4, bs, 4, lat, lat), generator=g, device=device)
+    net, net32 = task_net(cfg, task, device, x)
+    moved = input_sensitivity(net32, task, x)
+    torch.cuda.synchronize()
+    print(f"restore then {stage}: {path}, bs {bs}, {type(net).__name__} {classes} classes, "
+          f"{sum(p.numel() for p in net.parameters())} params, calibrated on the input (logits "
+          f"move {moved} for noise {TASK_NOISE}), configuration {flags}; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def restore():
+        pre = pipe.pre_restore(x)
+        return pipe.decode(pipe.denoise(pipe.encode(pre), pipe.text(bs), noise, step_noise), pre)
+
+    def run_task(img):
+        with torch.no_grad():
+            return task_logits(net, task, img.clamp(0, 1))
+
+    restored = restore()
+    run_task(restored)
+    # the main path: counts set to 0 just before, read just after
+    zero_counts()
+    out = {}
+    ms = host_ms(lambda: out.update(logits=run_task(restore())))
+    launches, shapes, copies = read_counts()
+    print(f"restore+{stage} counted: {ms:.1f} ms, launches {launches}, layout copies {copies}",
+          flush=True)
+    check(launches == expected_launches(flags), f"restore+{stage} launches {launches}")
+    check(copies == dict(conv=0, proj=0), f"restore+{stage} layout copies {copies}")
+    want_shape = (bs, classes, IMAGE, IMAGE) if task == "seg" else (bs, classes)
+    check(tuple(out["logits"].shape) == want_shape and out["logits"].dtype == torch.float32,
+          f"{stage} logits {tuple(out['logits'].shape)} {out['logits'].dtype}")
+    check(bool(torch.isfinite(out["logits"]).all()), f"{stage} logits finite")
+    with torch.no_grad():
+        rel_net = rel_l2(task_logits(net, task, restored.clamp(0, 1)),
+                         task_logits(net32, task, restored.clamp(0, 1)))
+    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
+    rel_stock = rel_l2(restored, restore())
+    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
+    held = hold_shapes(device, shapes)
+    print(f"restore+{stage}: bf16 vs fp32 {stage} logits {rel_net}, restored vs stock "
+          f"{rel_stock}; kernels held at the run's shapes: {json.dumps(held)}", flush=True)
+    check(rel_net <= TOL_TASK_REL, f"{stage} bf16 vs fp32: {rel_net} > {TOL_TASK_REL}")
+    check(rel_stock <= TOL_FUSED_REL, f"bs-{bs} restore vs stock: {rel_stock}")
+    check(set(held) == {k for k, n in launches.items() if n}, f"held {sorted(held)}")
+
+    times = {s_: [] for s_ in stages_all}
+    res_ = {}
+
+    def timed(name, fn):
+        with record_function(name):
+            times[name].append(host_ms(lambda: res_.update({name: fn()})))
+        return res_[name]
+
+    def chain():
+        pre = timed("swinir", lambda: pipe.pre_restore(x))
+        z = timed("vae_encode", lambda: pipe.encode(pre))
+        c_txt = timed("text", lambda: pipe.text(bs))
+        z0 = timed("scan", lambda: pipe.denoise(z, c_txt, noise, step_noise))
+        img = timed("decode+wavelet", lambda: pipe.decode(z0, pre))
+        timed(stage, lambda: run_task(img))
+
+    e2e = []
+    for _ in range(TASK_ROUNDS):
+        chain()
+        e2e.append(host_ms(lambda: run_task(restore())))
+    stage_ms = {k: statistics.median(v) for k, v in times.items()}
+    trace = trace_restores(chain, TASK_TRACE_ITERS, stages_all)
+    for name in ("swinir", stage):
+        htod = trace["stages"][name]["htod_memcpy"]
+        check(htod == 0, f"restore+{stage}: {htod} host-to-device copies per {name} stage")
+    st = trace["stages"][stage]
+    res = dict(config=path, batch=bs, net=type(net).__name__, classes=classes,
+               params=sum(p.numel() for p in net.parameters()), logits_moved_by_noise=moved,
+               configuration=dict(zip(("fused_conv", "fused_proj", "fused_swin"), flags)),
+               rel_l2_bf16_vs_fp32=rel_net, restored_vs_stock_rel_l2=rel_stock,
+               tol_rel_l2=TOL_TASK_REL, held=held, stage_ms=stage_ms,
+               e2e_ms=statistics.median(e2e), e2e_runs_ms=e2e,
+               ms_per_img=statistics.median(e2e) / bs,
+               device_busy_ms_by_stage={k: v["device_busy_ms"] for k, v in trace["stages"].items()},
+               task_stage=dict(host_ms=stage_ms[stage], host_ms_traced=st["host_ms"],
+                               device_busy_ms=st["device_busy_ms"], idle_share=st["idle_share"],
+                               kernels=st["kernels"], htod_memcpy=st["htod_memcpy"]),
+               trace=trace)
+    print(f"restore then {stage} (bf16, bs {bs}, 512²):",
+          json.dumps({k: v for k, v in res.items() if k != "trace"}), flush=True)
+    print(f"trace restore+{stage} of {TASK_TRACE_ITERS}:", json.dumps(trace), flush=True)
+    return res, dict(launches=launches, shapes=shapes, copies=copies)
+
+
+def train_task_phase(task: str, path: str, weights: dict, device) -> dict:
+    """The generic EDTR step of ``task``, built from the train config at
+    ``path`` (module docstring, phase 15), on ``weights``."""
+    from edtr_torch.profile_restore import TRAIN_STAGES, trace_restores
+    from edtr_torch.train.edtr_step import (EDTRTrainState, cast_frozen_bf16,
+                                            make_edtr_generic_train_step)
+    from edtr_torch.train.tasks import task_apply_for
+
+    t0 = time.perf_counter()
+    cfg, pipe = config_pipeline(path, weights, device)
+    node, classes, _ = TASK_NETS[task]
+    tc = cfg.train
+    g = torch.Generator(device=device).manual_seed(5)
+    lat = IMAGE // 8
+    if task == "seg":
+        target = torch.randint(0, classes, (TRAIN_BATCH, IMAGE, IMAGE), generator=g,
+                               device=device)
+        border = torch.ones_like(target, dtype=torch.bool)
+        border[:, SEG_BORDER:-SEG_BORDER, SEG_BORDER:-SEG_BORDER] = False
+        target = target.masked_fill(border, 255)
+    else:
+        target = torch.randint(0, classes, (TRAIN_BATCH,), generator=g, device=device)
+    batch = dict(lq=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
+                 gt=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
+                 c_txt=pipe.text(TRAIN_BATCH), target=target)
+    gt = batch["gt"].permute(0, 3, 1, 2)
+    # both calibrated on gt; the teacher's weights are drawn apart from the
+    # student's: with equal ones the feature matching's L1 sits at its kink
+    # on gt (PERF.md §6)
+    student, student32 = task_net(cfg, task, device, gt)
+    teacher = task_net(cfg, task, device, gt, f"teacher_{node}", seed=10)[0]
+    moved = input_sensitivity(student32, task, gt)
+    del student32
+    cast_frozen_bf16(pipe, pipe.cldm.vae.train_decoder, teacher)
+    state = EDTRTrainState.create(pipe, learning_rate_edtr=float(tc.learning_rate_edtr),
+                                  train_steps=int(tc.train_steps), detnet=student,
+                                  teacher_detnet=teacher,
+                                  learning_rate_detnet=float(tc[f"learning_rate_{node}"]))
+    loss_fn, feats_fn = task_apply_for(task)
+    weights = dict(weight_hlf=float(tc.weight_hlf), weight_task=float(tc.weight_ce),
+                   weight_fm=float(tc.weight_fm))
+    step = make_edtr_generic_train_step(pipe, student, teacher, feats_fn, loss_fn, **weights)
+    params = dict(pipe.named_parameters())
+    trainable = {n: p for n, p in params.items() if p.requires_grad}
+    frozen = {n: p for n, p in params.items() if not p.requires_grad}
+    task_params = dict(student.named_parameters())
+    t, noise = step.draw(torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
+    draws = dict(noise=torch.randn((1, 4, lat, lat), generator=g, device=device),
+                 step_noise=torch.randn((4, 1, 4, lat, lat), generator=g, device=device))
+    torch.cuda.synchronize()
+    print(f"train {task}: {path}, student and teacher {type(student).__name__} ({classes} "
+          f"classes, {sum(p.numel() for p in task_params.values())} params, calibrated on gt: "
+          f"the student's logits move {moved} for noise {TASK_NOISE}), {weights}, "
+          f"cast_frozen_bf16; set up in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    cmp = step_kernel_vs_plain(step, state, batch, t, noise, draws, trainable, task_params)
+    cmp["logits_moved_by_noise"] = moved
+    print(f"train {task}, kernel path vs plain path (gated: the EDTR half's gradients for "
+          f"the plain path's cotangent of the restored image under the step's HLF, the walk's "
+          f"restored image; reported: the same under the pixel L1, the step's own gradients, "
+          f"and each of them for the plain path computing in fp32):", json.dumps(cmp),
+          flush=True)
+    for part, r in cmp["gated_rel_l2"].items():
+        check(r <= TOL_GRAD_REL, f"{task} step kernel vs plain, {part}: relative L2 {r}")
+
+    before = {n: p.detach().clone() for n, p in params.items()}
+    task_before = {n: v.clone() for n, v in student.state_dict().items()}
+    teacher_before = {n: v.clone() for n, v in teacher.state_dict().items()}
+    step(state, batch, generator=g)
+    # the main path: counts set to 0 just before the step, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = {}
+    first_ms = host_ms(lambda: out.update(step(state, batch, t, noise, generator=g,
+                                                task_draws=[draws])))
+    launches, shapes, _ = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: v.item() for k, v in out.items()}
+    print(f"train {task} step counted: {first_ms:.1f} ms, metrics {metrics}, launches "
+          f"{launches}, peak memory {peak:.2f} GiB", flush=True)
+    check(set(metrics) == {"loss_hlf", "loss_task", "loss_fm"}, f"{task} metrics {metrics}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"{task} step losses {metrics}")
+    # the task net launches none of the port's kernels: the detector step's counts
+    check(launches == TRAIN_LAUNCHES_DET, f"{task} step launches {launches}, want "
+                                          f"{TRAIN_LAUNCHES_DET}")
+
+    steps = [host_ms(lambda: step(state, batch, generator=g)) for _ in range(TRAIN_TIMED)]
+    trace = trace_restores(lambda: step(state, batch, generator=g), 1, TRAIN_STAGES)
+    timing = dict(step_ms=statistics.median(steps), step_runs_ms=steps,
+                  phase_host_ms_traced={s_: trace["stages"][s_]["host_ms"] for s_ in TRAIN_STAGES},
+                  phase_device_busy_ms_traced={s_: trace["stages"][s_]["device_busy_ms"]
+                                               for s_ in TRAIN_STAGES},
+                  peak_memory_gib=peak, batch=TRAIN_BATCH, image=IMAGE)
+    print(f"train {task} step: {timing['step_ms']:.2f} ms (median of {TRAIN_TIMED}, bs "
+          f"{TRAIN_BATCH}, 512²; phases from a traced step):", json.dumps(timing), flush=True)
+    print(f"trace of one train {task} step:", json.dumps(trace), flush=True)
+
+    moved = [n for n in trainable if not torch.equal(params[n], before[n])]
+    changed = [n for n in frozen if not torch.equal(params[n], before[n])]
+    now = student.state_dict()
+    stats = [n for n in now if n.endswith(("running_mean", "running_var"))]
+    task_moved = [n for n in task_params if not torch.equal(now[n], task_before[n])]
+    stats_moved = [n for n in stats if not torch.equal(now[n], task_before[n])]
+    teacher_changed = [n for n, v in teacher.state_dict().items()
+                       if not torch.equal(v, teacher_before[n])]
+    res = dict(moved=len(moved), trainable=len(trainable), frozen_changed=len(changed),
+               tasknet_moved=len(task_moved), tasknet_params=len(task_params),
+               stats_moved=len(stats_moved), stats=len(stats),
+               teacher_changed=len(teacher_changed), steps=state.step)
+    print(f"train {task}, after the steps:", json.dumps(res), flush=True)
+    check(len(moved) == len(trainable), "every ControlNet and decoder tensor moved")
+    check(not changed, f"frozen pipeline tensors changed: {changed[:5]}")
+    check(len(task_moved) == len(task_params), f"task-net tensors moved: {len(task_moved)}")
+    check(stats and len(stats_moved) == len(stats), f"running statistics moved: "
+                                                    f"{len(stats_moved)} of {len(stats)}")
+    check(not teacher_changed, f"teacher tensors changed: {teacher_changed[:5]}")
+    return dict(config=path, launches=launches, metrics=metrics, kernel_vs_plain=cmp,
+                timing=timing, trace=trace, checks=res)
 
 
 def train_shape_phase(device, shapes: dict, proj_shapes: dict) -> dict:
@@ -2012,15 +2488,33 @@ def main() -> int:
     text = text_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
     detect, counted["restore+detect"] = detect_phase(pipe, device)
-    del pipe  # the training pipeline does not fit beside it with its optimizer
+    weights = host_weights(pipe)
+    del pipe  # the config-built pipelines and the training one take its place
     gc.collect()
     torch.cuda.empty_cache()
+    tasks = {}
+    for task, path, what in (("seg", SEG_TEST_CONFIG, "restore+segment"),
+                             ("cls", CLS_TEST_CONFIG, "restore+classify")):
+        tasks[what], counted[what] = restore_task_phase(task, path, weights, device)
+        gc.collect()
+        torch.cuda.empty_cache()
     train = train_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
-    train_det = train_det_phase(train.pop("pipe"), device)
+    train_pipe = train.pop("pipe")
+    train_det = train_det_phase(train_pipe, device)
+    del train_pipe
     gc.collect()
     torch.cuda.empty_cache()
+    # the generic steps start from the seeded weights, as the
+    # restoration-only step does: after the earlier steps' AdamW updates,
+    # bf16 alone moves the gradients they compare past the gate (the fp32
+    # control, PERF.md §6)
+    weights = train.pop("seeded_weights")
+    for task, path in (("seg", SEG_TRAIN_CONFIG), ("cls", CLS_TRAIN_CONFIG)):
+        tasks[f"train_{task}"] = train_task_phase(task, path, weights, device)
+        gc.collect()
+        torch.cuda.empty_cache()
     train["held_at_step_shapes"] = train_shape_phase(device, train.pop("shapes"),
                                                      train.pop("shapes_fused_proj"))
 
@@ -2031,6 +2525,9 @@ def main() -> int:
         row["launches_train_step"] = train["launches"][name]
         row["launches_train_step_detnet"] = train_det["launches"][name]
         row["launches_train_step_fused_proj"] = train["launches_fused_proj"][name]
+        row["launches_restore_classify_bs8"] = counted["restore+classify"]["launches"][name]
+        for task in ("seg", "cls"):
+            row[f"launches_train_step_{task}"] = tasks[f"train_{task}"]["launches"][name]
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
     check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
     check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")
@@ -2039,7 +2536,7 @@ def main() -> int:
     train_det.pop("shapes")
     print(json.dumps({"card": card, "restore": timing, "text": text, "detect": detect,
                       "cldm_eps": cldm, "gn_stats": norms,
-                      "train": train, "train_detnet": train_det,
+                      "train": train, "train_detnet": train_det, "task_nets": tasks,
                       "device_ms_traces": TRACE_STATS,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},

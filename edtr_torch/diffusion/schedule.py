@@ -1,9 +1,9 @@
 """Gaussian diffusion tables: the forward process and the training
 objectives.
 
-Counterpart of ``edtr_tpu/diffusion/schedule.py``: the linear beta
-schedule is computed once in float64 numpy and frozen into fp32 tensors on
-the target device; ``q_sample``, ``get_v`` and ``predict_xstart_from_eps``
+Counterpart of ``edtr_tpu/diffusion/schedule.py``: the beta schedule
+(linear, cosine, sqrt_linear or sqrt) is computed once in float64 numpy
+and frozen into fp32 tensors on the target device; ``q_sample``, ``get_v`` and ``predict_xstart_from_eps``
 gather one coefficient per sample. ``p_losses`` (the eps/x0/v objective)
 and ``reverse`` (EDTR's one-step noising and denoising) take their noise as
 a tensor, or draw it from a ``torch.Generator``: JAX's keys give other
@@ -21,11 +21,23 @@ import torch
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
 
 
-def make_beta_schedule(n_timestep: int, linear_start: float = 1e-4,
-                       linear_end: float = 2e-2) -> np.ndarray:
-    """The ``linear`` schedule (the one every EDTR config uses), float64."""
-    return np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep,
-                       dtype=np.float64) ** 2
+def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-4,
+                       linear_end: float = 2e-2, cosine_s: float = 8e-3) -> np.ndarray:
+    """The betas of ``schedule`` in float64, as JAX's (every EDTR config
+    uses ``linear``)."""
+    if schedule == "linear":
+        return np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep,
+                           dtype=np.float64) ** 2
+    if schedule == "cosine":
+        steps = np.arange(n_timestep + 1, dtype=np.float64) / n_timestep + cosine_s
+        alphas = np.cos(steps / (1 + cosine_s) * np.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        return np.clip(1 - alphas[1:] / alphas[:-1], a_min=0, a_max=0.999)
+    if schedule == "sqrt_linear":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64)
+    if schedule == "sqrt":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64) ** 0.5
+    raise ValueError(f"schedule '{schedule}' unknown.")
 
 
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -47,12 +59,15 @@ class Diffusion:
     loss_type: str = "l2"
 
     @classmethod
-    def create(cls, timesteps: int = 1000, linear_start: float = 1e-4,
-               linear_end: float = 2e-2, device: torch.device | str = "cpu",
-               parameterization: str = "eps", loss_type: str = "l2") -> "Diffusion":
+    def create(cls, timesteps: int = 1000, beta_schedule: str = "linear",
+               loss_type: str = "l2", linear_start: float = 1e-4, linear_end: float = 2e-2,
+               cosine_s: float = 8e-3, parameterization: str = "eps",
+               device: torch.device | str = "cpu") -> "Diffusion":
+        """JAX's ``Diffusion.create`` (its arguments in its order), the
+        tables on ``device``."""
         if parameterization not in ("eps", "x0", "v"):
             raise ValueError(f"parameterization must be eps, x0 or v, got {parameterization!r}")
-        betas = make_beta_schedule(timesteps, linear_start, linear_end)
+        betas = make_beta_schedule(beta_schedule, timesteps, linear_start, linear_end, cosine_s)
         ac = np.cumprod(1.0 - betas, axis=0)
 
         def f32(a):
@@ -136,3 +151,9 @@ class Diffusion:
         return dict(x_noisy=x_noisy,
                     x_pred=self.predict_xstart_from_eps(x_noisy, t, model_output),
                     model_output=model_output)
+
+
+def create_diffusion(device: torch.device | str = "cpu", **kwargs) -> Diffusion:
+    """The configs' factory (``target: model.gaussian_diffusion.Diffusion``):
+    :meth:`Diffusion.create` with the config's ``params``."""
+    return Diffusion.create(device=device, **kwargs)

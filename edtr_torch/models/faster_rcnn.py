@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from edtr_torch.device import resolve_device
-from edtr_torch.models.layers import Conv2d, Linear
+from edtr_torch.models.layers import Conv2d, Linear, calibrate_unit_rms_
 from edtr_torch.models.mobilenetv3 import MobileNetV3
 from edtr_torch.ops import boxes as box_ops
 from edtr_torch.ops.roi_align import multiscale_roi_align
@@ -590,14 +590,20 @@ def fasterrcnn_mobilenet_v3_large_fpn(weights=None, weights_backbone=None,
     return model.to(resolve_device(device)).eval()
 
 
-def detnet_trainable_mask(model: FasterRCNN, trainable_layers: int = 3) -> Dict[str, bool]:
+def detnet_trainable_mask(model: nn.Module, trainable_layers: int = 3) -> Dict[str, bool]:
     """torchvision's backbone freezing (``trainable_layers`` of the
     MobileNet's stages train), as JAX's ``detnet_trainable_mask``: the body's
     ``features.i`` with ``i < stage_indices[num_stages - trainable_layers]``
     (every one when 0) are frozen, everything else trains. Sets each
     parameter's ``requires_grad`` and returns name -> trainable. Frozen
     stages' BatchNorm running statistics still update in train-mode calls,
-    as torchvision's plain BatchNorm does."""
+    as torchvision's plain BatchNorm does. A net that is not a
+    :class:`FasterRCNN` (a classification or segmentation net) trains every
+    parameter, as JAX's ``mask_detnet_tx`` leaves its optimizer unmasked."""
+    if not isinstance(model, FasterRCNN):
+        for p in model.parameters():
+            p.requires_grad_(True)
+        return {name: True for name, _ in model.named_parameters()}
     si = model.backbone.body.stage_indices()
     freeze_before = si[-1] + 1 if trainable_layers == 0 else si[len(si) - trainable_layers]
     mask = {}
@@ -608,36 +614,17 @@ def detnet_trainable_mask(model: FasterRCNN, trainable_layers: int = 3) -> Dict[
     return mask
 
 
-@torch.no_grad()
 def calibrate_heads_(model: FasterRCNN, images: torch.Tensor) -> FasterRCNN:
     """For seeded random weights (runs without a checkpoint): one forward
     of ``images`` in which every conv and linear layer after the backbone's
-    body (FPN, RPN head, box head, predictor), at its first call, divides
-    its weight and bias by the root mean square of its output, so the FPN
-    maps, objectness, deltas and class logits are O(1) and class scores
-    pass the score threshold, as trained weights' do. The body keeps its
-    weights: a random MobileNet whose norms are set to unit gain amplifies
-    bf16 rounding from layer to layer (to ~15% relative L2 at the FPN, on
-    the CPU), while scaling a linear or ReLU layer moves no relative
-    rounding."""
-    done = set()
-
-    def unit_rms(layer, args, out):
-        if layer in done:
-            return None
-        done.add(layer)
-        r = out.float().square().mean().sqrt()
-        layer.weight.div_(r)
-        if layer.bias is not None:
-            layer.bias.div_(r)
-        return out / r
-
+    body (FPN, RPN head, box head, predictor) is scaled to unit output RMS
+    (``layers.calibrate_unit_rms_``), so the FPN maps, objectness, deltas
+    and class logits are O(1) and class scores pass the score threshold, as
+    trained weights' do. The body keeps its weights: a random MobileNet
+    whose norms are set to unit gain amplifies bf16 rounding from layer to
+    layer (to ~15% relative L2 at the FPN, on the CPU), while scaling a
+    linear or ReLU layer moves no relative rounding."""
     heads = [m for name, m in model.named_modules() if isinstance(m, (Conv2d, Linear))
              and not name.startswith("backbone.body.")]
-    hooks = [m.register_forward_hook(unit_rms) for m in heads]
-    try:
-        model(images)
-    finally:
-        for h in hooks:
-            h.remove()
+    calibrate_unit_rms_(heads, lambda: model(images))
     return model

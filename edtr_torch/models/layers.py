@@ -226,11 +226,11 @@ class Linear(nn.Module):
 class Conv2d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 dtype: Optional[torch.dtype] = None, groups: int = 1):
+                 dtype: Optional[torch.dtype] = None, groups: int = 1, dilation: int = 1):
         super().__init__()
         self.dtype = dtype
         self.stride, self.padding = stride, padding
-        self.groups = groups
+        self.groups, self.dilation = groups, dilation
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
@@ -256,7 +256,7 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
         y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
-                     groups=self.groups)
+                     self.dilation, self.groups)
         if self.bias is not None:
             y = y + self.bias.to(dt)[:, None, None]
         return y
@@ -355,3 +355,32 @@ def randomize_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             p.copy_(0.05 * r)
     return module
+
+
+@torch.no_grad()
+def calibrate_unit_rms_(layers: Sequence[nn.Module], run: Callable[[], object]) -> None:
+    """For seeded random weights: during ``run()``, each of ``layers``
+    (:class:`Conv2d`, :class:`Linear`), at its first call, divides its
+    weight and bias by the root mean square of its output, which then goes
+    on at unit RMS, so the layers that follow see O(1) signals, as trained
+    weights give them. ``randomize_``'s N(0, 1/fan_in) kernels halve a
+    signal's power at each ReLU, so a deep random net's output comes to
+    depend on its biases more than on its input."""
+    done = set()
+
+    def unit_rms(layer, args, out):
+        if layer in done:
+            return None
+        done.add(layer)
+        r = out.float().square().mean().sqrt()
+        layer.weight.div_(r)
+        if layer.bias is not None:
+            layer.bias.div_(r)
+        return out / r
+
+    hooks = [m.register_forward_hook(unit_rms) for m in layers]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 from typing import Any, Dict, Iterator, List, Optional
 
 import torch
@@ -57,11 +58,14 @@ from torch import nn
 from edtr_torch.device import resolve_device
 from edtr_torch.diffusion.sampler import make_spaced_schedule, sample_loop
 from edtr_torch.diffusion.schedule import Diffusion
+from edtr_torch.config import NotPortedError
 from edtr_torch.models.cldm import ControlLDM
+from edtr_torch.models.controlnet import ControlNet
 from edtr_torch.models.layers import fused_conv as conv_config
 from edtr_torch.models.layers import fused_proj as proj_config
 from edtr_torch.models.layers import fused_swin as swin_config
 from edtr_torch.models.swinir import SwinIR
+from edtr_torch.models.unet import UNetModel
 from edtr_torch.utils.image import wavelet_reconstruction
 
 # the conv configuration chip_smoke.py measured faster end to end on the
@@ -100,12 +104,12 @@ def _in_config(stage):
 
 
 class EDTRPipeline(nn.Module):
-    """SwinIR + ControlLDM + diffusion tables, on one device, run in the
-    conv configuration ``fused_conv``, the projection configuration
-    ``fused_proj`` and the Swin configuration ``fused_swin`` (module
-    docstring)."""
+    """SwinIR (or None: no pre-restoration) + ControlLDM + diffusion
+    tables, on one device, run in the conv configuration ``fused_conv``,
+    the projection configuration ``fused_proj`` and the Swin configuration
+    ``fused_swin`` (module docstring)."""
 
-    def __init__(self, swinir: SwinIR, cldm: ControlLDM, diffusion: Diffusion,
+    def __init__(self, swinir: Optional[SwinIR], cldm: ControlLDM, diffusion: Diffusion,
                  start_timestep: int = 200, num_timesteps: int = 4,
                  device: Optional[torch.device | str] = None,
                  fused_conv: bool = FUSED_CONV_DEFAULT,
@@ -116,7 +120,7 @@ class EDTRPipeline(nn.Module):
         self.fused_conv = bool(fused_conv)
         self.fused_proj = bool(fused_proj)
         self.fused_swin = bool(fused_swin)
-        self.swinir = swinir.to(self.device)
+        self.swinir = None if swinir is None else swinir.to(self.device)
         self.cldm = cldm.to(self.device)
         self.diffusion = diffusion
         self.start_timestep = int(start_timestep)
@@ -135,7 +139,9 @@ class EDTRPipeline(nn.Module):
     @torch.no_grad()
     @_in_config
     def pre_restore(self, lq: torch.Tensor) -> torch.Tensor:
-        return self.swinir(lq)
+        """SwinIR's pre-restoration, the identity for a pipeline without
+        one (a config that disables it)."""
+        return lq if self.swinir is None else self.swinir(lq)
 
     @torch.no_grad()
     @_in_config
@@ -253,3 +259,72 @@ def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bflo
     return EDTRPipeline(swinir, cldm, diffusion, start_timestep=200, num_timesteps=4,
                         device=device, fused_conv=fused_conv, fused_proj=fused_proj,
                         fused_swin=fused_swin)
+
+
+# the SwinIR variant the port builds (``models/swinir.py``); a config
+# asking for another raises
+_SWINIR_FIXED = dict(in_chans=3, img_range=1.0, upsampler="nearest+conv",
+                     resi_connection="1conv", unshuffle=True)
+_SWINIR_ARGS = ("embed_dim", "depths", "num_heads", "window_size", "mlp_ratio", "sf")
+
+
+def _swinir_from_config(params: Dict[str, Any], dtype: Optional[torch.dtype]) -> SwinIR:
+    for key, want in _SWINIR_FIXED.items():
+        if params.get(key, want) != want:
+            raise NotPortedError(f"SwinIR {key}={params[key]!r}: the port builds {key}={want!r}")
+    if params.get("unshuffle_scale", params.get("sf")) != params.get("sf"):
+        raise NotPortedError("SwinIR: the port unshuffles by sf")
+    return SwinIR(dtype=dtype, **{k: tuple(params[k]) if isinstance(params[k], list)
+                                  else params[k] for k in _SWINIR_ARGS if k in params})
+
+
+def _args_of(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The entries of ``cfg`` that ``cls.__init__`` takes (JAX's ``_filter``
+    of the UNet and ControlNet configs: ``image_size``, ``legacy`` and
+    ``use_spatial_transformer`` are the reference's, inert here)."""
+    names = inspect.signature(cls.__init__).parameters
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()
+            if k in names and v is not None}
+
+
+def build_pipeline_from_config(cfg, dtype: Optional[torch.dtype] = None,
+                               device: Optional[torch.device | str] = None,
+                               fused_conv: bool = FUSED_CONV_DEFAULT,
+                               fused_proj: bool = FUSED_PROJ_DEFAULT,
+                               fused_swin: bool = FUSED_SWIN_DEFAULT) -> EDTRPipeline:
+    """JAX's ``build_pipeline_from_config``: the pipeline a reference-style
+    config (:func:`edtr_torch.config.load_config`) describes, weights as
+    the constructors initialise them, on ``device`` (the card unless the
+    caller names another; ``"meta"`` builds the shapes alone). SwinIR only
+    when ``model.pre_restoration`` (default true) and a ``swinir`` node
+    say so, else the identity pre-restore; unpadded (JAX pads its lanes, a
+    TPU choice). A config with ``train`` whose VAE trains its decoder
+    recomputes the decoder's activations in the backward
+    (``use_checkpoint``, unless the ddconfig sets it); the UNet and
+    ControlNet take ``use_checkpoint`` from the config. ``start_timestep``
+    and ``num_timesteps`` come from ``train`` or else ``test`` (200 and 4
+    by default). ``dtype=None`` builds fp32, which the card runs on the
+    plain versions."""
+    from edtr_torch.config import Config, instantiate_from_config
+
+    def plain(node):
+        return dict(node.to_dict() if isinstance(node, Config) else node or {})
+
+    device = resolve_device(device)
+    model = cfg["model"] if "model" in cfg else cfg
+    cp = model["cldm"]["params"]
+    vae = plain(cp["vae_cfg"])
+    if "train" in cfg and vae.get("train_decoder", False):
+        vae["ddconfig"] = {"use_checkpoint": True, **plain(vae.get("ddconfig"))}
+    with torch.device(device):
+        swinir = (_swinir_from_config(plain(model["swinir"]["params"]), dtype)
+                  if model.get("pre_restoration", True) and "swinir" in model else None)
+        cldm = ControlLDM(_args_of(UNetModel, plain(cp["unet_cfg"])), vae,
+                          _args_of(ControlNet, plain(cp["controlnet_cfg"])),
+                          latent_scale_factor=cp["latent_scale_factor"], dtype=dtype,
+                          clip_cfg=plain(cp["clip_cfg"]))
+    diffusion = instantiate_from_config(model["diffusion"], device=device)
+    steps = plain(cfg.get("train", None) or cfg.get("test", None))
+    return EDTRPipeline(swinir, cldm, diffusion, steps.get("start_timestep", 200),
+                        steps.get("num_timesteps", 4), device=device, fused_conv=fused_conv,
+                        fused_proj=fused_proj, fused_swin=fused_swin)

@@ -5,13 +5,16 @@
 and detection, or one training step) under the profiler; the chain puts
 each stage under a ``record_function`` range: a restore's named as
 ``bench.py:_run_split`` names them (:data:`STAGES`, with ``detect`` after
-them :data:`RESTORE_DETECT_STAGES`), a training step's :data:`TRAIN_STAGES`.
+them :data:`RESTORE_DETECT_STAGES`, ``segment`` :data:`RESTORE_SEGMENT_STAGES`,
+``classify`` :data:`RESTORE_CLASSIFY_STAGES`), a training step's
+:data:`TRAIN_STAGES`.
 :func:`summarise` reads the Chrome trace: per stage the host ms, the
 device-busy ms (union of kernel intervals), the idle share, the kernel
 count and the host-to-device copies (each one a stall of the host: a copy
 from pageable memory synchronises the stream); the device time by kernel
 family; and the top kernels by device time. ``chip_smoke.py`` prints it for
-the full-width 512² restore, restore and detection, and training step.
+the full-width 512² restore, restore and detection, segmentation or
+classification, and the training steps.
 """
 
 from __future__ import annotations
@@ -30,8 +33,11 @@ from edtr_torch.train.edtr_step import STAGES as TRAIN_STAGES
 # ``text``: the empty prompt's CLIP embedding, which a restore without a
 # given c_txt computes after the encode, as JAX's does
 STAGES = ("swinir", "vae_encode", "text", "scan", "decode+wavelet")
-# restore then detect, bench.py:_run_split's five stages
+# restore then detect, bench.py:_run_split's five stages; restore then
+# segment, restore then classify (the seg and cls test configs' task nets)
 RESTORE_DETECT_STAGES = STAGES + ("detect",)
+RESTORE_SEGMENT_STAGES = STAGES + ("segment",)
+RESTORE_CLASSIFY_STAGES = STAGES + ("classify",)
 # kernel family by substring of the kernel name, first match wins: the
 # port's own kernels first, so "gnconv_wgmma_kernel" and "upconv_wgmma_kernel"
 # are not booked as cuDNN's convs

@@ -1,6 +1,7 @@
 """EDTR training step of the port: the two alternating updates.
 
-Counterpart of ``edtr_tpu/train/edtr_step.py`` (``make_edtr_train_step``):
+Counterpart of ``edtr_tpu/train/edtr_step.py`` (``make_edtr_train_step``
+and ``make_edtr_generic_train_step``):
 
 * **EDTR half**: AdamW (lr 1e-4, cosine to 1e-7, weight decay 1e-2) over
   the ControlNet and, with ``train_decoder``, the VAE decoder::
@@ -9,43 +10,55 @@ Counterpart of ``edtr_tpu/train/edtr_step.py`` (``make_edtr_train_step``):
     t        = used_timesteps[randint]                        # per sample
     x_pred   = diffusion.reverse(cldm, t, z_pre, cond, noise)["x_pred"]
     restored = wavelet_reconstruction((vae_decode(x_pred)+1)/2, pre_res)
-    loss_hlf = weight_hlf * (L1 of the student detnet's FPN maps '0', '1'
-               on restored vs gt + the same for the frozen teacher's)
+    loss_hlf = weight_hlf * (L1 of the student task net's features on
+               restored vs gt + the same for the frozen teacher's)
 
-  without a detnet, ``weight_hlf * L1(restored, gt)`` (or ``hlf_loss_fn``).
-  The detector passes run their norms on running statistics, every one
-  recomputed in the backward (``torch.utils.checkpoint``), those of gt
-  under no grad; no gradient of this loss reaches a detnet parameter.
-* **task-net half** (with a detnet), after the AdamW update, on the updated
-  ControlNet: SGD (lr 5e-3, momentum 0.9, weight decay 1e-4, cosine to
-  1e-7) over the detnet parameters ``detnet_trainable_mask`` leaves
-  trainable. Under no grad the first ``bs2 = max(bs // 2, 1)`` images are
-  noised to ``start_timestep``, walked down by the sampler and decoded (the
-  ``sample`` range); the detector then trains on ``[restored ; gt[bs2:]]``
-  with the batch's ``targets`` (norms on batch statistics, their running
-  ones updated): ``loss_det = weight_det * (its four losses)`` plus
-  ``loss_fm = weight_fm * L1`` of its FPN maps against the teacher's on gt.
+  without a task net, ``weight_hlf * L1(restored, gt)`` (or
+  ``hlf_loss_fn``). The task nets' feature passes run their norms on
+  running statistics, those of gt under no grad; no gradient of this loss
+  reaches a task-net parameter. A detector's features are its FPN maps
+  '0' and '1' (each L1 halved), recomputed in the backward
+  (``torch.utils.checkpoint``); a classification or segmentation net's are
+  the map its ``task_feats_fn`` gives (:mod:`edtr_torch.train.tasks`).
+* **task-net half**, after the AdamW update, on the updated ControlNet:
+  SGD (lr 5e-3, momentum 0.9, weight decay 1e-4, cosine to 1e-7) over the
+  task-net parameters (a detector's: those ``detnet_trainable_mask`` leaves
+  trainable; a classification or segmentation net's: all). Under no grad
+  the first ``bs2 = max(bs // 2, 1)`` images are noised to
+  ``start_timestep``, walked down by the sampler and decoded (the
+  ``sample`` range); the task net then trains on ``[restored ;
+  gt[bs2:]]`` with the batch's target (norms on batch statistics, their
+  running ones updated):
+
+  - detector (:class:`DetHalf`, the batch's ``targets``): ``loss_det =
+    weight_det * (its four losses)`` plus ``loss_fm = weight_fm * L1`` of
+    its FPN maps from that same call against the teacher's on gt;
+  - classification or segmentation (:class:`GenericHalf`, the batch's
+    ``target``: labels or masks): ``weight_task * loss_task`` plus
+    ``loss_fm = weight_fm * L1`` of its features, in a second pass on the
+    running statistics the loss's call has just updated, against the
+    teacher's on gt.
 
 ``accum_steps=K`` splits the batch into K microbatches: the frozen shared
 activations (pre_res, z_pre) are made once per microbatch and reused by
 both halves; each half takes the mean of the microbatches' mean gradients
-before its one update, and the detector's running statistics update
+before its one update, and the task net's running statistics update
 microbatch by microbatch (JAX's global-batch semantics on one card). The
 step runs its forwards and backwards inside ``pipe.configuration()``, so
 the recomputes of ``use_checkpoint`` see the kernels their forward ran.
 
 Every random draw can be given: t and noise of the EDTR half, and per
 microbatch of the task-net half the q_sample noise, the walk's step noises
-and the sampler's uniforms (:meth:`EDTRTrainStep.det_draw`); each one not
-given is drawn from one ``generator``.
+and, for a detector, the sampler's uniforms (:meth:`EDTRTrainStep.task_draw`);
+each one not given is drawn from one ``generator``.
 
 Partition (``split_trainable``, JAX's parity): trainable are
 ``cldm.controlnet.*`` and, with ``train_decoder``, ``cldm.vae.decoder.*``;
 frozen are the UNet, the CLIP tower, the VAE encoder, ``quant_conv``,
 ``post_quant_conv`` (outside the decoder subtree) and SwinIR, as
 ``requires_grad`` flags. :func:`cast_frozen_bf16` stores the frozen ones
-(and a teacher detnet) in bf16. Images are NHWC in [0, 1] in the batch, as
-JAX's; the noise and the restored image the loss sees are NCHW.
+(and a teacher task net) in bf16. Images are NHWC in [0, 1] in the batch,
+as JAX's; the noise and the restored image the loss sees are NCHW.
 """
 
 from __future__ import annotations
@@ -105,14 +118,15 @@ def cast_frozen_bf16(pipe: nn.Module, train_decoder: bool = True,
                      teacher_detnet: Optional[nn.Module] = None) -> None:
     """JAX's ``cast_frozen_bf16``: the modules that never receive updates
     keep their weights in bf16 (no fp32 masters): the UNet, the CLIP tower,
-    SwinIR, the teacher detnet (its BatchNorm running statistics too) and
+    SwinIR, the teacher task net (its BatchNorm running statistics too) and
     the VAE, all but the decoder when it trains. The modules compute in
     their ``dtype`` whatever their storage, and every norm and bias that
     needs fp32 casts it (``.float()``), as JAX's counterparts do; the
     kernels' cached bf16 weights are made anew from the cast ones."""
     cldm = pipe.cldm
     for module in (cldm.unet, cldm.clip, pipe.swinir):
-        _bf16_(module)
+        if module is not None:
+            _bf16_(module)
     for name, child in cldm.vae.named_children():
         if not (train_decoder and name == "decoder"):
             _bf16_(child)
@@ -137,8 +151,10 @@ def _cosine(tx: torch.optim.Optimizer, lr: float, train_steps: int
 @dataclass
 class EDTRTrainState:
     """The pipeline (its trainable parameters updated in place), the EDTR
-    optimizer and its schedule, the detnet, its teacher, their optimizer
-    and schedule (None without a detnet), and the number of updates."""
+    optimizer and its schedule, the task net (a detector, or a
+    classification or segmentation net, in the ``detnet`` slot as JAX's
+    runner puts it), its teacher, their optimizer and schedule (None
+    without a task net), and the number of updates."""
 
     pipe: nn.Module
     tx_edtr: torch.optim.AdamW
@@ -162,8 +178,9 @@ class EDTRTrainState:
         flag. With ``detnet`` (and its frozen ``teacher_detnet``): SGD
         (momentum 0.9, weight decay 1e-4) with the cosine schedule from
         ``learning_rate_detnet`` to 1e-7 over the detnet parameters
-        :func:`detnet_trainable_mask` leaves trainable; the frozen stages
-        get neither an update nor decay."""
+        :func:`detnet_trainable_mask` leaves trainable (every one of a net
+        that is not a Faster R-CNN); the frozen stages get neither an
+        update nor decay."""
         if (detnet is None) != (teacher_detnet is None):
             raise ValueError("the task-net half needs both a detnet and its teacher")
         if train_decoder is None:
@@ -202,24 +219,117 @@ def _no_param_grads(module: Optional[nn.Module]) -> Iterator[None]:
             p.requires_grad_(flag)
 
 
-class EDTRTrainStep:
-    """The update of :func:`make_edtr_train_step`; its parts
-    (:meth:`shared`, :meth:`draw`, :meth:`restored`, :meth:`hlf`,
-    :meth:`loss`, :meth:`grads`, :meth:`det_draw`, :meth:`det_loss`,
-    :meth:`det_grads`) are public so a caller can compare them; a trace
-    splits the step by the ranges of :data:`STAGES`."""
+class TaskHalf:
+    """What the two halves need of a task net: the student (trained by
+    SGD), its frozen teacher, the HLF's feature L1 (:meth:`hlf`, before
+    ``weight_hlf``) and the task-net half's loss on ``[restored ;
+    gt[bs2:]]`` (:meth:`loss`). ``target_key``: the batch entry the loss
+    reads."""
 
-    def __init__(self, pipe: nn.Module, detnet: Optional[nn.Module] = None,
-                 teacher_detnet: Optional[nn.Module] = None, weight_hlf: float = 0.5,
-                 weight_det: float = 1.0, weight_fm: float = 0.2,
+    target_key = ""
+
+    def __init__(self, student: nn.Module, teacher: nn.Module, weight_fm: float):
+        self.student, self.teacher, self.weight_fm = student, teacher, weight_fm
+
+    def feats(self, net: nn.Module, images: torch.Tensor):
+        raise NotImplementedError
+
+    def feat_l1(self, fa, fb) -> torch.Tensor:
+        raise NotImplementedError
+
+    def hlf(self, res: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        """The student's and the teacher's feature L1 of ``res`` against
+        ``gt`` (gt's features under no grad)."""
+        loss = 0.0
+        for net in (self.student, self.teacher):
+            with torch.no_grad():
+                f_gt = self.feats(net, gt)
+            loss = loss + self.feat_l1(self.feats(net, res), f_gt)
+        return loss
+
+    def loss(self, images: torch.Tensor, gt: torch.Tensor, target, draws: Dict[str, object],
+             generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        raise NotImplementedError
+
+
+class DetHalf(TaskHalf):
+    """The detector's half (JAX's ``make_edtr_train_step`` with a
+    ``detnet``): FPN maps '0', '1' on running statistics, recomputed in the
+    backward (JAX's ``jax.checkpoint`` of ``det_feats``); the loss of
+    ``detnet_loss``. Its draws may carry the sampler's ``uniforms``."""
+
+    target_key = "targets"
+
+    def __init__(self, detnet: nn.Module, teacher: nn.Module, weight_det: float,
+                 weight_fm: float):
+        super().__init__(detnet, teacher, weight_fm)
+        self.weight_det = weight_det
+
+    def feats(self, net: nn.Module, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return remat(net.features, images)
+
+    def feat_l1(self, fa, fb) -> torch.Tensor:
+        return _feat_l1(fa, fb)
+
+    def loss(self, images, gt, target, draws, generator):
+        _, losses, feats = self.student(images, targets=target, train=True,
+                                        sampler_uniforms=draws.get("uniforms"),
+                                        generator=generator)
+        loss_det = self.weight_det * sum(losses.values())
+        with torch.no_grad():
+            tf_gt = self.feats(self.teacher, gt)
+        loss_fm = self.weight_fm * _feat_l1(feats["features"], tf_gt)
+        metrics = dict(loss_det=loss_det.detach(), loss_fm=loss_fm.detach(),
+                       **{k: v.detach() for k, v in losses.items()})
+        return loss_det + loss_fm, metrics
+
+
+class GenericHalf(TaskHalf):
+    """A classification or segmentation net's half (JAX's
+    ``make_edtr_generic_train_step``): ``task_feats_fn(net, images)`` the
+    feature map on running statistics, ``task_loss_fn(net, images, target)
+    -> (loss, metrics)`` the train-mode loss, which updates the running
+    statistics that the feature matching then reads
+    (:mod:`edtr_torch.train.tasks`)."""
+
+    target_key = "target"
+
+    def __init__(self, student: nn.Module, teacher: nn.Module, task_feats_fn: Callable,
+                 task_loss_fn: Callable, weight_task: float, weight_fm: float):
+        super().__init__(student, teacher, weight_fm)
+        self.feats_fn, self.loss_fn, self.weight_task = task_feats_fn, task_loss_fn, weight_task
+
+    def feats(self, net: nn.Module, images: torch.Tensor) -> torch.Tensor:
+        return self.feats_fn(net, images)
+
+    def feat_l1(self, fa, fb) -> torch.Tensor:
+        return (fa.float() - fb.float()).abs().mean()
+
+    def loss(self, images, gt, target, draws, generator):
+        loss_task, metrics = self.loss_fn(self.student, images, target)
+        f_s = self.feats(self.student, images)
+        with torch.no_grad():
+            f_t = self.feats(self.teacher, gt)
+        loss_fm = self.weight_fm * self.feat_l1(f_s, f_t)
+        metrics = dict(metrics, loss_task=loss_task.detach(), loss_fm=loss_fm.detach())
+        return self.weight_task * loss_task + loss_fm, metrics
+
+
+class EDTRTrainStep:
+    """The update of :func:`make_edtr_train_step` and
+    :func:`make_edtr_generic_train_step`; its parts (:meth:`shared`,
+    :meth:`draw`, :meth:`restored`, :meth:`hlf`, :meth:`loss`,
+    :meth:`grads`, :meth:`task_draw`, :meth:`task_loss`,
+    :meth:`task_grads`) are public so a caller can compare them; a trace
+    splits the step by the ranges of :data:`STAGES`. ``task``: the task
+    net's half, None for the restoration-only step."""
+
+    def __init__(self, pipe: nn.Module, task: Optional[TaskHalf] = None,
+                 weight_hlf: float = 0.5,
                  hlf_loss_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
                  = None, accum_steps: int = 1):
-        if (detnet is None) != (teacher_detnet is None):
-            raise ValueError("the task-net half needs both a detnet and its teacher")
-        self.pipe = pipe
-        self.detnet, self.teacher_detnet = detnet, teacher_detnet
-        self.weight_hlf, self.weight_det, self.weight_fm = weight_hlf, weight_det, weight_fm
-        self.hlf_loss_fn = hlf_loss_fn
+        self.pipe, self.task = pipe, task
+        self.weight_hlf, self.hlf_loss_fn = weight_hlf, hlf_loss_fn
         self.accum_steps = int(accum_steps)
         self.used_ts = torch.tensor(pipe.used_timesteps, dtype=torch.long, device=pipe.device)
 
@@ -243,11 +353,6 @@ class EDTRTrainStep:
                             dtype=z_pre.dtype)
         return self.used_ts[idx], noise
 
-    def det_feats(self, net: nn.Module, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """A detector's FPN maps on running statistics, recomputed in the
-        backward (JAX's ``jax.checkpoint`` of ``det_feats``)."""
-        return remat(net.features, images)
-
     def restored(self, shared: Tuple[torch.Tensor, ...], t: torch.Tensor,
                  noise: torch.Tensor) -> torch.Tensor:
         """The EDTR half's restored image (NCHW) at given t and NCHW noise:
@@ -261,19 +366,14 @@ class EDTRTrainStep:
         return wavelet_reconstruction(decoded, pre_res)
 
     def hlf(self, res: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
-        """The HLF loss of a restored image against gt: the student's and
-        the teacher's feature L1 with a detnet, else the pixel L1 (or
+        """The HLF loss of a restored image against gt: the task half's
+        feature L1 (:meth:`TaskHalf.hlf`), else the pixel L1 (or
         ``hlf_loss_fn``), times ``weight_hlf``."""
-        if self.detnet is None:
-            if self.hlf_loss_fn is not None:
-                return self.weight_hlf * self.hlf_loss_fn(res, gt)
-            return self.weight_hlf * (res - gt).abs().mean()
-        loss = 0.0
-        for net in (self.detnet, self.teacher_detnet):
-            with torch.no_grad():
-                f_gt = self.det_feats(net, gt)
-            loss = loss + _feat_l1(self.det_feats(net, res), f_gt)
-        return self.weight_hlf * loss
+        if self.task is not None:
+            return self.weight_hlf * self.task.hlf(res, gt)
+        if self.hlf_loss_fn is not None:
+            return self.weight_hlf * self.hlf_loss_fn(res, gt)
+        return self.weight_hlf * (res - gt).abs().mean()
 
     def loss(self, shared: Tuple[torch.Tensor, ...], t: torch.Tensor,
              noise: torch.Tensor) -> torch.Tensor:
@@ -313,7 +413,8 @@ class EDTRTrainStep:
         state.tx_edtr.zero_grad(set_to_none=True)
         total = torch.zeros((), device=self.pipe.device)
         shared = []
-        with self.pipe.configuration(), _no_param_grads(self.detnet):
+        student = None if self.task is None else self.task.student
+        with self.pipe.configuration(), _no_param_grads(student):
             for i in range(k):
                 sl = slice(i * m, (i + 1) * m)
                 with record_function(STAGES[0]):
@@ -326,27 +427,27 @@ class EDTRTrainStep:
                 total += loss.detach() / k
         return total, shared
 
-    def det_draw(self, shared: Tuple[torch.Tensor, ...], generator: Optional[torch.Generator]
-                 = None) -> Dict[str, object]:
+    def task_draw(self, shared: Tuple[torch.Tensor, ...], generator: Optional[torch.Generator]
+                  = None) -> Dict[str, object]:
         """The task-net half's draws for a microbatch: ``noise`` (bs2, 4, h,
-        w) of the q_sample, ``step_noise`` (K, bs2, 4, h, w) of the walk,
-        and ``uniforms`` of the detector's sampler (None: the detector
-        draws them from ``generator``)."""
+        w) of the q_sample and ``step_noise`` (K, bs2, 4, h, w) of the walk
+        (a detector draws its sampler's uniforms from ``generator`` unless
+        the dict gives them as ``uniforms``)."""
         z = shared[2][:max(shared[2].shape[0] // 2, 1)]
         k = len(self.pipe.used_timesteps)
         noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
         step_noise = torch.randn((k,) + tuple(z.shape), generator=generator, device=z.device,
                                  dtype=z.dtype)
-        return dict(noise=noise, step_noise=step_noise, uniforms=None)
+        return dict(noise=noise, step_noise=step_noise)
 
-    def det_loss(self, shared: Tuple[torch.Tensor, ...], targets: Dict[str, torch.Tensor],
-                 draws: Dict[str, object], generator: Optional[torch.Generator] = None
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """JAX's ``detnet_loss`` for a microbatch at given draws: the walk
-        and decode under no grad (the ``sample`` range), then the detector
-        in train mode on ``[restored ; gt[bs2:]]`` with ``targets`` and the
-        feature matching against the teacher on gt (the ``forward+loss``
-        range). Returns (loss, metrics)."""
+    def task_loss(self, shared: Tuple[torch.Tensor, ...], target, draws: Dict[str, object],
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """JAX's ``detnet_loss`` / generic ``task_loss`` for a microbatch at
+        given draws: the walk and decode under no grad (the ``sample``
+        range), then the task net's loss on ``[restored ; gt[bs2:]]`` with
+        ``target`` (:meth:`TaskHalf.loss`, the ``forward+loss`` range).
+        Returns (loss, metrics)."""
         pipe = self.pipe
         gt, pre_res, z_pre, c_txt = shared
         bs2 = max(gt.shape[0] // 2, 1)
@@ -355,26 +456,16 @@ class EDTRTrainStep:
                              generator)
             res = pipe.decode(z, pre_res[:bs2])
         with record_function(STAGES[0]):
-            images = torch.cat([res, gt[bs2:]])
-            _, losses, feats = self.detnet(images, targets=targets, train=True,
-                                           sampler_uniforms=draws["uniforms"],
-                                           generator=generator)
-            loss_det = self.weight_det * sum(losses.values())
-            with torch.no_grad():
-                tf_gt = self.det_feats(self.teacher_detnet, gt)
-            loss_fm = self.weight_fm * _feat_l1(feats["features"], tf_gt)
-        metrics = dict(loss_det=loss_det.detach(), loss_fm=loss_fm.detach(),
-                       **{k: v.detach() for k, v in losses.items()})
-        return loss_det + loss_fm, metrics
+            return self.task.loss(torch.cat([res, gt[bs2:]]), gt, target, draws, generator)
 
-    def det_grads(self, state: EDTRTrainState, batch: Batch,
-                  shared: Sequence[Tuple[torch.Tensor, ...]],
-                  draws: Optional[Sequence[Dict[str, object]]] = None,
-                  generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def task_grads(self, state: EDTRTrainState, batch: Batch,
+                   shared: Sequence[Tuple[torch.Tensor, ...]],
+                   draws: Optional[Sequence[Dict[str, object]]] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """The task-net half: the mean over the microbatches of their
-        metrics and mean detnet gradients (left in ``.grad``, set anew),
+        metrics and mean task-net gradients (left in ``.grad``, set anew),
         the running statistics updated microbatch by microbatch.
-        ``draws``: each microbatch's :meth:`det_draw`, drawn from
+        ``draws``: each microbatch's :meth:`task_draw`, drawn from
         ``generator`` when not given."""
         k = self.accum_steps
         micro = self._microbatches(batch)
@@ -382,8 +473,9 @@ class EDTRTrainStep:
         totals: Dict[str, torch.Tensor] = {}
         with self.pipe.configuration():
             for i in range(k):
-                d = draws[i] if draws is not None else self.det_draw(shared[i], generator)
-                loss, metrics = self.det_loss(shared[i], micro[i]["targets"], d, generator)
+                d = draws[i] if draws is not None else self.task_draw(shared[i], generator)
+                loss, metrics = self.task_loss(shared[i], micro[i][self.task.target_key], d,
+                                               generator)
                 with record_function(STAGES[2]):
                     (loss / k).backward()
                 for name, v in metrics.items():
@@ -393,24 +485,26 @@ class EDTRTrainStep:
     def __call__(self, state: EDTRTrainState, batch: Batch,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 det_draws: Optional[Sequence[Dict[str, object]]] = None
+                 task_draws: Optional[Sequence[Dict[str, object]]] = None
                  ) -> Dict[str, torch.Tensor]:
         """One update: :meth:`grads`, AdamW and its schedule (under the
-        ``optimizer`` range); with a detnet then :meth:`det_grads` on the
-        updated ControlNet, SGD and its schedule. The shared activations
-        are made once per microbatch for both halves. Returns
-        ``{"loss_hlf": ...}`` and, with a detnet, ``loss_det``,
-        ``loss_fm`` and the detector's four losses (means over the
-        microbatches)."""
-        if self.detnet is not state.detnet:
-            raise ValueError("the step and its state hold different detnets")
+        ``optimizer`` range); with a task net then :meth:`task_grads` on
+        the updated ControlNet, SGD and its schedule. The shared
+        activations are made once per microbatch for both halves. Returns
+        ``{"loss_hlf": ...}`` and the task half's metrics (means over the
+        microbatches): a detector's ``loss_det``, ``loss_fm`` and its four
+        losses; a classification or segmentation net's ``loss_task`` and
+        ``loss_fm``."""
+        student = None if self.task is None else self.task.student
+        if student is not state.detnet:
+            raise ValueError("the step and its state hold different task nets")
         loss, shared = self._edtr_half(state, batch, t, noise, generator)
         metrics = {"loss_hlf": loss}
         with record_function(STAGES[3]):
             state.tx_edtr.step()
             state.schedule.step()
-        if self.detnet is not None:
-            metrics.update(self.det_grads(state, batch, shared, det_draws, generator))
+        if self.task is not None:
+            metrics.update(self.task_grads(state, batch, shared, task_draws, generator))
             with record_function(STAGES[3]):
                 state.tx_detnet.step()
                 state.schedule_detnet.step()
@@ -430,12 +524,31 @@ def make_edtr_train_step(pipe: nn.Module, detnet: Optional[nn.Module] = None,
                          hlf_loss_fn: Optional[Callable] = None,
                          accum_steps: int = 1) -> EDTRTrainStep:
     """``edtr_tpu.train.edtr_step.make_edtr_train_step``: ``step(state,
-    batch, t=None, noise=None, generator=None, det_draws=None)`` makes one
+    batch, t=None, noise=None, generator=None, task_draws=None)`` makes one
     update of ``state`` in place and returns the metrics. ``batch``:
     ``lq``/``gt`` (B, H, W, 3) in [0, 1], ``c_txt`` and, with a detnet,
     padded ``targets`` (``boxes`` (B, G, 4) in pixels, ``labels``,
     ``valid`` (B, G)); ``hlf_loss_fn(restored, gt)`` on NCHW images
     replaces the pixel L1 without a detnet. ``detnet`` and
     ``teacher_detnet`` are those of :meth:`EDTRTrainState.create`."""
-    return EDTRTrainStep(pipe, detnet, teacher_detnet, weight_hlf, weight_det, weight_fm,
-                         hlf_loss_fn, accum_steps)
+    if (detnet is None) != (teacher_detnet is None):
+        raise ValueError("the task-net half needs both a detnet and its teacher")
+    task = None if detnet is None else DetHalf(detnet, teacher_detnet, weight_det, weight_fm)
+    return EDTRTrainStep(pipe, task, weight_hlf, hlf_loss_fn, accum_steps)
+
+
+def make_edtr_generic_train_step(pipe: nn.Module, tasknet: nn.Module,
+                                 teacher_tasknet: nn.Module, task_feats_fn: Callable,
+                                 task_loss_fn: Callable, weight_hlf: float = 0.5,
+                                 weight_task: float = 1.0, weight_fm: float = 0.2,
+                                 accum_steps: int = 1) -> EDTRTrainStep:
+    """``edtr_tpu.train.edtr_step.make_edtr_generic_train_step``: the
+    two-half step of the classification and segmentation recipes, called
+    as :func:`make_edtr_train_step`'s, its batch carrying ``target``
+    (labels (B,) or masks (B, H, W)). ``task_feats_fn`` and
+    ``task_loss_fn``: :func:`edtr_torch.train.tasks.task_apply_for`'s;
+    ``tasknet`` and ``teacher_tasknet`` are the ``detnet`` and
+    ``teacher_detnet`` of :meth:`EDTRTrainState.create`."""
+    task = GenericHalf(tasknet, teacher_tasknet, task_feats_fn, task_loss_fn, weight_task,
+                       weight_fm)
+    return EDTRTrainStep(pipe, task, weight_hlf, None, accum_steps)

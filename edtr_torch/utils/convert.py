@@ -2,12 +2,14 @@
 
 The inverse of ``edtr_tpu/utils/convert.py``'s ``convert_ldm_unet``,
 ``convert_controlnet``, ``convert_autoencoder_kl``, ``convert_swinir``,
-``convert_clip_text``, ``convert_mobilenetv3`` and
-``convert_fasterrcnn_mobilenet``, written without importing them: a JAX tree (nested dicts of numpy arrays, flax
+``convert_clip_text``, ``convert_mobilenetv3`` (the classifier too),
+``convert_fasterrcnn_mobilenet``, ``convert_resnet`` and
+``convert_deeplabv3_mobilenet`` (and DeepLabV3 on ResNet), written without
+importing them: a JAX tree (nested dicts of numpy arrays, flax
 names, HWIO conv kernels, (in, out) dense kernels) becomes a state dict
 under the reference LDM/SD or torchvision key names, which the port's
-modules load with ``load_state_dict(strict=True)``. The detector and its
-backbone take full flax variables, ``{"params", "batch_stats"}``: the
+modules load with ``load_state_dict(strict=True)``. The task nets (the
+detector, MobileNetV3, ResNet, DeepLabV3) take full flax variables, ``{"params", "batch_stats"}``: the
 BatchNorm ``mean``/``var`` become ``running_mean``/``running_var``. The
 CLIP text tower's keys are OpenCLIP's (``cond_stage_model.model.*`` of an
 SD2.1 checkpoint without that prefix), its q/k/v kernels fused again into
@@ -77,7 +79,24 @@ _MOBILENET = [
     (r"/bn/", "/1/"),
 ]
 _STATS = [(r"/mean$", "/running_mean"), (r"/var$", "/running_var")]
-_RULES["mobilenetv3"] = _MOBILENET + _LEAF + _STATS
+_RULES["mobilenetv3"] = _MOBILENET + [(r"^classifier_(\d)/", r"classifier/\1/")] + _LEAF + _STATS
+_RESNET = [(r"(^|/)layer(\d)_(\d+)/", r"\1layer\2/\3/"), (r"/downsample_(\d)/", r"/downsample/\1/")]
+_RULES["resnet"] = _RESNET + _LEAF + _STATS
+# DeepLabV3 on either backbone: the heads' rules run first (they consume
+# their "/conv/" and "/bn/"); ASPP's branch 4 is the pooling one (three
+# atrous rates), whose conv and norm sit at 1 and 2 after the pooling
+_RULES["deeplabv3"] = [
+    (r"^classifier/aspp/convs_4/conv/", "classifier/0/convs/4/1/"),
+    (r"^classifier/aspp/convs_4/bn/", "classifier/0/convs/4/2/"),
+    (r"^classifier/aspp/convs_(\d)/", r"classifier/0/convs/\1/"),
+    (r"^classifier/aspp/project/", "classifier/0/project/"),
+    (r"^(aux_classifier|classifier)/out/", r"\1/4/"),
+    (r"^classifier/head/conv/", "classifier/1/"),
+    (r"^classifier/head/bn/", "classifier/2/"),
+    (r"^aux_classifier/head/conv/", "aux_classifier/0/"),
+    (r"^aux_classifier/head/bn/", "aux_classifier/1/"),
+    (r"^backbone/features_(\d+)/", r"backbone/\1/"),
+] + _RESNET + _MOBILENET[1:] + _LEAF + _STATS
 # the body's rules run first: the RPN's names gain a "/conv/" of their own
 _RULES["fasterrcnn"] = [(r"^body/", "backbone/body/")] + _MOBILENET + [
     (r"^fpn/inner_(\d+)/", r"backbone/fpn/inner_blocks/\1/0/"),
@@ -86,6 +105,8 @@ _RULES["fasterrcnn"] = [(r"^body/", "backbone/body/")] + _MOBILENET + [
     (r"^rpn_head/", "rpn/head/"),
     (r"^box_(head|predictor)/", r"roi_heads/box_\1/"),
 ] + _LEAF + _STATS
+# the models whose trees are full variables, {"params", "batch_stats"}
+_VARIABLES = ("mobilenetv3", "fasterrcnn", "resnet", "deeplabv3")
 # the box head's fc6 reads pooled RoIs (256, 7, 7) flattened channel-major
 # in the port (torchvision) and spatial-major in JAX
 _FC6 = "roi_heads.box_head.fc6.weight"
@@ -147,13 +168,14 @@ def pipeline_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
 
 def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``model`` ("unet", "controlnet", "vae",
-    "swinir", "clip", "mobilenetv3" or "fasterrcnn") from that model's
-    ``edtr_tpu`` parameter tree (for the last two, its full variables)."""
+    "swinir", "clip", "mobilenetv3", "fasterrcnn", "resnet" or
+    "deeplabv3", on either backbone) from that model's ``edtr_tpu``
+    parameter tree (for the last four, its full variables)."""
     if model == "clip":
         return _clip_from_jax(tree)
     rules = _RULES[model]
     leaves = _leaves(tree)
-    if model in ("mobilenetv3", "fasterrcnn"):
+    if model in _VARIABLES:
         leaves = itertools.chain(_leaves(tree["params"]), _leaves(tree["batch_stats"]))
     out = {}
     for path, value in leaves:

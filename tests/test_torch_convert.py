@@ -161,7 +161,10 @@ def test_port_imports_no_jax():
                 "edtr_torch.ops.boxes", "edtr_torch.ops.roi_align",
                 "edtr_torch.data.tokenizer", "edtr_torch.models.clip",
                 "edtr_torch.models.mobilenetv3", "edtr_torch.models.faster_rcnn",
-                "edtr_torch.device"):
+                "edtr_torch.device", "edtr_torch.models.resnet",
+                "edtr_torch.models.deeplabv3", "edtr_torch.train.recipes",
+                "edtr_torch.train.tasks", "edtr_torch.config",
+                "edtr_torch.diffusion.schedule"):
         assert mod in res.stdout
 
 

@@ -144,7 +144,7 @@ def test_one_step_with_a_detnet_matches_jax():
     t, noise, draws = _replay(rng, pipe_j, 2)
     teacher_before = copy.deepcopy(teacher.state_dict())
     metrics = step(state, _torch(_batch(31, 2)), t, noise,
-                   generator=torch.Generator().manual_seed(0), det_draws=[draws])
+                   generator=torch.Generator().manual_seed(0), task_draws=[draws])
     assert set(metrics) == set(want_m)
     for k, v in metrics.items():
         np.testing.assert_allclose(float(v), want_m[k], rtol=TOL, err_msg=k)
@@ -187,7 +187,7 @@ def test_accum_steps_two_microbatches():
     step2 = make_edtr_train_step(pipe, detnet=det, teacher_detnet=teacher, accum_steps=2)
     loss2, shared = step2._edtr_half(state, batch, t, noise, None)
     d = [draws(sh, 5) for sh in shared]
-    m2 = step2.det_grads(state, batch, shared, d)
+    m2 = step2.task_grads(state, batch, shared, d)
     edtr2, det2, stats2 = _snapshot(pipe, det)
 
     pipe, (det, teacher) = _port(), _port_dets()
@@ -202,7 +202,7 @@ def test_accum_steps_two_microbatches():
     for i in range(2):  # each microbatch's task-net half alone, in turn
         mb = {k: ({kk: vv[2 * i:2 * i + 2] for kk, vv in v.items()} if isinstance(v, dict)
                   else v[2 * i:2 * i + 2]) for k, v in batch.items()}
-        m = step1.det_grads(state, mb, [shared[i]], [d[i]])
+        m = step1.task_grads(state, mb, [shared[i]], [d[i]])
         for n, p in det.named_parameters():
             if p.grad is not None:
                 grads[n] = grads.get(n, 0) + p.grad / 2

@@ -198,7 +198,8 @@ def test_tiny_restore_fused_matches_jax(monkeypatch):
     rng = jax.random.PRNGKey(231)
     monkeypatch.setenv("EDTR_UPS_SUBPIX", "0")
     monkeypatch.setattr(JG, "_FORCE_KERNEL", True)
-    out_j = pipe.restore(params, jnp.asarray(lq), rng, c_txt=jnp.asarray(c_txt))
+    out_j = jax.jit(lambda p, x, r, c: pipe.restore(p, x, r, c_txt=c))(
+        params, jnp.asarray(lq), rng, jnp.asarray(c_txt))
 
     calls = []
     plain_gn, plain_up = G.plain_gn_silu_conv, G.plain_upsample_conv

@@ -847,6 +847,93 @@ def test_window_attention_matches_plain(bw, h, d, masked, split, monkeypatch):
     assert rel <= TOL_SWIN_L2, rel
 
 
+# the restore's Swin shapes at bs 8 (the cls test config's batch): SwinIR at
+# 512² is a 64 x 64 token grid of C 180, window 8, 6 heads x 30, hidden 360;
+# each kernel in the plan its wrapper picks past bs 1 (window_split,
+# post_split), with the rolls of the plain and the shifted blocks
+BS8 = 8
+
+
+def _swin_rnd(seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *shape, scale=1.0: torch.randn(shape, generator=g, device="cuda") * scale
+
+
+def _swin_close(out, want):
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL_SWIN_MAX * want.float().abs().max().item(), err
+    rel = ((out.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= TOL_SWIN_L2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_matches_plain_at_bs8(masked):
+    """K9 on the bs-8 restore's 512 windows (the shift mask in the shifted
+    blocks) against ``plain_window_attention``, two calls bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from edtr_torch.models.swinir import shift_mask
+
+    rnd = _swin_rnd(81 + masked)
+    packed = rnd(BS8 * 64, 64, 540).to(torch.bfloat16)
+    q, k, v = packed.view(BS8 * 64, 64, 3, 6, 30).unbind(2)
+    bias = rnd(6, 64, 64, scale=0.5)
+    mask = shift_mask(64, 64, 8, 4, "cuda") if masked else None
+    before = WA.launches["window_attention"]
+    out, again = (WA.window_attention(q, k, v, bias, mask) for _ in range(2))
+    want = WA.plain_window_attention(q, k, v, bias, mask, 30 ** -0.5)
+    torch.cuda.synchronize()
+    assert WA.launches["window_attention"] == before + 2
+    assert torch.equal(out, again)
+    _swin_close(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0, 4, -4])
+def test_swin_pre_matches_plain_at_bs8(d):
+    """K10a at the bs-8 restore's shape against ``plain_swin_pre``, qkv and
+    the rolled tokens bit-identical across two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rnd = _swin_rnd(82 + d)
+    x = (rnd(BS8, 4096, 180, scale=2.0) + 0.5).to(torch.bfloat16)
+    ln_s, ln_b = 1 + rnd(180, scale=0.1), rnd(180, scale=0.1)
+    wq, bias = rnd(540, 180, scale=180 ** -0.5), rnd(540, scale=0.05)
+    wp = SB.pad_weight(wq)
+    before = SB.launches["swin_pre"]
+    (qkv, xr), (qkv2, xr2) = (SB.swin_pre(x, ln_s, ln_b, wq, bias, 64, 64, 8, d, w_packed=wp)
+                              for _ in range(2))
+    assert SB.launches["swin_pre"] == before + 2
+    assert torch.equal(qkv, qkv2) and torch.equal(xr, xr2)
+    q_p, xr_p = SB.plain_swin_pre(x, ln_s, ln_b, wq, bias, 64, 64, 8, d)
+    assert torch.equal(xr, xr_p)
+    _swin_close(qkv, q_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0, 4, -4])
+def test_swin_post_matches_plain_at_bs8(d):
+    """K10b at the bs-8 restore's shape, its shortcut as ``swin_pre`` hands
+    it at roll d, against ``plain_swin_post``, bit-identical across two
+    calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rnd = _swin_rnd(83 + d)
+    x = SB.roll2d((rnd(BS8, 4096, 180, scale=2.0) + 0.5).to(torch.bfloat16), d, 64,
+                  64).contiguous()
+    attn = rnd(BS8, 64, 64, 180).to(torch.bfloat16)
+    ws = [rnd(180, 180, scale=180 ** -0.5), rnd(180, scale=0.05), 1 + rnd(180, scale=0.1),
+          rnd(180, scale=0.1), rnd(360, 180, scale=180 ** -0.5), rnd(360, scale=0.05),
+          rnd(180, 360, scale=360 ** -0.5), rnd(180, scale=0.05)]
+    packed = [SB.pad_weight(ws[i]) for i in (0, 4, 6)]
+    before = SB.launches["swin_post"]
+    out, again = (SB.swin_post(attn, x, *ws, 64, 64, 8, packed=packed) for _ in range(2))
+    assert SB.launches["swin_post"] == before + 2
+    assert torch.equal(out, again)
+    _swin_close(out, SB.plain_swin_post(attn, x, *ws, 64, 64, 8))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("n,c", [(4096, 320), (1024, 640), (256, 1280)])

@@ -242,7 +242,8 @@ def test_tiny_restore_conv_proj_matches_jax(monkeypatch):
         kernels.add(f"{fn.__module__}.{fn.__name__}")
         return pallas_call(kernel, *args, **kwargs)
     monkeypatch.setattr(pl, "pallas_call", rec_pallas)
-    out_j = pipe.restore(params, jnp.asarray(lq), rng, c_txt=jnp.asarray(c_txt))
+    out_j = jax.jit(lambda p, x, r, c: pipe.restore(p, x, r, c_txt=c))(
+        params, jnp.asarray(lq), rng, jnp.asarray(c_txt))
     assert {"edtr_tpu.ops.ln_matmul._kernel", "edtr_tpu.ops.ln_matmul._aff_kernel",
             "edtr_tpu.ops.geglu._ln_kernel"} <= kernels, kernels
 

@@ -33,7 +33,8 @@ def test_tiny_restore_matches_jax():
     c_txt = g.standard_normal((1,) + CTX).astype(np.float32)
     rng = jax.random.PRNGKey(231)
 
-    out_j = pipe.restore(params, jnp.asarray(lq), rng, c_txt=jnp.asarray(c_txt))
+    out_j = jax.jit(lambda p, x, r, c: pipe.restore(p, x, r, c_txt=c))(
+        params, jnp.asarray(lq), rng, jnp.asarray(c_txt))
     hw = IMAGE // 8
     noise, step_noise = _replay_noise(rng, (1, hw, hw, 4), len(pipe.used_timesteps))
     out_t = port.restore(torch.from_numpy(lq), torch.from_numpy(c_txt),
