@@ -153,14 +153,55 @@ no result line):
    step ms (median of 5), a traced step's split, peak memory; the
    ControlNet, decoder and task-net tensors moved, the student's running
    statistics moved, the teacher and the frozen pipeline bit-identical;
-16. each forward kernel of the training step (flash, conv, Swin; the
+16. the training recipes of ``configs/seg/voc2012/train`` (JAX's
+   ``runner.task_train`` and ``diffbir_train``; ``edtr_torch.train.
+   recipes``) on phase 13's seeded weights, each from its config's keys
+   (learning rates, ``pix_weight``, ``weight_ce``, ``weight_fm``,
+   ``train_steps``), its seg net DeepLabV3-MobileNetV3-Large (21 classes,
+   bf16, seeded weights calibrated on gt), seeded batches at 512², masks
+   with 255 borders. Each recipe phase: one warm-up step, one counted
+   (exact launches, derived from :data:`RECIPE_PASSES`; peak memory), 3
+   timed (median) and one traced (its ranges ``RECIPE_STAGES``,
+   device-busy ms and kernels of the step, no host-to-device copy in it);
+   losses finite; the tensors that train moved, the frozen ones
+   bit-identical. Gradients, kernel path against plain path on the same
+   weights, batch and draws, with the control (the plain path again and
+   computing in fp32): gated at :data:`TOL_GRAD_REL`, or where the plain
+   path in bf16 is itself farther than that from fp32, the kernel path no
+   farther from fp32 than :data:`TOL_CONTROL_RATIO` times the plain path
+   (:func:`gate_rule`). SwinIR pre-training (``002_swinir-pre.yaml``, bs 4
+   of the config's 48): the full-width SwinIR with a gradient (K9, K10a,
+   K10b, K6 with LeakyReLU forward, their backward JAX's recompute),
+   AdamW without decay; its gradients gated over the whole SwinIR, each
+   RSTB's printed; every kernel held against its plain version at the
+   step's bs-4 shapes;
+17. SR4IR (``004_swinir-sr4ir.yaml``, bs 2 of 16; the task half on 6
+   images, the CutMix cells seeded): the SwinIR half's gradients gated as
+   phase 16's, the task half's reported; the running statistics moved;
+18. the seg net trained on the frozen SwinIR (``003_swinir.yaml``, bs 2):
+   the Swin kernels and the tail's upsample launched as in a bs-2
+   restore's ``swinir`` stage, under no grad;
+19. DiffBIR (``005_diffbir.yaml`` through ``build_pipeline_from_config``,
+   the flagship's parameters, ``cast_frozen_bf16``, bs 2, student and
+   teacher seg nets): ``p_losses`` at seeded t and noise on gt's posterior
+   sample trains the ControlNet (its gradient gated as phase 16's), then
+   the 50-step walk from pure noise on 1 image, decode, wavelet fix, and
+   the seg net's CE + feature matching on ``[restored ; gt[1:]]``; the
+   walk's image, kernel vs plain and the fp32 control, reported; exact
+   launches (K1/K2 x 7 a walk step x 50, the K11 backward, K3 in the two
+   bs-2 encodes and the bs-1 decode);
+20. ``make_edtr_sample_fn``, the evaluation loops' entry point, on
+   DiffBIR's pipeline at 512², bs 1: counted (the restore's launches),
+   its image NHWC, finite, and ``restore``'s on the same draws (it returns
+   that; ``tests/test_torch_sampler.py`` holds it against JAX's);
+21. each forward kernel of the training step (flash, conv, Swin; the
    projection kernels of the fused_proj step) against its plain version at
    every bs-2 shape the counted steps launched it with, as phases 3, 5, 6
    and 7 hold them at the restore's shapes; the step's backward shapes must
    be those phase 3 held;
-17. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
-   most of any counted path, restore+detect, the bs-8 restore+classify and
-   the training steps among them), then the result line.
+22. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+   most of any counted path, restore+detect, the bs-8 restore+classify,
+   the training steps and the recipes among them), then the result line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
 with each launch's kernel in it and times a call by CUDA events, naming it
@@ -285,6 +326,60 @@ TASK_ROUNDS = 7
 TASK_TRACE_ITERS = 2
 # VOC's 255 border of the seeded segmentation masks, in pixels
 SEG_BORDER = 16
+# the training recipes of configs/seg/voc2012/train (JAX's runner.task_train
+# and diffbir_train): SwinIR pre-training, SR4IR, the task net on the frozen
+# SwinIR, DiffBIR
+SWINIR_PRE_CONFIG = "configs/seg/voc2012/train/002_swinir-pre.yaml"
+TASK_SWINIR_CONFIG = "configs/seg/voc2012/train/003_swinir.yaml"
+SR4IR_CONFIG = "configs/seg/voc2012/train/004_swinir-sr4ir.yaml"
+DIFFBIR_CONFIG = "configs/seg/voc2012/train/005_diffbir.yaml"
+# their batches: the configs' 48 (SwinIR pre-training) and 16 (the others)
+# cut for the run's time and memory to 4 and 2 (SR4IR's task half then
+# trains on 6 images, DiffBIR walks 1 image from pure noise)
+SWINIR_PRE_BATCH = 4
+RECIPE_BATCH = 2
+# each recipe phase's steps: a warm-up, the counted one, RECIPE_TIMED timed
+# (their median), a traced one
+RECIPE_TIMED = 3
+# DiffBIR's walk from pure noise: make_diffbir_train_step's (and JAX's) 50
+DIFFBIR_STEPS = 50
+# the gradient gates where the control shows bf16 itself (plain path, bf16
+# vs fp32) farther than TOL_GRAD_REL from fp32: the kernel path no farther
+# from fp32 than this many times the plain path (fixed before the first
+# run of the recipes on the card)
+TOL_CONTROL_RATIO = 1.1
+# launches of each pass through a part of the paths at 512², any batch
+# (every kernel batches): SwinIR's forward (8 RSTBs x 6 blocks, 3 tail
+# upsamples; its backward recomputes the plain versions); the VAE encoder
+# (1 mid attention, 10 ResBlocks in bands) and decoder (1 attention, 14
+# ResBlocks, 3 upsamples); one ControlNet + UNet eps forward (7
+# self-attentions at each of 4096 and 1024 tokens; 11 ResBlocks at the 8²
+# level, 21 in bands; 3 UNet upsamples), the remat recompute in its
+# backward (the ControlNet and the UNet output blocks: 5 attentions at each
+# level, 7 ResBlocks at 8², 15 in bands) and the flash backward kernels;
+# the trainable decoder's recompute. TRAIN_LAUNCHES and WALK_LAUNCHES are
+# sums of them (recipe_launches checks it).
+SWINIR_PASS = {"window_attention": 48, "swin_pre": 48, "swin_post": 48, "upsample_conv": 3}
+ENCODE_PASS = {"streamkv_fwd": 1, "gn_conv_band": 20}
+DECODE_PASS = {"streamkv_fwd": 1, "gn_conv_band": 28, "upsample_conv": 3}
+DECODE_REMAT = {"gn_conv_band": 28}
+EPS_PASS = {"wholekv_fwd": 7, "whole_fwd": 7, "gn_conv_whole": 22, "gn_conv_band": 42,
+            "upsample_conv": 3}
+EPS_REMAT = {"wholekv_fwd": 5, "whole_fwd": 5, "gn_conv_whole": 14, "gn_conv_band": 30}
+EPS_BWD = {name: n for name, (_, _, n) in BWD_KERNELS.items()}
+# each recipe step's passes: SwinIR pre-training one SwinIR forward with
+# grad; SR4IR that and the updated SwinIR again under no grad; the task
+# step the frozen SwinIR under no grad; DiffBIR the frozen SwinIR, the
+# encoder on lq and on gt, the eps forward with grad and its backward, the
+# walk's DIFFBIR_STEPS eps forwards and the decode. The task nets launch
+# none of the port's kernels.
+RECIPE_PASSES = {
+    "swinir_pre": (SWINIR_PASS,),
+    "sr4ir": ((2, SWINIR_PASS),),
+    "task_swinir": (SWINIR_PASS,),
+    "diffbir": (SWINIR_PASS, (2, ENCODE_PASS), EPS_PASS, EPS_REMAT, EPS_BWD,
+                (DIFFBIR_STEPS, EPS_PASS), DECODE_PASS),
+}
 # conv wrapper -> (the TPU kernel it replaces, launches in one fused 512²
 # restore): 4 steps x (UNet 22 + ControlNet 10 ResBlocks) x 2 halves, of
 # them 4 x 22 at the 8² latent level (whole-image tier), plus the VAE's
@@ -566,6 +661,13 @@ def host_ms(fn) -> float:
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def rel_l2_over(a: dict, b: dict, names) -> float:
+    """Relative L2 of the tensors ``a[n]`` against ``b[n]`` over ``names``,
+    taken together (a gradient's parts)."""
+    num = sum((a[n].float() - b[n].float()).pow(2).sum() for n in names)
+    return (num / sum(b[n].float().pow(2).sum() for n in names)).sqrt().item()
 
 
 def sign_test_wins(n: int, alpha: float = SIGN_TEST_ALPHA) -> int:
@@ -1662,7 +1764,6 @@ def detect_phase(pipe, device) -> tuple:
 def train_phase(device) -> dict:
     """The full-width training step (module docstring, phase 13)."""
     from edtr_torch.models.layers import randomize_
-    from edtr_torch.ops.attention import force_plain
     from edtr_torch.pipeline import build_flagship
     from edtr_torch.profile_restore import TRAIN_STAGES, trace_restores
     from edtr_torch.train.edtr_step import EDTRTrainState, make_edtr_train_step
@@ -1696,31 +1797,26 @@ def train_phase(device) -> dict:
     # pipeline's configuration and with fused_proj on, same weights, batch,
     # t and noise; the fused_proj step counted (counts set to 0 just before
     # it, read just after)
-    flags = pipe.fused_conv, pipe.fused_proj, pipe.fused_swin
-    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
-    with force_plain():
+    with pipe_path(pipe, False):
         loss_p = step.grads(state, batch, t, noise).item()
     grads_p = {n: p.grad.detach().clone() for n, p in trainable.items()}
-    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
     loss_k = step.grads(state, batch, t, noise).item()
     grads_k = {n: p.grad.detach().clone() for n, p in trainable.items()}
+    fused_proj = pipe.fused_proj
     pipe.fused_proj = True
     zero_counts()
     loss_kp = step.grads(state, batch, t, noise).item()
     launches_proj, shapes_proj, _ = read_counts()
-    pipe.fused_proj = flags[1]
+    pipe.fused_proj = fused_proj
     grads_kp = {n: p.grad.detach().clone() for n, p in trainable.items()}
     cmp = {}
     for what, loss, grads in (("kernel", loss_k, grads_k), ("kernel_fused_proj", loss_kp,
                                                               grads_kp)):
         check(all(bool(torch.isfinite(v).all()) for v in grads.values()),
               f"{what}-path grads finite")
-        rel = {}
-        for part in ("cldm.controlnet.", "cldm.vae.decoder.", ""):
-            names = [n for n in trainable if n.startswith(part)]
-            num = sum((grads[n] - grads_p[n]).float().pow(2).sum() for n in names)
-            den = sum(grads_p[n].float().pow(2).sum() for n in names)
-            rel[part.strip(".") or "all"] = (num / den).sqrt().item()
+        rel = {part.strip(".") or "all": rel_l2_over(
+                   grads, grads_p, [n for n in trainable if n.startswith(part)])
+               for part in ("cldm.controlnet.", "cldm.vae.decoder.", "")}
         cmp[what] = dict(loss=loss, loss_rel=abs(loss - loss_p) / abs(loss_p),
                          grads_rel_l2=rel)
     del grads_p, grads_k, grads_kp
@@ -1845,6 +1941,24 @@ def computing_in(dtype: torch.dtype, *modules):
             m.dtype = d
 
 
+@contextlib.contextmanager
+def pipe_path(pipe, kernel: bool, flash: bool = None):
+    """Inside the block ``pipe`` runs its kernel path (its configuration)
+    or, with ``kernel`` False, the plain path: stock convs, stock SwinIR,
+    stock projections and plain attention; with ``flash`` True as well the
+    stock configuration (the flash kernels on)."""
+    from edtr_torch.ops.attention import force_plain
+
+    flags = pipe.fused_conv, pipe.fused_proj, pipe.fused_swin
+    if not kernel:
+        pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
+    try:
+        with force_plain(not (kernel if flash is None else flash)):
+            yield
+    finally:
+        pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
+
+
 def step_kernel_vs_plain(step, state, batch: dict, t: torch.Tensor, noise: torch.Tensor,
                          draws: dict, trainable: dict, task_params: dict,
                          seed: int = None) -> dict:
@@ -1867,7 +1981,6 @@ def step_kernel_vs_plain(step, state, batch: dict, t: torch.Tensor, noise: torch
     of the restored images into larger ones. ``control``: each of these for
     the plain path against its fp32 run (bf16's own distance) and for the
     kernel path against it. Every path's losses must be finite."""
-    from edtr_torch.ops.attention import force_plain
 
     pipe = step.pipe
     student, teacher = step.task.student, step.task.teacher
@@ -1909,28 +2022,21 @@ def step_kernel_vs_plain(step, state, batch: dict, t: torch.Tensor, noise: torch
         return ({k: v[0] for k, v in vjps.items()}, {k: v[1] for k, v in vjps.items()},
                 img, m, eg, tg)
 
-    flags = pipe.fused_conv, pipe.fused_proj, pipe.fused_swin
-    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
-    with force_plain():
+    with pipe_path(pipe, False):
         plain = run()
         again = run(plain[0])
         with computing_in(torch.float32, pipe, student, teacher):
             fp32 = run(plain[0])
-    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
     kernel = run(plain[0])
-
-    def rel(a, b, names):
-        num = sum((a[n] - b[n]).float().pow(2).sum() for n in names)
-        return (num / sum(b[n].float().pow(2).sum() for n in names)).sqrt().item()
 
     parts = {part: [n for n in trainable if n.startswith(f"cldm.{part}.")]
              for part in ("controlnet", "vae.decoder")}
 
     def compare(a, b):
-        by_cot = {kind: {part: rel(a[1][kind], b[1][kind], names)
+        by_cot = {kind: {part: rel_l2_over(a[1][kind], b[1][kind], names)
                          for part, names in parts.items() if names} for kind in a[1]}
-        own = {part: rel(a[4], b[4], names) for part, names in parts.items() if names}
-        own["tasknet"] = rel(a[5], b[5], list(task_params))
+        own = {part: rel_l2_over(a[4], b[4], names) for part, names in parts.items() if names}
+        own["tasknet"] = rel_l2_over(a[5], b[5], list(task_params))
         return dict(hlf=by_cot["hlf"], pixel=by_cot["pixel"], walk_restored=rel_l2(a[2], b[2]),
                     step_grads=own)
 
@@ -2236,9 +2342,8 @@ def restore_task_phase(task: str, path: str, weights: dict, device) -> tuple:
     with torch.no_grad():
         rel_net = rel_l2(task_logits(net, task, restored.clamp(0, 1)),
                          task_logits(net32, task, restored.clamp(0, 1)))
-    pipe.fused_conv = pipe.fused_proj = pipe.fused_swin = False
-    rel_stock = rel_l2(restored, restore())
-    pipe.fused_conv, pipe.fused_proj, pipe.fused_swin = flags
+    with pipe_path(pipe, False, flash=True):
+        rel_stock = rel_l2(restored, restore())
     held = hold_shapes(device, shapes)
     print(f"restore+{stage}: bf16 vs fp32 {stage} logits {rel_net}, restored vs stock "
           f"{rel_stock}; kernels held at the run's shapes: {json.dumps(held)}", flush=True)
@@ -2290,6 +2395,19 @@ def restore_task_phase(task: str, path: str, weights: dict, device) -> tuple:
     return res, dict(launches=launches, shapes=shapes, copies=copies)
 
 
+def task_target(task: str, batch: int, g: torch.Generator, device) -> torch.Tensor:
+    """Seeded targets of ``batch`` images: masks (B, 512, 512) of the seg
+    net's classes with VOC's 255 border of :data:`SEG_BORDER` pixels, or
+    labels (B,) of the cls net's."""
+    classes = TASK_NETS[task][1]
+    if task == "cls":
+        return torch.randint(0, classes, (batch,), generator=g, device=device)
+    target = torch.randint(0, classes, (batch, IMAGE, IMAGE), generator=g, device=device)
+    border = torch.ones_like(target, dtype=torch.bool)
+    border[:, SEG_BORDER:-SEG_BORDER, SEG_BORDER:-SEG_BORDER] = False
+    return target.masked_fill(border, 255)
+
+
 def train_task_phase(task: str, path: str, weights: dict, device) -> dict:
     """The generic EDTR step of ``task``, built from the train config at
     ``path`` (module docstring, phase 15), on ``weights``."""
@@ -2304,14 +2422,7 @@ def train_task_phase(task: str, path: str, weights: dict, device) -> dict:
     tc = cfg.train
     g = torch.Generator(device=device).manual_seed(5)
     lat = IMAGE // 8
-    if task == "seg":
-        target = torch.randint(0, classes, (TRAIN_BATCH, IMAGE, IMAGE), generator=g,
-                               device=device)
-        border = torch.ones_like(target, dtype=torch.bool)
-        border[:, SEG_BORDER:-SEG_BORDER, SEG_BORDER:-SEG_BORDER] = False
-        target = target.masked_fill(border, 255)
-    else:
-        target = torch.randint(0, classes, (TRAIN_BATCH,), generator=g, device=device)
+    target = task_target(task, TRAIN_BATCH, g, device)
     batch = dict(lq=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
                  gt=torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=device),
                  c_txt=pipe.text(TRAIN_BATCH), target=target)
@@ -2409,6 +2520,480 @@ def train_task_phase(task: str, path: str, weights: dict, device) -> dict:
     check(not teacher_changed, f"teacher tensors changed: {teacher_changed[:5]}")
     return dict(config=path, launches=launches, metrics=metrics, kernel_vs_plain=cmp,
                 timing=timing, trace=trace, checks=res)
+
+
+def launch_sum(*parts) -> dict:
+    """Launches of every kernel wrapper summed over ``parts``, each a dict
+    of launches per pass or (passes, that dict); 0 for the others."""
+    total = {name: 0 for name in TRAIN_LAUNCHES}
+    for part in parts:
+        n, counts = part if isinstance(part, tuple) else (1, part)
+        for name, k in counts.items():
+            total[name] += n * k
+    return total
+
+
+def recipe_launches(recipe: str) -> dict:
+    """The exact launches of one step of ``recipe`` (:data:`RECIPE_PASSES`),
+    after checking that the same passes sum to the training step's and the
+    walk's counts, which earlier phases hold."""
+    check(launch_sum(SWINIR_PASS, ENCODE_PASS, EPS_PASS, EPS_REMAT, EPS_BWD, DECODE_PASS,
+                     DECODE_REMAT) == TRAIN_LAUNCHES, "the passes sum to TRAIN_LAUNCHES")
+    walk = launch_sum((4, EPS_PASS), DECODE_PASS)
+    check({k: n for k, n in walk.items() if n} == WALK_LAUNCHES,
+          "the passes sum to WALK_LAUNCHES")
+    return launch_sum(*RECIPE_PASSES[recipe])
+
+
+def recipe_run(name: str, call, want: dict) -> dict:
+    """One step of a recipe as a caller makes it (``call()`` -> metrics):
+    one warm-up; one counted (every count 0 just before, read just after,
+    held to ``want``; the peak memory); :data:`RECIPE_TIMED` timed on the
+    host clock (their median); one traced under a ``step`` range, its
+    phases the recipes' ranges (``profile_restore.RECIPE_STAGES``), no
+    host-to-device copy inside it. The metrics must be finite."""
+    from torch.profiler import record_function
+
+    from edtr_torch.profile_restore import RECIPE_STAGES, trace_restores
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = {}
+    first_ms = host_ms(lambda: out.update(call()))
+    launches, shapes, _ = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: v.item() for k, v in out.items()}
+    print(f"{name} step counted: {first_ms:.1f} ms, metrics {metrics}, launches {launches}, "
+          f"peak memory {peak:.2f} GiB (max_memory_allocated)", flush=True)
+    check(launches == want, f"{name} launches {launches}, want {want}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"{name} step losses {metrics}")
+    steps = [host_ms(call) for _ in range(RECIPE_TIMED)]
+
+    def traced():
+        with record_function("step"):
+            call()
+
+    stages = ("step",) + RECIPE_STAGES
+    trace = trace_restores(traced, 1, stages)
+    st = trace["stages"]
+    check(st["step"]["htod_memcpy"] == 0,
+          f"{name}: {st['step']['htod_memcpy']} host-to-device copies in a step")
+    used = [s_ for s_ in RECIPE_STAGES if st[s_]["host_ms"]]
+    timing = dict(step_ms=statistics.median(steps), step_runs_ms=steps,
+                  phase_host_ms_traced={s_: st[s_]["host_ms"] for s_ in used},
+                  phase_device_busy_ms_traced={s_: st[s_]["device_busy_ms"] for s_ in used},
+                  device_busy_ms=st["step"]["device_busy_ms"], kernels=st["step"]["kernels"],
+                  idle_share=st["step"]["idle_share"], htod_memcpy=st["step"]["htod_memcpy"],
+                  peak_memory_gib=peak, image=IMAGE)
+    print(f"{name} step: {timing['step_ms']:.2f} ms (median of {RECIPE_TIMED} after a warm-up "
+          f"and the counted step, {IMAGE}², host clock around synchronised steps; phases from a "
+          f"traced step):", json.dumps(timing), flush=True)
+    print(f"trace of one {name} step:", json.dumps(trace), flush=True)
+    return dict(launches=launches, shapes=shapes, metrics=metrics, timing=timing, trace=trace)
+
+
+def gate_rule(kernel_vs_plain: float, plain_vs_fp32: float, kernel_vs_fp32: float) -> tuple:
+    """(passes, the rule): kernel vs plain within :data:`TOL_GRAD_REL`;
+    where the control shows the plain bf16 path itself farther than that
+    from fp32, the kernel path no farther from fp32 than
+    :data:`TOL_CONTROL_RATIO` times the plain path (fixed before the first
+    run, PERF.md §6)."""
+    if plain_vs_fp32 <= TOL_GRAD_REL:
+        return kernel_vs_plain <= TOL_GRAD_REL, f"kernel vs plain <= {TOL_GRAD_REL}"
+    return (kernel_vs_fp32 <= TOL_CONTROL_RATIO * plain_vs_fp32,
+            f"kernel vs fp32 <= {TOL_CONTROL_RATIO} x plain vs fp32 (plain bf16 vs fp32 "
+            f"> {TOL_GRAD_REL})")
+
+
+def path_grads(name: str, grads_fn, params: dict, parts: dict, modules,
+               gate: str = None) -> dict:
+    """Gradients of ``params`` on the kernel path against the plain path:
+    ``grads_fn(kernel)`` runs one backward into ``.grad`` (cleared before
+    each), on the plain path (``kernel`` False) twice, then computing in
+    fp32 (:func:`computing_in` over ``modules``: the control), then on the
+    kernel path. Per part (names of ``params``): relative L2 kernel vs
+    plain, plain vs plain again, plain vs fp32, kernel vs fp32; part
+    ``gate`` is held by :func:`gate_rule`, the others printed (all of them
+    when ``gate`` is None)."""
+    def run(kernel: bool, fp32: bool = False) -> dict:
+        for p in params.values():
+            p.grad = None
+        with computing_in(torch.float32, *modules) if fp32 else contextlib.nullcontext():
+            grads_fn(kernel)
+        out = {n: p.grad.detach().float().clone() for n, p in params.items()}
+        check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+              f"{name} gradients finite (kernel {kernel}, fp32 {fp32})")
+        return out
+
+    plain, again = run(False), run(False)
+    fp32 = run(False, True)
+    kern = run(True)
+
+    res = {part: dict(kernel_vs_plain=rel_l2_over(kern, plain, names),
+                      plain_vs_plain_again=rel_l2_over(again, plain, names),
+                      plain_vs_fp32=rel_l2_over(plain, fp32, names),
+                      kernel_vs_fp32=rel_l2_over(kern, fp32, names))
+           for part, names in parts.items() if names}
+    del plain, again, fp32, kern
+    out = dict(gated_part=gate, tol_rel_l2=TOL_GRAD_REL, tol_control_ratio=TOL_CONTROL_RATIO,
+               parts=res)
+    if gate is not None:
+        g = res[gate]
+        out["passed"], out["rule"] = gate_rule(g["kernel_vs_plain"], g["plain_vs_fp32"],
+                                               g["kernel_vs_fp32"])
+    print(f"{name} gradients, kernel path vs plain path (control: plain again, plain in fp32; "
+          f"gated: {gate}):", json.dumps(out), flush=True)
+    check(gate is None or out["passed"], f"{name} gradients: {out.get('rule')} fails: "
+                                         f"{res.get(gate)}")
+    return out
+
+
+def swinir_parts(swinir) -> dict:
+    """SwinIR's parameter names by part: ``all``, ``conv_first``, each RSTB
+    (``layers.i``) and the rest (``tail``: norm, conv_after_body,
+    upsampling)."""
+    names = [n for n, _ in swinir.named_parameters()]
+    parts = {"all": names, "conv_first": [n for n in names if n.startswith("conv_first.")]}
+    for i in range(len(swinir.layers)):
+        parts[f"layers.{i}"] = [n for n in names if n.startswith(f"layers.{i}.")]
+    taken = {n for key, ns in parts.items() if key != "all" for n in ns}
+    parts["tail"] = [n for n in names if n not in taken]
+    return parts
+
+
+def recipe_swinir(cfg, weights: dict, device):
+    """The config's SwinIR (bf16 compute, fp32 weights) on the seeded
+    flagship's SwinIR weights."""
+    from edtr_torch.pipeline import swinir_from_config
+
+    sw = swinir_from_config(cfg.model.swinir, dtype=torch.bfloat16, device=device)
+    sw.load_state_dict({n[len("swinir."):]: v for n, v in weights.items()
+                        if n.startswith("swinir.")}, strict=True)
+    return sw
+
+
+def image_batch(g: torch.Generator, batch: int, device) -> dict:
+    """Seeded NHWC lq and gt in [0, 1] at 512²."""
+    return dict(lq=torch.rand((batch, IMAGE, IMAGE, 3), generator=g, device=device),
+                gt=torch.rand((batch, IMAGE, IMAGE, 3), generator=g, device=device))
+
+
+def moved_tensors(module, before: dict) -> list:
+    return [n for n, p in module.named_parameters() if not torch.equal(p.detach(), before[n])]
+
+
+def train_swinir_pre_phase(weights: dict, device) -> dict:
+    """SwinIR pre-training from ``configs/seg/voc2012/train/002_swinir-pre.yaml``
+    (module docstring, phase 16)."""
+    from edtr_torch.config import load_config
+    from edtr_torch.train import recipes as R
+
+    t0 = time.perf_counter()
+    cfg = load_config(SWINIR_PRE_CONFIG)
+    tc = cfg.train
+    sw = recipe_swinir(cfg, weights, device)
+    # AdamW without weight decay, as JAX's runner (main/*/train_swinir-pre.py)
+    state = R.SimpleTrainState.create(sw, R.cosine_tx("adamw", float(tc.learning_rate),
+                                                      int(tc.train_steps), weight_decay=0.0))
+    step = R.make_swinir_pre_train_step(sw)
+    g = torch.Generator(device=device).manual_seed(20)
+    batch = image_batch(g, SWINIR_PRE_BATCH, device)
+    lq, gt = (batch[k].permute(0, 3, 1, 2) for k in ("lq", "gt"))
+    torch.cuda.synchronize()
+    print(f"train swinir-pre: {SWINIR_PRE_CONFIG}, SwinIR {sum(p.numel() for p in sw.parameters())}"
+          f" params, bs {SWINIR_PRE_BATCH} (the config's {tc.batch_size}), lr {tc.learning_rate};"
+          f" set up in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def grads(kernel: bool):
+        with R.swinir_configuration(kernel):
+            R.swinir_pre_loss(sw, lq, gt).backward()
+
+    cmp = path_grads("swinir-pre", grads, dict(sw.named_parameters()), swinir_parts(sw), [sw],
+                     "all")
+    before = {n: p.detach().clone() for n, p in sw.named_parameters()}
+    run = recipe_run("swinir-pre", lambda: step(state, batch), recipe_launches("swinir_pre"))
+    held = hold_shapes(device, run["shapes"])
+    print(f"swinir-pre: kernels held at the step's bs-{SWINIR_PRE_BATCH} shapes:",
+          json.dumps(held), flush=True)
+    check(set(held) == {k for k, n in run["launches"].items() if n}, f"held {sorted(held)}")
+    moved = moved_tensors(sw, before)
+    n_params = len(before)
+    check(len(moved) == n_params, f"swinir-pre: {len(moved)} of {n_params} tensors moved")
+    run.update(config=SWINIR_PRE_CONFIG, batch=SWINIR_PRE_BATCH, kernel_vs_plain=cmp,
+               held=held, moved=len(moved), steps=state.step)
+    return run
+
+
+def train_sr4ir_phase(weights: dict, device) -> dict:
+    """SR4IR from ``configs/seg/voc2012/train/004_swinir-sr4ir.yaml``
+    (module docstring, phase 17)."""
+    from edtr_torch.config import load_config
+    from edtr_torch.train import recipes as R
+    from edtr_torch.train.common import no_param_grads
+    from edtr_torch.train.tasks import task_apply_for
+
+    t0 = time.perf_counter()
+    cfg = load_config(SR4IR_CONFIG)
+    tc = cfg.train
+    sw = recipe_swinir(cfg, weights, device)
+    g = torch.Generator(device=device).manual_seed(21)
+    target = task_target("seg", RECIPE_BATCH, g, device)
+    batch = dict(image_batch(g, RECIPE_BATCH, device), target=target)
+    lq, gt = (batch[k].permute(0, 3, 1, 2) for k in ("lq", "gt"))
+    net = task_net(cfg, "seg", device, gt)[0]
+    steps = int(tc.train_steps)
+    sw_state = R.SimpleTrainState.create(sw, R.cosine_tx(
+        "adamw", float(tc.learning_rate_swinir), steps, weight_decay=0.0))
+    # JAX's runner reads learning_rate_task (default 5e-3) for the task net;
+    # the configs name it learning_rate_segnet, 5e-3 in each; SGD decay 1e-6
+    # for seg (main/seg/train_seg.py)
+    task_state = R.SimpleTrainState.create(net, R.cosine_tx(
+        "sgd", float(tc.learning_rate_segnet), steps, weight_decay=1e-6))
+    loss_fn, feats_fn = task_apply_for("seg")
+    pix = float(tc.pix_weight)
+    step = R.make_sr4ir_train_step(sw, feats_fn, loss_fn, pix_weight=pix)
+    cells = torch.bernoulli(torch.full((RECIPE_BATCH, 8, 8, 1), 0.5, device=device),
+                            generator=g)
+    torch.cuda.synchronize()
+    print(f"train sr4ir: {SR4IR_CONFIG}, SwinIR + {type(net).__name__} (21 classes, "
+          f"{sum(p.numel() for p in net.parameters())} params, calibrated on gt), bs "
+          f"{RECIPE_BATCH} (the config's {tc.batch_size}; the task half on "
+          f"{3 * RECIPE_BATCH} images), pix_weight {pix}; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def sw_grads(kernel: bool):
+        with no_param_grads(net), R.swinir_configuration(kernel):
+            R.sr4ir_swinir_loss(sw, net, feats_fn, lq, gt, pix)[0].backward()
+
+    cmp = path_grads("sr4ir SwinIR half", sw_grads, dict(sw.named_parameters()),
+                     swinir_parts(sw), [sw, net], "all")
+    stats0 = {n: b.clone() for n, b in net.named_buffers()}
+    target3 = torch.cat([target] * 3)
+
+    def task_grads(kernel: bool):
+        with torch.no_grad(), R.swinir_configuration(kernel):
+            res = sw(lq)
+        loss_fn(net, R.sr4ir_task_images(res, gt, cells), target3)[0].backward()
+        with torch.no_grad():
+            for n, b in net.named_buffers():
+                b.copy_(stats0[n])
+
+    names = [n for n, _ in net.named_parameters()]
+    task_cmp = path_grads("sr4ir task half (reported)", task_grads,
+                          dict(net.named_parameters()), {"tasknet": names}, [sw, net])
+    sw_before = {n: p.detach().clone() for n, p in sw.named_parameters()}
+    net_before = {n: v.clone() for n, v in net.state_dict().items()}
+    run = recipe_run("sr4ir", lambda: step((sw_state, task_state), batch, cells),
+                     recipe_launches("sr4ir"))
+    check(set(run["metrics"]) == {"swinir_pix", "swinir_tdp", "task_loss"},
+          f"sr4ir metrics {sorted(run['metrics'])}")
+    now = net.state_dict()
+    stats = [n for n in now if n.endswith(("running_mean", "running_var"))]
+    res = dict(swinir_moved=len(moved_tensors(sw, sw_before)), swinir_params=len(sw_before),
+               tasknet_moved=len(moved_tensors(net, net_before)),
+               tasknet_params=len(names),
+               stats_moved=sum(not torch.equal(now[n], net_before[n]) for n in stats),
+               stats=len(stats))
+    print("train sr4ir, after the steps:", json.dumps(res), flush=True)
+    check(res["swinir_moved"] == res["swinir_params"], "every SwinIR tensor moved")
+    check(res["tasknet_moved"] == res["tasknet_params"], "every task-net tensor moved")
+    check(stats and res["stats_moved"] == len(stats), "the running statistics moved")
+    run.update(config=SR4IR_CONFIG, batch=RECIPE_BATCH, kernel_vs_plain=cmp,
+               tasknet_grads_reported=task_cmp, checks=res)
+    run.pop("shapes")
+    return run
+
+
+def train_task_swinir_phase(weights: dict, device) -> dict:
+    """The task net trained on the frozen SwinIR's restorations, from
+    ``configs/seg/voc2012/train/003_swinir.yaml`` (module docstring, phase
+    18)."""
+    from edtr_torch.config import load_config
+    from edtr_torch.train import recipes as R
+    from edtr_torch.train.tasks import task_apply_for
+
+    t0 = time.perf_counter()
+    cfg = load_config(TASK_SWINIR_CONFIG)
+    tc = cfg.train
+    sw = recipe_swinir(cfg, weights, device).requires_grad_(False)
+    g = torch.Generator(device=device).manual_seed(22)
+    batch = dict(image_batch(g, RECIPE_BATCH, device),
+                 target=task_target("seg", RECIPE_BATCH, g, device))
+    net = task_net(cfg, "seg", device, batch["gt"].permute(0, 3, 1, 2))[0]
+    # the config's learning_rate is the task net's; SGD decay 1e-6 for seg
+    state = R.SimpleTrainState.create(net, R.cosine_tx(
+        "sgd", float(tc.learning_rate), int(tc.train_steps), weight_decay=1e-6))
+    loss_fn, _ = task_apply_for("seg")
+    step = R.make_task_train_step(loss_fn, pre_restore=sw)
+    torch.cuda.synchronize()
+    print(f"train task on the frozen SwinIR: {TASK_SWINIR_CONFIG}, {type(net).__name__}, bs "
+          f"{RECIPE_BATCH} (the config's {tc.batch_size}); set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sw_before = {n: v.clone() for n, v in sw.state_dict().items()}
+    net_before = {n: v.clone() for n, v in net.state_dict().items()}
+    # the Swin kernels and the tail's upsample launch as in a bs-2
+    # restore's swinir stage, under no grad; the task net launches none
+    run = recipe_run("task on the frozen SwinIR", lambda: step(state, batch),
+                     recipe_launches("task_swinir"))
+    check(set(run["metrics"]) == {"loss"}, f"task step metrics {sorted(run['metrics'])}")
+    moved = moved_tensors(net, net_before)
+    n_params = len(list(net.parameters()))
+    changed = [n for n, v in sw.state_dict().items() if not torch.equal(v, sw_before[n])]
+    res = dict(tasknet_moved=len(moved), tasknet_params=n_params, swinir_changed=len(changed))
+    print("train task on the frozen SwinIR, after the steps:", json.dumps(res), flush=True)
+    check(len(moved) == n_params, "every task-net tensor moved")
+    check(not changed, f"frozen SwinIR tensors changed: {changed[:5]}")
+    run.update(config=TASK_SWINIR_CONFIG, batch=RECIPE_BATCH, checks=res)
+    run.pop("shapes")
+    return run
+
+
+def train_diffbir_phase(weights: dict, device) -> tuple:
+    """DiffBIR from ``configs/seg/voc2012/train/005_diffbir.yaml`` (module
+    docstring, phase 19): (the phase's results, its pipeline)."""
+    from edtr_torch.train import recipes as R
+    from edtr_torch.train.edtr_step import cast_frozen_bf16
+    from edtr_torch.train.tasks import task_apply_for
+
+    t0 = time.perf_counter()
+    cfg, pipe = config_pipeline(DIFFBIR_CONFIG, weights, device)
+    tc = cfg.train
+    g = torch.Generator(device=device).manual_seed(23)
+    lat = IMAGE // 8
+    batch = dict(image_batch(g, RECIPE_BATCH, device), c_txt=pipe.text(RECIPE_BATCH),
+                 target=task_target("seg", RECIPE_BATCH, g, device))
+    lq, gt = (batch[k].permute(0, 3, 1, 2) for k in ("lq", "gt"))
+    c_txt = batch["c_txt"]
+    # the teacher's weights drawn apart from the student's, as in the
+    # generic steps (PERF.md §6)
+    student = task_net(cfg, "seg", device, gt)[0]
+    teacher = task_net(cfg, "seg", device, gt, "teacher_segnet", seed=10)[0]
+    teacher.requires_grad_(False)
+    cast_frozen_bf16(pipe, pipe.cldm.vae.train_decoder, teacher)
+    steps = int(tc.train_steps)
+    cldm_state = R.diffbir_state(pipe, R.cosine_tx(
+        "adamw", float(tc.learning_rate_diffbir), steps, weight_decay=1e-2))
+    # JAX's runner reads learning_rate_task (default 5e-3); the configs name
+    # it learning_rate_segnet, 5e-3
+    task_state = R.SimpleTrainState.create(student, R.cosine_tx(
+        "sgd", float(tc.learning_rate_segnet), steps, weight_decay=1e-6))
+    loss_fn, feats_fn = task_apply_for("seg")
+    weights_ = dict(weight_ce=float(tc.weight_ce), weight_fm=float(tc.weight_fm))
+    step = R.make_diffbir_train_step(pipe, loss_fn, feats_fn, steps=DIFFBIR_STEPS, **weights_)
+    bs2 = max(RECIPE_BATCH // 2, 1)
+    draws = dict(t=torch.randint(0, pipe.diffusion.num_timesteps, (RECIPE_BATCH,), generator=g,
+                                 device=device),
+                 noise=torch.randn((RECIPE_BATCH, 4, lat, lat), generator=g, device=device),
+                 posterior_noise=torch.randn((RECIPE_BATCH, 4, lat, lat), generator=g,
+                                             device=device),
+                 x_T=torch.randn((bs2, 4, lat, lat), generator=g, device=device),
+                 step_noise=torch.randn((DIFFBIR_STEPS, bs2, 4, lat, lat), generator=g,
+                                        device=device))
+    params = dict(pipe.named_parameters())
+    trainable = {n: p for n, p in params.items() if p.requires_grad}
+    frozen = {n: p for n, p in params.items() if not p.requires_grad}
+    check(trainable and all(n.startswith("cldm.controlnet.") for n in trainable),
+          "DiffBIR trains the ControlNet alone")
+    torch.cuda.synchronize()
+    print(f"train diffbir: {DIFFBIR_CONFIG}, {len(trainable)} ControlNet tensors "
+          f"({sum(p.numel() for p in trainable.values())} params) train, {weights_}, bs "
+          f"{RECIPE_BATCH} (the config's {tc.batch_size}), the {DIFFBIR_STEPS}-step walk on "
+          f"{bs2} image, t {draws['t'].tolist()}, cast_frozen_bf16; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def shared(kernel: bool):
+        with pipe_path(pipe, kernel):
+            pre = pipe.pre_restore(lq)
+            return pre, pipe.encode(pre)
+
+    def eps_grads(kernel: bool):
+        _, z_pre = shared(kernel)
+        with pipe_path(pipe, kernel):
+            loss = R.diffbir_eps_loss(pipe, z_pre, gt, c_txt, draws["t"], draws["noise"],
+                                      draws["posterior_noise"])
+            with pipe.configuration():
+                loss.backward()
+
+    cmp = path_grads("diffbir ControlNet (p_losses)", eps_grads, trainable,
+                     {"controlnet": list(trainable)}, [pipe], "controlnet")
+
+    def walk(kernel: bool) -> torch.Tensor:
+        pre, z_pre = shared(kernel)
+        with pipe_path(pipe, kernel):
+            return R.diffbir_sample(pipe, DIFFBIR_STEPS, z_pre[:bs2], pre[:bs2], c_txt[:bs2],
+                                    draws["x_T"], draws["step_noise"])
+
+    img_p = walk(False)
+    with computing_in(torch.float32, pipe):
+        img_f = walk(False)
+    img_k = walk(True)
+    walk_cmp = dict(kernel_vs_plain=rel_l2(img_k, img_p), plain_vs_fp32=rel_l2(img_p, img_f),
+                    kernel_vs_fp32=rel_l2(img_k, img_f), steps=DIFFBIR_STEPS)
+    print(f"diffbir: the {DIFFBIR_STEPS}-step restored image from pure noise, kernel path vs "
+          f"plain path and the fp32 control (reported):", json.dumps(walk_cmp), flush=True)
+    check(all(math.isfinite(v) for v in walk_cmp.values()), "walk images finite")
+    del img_p, img_f, img_k
+
+    before = {n: p.detach().clone() for n, p in params.items()}
+    task_before = {n: v.clone() for n, v in student.state_dict().items()}
+    teacher_before = {n: v.clone() for n, v in teacher.state_dict().items()}
+    run = recipe_run("diffbir", lambda: step((cldm_state, task_state, teacher), batch,
+                                             **draws), recipe_launches("diffbir"))
+    check(set(run["metrics"]) == {"loss_eps", "loss_ce", "loss_fm"},
+          f"diffbir metrics {sorted(run['metrics'])}")
+    now = student.state_dict()
+    stats = [n for n in now if n.endswith(("running_mean", "running_var"))]
+    res = dict(moved=sum(not torch.equal(params[n], before[n]) for n in trainable),
+               trainable=len(trainable),
+               frozen_changed=sum(not torch.equal(params[n], before[n]) for n in frozen),
+               tasknet_moved=len(moved_tensors(student, task_before)),
+               tasknet_params=len(list(student.parameters())),
+               stats_moved=sum(not torch.equal(now[n], task_before[n]) for n in stats),
+               stats=len(stats),
+               teacher_changed=sum(not torch.equal(v, teacher_before[n])
+                                   for n, v in teacher.state_dict().items()),
+               steps=cldm_state.step)
+    print("train diffbir, after the steps:", json.dumps(res), flush=True)
+    check(res["moved"] == res["trainable"], "every ControlNet tensor moved")
+    check(not res["frozen_changed"], "frozen pipeline tensors unchanged")
+    check(res["tasknet_moved"] == res["tasknet_params"], "every task-net tensor moved")
+    check(stats and res["stats_moved"] == len(stats), "the running statistics moved")
+    check(not res["teacher_changed"], "the teacher unchanged")
+    run.update(config=DIFFBIR_CONFIG, batch=RECIPE_BATCH, kernel_vs_plain=cmp,
+               walk_image_reported=walk_cmp, checks=res)
+    run.pop("shapes")
+    return run, pipe
+
+
+def sample_fn_phase(pipe, device) -> dict:
+    """``make_edtr_sample_fn(pipe)`` at 512², bs 1: its run counted, its
+    image against ``pipe.restore``'s on the same draws (module docstring,
+    phase 20)."""
+    from edtr_torch.train.edtr_step import make_edtr_sample_fn
+
+    g = torch.Generator(device=device).manual_seed(24)
+    lat = IMAGE // 8
+    lq = torch.rand((1, IMAGE, IMAGE, 3), generator=g, device=device)
+    noise = torch.randn((1, lat, lat, 4), generator=g, device=device)
+    step_noise = torch.randn((pipe.num_timesteps, 1, lat, lat, 4), generator=g, device=device)
+    sample = make_edtr_sample_fn(pipe)
+    want = pipe.restore(lq, None, noise, step_noise)["restored"]
+    zero_counts()
+    out = {}
+    ms = host_ms(lambda: out.update(restored=sample(lq, None, noise, step_noise)))
+    launches, _, _ = read_counts()
+    flags = (pipe.fused_conv, pipe.fused_proj, pipe.fused_swin)
+    res = dict(equal=torch.equal(out["restored"], want),
+               max_abs_diff=(out["restored"] - want).abs().max().item(), host_ms=ms,
+               launches=launches)
+    print(f"sample fn vs restore ({IMAGE}², bs 1, the same draws):", json.dumps(res), flush=True)
+    check(launches == expected_launches(flags), f"sample fn launches {launches}")
+    check(tuple(out["restored"].shape) == (1, IMAGE, IMAGE, 3)
+          and bool(torch.isfinite(out["restored"]).all()), "sample fn image shape, finite")
+    check(res["equal"], f"sample fn differs from restore by {res['max_abs_diff']}")
+    return res
 
 
 def train_shape_phase(device, shapes: dict, proj_shapes: dict) -> dict:
@@ -2515,6 +3100,19 @@ def main() -> int:
         tasks[f"train_{task}"] = train_task_phase(task, path, weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+    # the recipes, on the same seeded weights
+    recipes = {}
+    for name, phase in (("swinir_pre", train_swinir_pre_phase), ("sr4ir", train_sr4ir_phase),
+                        ("task_swinir", train_task_swinir_phase)):
+        recipes[name] = phase(weights, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    recipes["diffbir"], diffbir_pipe = train_diffbir_phase(weights, device)
+    recipes["sample_fn"] = sample_fn_phase(diffbir_pipe, device)
+    swinir_pre_shapes = recipes["swinir_pre"].pop("shapes")
+    del diffbir_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     train["held_at_step_shapes"] = train_shape_phase(device, train.pop("shapes"),
                                                      train.pop("shapes_fused_proj"))
 
@@ -2528,6 +3126,11 @@ def main() -> int:
         row["launches_restore_classify_bs8"] = counted["restore+classify"]["launches"][name]
         for task in ("seg", "cls"):
             row[f"launches_train_step_{task}"] = tasks[f"train_{task}"]["launches"][name]
+        for recipe in ("swinir_pre", "sr4ir", "task_swinir", "diffbir"):
+            row[f"launches_recipe_{recipe}"] = recipes[recipe]["launches"][name]
+        row["launches"] = max([row["launches"]] + [recipes[r]["launches"][name] for r in
+                                                   ("swinir_pre", "sr4ir", "task_swinir",
+                                                    "diffbir")])
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
     check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
     check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")
@@ -2537,6 +3140,10 @@ def main() -> int:
     print(json.dumps({"card": card, "restore": timing, "text": text, "detect": detect,
                       "cldm_eps": cldm, "gn_stats": norms,
                       "train": train, "train_detnet": train_det, "task_nets": tasks,
+                      "recipes": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
+                                  for k, v in recipes.items()},
+                      "swinir_pre_shapes": [dict(key=list(k), launches=n) for k, n in
+                                            sorted(swinir_pre_shapes["swin"].items(), key=str)],
                       "device_ms_traces": TRACE_STATS,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},

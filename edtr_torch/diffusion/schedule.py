@@ -3,7 +3,8 @@ objectives.
 
 Counterpart of ``edtr_tpu/diffusion/schedule.py``: the beta schedule
 (linear, cosine, sqrt_linear or sqrt) is computed once in float64 numpy
-and frozen into fp32 tensors on the target device; ``q_sample``, ``get_v`` and ``predict_xstart_from_eps``
+and frozen into fp32 tensors on the target device; :func:`space_timesteps`
+respaces the process (IDDPM's rule, as JAX's); ``q_sample``, ``get_v`` and ``predict_xstart_from_eps``
 gather one coefficient per sample. ``p_losses`` (the eps/x0/v objective)
 and ``reverse`` (EDTR's one-step noising and denoising) take their noise as
 a tensor, or draw it from a ``torch.Generator``: JAX's keys give other
@@ -13,7 +14,7 @@ numbers, so parity tests hand both sides the same noise.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Set, Union
 
 import numpy as np
 import torch
@@ -40,6 +41,37 @@ def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-
     raise ValueError(f"schedule '{schedule}' unknown.")
 
 
+def space_timesteps(num_timesteps: int, section_counts: Union[str, Sequence[int]]) -> Set[int]:
+    """IDDPM's timestep respacing, as JAX's: ``"ddimN"`` (the integer stride
+    that takes exactly N steps), or section counts (a comma-separated
+    string or a sequence), each taking its count of evenly spaced steps
+    from its equal share of the process."""
+    if isinstance(section_counts, str):
+        if section_counts.startswith("ddim"):
+            desired_count = int(section_counts[len("ddim"):])
+            for i in range(1, num_timesteps):
+                if len(range(0, num_timesteps, i)) == desired_count:
+                    return set(range(0, num_timesteps, i))
+            raise ValueError(
+                f"cannot create exactly {num_timesteps} steps with an integer stride")
+        section_counts = [int(x) for x in section_counts.split(",")]
+    size_per = num_timesteps // len(section_counts)
+    extra = num_timesteps % len(section_counts)
+    start_idx = 0
+    all_steps = []
+    for i, section_count in enumerate(section_counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < section_count:
+            raise ValueError(f"cannot divide section of {size} steps into {section_count}")
+        frac_stride = 1 if section_count <= 1 else (size - 1) / (section_count - 1)
+        cur_idx = 0.0
+        for _ in range(section_count):
+            all_steps.append(start_idx + round(cur_idx))
+            cur_idx += frac_stride
+        start_idx += size
+    return set(all_steps)
+
+
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Per-sample coefficient ``table[t]`` broadcast to an ``ndim`` tensor."""
     out = table[t]
@@ -57,6 +89,10 @@ class Diffusion:
     sqrt_recipm1_alphas_cumprod: torch.Tensor
     parameterization: str = "eps"
     loss_type: str = "l2"
+
+    @property
+    def num_timesteps(self) -> int:
+        return len(self.betas)
 
     @classmethod
     def create(cls, timesteps: int = 1000, beta_schedule: str = "linear",

@@ -57,9 +57,22 @@ class ControlLDM(nn.Module):
                                  train_decoder=vae_cfg.get("train_decoder", False), dtype=dtype)
         self.clip = clip_from_cfg(clip_cfg, dtype)
 
-    def vae_encode(self, image: torch.Tensor) -> torch.Tensor:
-        """Scaled posterior mode of ``image`` (NCHW in [-1, 1]), fp32."""
-        return self.vae.encode(image).mode() * self.scale_factor
+    def vae_encode(self, image: torch.Tensor, sample: bool = False,
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Scaled latent of ``image`` (NCHW in [-1, 1]), fp32: the
+        posterior's mode, or with ``sample`` its sample ``mean + std *
+        noise`` (``noise`` NCHW like the latent, drawn from ``generator``
+        when not given). JAX's ``vae_encode`` samples by default; the port
+        keeps the mode by default, which every restore reads, and the
+        DiffBIR recipe asks for the sample."""
+        posterior = self.vae.encode(image)
+        if not sample:
+            return posterior.mode() * self.scale_factor
+        if noise is None:
+            noise = torch.randn(posterior.mean.shape, generator=generator,
+                                device=posterior.mean.device)
+        return posterior.sample(noise) * self.scale_factor
 
     def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
         """Decode a scaled latent -> NCHW fp32 in about [-1, 1]."""

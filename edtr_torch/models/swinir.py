@@ -113,7 +113,7 @@ class WindowAttention(nn.Module):
         table changes (made anew on every call that differentiates it)."""
         table = self.relative_position_bias_table
         if torch.is_grad_enabled() and table.requires_grad:
-            return rel_pos_bias(table, self.win)
+            return rel_pos_bias(table, self.win).contiguous()
         return self._bias.get((table,), torch.float32,
                               lambda ps, _: rel_pos_bias(ps[0], self.win).contiguous())
 

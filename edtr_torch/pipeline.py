@@ -38,6 +38,11 @@ load the same state dicts. ``EDTRPipeline.configuration()`` enters all
 three around any other call, as the training step does around its forward
 and its backward.
 
+``EDTRPipeline.sampler`` is the ``SpacedSampler`` of the pipeline's
+diffusion (JAX's ``pipe.sampler``); ``schedule`` is its cached schedule of
+the EDTR timesteps. :func:`swinir_from_config` builds a config's SwinIR
+alone (the SwinIR recipes).
+
 ``build_flagship(train=True)`` is the model of
 ``__graft_entry__._flagship_pipeline(train=True)``: UNet and ControlNet
 ResBlocks and transformers, and the VAE decoder's ResnetBlocks, recompute
@@ -56,7 +61,7 @@ import torch
 from torch import nn
 
 from edtr_torch.device import resolve_device
-from edtr_torch.diffusion.sampler import make_spaced_schedule, sample_loop
+from edtr_torch.diffusion.sampler import SpacedSampler, sample_loop
 from edtr_torch.diffusion.schedule import Diffusion
 from edtr_torch.config import NotPortedError
 from edtr_torch.models.cldm import ControlLDM
@@ -124,9 +129,10 @@ class EDTRPipeline(nn.Module):
         self.cldm = cldm.to(self.device)
         self.diffusion = diffusion
         self.start_timestep = int(start_timestep)
+        self.num_timesteps = int(num_timesteps)
         self.used_timesteps = edtr_used_timesteps(start_timestep, num_timesteps)
-        self.schedule = make_spaced_schedule(diffusion.betas, self.used_timesteps,
-                                             self.device)
+        self.sampler = SpacedSampler(diffusion.betas, self.device)
+        self.schedule = self.sampler.make_schedule(self.num_timesteps, self.used_timesteps)
 
     @contextlib.contextmanager
     def configuration(self) -> Iterator[None]:
@@ -276,6 +282,19 @@ def _swinir_from_config(params: Dict[str, Any], dtype: Optional[torch.dtype]) ->
         raise NotPortedError("SwinIR: the port unshuffles by sf")
     return SwinIR(dtype=dtype, **{k: tuple(params[k]) if isinstance(params[k], list)
                                   else params[k] for k in _SWINIR_ARGS if k in params})
+
+
+def swinir_from_config(node, dtype: Optional[torch.dtype] = None,
+                       device: Optional[torch.device | str] = None) -> SwinIR:
+    """The SwinIR of a config's ``model.swinir`` node (the recipes' configs:
+    pre-training, SR4IR, the frozen pre-restore), weights as the
+    constructor initialises them, on ``device`` (the card unless named)."""
+    from edtr_torch.config import Config
+
+    params = node["params"]
+    params = dict(params.to_dict() if isinstance(params, Config) else params)
+    with torch.device(resolve_device(device)):
+        return _swinir_from_config(params, dtype)
 
 
 def _args_of(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:

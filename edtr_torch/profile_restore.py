@@ -7,7 +7,7 @@ each stage under a ``record_function`` range: a restore's named as
 ``bench.py:_run_split`` names them (:data:`STAGES`, with ``detect`` after
 them :data:`RESTORE_DETECT_STAGES`, ``segment`` :data:`RESTORE_SEGMENT_STAGES`,
 ``classify`` :data:`RESTORE_CLASSIFY_STAGES`), a training step's
-:data:`TRAIN_STAGES`.
+:data:`TRAIN_STAGES`, a recipe step's :data:`RECIPE_STAGES`.
 :func:`summarise` reads the Chrome trace: per stage the host ms, the
 device-busy ms (union of kernel intervals), the idle share, the kernel
 count and the host-to-device copies (each one a stall of the host: a copy
@@ -25,10 +25,13 @@ import tempfile
 from collections import defaultdict
 from typing import Callable, Optional, Sequence
 
-# a training step's ranges, set inside the step: frozen SwinIR + encode and
-# each half's forward and loss, the task-net half's no-grad walk, the
-# backwards (recomputes included), the optimizers
-from edtr_torch.train.edtr_step import STAGES as TRAIN_STAGES
+# the ranges set inside a training step (edtr_torch.train.edtr_step): frozen
+# SwinIR + encode and each half's forward and loss, the task-net half's
+# no-grad walk, the backwards (recomputes included), the optimizers; and
+# inside a recipe step (edtr_torch.train.recipes): the frozen
+# pre-restoration, the restoration net's forward and loss, backward and
+# update, the no-grad restorations for the task net, the task net's half
+from edtr_torch.train.common import RECIPE_STAGES, TRAIN_STAGES
 
 # ``text``: the empty prompt's CLIP embedding, which a restore without a
 # given c_txt computes after the encode, as JAX's does

@@ -63,10 +63,8 @@ as JAX's; the noise and the restored image the loss sees are NCHW.
 
 from __future__ import annotations
 
-import contextlib
-import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -74,31 +72,17 @@ from torch.profiler import record_function
 
 from edtr_torch.models.faster_rcnn import detnet_trainable_mask
 from edtr_torch.models.layers import remat
+# the step's phases, each under a ``record_function`` range of this name
+# (``edtr_torch.profile_restore`` reads them from a trace)
+from edtr_torch.train.common import TRAIN_STAGES as STAGES
+from edtr_torch.train.common import cosine_schedule, no_param_grads, split_trainable
+from edtr_torch.train.tasks import det_losses
 from edtr_torch.utils.image import wavelet_reconstruction
 
-Params = Dict[str, nn.Parameter]
 Batch = Dict[str, torch.Tensor]
-# the step's phases, each under a ``record_function`` range of this name
-# (``edtr_torch.profile_restore.TRAIN_STAGES`` reads them from a trace):
-# each half's forward and loss, the task-net half's no-grad walk, each
-# half's backward, each optimizer update
-STAGES = ("forward+loss", "sample", "backward", "optimizer")
 # the FPN maps the HLF and feature-matching losses compare: [-3:-1] of
 # ('0', '1', 'pool')
 FEATURE_KEYS = ("0", "1")
-
-
-def split_trainable(pipe: nn.Module, train_decoder: bool = True) -> Tuple[Params, Params]:
-    """(trainable, frozen) parameters of an ``EDTRPipeline`` by name, their
-    ``requires_grad`` set to match: the ControlNet (+ the VAE decoder)
-    train, everything else stays."""
-    trainable, frozen = {}, {}
-    for name, p in pipe.named_parameters():
-        train = name.startswith("cldm.controlnet.") or (
-            train_decoder and name.startswith("cldm.vae.decoder."))
-        p.requires_grad_(train)
-        (trainable if train else frozen)[name] = p
-    return trainable, frozen
 
 
 def _bf16_(module: nn.Module, buffers: bool = False) -> None:
@@ -132,20 +116,6 @@ def cast_frozen_bf16(pipe: nn.Module, train_decoder: bool = True,
             _bf16_(child)
     if teacher_detnet is not None:
         _bf16_(teacher_detnet, buffers=True)
-
-
-def cosine_decay(count: int, init_value: float, decay_steps: int, alpha: float) -> float:
-    """``optax.cosine_decay_schedule(init_value, decay_steps, alpha)`` at
-    ``count``."""
-    c = min(count, decay_steps)
-    return init_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps)) + alpha)
-
-
-def _cosine(tx: torch.optim.Optimizer, lr: float, train_steps: int
-            ) -> torch.optim.lr_scheduler.LambdaLR:
-    alpha = 1e-7 / lr
-    return torch.optim.lr_scheduler.LambdaLR(
-        tx, lambda count: cosine_decay(count, 1.0, train_steps, alpha))
 
 
 @dataclass
@@ -188,8 +158,8 @@ class EDTRTrainState:
         trainable, _ = split_trainable(pipe, train_decoder)
         tx = torch.optim.AdamW(list(trainable.values()), lr=learning_rate_edtr,
                                betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
-        state = cls(pipe=pipe, tx_edtr=tx, schedule=_cosine(tx, learning_rate_edtr,
-                                                            train_steps))
+        state = cls(pipe=pipe, tx_edtr=tx,
+                    schedule=cosine_schedule(tx, learning_rate_edtr, train_steps))
         if detnet is not None:
             mask = detnet_trainable_mask(detnet)
             teacher_detnet.requires_grad_(False)
@@ -197,26 +167,12 @@ class EDTRTrainState:
             tx_d = torch.optim.SGD(params, lr=learning_rate_detnet, momentum=0.9,
                                    weight_decay=1e-4)
             state.detnet, state.teacher_detnet, state.tx_detnet = detnet, teacher_detnet, tx_d
-            state.schedule_detnet = _cosine(tx_d, learning_rate_detnet, train_steps)
+            state.schedule_detnet = cosine_schedule(tx_d, learning_rate_detnet, train_steps)
         return state
 
 
 def _feat_l1(fa: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum((fa[k].float() - fb[k].float()).abs().mean() * 0.5 for k in FEATURE_KEYS)
-
-
-@contextlib.contextmanager
-def _no_param_grads(module: Optional[nn.Module]) -> Iterator[None]:
-    """``module``'s parameters take no gradient inside the block (their
-    ``requires_grad`` restored after it)."""
-    flags = [] if module is None else [(p, p.requires_grad) for p in module.parameters()]
-    for p, _ in flags:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p, flag in flags:
-            p.requires_grad_(flag)
 
 
 class TaskHalf:
@@ -272,13 +228,12 @@ class DetHalf(TaskHalf):
         return _feat_l1(fa, fb)
 
     def loss(self, images, gt, target, draws, generator):
-        _, losses, feats = self.student(images, targets=target, train=True,
-                                        sampler_uniforms=draws.get("uniforms"),
-                                        generator=generator)
+        losses, feats = det_losses(self.student, images, target, generator,
+                                   draws.get("uniforms"))
         loss_det = self.weight_det * sum(losses.values())
         with torch.no_grad():
             tf_gt = self.feats(self.teacher, gt)
-        loss_fm = self.weight_fm * _feat_l1(feats["features"], tf_gt)
+        loss_fm = self.weight_fm * _feat_l1(feats, tf_gt)
         metrics = dict(loss_det=loss_det.detach(), loss_fm=loss_fm.detach(),
                        **{k: v.detach() for k, v in losses.items()})
         return loss_det + loss_fm, metrics
@@ -414,7 +369,7 @@ class EDTRTrainStep:
         total = torch.zeros((), device=self.pipe.device)
         shared = []
         student = None if self.task is None else self.task.student
-        with self.pipe.configuration(), _no_param_grads(student):
+        with self.pipe.configuration(), no_param_grads(student):
             for i in range(k):
                 sl = slice(i * m, (i + 1) * m)
                 with record_function(STAGES[0]):
@@ -552,3 +507,22 @@ def make_edtr_generic_train_step(pipe: nn.Module, tasknet: nn.Module,
     task = GenericHalf(tasknet, teacher_tasknet, task_feats_fn, task_loss_fn, weight_task,
                        weight_fm)
     return EDTRTrainStep(pipe, task, weight_hlf, None, accum_steps)
+
+
+def make_edtr_sample_fn(pipe: nn.Module, staged: bool = True) -> Callable:
+    """``edtr_tpu.train.edtr_step.make_edtr_sample_fn``: the no-grad K-step
+    restore of the evaluation loops, ``sample(lq, c_txt=None, noise=None,
+    step_noise=None, generator=None) -> restored``, NHWC in [0, 1] in and
+    out: ``pipe.restore(...)["restored"]`` (its stages ``pre_restore |
+    encode | denoise | decode``; ``c_txt``, ``noise``, ``step_noise`` as
+    :meth:`EDTRPipeline.restore` takes them). JAX's ``staged`` chooses
+    between one compiled graph and four of the same numbers; eager PyTorch
+    runs the stages one by one either way, so ``staged`` is kept for the
+    signature alone."""
+
+    def sample(lq: torch.Tensor, c_txt: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None, step_noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return pipe.restore(lq, c_txt, noise, step_noise, generator)["restored"]
+
+    return sample

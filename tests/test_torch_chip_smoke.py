@@ -61,3 +61,28 @@ def test_bench_and_smoke_hold_k9_and_k7a_at_their_shapes():
     assert all(k[:2] == ("geglu_proj", 1) for k in chip_smoke.GEGLU_HELD)
     assert chip_smoke.PROJ_KERNELS["geglu_proj"][0] == "edtr_torch/csrc/proj_wgmma.cuh"
     assert chip_smoke.SWIN_KERNELS["window_attention"][0] == "edtr_torch/csrc/window_attention.cu"
+
+
+def test_recipe_launches_are_sums_of_the_passes():
+    """The recipes' exact launches are sums of per-pass counts that also sum
+    to the training step's and the walk's (``recipe_launches`` checks both
+    before it answers)."""
+    diffbir = chip_smoke.recipe_launches("diffbir")
+    steps = chip_smoke.DIFFBIR_STEPS
+    assert diffbir["wholekv_fwd"] == diffbir["whole_fwd"] == 7 * (steps + 1) + 5
+    assert diffbir["streamkv_fwd"] == 3  # two bs-2 encodes and the bs-1 decode
+    assert all(diffbir[k] == 5 for k in ("whole_bwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    assert chip_smoke.recipe_launches("sr4ir")["swin_pre"] == 96
+    for recipe in ("swinir_pre", "task_swinir"):
+        got = chip_smoke.recipe_launches(recipe)
+        assert {k: n for k, n in got.items() if n} == chip_smoke.SWINIR_PASS
+
+
+@pytest.mark.parametrize("kp,pf,kf,ok", [
+    (0.01, 0.02, 0.02, True),    # plain bf16 near fp32: kernel vs plain within 5e-2
+    (0.06, 0.02, 0.05, False),
+    (0.30, 0.28, 0.30, True),    # plain bf16 itself 0.28 from fp32: the control rule
+    (0.30, 0.28, 0.31, False),
+])
+def test_gate_rule(kp, pf, kf, ok):
+    assert chip_smoke.gate_rule(kp, pf, kf)[0] is ok

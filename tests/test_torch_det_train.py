@@ -19,6 +19,10 @@
   ones from the port's fp64 ones by as much), so each leaf holds to 3e-3
   plus twice the port's fp32-vs-fp64 error of that leaf.
 * ``detnet_trainable_mask`` against JAX's mask under the bridge's names.
+* ``task_apply_for("det")`` against ``runner._task_apply_for("det", ...)``
+  on the tiny detector (one ``jax.jit`` of both): the summed loss and the
+  four losses at 1e-4 relative, the running statistics at 1e-5, the FPN
+  ``"0"`` map on running statistics at 1e-5 of its largest value.
 """
 
 import functools
@@ -32,9 +36,11 @@ import torch
 from edtr_tpu.models import faster_rcnn as JF
 from edtr_tpu.models.layers import TorchBatchNorm
 from edtr_tpu.ops import boxes as JB
+from edtr_tpu.train.runner import _task_apply_for
 from edtr_torch.models import faster_rcnn as TF
 from edtr_torch.models.mobilenetv3 import BatchNorm2d
 from edtr_torch.ops import boxes as TB
+from edtr_torch.train.tasks import task_apply_for
 from edtr_torch.utils.convert import from_jax
 from test_torch_detection import DET_BATCH, DET_IMAGE, _boxes, _detector, _t
 from torch_port_helpers import nchw, t2n
@@ -176,16 +182,23 @@ def _jax_train(train: bool):
     return losses, grads, stats
 
 
-def _port_train(train: bool, dtype=torch.float32):
-    """The port's training call on the same weights, images and targets:
-    (model, losses), the gradients in the parameters' ``.grad``."""
-    _, variables, images = _detector()
+def _port_train_detector():
+    """The port's tiny detector with the training knobs, JAX's weights."""
+    _, variables, _ = _detector()
     port = TF.fasterrcnn_mobilenet_v3_large_fpn(
         num_classes=6, device="cpu", min_size=DET_IMAGE, max_size=DET_IMAGE * 2,
         rpn_pre_nms_top_n_train=64, rpn_pre_nms_top_n_test=64,
         rpn_post_nms_top_n_train=32, rpn_post_nms_top_n_test=32, box_detections_per_img=8,
         **TRAIN_KNOBS)
     port.load_state_dict(from_jax(variables, "fasterrcnn"), strict=True)
+    return port
+
+
+def _port_train(train: bool, dtype=torch.float32):
+    """The port's training call on the same weights, images and targets:
+    (model, losses), the gradients in the parameters' ``.grad``."""
+    _, _, images = _detector()
+    port = _port_train_detector()
     port.to(dtype)
     targets = {k: _t(v) for k, v in _targets().items()}
     targets["boxes"] = targets["boxes"].to(dtype)
@@ -264,3 +277,40 @@ def test_trainable_mask_matches_jax():
     assert all(TF.detnet_trainable_mask(port, 6).values())
     assert not any(t for n, t in TF.detnet_trainable_mask(port, 0).items()
                    if n.startswith("backbone.body."))
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_task_det():
+    """runner's det ``(loss_fn, feats_fn)`` on the tiny detector, one
+    ``jax.jit``: (loss, losses, new batch_stats, FPN '0' map)."""
+    det, variables, images = _detector()
+    loss_fn, feats_fn = _task_apply_for("det", det.clone(**TRAIN_KNOBS))
+    targets = {k: jnp.asarray(v) for k, v in _targets().items()}
+    extra = {"batch_stats": variables["batch_stats"]}
+
+    def run(params):
+        loss, (losses, new) = loss_fn(params, extra, images, targets, jax.random.PRNGKey(3))
+        return loss, losses, new["batch_stats"], feats_fn(params, extra, images)
+
+    return jax.tree.map(np.asarray, jax.jit(run)(variables["params"]))
+
+
+def test_task_apply_for_det_matches_runner():
+    loss_w, losses_w, stats_w, feats_w = _jax_task_det()
+    _, _, images = _detector()
+    port = _port_train_detector()
+    loss_fn, feats_fn = task_apply_for("det")
+    with torch.no_grad():
+        feats = feats_fn(port, nchw(images))  # running statistics, before the loss's update
+        loss, losses = loss_fn(port, nchw(images), {k: _t(v) for k, v in _targets().items()},
+                               torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(float(loss), float(loss_w), rtol=1e-4)
+    assert set(losses) == set(losses_w)
+    for k, v in losses.items():
+        np.testing.assert_allclose(float(v), float(losses_w[k]), rtol=1e-4, err_msg=k)
+    want = t2n(nchw(feats_w))
+    np.testing.assert_allclose(t2n(feats), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    buffers = dict(port.named_buffers())
+    for n, v in from_jax({"params": {}, "batch_stats": stats_w}, "fasterrcnn").items():
+        np.testing.assert_allclose(buffers[n].numpy(), v.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=n)

@@ -1167,3 +1167,78 @@ def test_tiny_step_with_a_detnet_on_cuda():
     for n, p in det.named_parameters():
         assert torch.equal(now[n], before[n]) != p.requires_grad, n
     assert all(torch.equal(v, teacher_before[n]) for n, v in teacher.state_dict().items())
+
+
+@pytest.mark.cuda
+def test_tiny_swinir_pre_step_kernel_vs_plain_gradients():
+    """A SwinIR the Swin kernels take (C 60, two heads of 30, window 8,
+    shifted at 128²) trains one swinir-pre step on the card: the kernel
+    path's gradients (K10a, K9, K10b and the tail's K6 with their recompute
+    backward) within 5e-2 relative L2 of the plain path's, the kernels
+    launched, the loss finite and every tensor moved."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from edtr_torch.models.layers import randomize_
+    from edtr_torch.models.swinir import SwinIR
+    from edtr_torch.train import recipes as R
+
+    sw = SwinIR(embed_dim=60, depths=(2,), num_heads=(2,), window_size=8, mlp_ratio=2, sf=8,
+                dtype=torch.bfloat16).cuda()
+    randomize_(sw, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    lq, gt = (torch.rand((2, 3, 128, 128), generator=g, device="cuda") for _ in range(2))
+
+    def grads(kernel):
+        sw.zero_grad(set_to_none=True)
+        with R.swinir_configuration(kernel):
+            R.swinir_pre_loss(sw, lq, gt).backward()
+        return torch.cat([p.grad.float().flatten() for p in sw.parameters()])
+
+    before = (dict(SB.launches), dict(WA.launches), G.launches["upsample_conv"])
+    plain = grads(False)
+    assert (dict(SB.launches), dict(WA.launches), G.launches["upsample_conv"]) == before
+    kern = grads(True)
+    assert SB.launches["swin_pre"] == before[0]["swin_pre"] + 2
+    assert SB.launches["swin_post"] == before[0]["swin_post"] + 2
+    assert WA.launches["window_attention"] == before[1]["window_attention"] + 2
+    assert G.launches["upsample_conv"] == before[2] + 3
+    rel = float((kern - plain).norm() / plain.norm())
+    assert torch.isfinite(kern).all() and rel <= 5e-2, rel
+    state = R.SimpleTrainState.create(sw, R.cosine_tx("adamw", 1e-4, 10, weight_decay=0.0))
+    start = {n: p.detach().clone() for n, p in sw.named_parameters()}
+    out = R.make_swinir_pre_train_step(sw)(state, dict(lq=lq.permute(0, 2, 3, 1),
+                                                       gt=gt.permute(0, 2, 3, 1)))
+    assert torch.isfinite(out["loss"])
+    assert all(not torch.equal(p, start[n]) for n, p in sw.named_parameters())
+
+
+@pytest.mark.cuda
+def test_spaced_sampler_on_the_card_equals_the_cpu():
+    """``SpacedSampler.sample`` from pure noise, with guidance, on the card
+    equals the CPU's on the same x_T and step noises (fp32, 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from edtr_torch.diffusion.sampler import SpacedSampler
+    from edtr_torch.diffusion.schedule import Diffusion
+
+    betas = Diffusion.create(1000, linear_start=0.00085, linear_end=0.0120).betas
+    gen = torch.Generator().manual_seed(2)
+    w = torch.randn((4, 4), generator=gen) / 4
+    c, u = torch.randn((2, 2, 4, 6, 6), generator=gen)
+    x_T = torch.randn((2, 4, 6, 6), generator=gen)
+    step_noise = torch.randn((10, 2, 4, 6, 6), generator=gen)
+
+    def model(x, t, cond):
+        return (torch.einsum("bchw,cd->bdhw", x, w.to(x.device))
+                + (t.float() / 1000)[:, None, None, None] + 0.5 * cond["c"])
+
+    outs = []
+    for dev in ("cpu", "cuda"):
+        sampler = SpacedSampler(betas, dev)
+        x, inter = sampler.sample(model, 10, (4, 6, 6), {"c": c.to(dev)}, batch_size=2,
+                                  x_T=x_T.to(dev), uncond={"c": u.to(dev)}, cfg_scale=2.5,
+                                  return_intermediates=True, step_noise=step_noise.to(dev))
+        assert x.device.type == dev and inter.shape == (10, 2, 4, 6, 6)
+        outs.append((x.cpu(), inter.cpu()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-5, atol=1e-5)

@@ -58,7 +58,7 @@ def test_schedule_tables_and_p_sample():
                                    rtol=1e-6, err_msg=f)
     used = [50, 100, 150, 200]
     js = JS.make_spaced_schedule(np.asarray(d.betas), 4, used)
-    s = make_spaced_schedule(d.betas, used)
+    s = make_spaced_schedule(d.betas, 4, used)
     for f in ("sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
               "posterior_variance", "posterior_mean_coef1", "posterior_mean_coef2"):
         np.testing.assert_allclose(t2n(getattr(s, f)), np.asarray(getattr(js, f)),
