@@ -31,10 +31,10 @@ no result line):
    once (launch counts set to 0 just before it, read just after, and held
    to their exact values; no layout copies in the fused ones), the fused
    outputs are held against the stock ones, then the stage times and
-   end-to-end ms/img of all four, in turns, 21 rounds, then 20 more of
+   end-to-end ms/img of all four, in turns, 15 rounds, then 16 more of
    fused and fused+proj alone (the pairs won: stock vs fused against
-   ``pipeline.FUSED_CONV_DEFAULT`` over 21 pairs, fused vs fused+proj
-   against ``FUSED_PROJ_DEFAULT`` over 41, and fused vs fused+swin over 21
+   ``pipeline.FUSED_CONV_DEFAULT`` over 15 pairs, fused vs fused+proj
+   against ``FUSED_PROJ_DEFAULT`` over 31, and fused vs fused+swin over 15
    on the ``swinir`` stage, the only one the switch changes, against
    ``FUSED_SWIN_DEFAULT``),
    and a ``torch.profiler`` trace of each (device-busy ms, idle share,
@@ -64,7 +64,7 @@ no result line):
 8. the GroupNorm statistics at every shape of the fused restore, in
    channels-last memory and on an NCHW copy: equal, and device ms of each;
    the text tower alone on the empty prompt: bf16 against fp32 on the same
-   weights, no port-kernel launch, host ms (median of 21), device-busy ms,
+   weights, no port-kernel launch, host ms (median of 15), device-busy ms,
    kernels and host-to-device copies from a trace of 3;
 9. one full-width ControlLDM eps forward (on the empty prompt's embedding) through the flash kernels and
    through the plain attention (test hook), and fused and fused+proj
@@ -81,7 +81,7 @@ no result line):
    labels, boxes in the image); the bf16 detector against the fp32 one on
    the same image (FPN maps, objectness, deltas, class logits at the bf16
    run's proposals); the stage split swinir / vae_encode / text / scan /
-   decode+wavelet / detect over 21 rounds with the restore+detect ms/img,
+   decode+wavelet / detect over 15 rounds with the restore+detect ms/img,
    and a trace of 3 (device-busy ms, idle share, kernels; no host-to-device
    copy in the ``swinir`` and ``detect`` stages); one detect call at
    ``bench.py``'s batch of 8: ms and peak memory;
@@ -199,9 +199,46 @@ no result line):
    every bs-2 shape the counted steps launched it with, as phases 3, 5, 6
    and 7 hold them at the restore's shapes; the step's backward shapes must
    be those phase 3 held;
-22. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+22. (run after phase 12, on ``configs/det/demo.yaml`` through
+   ``build_pipeline_from_config`` with the flagship's weights) restore then
+   detect with the config's ResNet50-FPN-v2 (COCO's 91 classes, bf16,
+   seeded weights, heads calibrated on the restored image) at 512², bs 1:
+   one run counted (exact launches, the restore's), its NMS calls and host
+   synchronisations, bf16 against fp32 on the five FPN maps (gated) and the
+   heads (reported), a trace (the detect stage's device ms and kernels; no
+   host-to-device copy in ``swinir`` or ``detect``);
+23. the real-world demo (``edtr_torch.demo.restore_and_detect``) at
+   ``--scale 1`` on a seeded 768 x 1024 image, untiled, ``resize``
+   detection: one run counted, its launches exact as :func:`demo_launches`
+   derives them from JAX's dispatch (K4, ``flash_fwd``, on its first path:
+   the 12288-token level), peak memory, 3 timed calls, a trace (each
+   stage's host and busy ms, idle share, kernels; no host-to-device copy
+   but ``text``'s token ids), every kernel held against its plain version
+   at every shape the run launched it with, K3 timed at its 12288-token
+   shape (kernel / plain / SDPA device ms, the bound; phase 3 times K4 at
+   its own, this path's);
+24. the same all tiled with the demo's default tiles (SwinIR 512 / 256,
+   encoder 256, decoder 256 shrunk to the latent, latent 512 / 256
+   pixels) and ``tile`` detection: exact launches over the tile plans
+   (:func:`tile_counts`), held shapes, timing and trace as phase 23; the
+   kernel route against the plain route of the whole tiled demo (gated),
+   the tiled VAE against the untiled one with and without the GroupNorm
+   sync (reported);
+25. LPIPS (AlexNet, random weights written to a temporary ``lpips`` state
+   dict) through ``calculate_lpips`` on the card against the CPU;
+26. (run after phase 15) the two-half step with the ResNet50-FPN-v2, built
+   from ``configs/det/coco/train/001_edtr-s4-r50.yaml`` (its learning rates
+   and loss weights; student and teacher from their nodes, drawn apart),
+   bs 2 (the config's 16 cut for time and memory), 512²: gated kernel vs
+   plain as phase 14; one step counted (exact launches, K11 included),
+   losses finite; step ms (median of 3), busy ms and kernels of a traced
+   step, peak memory; the trainable tensors moved, ``conv1``, ``bn1`` and
+   ``layer1`` bit-identical with their running statistics moved, the FPN's
+   and box head's running statistics moved, the teacher unchanged;
+27. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
    most of any counted path, restore+detect, the bs-8 restore+classify,
-   the training steps and the recipes among them), then the result line.
+   the training steps, the recipes and the demo paths among them), then
+   the result line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
 with each launch's kernel in it and times a call by CUDA events, naming it
@@ -249,8 +286,10 @@ KERNELS = {
     "whole_fwd": ((10, 1024, 64), "edtr_tpu/ops/flash_attention.py:352", 28, FA_WGMMA_SOURCE),
     "streamkv_fwd": ((1, 4096, 512), "edtr_tpu/ops/flash_attention.py:264", 2,
                      FA_STREAMKV_SOURCE),
-    # N > 4096 (1024² inputs); held here at the 1024² ds=2 shape, not run at 512²
-    "flash_fwd": ((5, 8192, 64), "edtr_tpu/ops/flash_attention.py:123", None, FA_WGMMA_SOURCE),
+    # N > 4096: not run at 512²; timed at its first path's shape, the demo's
+    # 768 x 1024 level 0 (12288 tokens, 5 heads)
+    "flash_fwd": ((5, 12288, 64), "edtr_tpu/ops/flash_attention.py:123", None,
+                  FA_WGMMA_SOURCE),
 }
 # flash backward wrapper -> (flat (BH, N, D) in the 512² bs-2 training step,
 # the TPU kernel it replaces, launches per step): the backward reaches every
@@ -380,6 +419,21 @@ RECIPE_PASSES = {
     "diffbir": (SWINIR_PASS, (2, ENCODE_PASS), EPS_PASS, EPS_REMAT, EPS_BWD,
                 (DIFFBIR_STEPS, EPS_PASS), DECODE_PASS),
 }
+# the real-world demo (edtr_torch/demo.py after demo.py) from
+# configs/det/demo.yaml, on the flagship's weights: restore then detect with
+# the ResNet50-FPN-v2 detector (COCO's 91 classes) at 512², bs 1, then the
+# demo at --scale 1 on a seeded DEMO_SIZE image, untiled with ``resize``
+# detection and all tiled (the demo's default tiles) with ``tile`` detection
+DEMO_CONFIG = "configs/det/demo.yaml"
+DEMO_SIZE = (768, 1024)
+DEMO_TILED = dict(pre_res_tiled=True, vae_encoder_tiled=True, vae_decoder_tiled=True,
+                  cldm_tiled=True, detection_type="tile")
+# the v2 two-half step from this COCO train config, at TRAIN_BATCH (the
+# config's 16 cut for time and memory) and 512²
+DET_V2_TRAIN_CONFIG = "configs/det/coco/train/001_edtr-s4-r50.yaml"
+# LPIPS on the card against the CPU on the same random weights and images
+TOL_LPIPS_REL = 1e-4
+LPIPS_IMAGES = (2, 3, 128, 160)
 # conv wrapper -> (the TPU kernel it replaces, launches in one fused 512²
 # restore): 4 steps x (UNet 22 + ControlNet 10 ResBlocks) x 2 halves, of
 # them 4 x 22 at the 8² latent level (whole-image tier), plus the VAE's
@@ -521,12 +575,13 @@ TASK_NOISE = 0.1
 IMAGE = 512
 # restores per configuration in the interleaved timing (single host times
 # of one configuration spread over 300-550 ms on the card's machine), and
-# traced
-TIME_ITERS = 21
+# traced; 21 and 41 until the demo phases came, cut to keep the whole run
+# near 750 s (the verdicts' sign test needs 12 of 15 and 21 of 31)
+TIME_ITERS = 15
 TRACE_ITERS = 3
 # fused vs fused+proj pairs: the projection switch's verdict has read both
-# ways at 21 pairs, so these two configurations run 20 more rounds alone
-PROJ_PAIRS = 41
+# ways at 21 pairs, so these two configurations run 16 more rounds alone
+PROJ_PAIRS = 31
 # a configuration wins end to end beyond the ~5% drift between runs
 # (edtr_tpu/ops/dispatch.py) only if it also wins a clear majority of the
 # interleaved pairs: a one-sided sign test at this level
@@ -1079,8 +1134,10 @@ def swin_case(device, key, gen, timed: bool = True) -> dict:
         # q/k/v as the block hands them over: slices of the packed windows
         q, k, v = randn(bw, n, 3 * c).to(bf16).view(bw, n, 3, heads, d).unbind(2)
         bias = randn(heads, n, n, scale=0.5)
-        side = round(nw ** 0.5) * 8
-        mask = shift_mask(side, side, 8, 4, device) if nw else None
+        # the shifted blocks' mask of a window grid with nW windows: the most
+        # nearly square one (8 x 8 at 512², 12 x 16 at 768 x 1024)
+        gh = max(r for r in range(1, math.isqrt(max(nw, 1)) + 1) if nw % r == 0) if nw else 1
+        mask = shift_mask(gh * 8, nw // gh * 8, 8, 4, device) if nw else None
         scale = d ** -0.5
 
         def kern():
@@ -1550,7 +1607,7 @@ def text_phase(pipe, device) -> dict:
     restore's ``text`` stage: the empty prompt's embedding in bf16 against
     an fp32 tower on the same weights, the port's kernels it launches
     (none: its biased 77-token attention and its GEMMs are stock, as JAX
-    leaves them to XLA), host ms (median of 21) and a trace of 3
+    leaves them to XLA), host ms (median of 15) and a trace of 3
     (device-busy ms, kernels, host-to-device copies)."""
     from torch.profiler import record_function
 
@@ -1592,20 +1649,23 @@ def text_phase(pipe, device) -> dict:
     return res
 
 
-def detector_pair(device, images: torch.Tensor) -> tuple:
+def detector_pair(device, images: torch.Tensor, build=None, seed: int = 7) -> tuple:
     """(bf16, fp32) detectors on one set of seeded random weights
     (``randomize_``: N(0, 1/fan_in) kernels), the layers after the body
     scaled to unit output RMS on ``images`` in fp32 (``calibrate_heads_``),
     so the heads' features stay O(1) and class scores pass the 0.05
-    threshold, as trained weights' do."""
+    threshold, as trained weights' do. ``build(dtype=, device=)``: the
+    detector (the MobileNet one, 21 classes, by default)."""
     from edtr_torch.models.faster_rcnn import calibrate_heads_, fasterrcnn_mobilenet_v3_large_fpn
     from edtr_torch.models.layers import randomize_
 
-    fp32 = fasterrcnn_mobilenet_v3_large_fpn(num_classes=DETECT_CLASSES, device=device)
-    randomize_(fp32, torch.Generator(device=device).manual_seed(7))
+    if build is None:
+        def build(**kw):
+            return fasterrcnn_mobilenet_v3_large_fpn(num_classes=DETECT_CLASSES, **kw)
+    fp32 = build(device=device)
+    randomize_(fp32, torch.Generator(device=device).manual_seed(seed))
     calibrate_heads_(fp32, images)
-    bf16 = fasterrcnn_mobilenet_v3_large_fpn(num_classes=DETECT_CLASSES, dtype=torch.bfloat16,
-                                             device=device)
+    bf16 = build(dtype=torch.bfloat16, device=device)
     bf16.load_state_dict(fp32.state_dict(), strict=True)
     return bf16, fp32
 
@@ -2522,6 +2582,384 @@ def train_task_phase(task: str, path: str, weights: dict, device) -> dict:
                 timing=timing, trace=trace, checks=res)
 
 
+def demo_detector(cfg, device, images: torch.Tensor, node: str = "detnet", seed: int = 7):
+    """(bf16, fp32) of the config's ResNet50-FPN-v2 node through the
+    registry (:func:`detector_pair`: seeded weights, heads calibrated on
+    ``images``)."""
+    from edtr_torch.config import instantiate_from_config
+
+    return detector_pair(device, images,
+                         lambda **kw: instantiate_from_config(cfg.model[node], **kw), seed)
+
+
+def detect_v2_phase(cfg, pipe, device) -> tuple:
+    """Restore then detect with the demo config's ResNet50-FPN-v2 (module
+    docstring, phase 22): (the phase's results, the counted run's launches,
+    shapes and copies, the bf16 detector)."""
+    from torch.profiler import record_function
+
+    from edtr_torch.ops import boxes
+    from edtr_torch.pipeline import FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT
+    from edtr_torch.profile_restore import RESTORE_DETECT_STAGES, trace_restores
+
+    flags = (FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT)
+    lq, _, noise, step_noise = restore_args(device)
+    x, noise, step_noise = (lq.permute(0, 3, 1, 2), noise.permute(0, 3, 1, 2),
+                            step_noise.permute(0, 1, 4, 2, 3))
+
+    def restore():
+        pre = pipe.pre_restore(x)
+        return pipe.decode(pipe.denoise(pipe.encode(pre), pipe.text(1), noise, step_noise), pre)
+
+    t0 = time.perf_counter()
+    restored = restore().clamp(0, 1)
+    det, det32 = demo_detector(cfg, device, restored)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in det.parameters())
+    print(f"detector v2: {cfg.model.detnet.target} {dict(cfg.model.detnet.params)}, "
+          f"{det.num_classes} classes, {n_params} params (fp32), bf16 compute, built + "
+          f"randomised + calibrated in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def detect(img):
+        with torch.no_grad():
+            return det(img.clamp(0, 1))
+
+    detect(restored)
+    zero_counts()
+    boxes.host_syncs.update(calls=0, syncs=0)
+    dets = {}
+    ms = host_ms(lambda: dets.update(detect(restore())[0]))
+    launches, shapes, copies = read_counts()
+    syncs = dict(boxes.host_syncs)
+    print(f"restore+detect v2 counted: {ms:.1f} ms, launches {launches}, NMS calls "
+          f"{syncs['calls']} with {syncs['syncs']} host synchronisations", flush=True)
+    check(launches == expected_launches(flags), f"restore+detect v2 launches {launches}")
+    check(syncs["calls"] == 2, f"NMS calls per v2 detect {syncs['calls']}")
+    valid = dets["valid"][0]
+    check(int(valid.sum()) > 0, "no valid v2 detection")
+    check(all(bool(torch.isfinite(dets[k]).all()) for k in ("boxes", "scores")),
+          "v2 detections finite")
+    with torch.no_grad():
+        _, _, f16 = det(restored)
+        _, _, f32 = det32(restored)
+    rels = {f"fpn_{k}": rel_l2(f16["features"][k], f32["features"][k])
+            for k in det.feature_names}
+    for key in ("objectness", "pred_bbox_deltas"):
+        rels.update({f"{key}_{i}": rel_l2(a, b) for i, (a, b) in enumerate(zip(f16[key],
+                                                                                f32[key]))})
+    for k in det.feature_names:
+        check(rels[f"fpn_{k}"] <= TOL_DETECT_REL,
+              f"v2 detector bf16 vs fp32 FPN {k}: {rels[f'fpn_{k}']} > {TOL_DETECT_REL}")
+    del det32
+
+    def chain():
+        with record_function("swinir"):
+            pre = pipe.pre_restore(x)
+        with record_function("vae_encode"):
+            z = pipe.encode(pre)
+        with record_function("text"):
+            c_txt = pipe.text(1)
+        with record_function("scan"):
+            z0 = pipe.denoise(z, c_txt, noise, step_noise)
+        with record_function("decode+wavelet"):
+            img = pipe.decode(z0, pre)
+        with record_function("detect"):
+            detect(img)
+
+    boxes.host_syncs.update(calls=0, syncs=0)
+    trace = trace_restores(chain, TRACE_ITERS, RESTORE_DETECT_STAGES)
+    st = trace["stages"]["detect"]
+    for stage in ("swinir", "detect"):
+        check(trace["stages"][stage]["htod_memcpy"] == 0,
+              f"restore+detect v2: host-to-device copies in {stage}")
+    res = dict(config=DEMO_CONFIG, params=n_params, classes=det.num_classes,
+               rel_l2_bf16_vs_fp32=rels, tol_rel_l2=TOL_DETECT_REL,
+               valid_detections=int(valid.sum()), counted_ms=ms,
+               detect_stage=dict(host_ms_traced=st["host_ms"],
+                                 device_busy_ms=st["device_busy_ms"],
+                                 idle_share=st["idle_share"], kernels=st["kernels"],
+                                 htod_memcpy=st["htod_memcpy"]),
+               nms_host_syncs_per_call=boxes.host_syncs["syncs"] / boxes.host_syncs["calls"],
+               stages={k: {kk: v[kk] for kk in ("host_ms", "device_busy_ms", "idle_share",
+                                                 "kernels", "htod_memcpy")}
+                       for k, v in trace["stages"].items()})
+    print("restore+detect v2 (bf16, bs 1, 512² -> 800²):", json.dumps(res), flush=True)
+    return res, dict(launches=launches, shapes=shapes, copies=copies), det
+
+
+def demo_inputs(device) -> tuple:
+    """The demo's seeded (1, H, W, 3) image at :data:`DEMO_SIZE` and its
+    q_sample and walk draws (NCHW latent)."""
+    g = torch.Generator(device=device).manual_seed(12)
+    h, w = DEMO_SIZE
+    lat = (1, 4, h // 8, w // 8)
+    return (torch.rand((1, h, w, 3), generator=g, device=device),
+            torch.randn(lat, generator=g, device=device),
+            torch.randn((4,) + lat, generator=g, device=device))
+
+
+def demo_phase(pipe, det, device, tiled: bool) -> tuple:
+    """The demo (module docstring, phases 23-24) on the seeded
+    :data:`DEMO_SIZE` image: untiled with ``resize`` detection, or all
+    tiled (:data:`DEMO_TILED`) with ``tile`` detection: (results, the
+    counted run's launches, shapes and copies, its restored image)."""
+    from edtr_torch.demo import restore_and_detect
+    from edtr_torch.ops import boxes
+    from edtr_torch.profile_restore import RESTORE_DETECT_STAGES, trace_restores
+
+    what = "demo tiled" if tiled else "demo"
+    image, noise, step_noise = demo_inputs(device)
+    opts = DEMO_TILED if tiled else {}
+
+    def run():
+        return restore_and_detect(pipe, det, image, noise=noise, step_noise=step_noise, **opts)
+
+    first = host_ms(run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    boxes.host_syncs.update(calls=0, syncs=0)
+    out = {}
+    ms = host_ms(lambda: out.update(run()))
+    launches, shapes, copies = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    syncs = dict(boxes.host_syncs)
+    h, w = DEMO_SIZE
+    want = demo_launches(h, w, tiled)
+    print(f"{what} counted ({h}x{w}): first call {first:.1f} ms, counted {ms:.1f} ms, launches "
+          f"{launches}, layout copies {copies}, NMS calls {syncs['calls']} with "
+          f"{syncs['syncs']} host synchronisations, peak {peak:.2f} GiB", flush=True)
+    check(launches == want, f"{what} launches {launches}, want {want}")
+    if not tiled:
+        check(launches["flash_fwd"] > 0, "K4 (flash_fwd) launched on the untiled demo")
+    check(copies == dict(conv=0, proj=0), f"{what} layout copies {copies}")
+    check(tuple(out["restored"].shape) == (1, h, w, 3), f"{what} restored shape")
+    check(bool(torch.isfinite(out["restored"]).all()), f"{what} restored finite")
+    dets = out["detections"]
+    check(all(bool(torch.isfinite(dets[k]).all()) for k in ("boxes", "scores")),
+          f"{what} detections finite")
+    runs = [host_ms(run) for _ in range(3)]
+    trace = trace_restores(run, 1, RESTORE_DETECT_STAGES)
+    for stage, st in trace["stages"].items():
+        allowed = 1 if stage == "text" else 0  # the token ids
+        check(st["htod_memcpy"] <= allowed, f"{what}: {st['htod_memcpy']} host-to-device "
+                                            f"copies in {stage}")
+    held = hold_shapes(device, shapes)  # each case checks its own limits
+    check(set(held) == {k for k, n in launches.items() if n}, f"{what} held {sorted(held)}")
+    # K3 timed at the 12288 tokens only this path gives it (three times the
+    # restore's), beside its bound; K4's row is timed at this path's shape
+    gen = torch.Generator(device=device).manual_seed(20)
+    timed = [flash_case(device, key[0], key[1:], gen) for key in sorted(shapes["flash"], key=str)
+             if not tiled and key[0] == "streamkv_fwd"]
+    res = dict(size=list(DEMO_SIZE), options=opts, counted_ms=ms, first_ms=first,
+               e2e_ms=statistics.median(runs), e2e_runs_ms=runs, peak_memory_gib=peak,
+               valid_detections=int(dets["valid"].sum()), launches=launches,
+               expected_launches=want, tiles=tile_counts(h, w) if tiled else None,
+               nms_calls=syncs["calls"], nms_host_syncs=syncs["syncs"], held_shapes=held,
+               stages={k: {kk: v[kk] for kk in ("host_ms", "device_busy_ms", "idle_share",
+                                                 "kernels", "htod_memcpy")}
+                       for k, v in trace["stages"].items()},
+               by_family_ms=trace["by_family_ms"], timed_at_new_shapes=timed)
+    if tiled:
+        with pipe_path(pipe, False):
+            plain = run()
+        res["kernel_vs_plain_rel_l2"] = rel_l2(out["restored"], plain["restored"])
+        check(res["kernel_vs_plain_rel_l2"] <= TOL_FUSED_REL,
+              f"tiled demo kernel vs plain route: {res['kernel_vs_plain_rel_l2']}")
+        res["tiled_vae_vs_untiled"] = tiled_vae_distance(pipe, out["pre_restored"], out["z"])
+    print(f"{what} ({h}x{w}, bf16, the demo config's pipeline and v2 detector):",
+          json.dumps(res), flush=True)
+    return res, dict(launches=launches, shapes=shapes, copies=copies)
+
+
+def tiled_vae_distance(pipe, pre_nhwc: torch.Tensor, z: torch.Tensor) -> dict:
+    """The tiled VAE (the demo's 256-pixel encoder and 256-latent decoder
+    tiles) against the untiled one on the demo's images, relative L2, with
+    the GroupNorm statistics synced across tiles and with each tile on its
+    own (no sync pass)."""
+    from edtr_torch.utils.tiling import tiled_vae_decode, tiled_vae_encode
+
+    vae = pipe.cldm.vae
+    img = pre_nhwc.permute(0, 3, 1, 2) * 2 - 1
+    zu = z / pipe.cldm.scale_factor
+    out = {}
+    with torch.no_grad(), pipe.configuration():
+        enc = vae.encode(img).mode()
+        dec = vae.decode(zu)
+        for iters, name in ((1, "gn_synced"), (0, "per_tile")):
+            out[f"encode_{name}"] = rel_l2(tiled_vae_encode(vae, img, 256, iters).mode(), enc)
+            out[f"decode_{name}"] = rel_l2(tiled_vae_decode(vae, zu, 256, iters), dec)
+    return out
+
+
+def train_det_v2_phase(weights: dict, device) -> dict:
+    """The two-half step with the ResNet50-FPN-v2 (module docstring, phase
+    26), built from :data:`DET_V2_TRAIN_CONFIG` on ``weights``."""
+    from edtr_torch.ops import boxes
+    from edtr_torch.profile_restore import TRAIN_STAGES, trace_restores
+    from edtr_torch.train.edtr_step import (EDTRTrainState, cast_frozen_bf16,
+                                            make_edtr_train_step)
+
+    t0 = time.perf_counter()
+    cfg, pipe = config_pipeline(DET_V2_TRAIN_CONFIG, weights, device)
+    tc = cfg.train
+    g = torch.Generator(device=device).manual_seed(4)
+    lat = IMAGE // 8
+    targets = det_targets(device, g)
+    gt = box_images(device, g, targets)
+    lq = (gt + 0.1 * torch.randn(gt.shape, generator=g, device=device)).clamp(0, 1)
+    batch = dict(lq=lq.permute(0, 2, 3, 1), gt=gt.permute(0, 2, 3, 1),
+                 c_txt=pipe.text(TRAIN_BATCH), targets=targets)
+    student = demo_detector(cfg, device, gt)[0]
+    teacher = demo_detector(cfg, device, gt, "teacher_detnet", seed=8)[0]
+    cast_frozen_bf16(pipe, pipe.cldm.vae.train_decoder, teacher)
+    state = EDTRTrainState.create(pipe, learning_rate_edtr=float(tc.learning_rate_edtr),
+                                  train_steps=int(tc.train_steps), detnet=student,
+                                  teacher_detnet=teacher,
+                                  learning_rate_detnet=float(tc.learning_rate_detnet))
+    loss_w = dict(weight_hlf=float(tc.weight_hlf), weight_det=float(tc.weight_det),
+                  weight_fm=float(tc.weight_fm))
+    step = make_edtr_train_step(pipe, detnet=student, teacher_detnet=teacher, **loss_w)
+    t, noise = step.draw(torch.empty((TRAIN_BATCH, 4, lat, lat), device=device), g)
+    params = dict(pipe.named_parameters())
+    trainable = {n: p for n, p in params.items() if p.requires_grad}
+    frozen = {n: p for n, p in params.items() if not p.requires_grad}
+    det_params = dict(student.named_parameters())
+    det_train = {n: p for n, p in det_params.items() if p.requires_grad}
+    det_frozen = {n: p for n, p in det_params.items() if not p.requires_grad}
+    draws = dict(noise=torch.randn((1, 4, lat, lat), generator=g, device=device),
+                 step_noise=torch.randn((4, 1, 4, lat, lat), generator=g, device=device),
+                 uniforms=None)
+    torch.cuda.synchronize()
+    print(f"train with the v2 detector: {DET_V2_TRAIN_CONFIG}, {loss_w}, student and teacher "
+          f"ResNet50-FPN-v2 ({student.num_classes} classes, drawn apart), "
+          f"{sum(p.numel() for p in det_train.values())} trainable and "
+          f"{sum(p.numel() for p in det_frozen.values())} frozen detnet params; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    cmp = step_kernel_vs_plain(step, state, batch, t, noise, draws, trainable, det_train,
+                               seed=6)
+    print("train with the v2 detector, kernel path vs plain path:", json.dumps(cmp), flush=True)
+    for part, r in cmp["gated_rel_l2"].items():
+        check(r <= TOL_GRAD_REL, f"v2 detector step kernel vs plain, {part}: relative L2 {r}")
+
+    before = {n: p.detach().clone() for n, p in params.items()}
+    det_before = {n: v.clone() for n, v in student.state_dict().items()}
+    teacher_before = {n: v.clone() for n, v in teacher.state_dict().items()}
+    step(state, batch, generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    boxes.host_syncs.update(calls=0, syncs=0)
+    out = {}
+    first_ms = host_ms(lambda: out.update(step(state, batch, t, noise, generator=g,
+                                                task_draws=[draws])))
+    launches, shapes, _ = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: v.item() for k, v in out.items()}
+    print(f"train step with the v2 detector counted: {first_ms:.1f} ms, metrics {metrics}, "
+          f"launches {launches}, peak {peak:.2f} GiB", flush=True)
+    check(all(math.isfinite(v) for v in metrics.values()), f"v2 step losses {metrics}")
+    check(launches == TRAIN_LAUNCHES_DET, f"v2 step launches {launches}, want "
+                                          f"{TRAIN_LAUNCHES_DET}")
+    steps = [host_ms(lambda: step(state, batch, generator=g)) for _ in range(RECIPE_TIMED)]
+    trace = trace_restores(lambda: step(state, batch, generator=g), 1, TRAIN_STAGES)
+    timing = dict(step_ms=statistics.median(steps), step_runs_ms=steps,
+                  device_busy_ms=sum(trace["stages"][s_]["device_busy_ms"]
+                                     for s_ in TRAIN_STAGES),
+                  kernels=sum(trace["stages"][s_]["kernels"] for s_ in TRAIN_STAGES),
+                  phase_host_ms_traced={s_: trace["stages"][s_]["host_ms"] for s_ in TRAIN_STAGES},
+                  phase_device_busy_ms_traced={s_: trace["stages"][s_]["device_busy_ms"]
+                                               for s_ in TRAIN_STAGES},
+                  peak_memory_gib=peak, batch=TRAIN_BATCH, image=IMAGE)
+    print(f"train step with the v2 detector: {timing['step_ms']:.2f} ms (median of "
+          f"{RECIPE_TIMED}):", json.dumps(timing), flush=True)
+
+    moved = [n for n in trainable if not torch.equal(params[n], before[n])]
+    changed = [n for n in frozen if not torch.equal(params[n], before[n])]
+    det_now = student.state_dict()
+    det_moved = [n for n in det_train if not torch.equal(det_now[n], det_before[n])]
+    det_changed = [n for n in det_frozen if not torch.equal(det_now[n], det_before[n])]
+    frozen_mods = {n.split(".")[2] for n in det_frozen}
+    stats = [n for n in det_now if n.endswith(("running_mean", "running_var"))
+             and n.startswith("backbone.body.") and n.split(".")[2] in frozen_mods]
+    stats_moved = [n for n in stats if not torch.equal(det_now[n], det_before[n])]
+    head_stats = [n for n in det_now if n.endswith("running_mean")
+                  and not n.startswith("backbone.body.")]
+    head_moved = [n for n in head_stats if not torch.equal(det_now[n], det_before[n])]
+    teacher_changed = [n for n, v in teacher.state_dict().items()
+                       if not torch.equal(v, teacher_before[n])]
+    res = dict(moved=len(moved), trainable=len(trainable), frozen_changed=len(changed),
+               detnet_moved=len(det_moved), detnet_trainable=len(det_train),
+               detnet_frozen_changed=len(det_changed), frozen_modules=sorted(frozen_mods),
+               frozen_stats_moved=len(stats_moved), frozen_stats=len(stats),
+               fpn_head_stats_moved=len(head_moved), fpn_head_stats=len(head_stats),
+               teacher_changed=len(teacher_changed), steps=state.step)
+    print("train with the v2 detector, after the steps:", json.dumps(res), flush=True)
+    check(len(moved) == len(trainable), "every ControlNet and decoder tensor moved")
+    check(not changed, f"frozen pipeline tensors changed: {changed[:5]}")
+    check(len(det_moved) == len(det_train), f"trainable v2 tensors moved: {len(det_moved)}")
+    check(frozen_mods == {"conv1", "bn1", "layer1"} and not det_changed,
+          f"frozen v2 modules {sorted(frozen_mods)}, changed {det_changed[:5]}")
+    check(stats and len(stats_moved) == len(stats),
+          f"frozen stages' running statistics moved: {len(stats_moved)} of {len(stats)}")
+    check(head_stats and len(head_moved) == len(head_stats),
+          f"FPN and box-head running statistics moved: {len(head_moved)} of {len(head_stats)}")
+    check(not teacher_changed, f"teacher tensors changed: {teacher_changed[:5]}")
+    return dict(config=DET_V2_TRAIN_CONFIG, launches=launches, metrics=metrics,
+                kernel_vs_plain=cmp, timing=timing, checks=res)
+
+
+def lpips_phase(device) -> dict:
+    """LPIPS (AlexNet, random weights written as an ``lpips`` state dict
+    to a temporary file) through ``calculate_lpips`` on the card against
+    the CPU, relative, at :data:`TOL_LPIPS_REL`."""
+    import os
+    import tempfile
+
+    from edtr_torch.models.lpips import LPIPS
+    from edtr_torch.utils.image import calculate_lpips
+
+    torch.manual_seed(13)
+    sd = LPIPS("alex").state_dict()
+    for v in sd.values():
+        v.copy_(torch.rand_like(v) * 0.1 if v.ndim == 4 and v.shape[0] == 1 else v)
+    g = torch.Generator().manual_seed(14)
+    a, b = torch.rand(LPIPS_IMAGES, generator=g), torch.rand(LPIPS_IMAGES, generator=g)
+    fd, path = tempfile.mkstemp(suffix=".pth")
+    os.close(fd)
+    try:
+        torch.save(sd, path)
+        cpu = calculate_lpips(a, b, weights_path=path)
+        card = calculate_lpips(a.to(device), b.to(device), weights_path=path)
+        ms = host_ms(lambda: calculate_lpips(a.to(device), b.to(device), weights_path=path))
+    finally:
+        os.remove(path)
+    rel = float(((card.cpu() - cpu).abs() / cpu.abs()).max())
+    res = dict(images=list(LPIPS_IMAGES), card=card.tolist(), cpu=cpu.tolist(),
+               max_rel=rel, tol_rel=TOL_LPIPS_REL, host_ms=ms)
+    print("lpips (alex, random weights, card vs CPU):", json.dumps(res), flush=True)
+    check(rel <= TOL_LPIPS_REL, f"LPIPS card vs CPU: {rel} > {TOL_LPIPS_REL}")
+    return res
+
+
+def demo_phases(weights: dict, device, counted: dict) -> dict:
+    """Phases 22-25 on the demo config's pipeline (the flagship's weights):
+    restore then detect with the v2, the untiled and the all-tiled demo
+    (their counted runs' launches into ``counted``), then LPIPS."""
+    cfg, pipe = config_pipeline(DEMO_CONFIG, weights, device)
+    out = {}
+    out["restore_detect_v2"], counted["restore+detect v2"], det = detect_v2_phase(cfg, pipe,
+                                                                                  device)
+    for tiled, name in ((False, "demo"), (True, "demo tiled")):
+        out[name.replace(" ", "_")], counted[name] = demo_phase(pipe, det, device, tiled)
+    del pipe, det
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lpips"] = lpips_phase(device)
+    return out
+
+
 def launch_sum(*parts) -> dict:
     """Launches of every kernel wrapper summed over ``parts``, each a dict
     of launches per pass or (passes, that dict); 0 for the others."""
@@ -2543,6 +2981,126 @@ def recipe_launches(recipe: str) -> dict:
     check({k: n for k, n in walk.items() if n} == WALK_LAUNCHES,
           "the passes sum to WALK_LAUNCHES")
     return launch_sum(*RECIPE_PASSES[recipe])
+
+
+def attention_wrapper(n: int, d: int):
+    """The flash wrapper JAX's dispatch sends an N-token, D-wide
+    self-attention to (``shapes_supported``, then ``kernel_for``), or None
+    (JAX leaves it to XLA; the port to the plain math)."""
+    from edtr_torch.ops import flash_attention as FA
+
+    q = torch.empty((1, n, 1, d), device="meta")
+    return FA.kernel_for(n, d) if FA.shapes_supported(q, q, q) else None
+
+
+def _add(counts: dict, name, n: int = 1) -> None:
+    if name is not None:
+        counts[name] = counts.get(name, 0) + n
+
+
+def eps_launches(lh: int, lw: int) -> dict:
+    """One ControlNet + UNet eps forward on an (lh, lw) latent: at each of
+    the four levels (each half the last) its ResBlock halves (ControlNet 2
+    + UNet 5 ResBlocks at levels 0-2, 4 + 7 at level 3 with the middle
+    blocks) in the conv tier of the level's height, at levels 0-2 its 7
+    self-attentions (64 wide) in the wrapper of their token count, and the
+    UNet's 3 upsamples (:data:`EPS_PASS` at 64²)."""
+    from edtr_torch.ops.gn_conv import tier
+
+    counts = {"upsample_conv": 3}
+    for level in range(4):
+        h, w = lh >> level, lw >> level
+        _add(counts, tier(h), 2 * (11 if level == 3 else 7))
+        if level < 3:
+            _add(counts, attention_wrapper(h * w, 64), 7)
+    return counts
+
+
+def encode_launches(h: int, w: int) -> dict:
+    """The VAE encoder on an (h, w) image: 2 ResBlocks at each of its four
+    levels and 2 in the middle, their halves in the tier of their height,
+    and the middle attention (one head, 512 wide) over (h/8)(w/8) tokens
+    (:data:`ENCODE_PASS` at 512²)."""
+    from edtr_torch.ops.gn_conv import tier
+
+    counts = {}
+    for level in range(4):
+        _add(counts, tier(h >> level), 4)
+    _add(counts, tier(h >> 3), 4)
+    _add(counts, attention_wrapper((h >> 3) * (w >> 3), 512))
+    return counts
+
+
+def decode_launches(lh: int, lw: int) -> dict:
+    """The VAE decoder on an (lh, lw) latent: the middle attention and 2
+    ResBlocks there, 3 ResBlocks at each of four levels (each twice the
+    last), their halves in the tier of their height, and 3 upsamples
+    (:data:`DECODE_PASS` at 64²)."""
+    from edtr_torch.ops.gn_conv import tier
+
+    counts = {"upsample_conv": 3}
+    _add(counts, attention_wrapper(lh * lw, 512))
+    _add(counts, tier(lh), 4)
+    for level in range(4):
+        _add(counts, tier(lh << level), 6)
+    return counts
+
+
+def swinir_launches(h: int, w: int) -> dict:
+    """SwinIR on an (h, w) image: each of its 48 blocks' three Swin kernels
+    where the fused block takes the (h/8, w/8) token grid (window 8), and
+    the tail's 3 upsamples (:data:`SWINIR_PASS` at 512²)."""
+    from edtr_torch.ops.swin_block import supported
+
+    counts = {"upsample_conv": 3}
+    if supported(h // 8, w // 8, 8):
+        counts.update(window_attention=48, swin_pre=48, swin_post=48)
+    return counts
+
+
+def demo_tiles(h: int, w: int) -> dict:
+    """The all-tiled demo's tile plans on an (h, w) image (multiples of 64,
+    at least 512), each (tiles, tile side) as ``edtr_torch.utils.tiling``
+    lays them out: SwinIR's, the encoder's two passes (at stride side, then
+    3/4 side), the walk's (each of 4 steps), the decoder's two passes (its
+    tile shrunk to the latent), and the detector's."""
+    from edtr_torch.demo import DEFAULTS as D
+    from edtr_torch.utils.tiling import sliding_windows, tile_plan
+
+    def plan(hh, ww, size, stride=None):
+        first = tile_plan(hh, ww, size, stride or size)
+        side = first[0][1] - first[0][0]
+        return ((len(first), len(tile_plan(hh, ww, side, side * 3 // 4))) if stride is None
+                else len(first)), side
+
+    return dict(swinir=plan(h, w, D["pre_res_tile_size"], D["pre_res_tile_stride"]),
+                vae_encoder=plan(h, w, D["vae_encoder_tile_size"]),
+                latent=plan(h // 8, w // 8, D["cldm_tile_size"] // 8, D["cldm_tile_stride"] // 8),
+                vae_decoder=plan(h // 8, w // 8, D["vae_decoder_tile_size"]),
+                detect=(len(sliding_windows(h, w, D["detection_tile_size"],
+                                            D["detection_tile_stride"])),
+                        D["detection_tile_size"]))
+
+
+def tile_counts(h: int, w: int) -> dict:
+    """The tiles of each plan of :func:`demo_tiles`."""
+    return {name: n for name, (n, _) in demo_tiles(h, w).items()}
+
+
+def demo_launches(h: int, w: int, tiled: bool) -> dict:
+    """The exact launches of ``restore_and_detect`` on an (h, w) image
+    (multiples of 64, at least 512) with the demo's default tiles
+    (``tiled``: the tile plans of :func:`demo_tiles`) or none; 4 walk
+    steps; the detector and the text tower launch none of the port's
+    kernels."""
+    if not tiled:
+        return launch_sum(swinir_launches(h, w), encode_launches(h, w),
+                          (4, eps_launches(h // 8, w // 8)), decode_launches(h // 8, w // 8))
+    t = demo_tiles(h, w)
+    (n_sw, sw), (n_enc, enc), (n_lat, lat), (n_dec, dec) = (
+        t[k] for k in ("swinir", "vae_encoder", "latent", "vae_decoder"))
+    return launch_sum((n_sw, swinir_launches(sw, sw)), (sum(n_enc), encode_launches(enc, enc)),
+                      (4 * n_lat, eps_launches(lat, lat)), (sum(n_dec), decode_launches(dec, dec)))
 
 
 def recipe_run(name: str, call, want: dict) -> dict:
@@ -3083,6 +3641,7 @@ def main() -> int:
         tasks[what], counted[what] = restore_task_phase(task, path, weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+    demo = demo_phases(weights, device, counted)
     train = train_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3100,6 +3659,9 @@ def main() -> int:
         tasks[f"train_{task}"] = train_task_phase(task, path, weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+    train_det_v2 = train_det_v2_phase(weights, device)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the recipes, on the same seeded weights
     recipes = {}
     for name, phase in (("swinir_pre", train_swinir_pre_phase), ("sr4ir", train_sr4ir_phase),
@@ -3128,9 +3690,13 @@ def main() -> int:
             row[f"launches_train_step_{task}"] = tasks[f"train_{task}"]["launches"][name]
         for recipe in ("swinir_pre", "sr4ir", "task_swinir", "diffbir"):
             row[f"launches_recipe_{recipe}"] = recipes[recipe]["launches"][name]
-        row["launches"] = max([row["launches"]] + [recipes[r]["launches"][name] for r in
-                                                   ("swinir_pre", "sr4ir", "task_swinir",
-                                                    "diffbir")])
+        row["launches_demo"] = counted["demo"]["launches"][name]
+        row["launches_demo_tiled"] = counted["demo tiled"]["launches"][name]
+        row["launches_train_step_detnet_v2"] = train_det_v2["launches"][name]
+        row["launches"] = max([row["launches"], train_det_v2["launches"][name]]
+                              + [recipes[r]["launches"][name] for r in
+                                 ("swinir_pre", "sr4ir", "task_swinir", "diffbir")])
+        row["on_path"] = row["launches"] > 0  # K4: the demo's path
     check(set(conv_rows) == set(CONV_KERNELS), f"conv kernels timed: {sorted(conv_rows)}")
     check(set(proj_rows) == set(PROJ_KERNELS), f"proj kernels timed: {sorted(proj_rows)}")
     check(set(swin_rows) == set(SWIN_KERNELS), f"swin kernels timed: {sorted(swin_rows)}")
@@ -3140,6 +3706,7 @@ def main() -> int:
     print(json.dumps({"card": card, "restore": timing, "text": text, "detect": detect,
                       "cldm_eps": cldm, "gn_stats": norms,
                       "train": train, "train_detnet": train_det, "task_nets": tasks,
+                      "demo": demo, "train_detnet_v2": train_det_v2,
                       "recipes": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
                                   for k, v in recipes.items()},
                       "swinir_pre_shapes": [dict(key=list(k), launches=n) for k, n in

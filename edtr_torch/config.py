@@ -7,10 +7,9 @@ over a nested dict), :func:`load_config` (``yaml.safe_load``),
 name the reference's targets (``model.resnet.ResNet``, ...); :data:`REGISTRY`
 maps each to the port's constructor, and ``edtr_torch.*`` paths resolve by
 import. A reference target the port does not have yet (the datasets, the
-ResNet50-FPN-v2 detector, the unused restoration nets, the dead
-``nsampler`` encoder) raises :class:`NotPortedError` naming it; any other
-path outside ``edtr_torch`` raises too, so nothing resolves into the JAX
-package.
+unused restoration nets, the dead ``nsampler`` encoder) raises
+:class:`NotPortedError` naming it; any other path outside ``edtr_torch``
+raises too, so nothing resolves into the JAX package.
 """
 
 from __future__ import annotations
@@ -100,7 +99,8 @@ REGISTRY: Dict[str, Optional[str]] = {
     "model.deeplabv3.deeplabv3_mobilenet_v3_large":
         "edtr_torch.models.deeplabv3.deeplabv3_mobilenet_v3_large",
     "model.deeplabv3.deeplabv3_resnet50": "edtr_torch.models.deeplabv3.deeplabv3_resnet50",
-    "model.faster_rcnn.fasterrcnn_resnet50_fpn_v2": None,
+    "model.faster_rcnn.fasterrcnn_resnet50_fpn_v2":
+        "edtr_torch.models.faster_rcnn.fasterrcnn_resnet50_fpn_v2",
     "model.vae.Encoder": None,
     "model.bsrnet.RRDBNet": None,
     "model.scunet.SCUNet": None,

@@ -24,6 +24,7 @@ from edtr_torch.models.clip import CLIPTextEncoder
 from edtr_torch.models.controlnet import ControlNet
 from edtr_torch.models.unet import UNetModel
 from edtr_torch.models.vae import AutoencoderKL
+from edtr_torch.utils.tiling import tiled_vae_decode, tiled_vae_encode
 
 def clip_from_cfg(clip_cfg: Dict[str, Any],
                   dtype: Optional[torch.dtype] = None) -> CLIPTextEncoder:
@@ -59,14 +60,20 @@ class ControlLDM(nn.Module):
 
     def vae_encode(self, image: torch.Tensor, sample: bool = False,
                    noise: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   tiled: bool = False, tile_size: int = -1) -> torch.Tensor:
         """Scaled latent of ``image`` (NCHW in [-1, 1]), fp32: the
         posterior's mode, or with ``sample`` its sample ``mean + std *
         noise`` (``noise`` NCHW like the latent, drawn from ``generator``
         when not given). JAX's ``vae_encode`` samples by default; the port
         keeps the mode by default, which every restore reads, and the
-        DiffBIR recipe asks for the sample."""
-        posterior = self.vae.encode(image)
+        DiffBIR recipe asks for the sample. ``tiled``: the posterior from
+        GroupNorm-synced tiles of ``tile_size`` pixels
+        (``utils/tiling.py:tiled_vae_encode``; 512 when <= 0)."""
+        if tiled:
+            posterior = tiled_vae_encode(self.vae, image, tile_size)
+        else:
+            posterior = self.vae.encode(image)
         if not sample:
             return posterior.mode() * self.scale_factor
         if noise is None:
@@ -74,8 +81,13 @@ class ControlLDM(nn.Module):
                                 device=posterior.mean.device)
         return posterior.sample(noise) * self.scale_factor
 
-    def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Decode a scaled latent -> NCHW fp32 in about [-1, 1]."""
+    def vae_decode(self, z: torch.Tensor, tiled: bool = False,
+                   tile_size: int = -1) -> torch.Tensor:
+        """Decode a scaled latent -> NCHW fp32 in about [-1, 1]; ``tiled``:
+        from GroupNorm-synced latent tiles of ``tile_size``
+        (``utils/tiling.py:tiled_vae_decode``; 64 when <= 0)."""
+        if tiled:
+            return tiled_vae_decode(self.vae, z / self.scale_factor, tile_size)
         return self.vae.decode(z / self.scale_factor)
 
     def encode_text(self, prompt: Sequence[str]) -> torch.Tensor:

@@ -1,11 +1,16 @@
-"""Faster R-CNN MobileNetV3-Large-FPN (NCHW, static shapes).
+"""Faster R-CNN, MobileNetV3-Large-FPN and ResNet50-FPN-v2 (NCHW, static
+shapes).
 
-Counterpart of ``edtr_tpu/models/faster_rcnn.py`` for the MobileNet
-variant the flagship detects with (``fasterrcnn_mobilenet_v3_large_fpn``,
-``bench.py``): transform (normalise, resize, pad), MobileNetV3 body, FPN
-(two levels and a stride-2 ``pool`` level), anchors, RPN head and
-proposals, multi-scale RoIAlign, two-MLP box head, predictor and the
-detections' post-processing. As in JAX every shape is static: proposals
+Counterpart of ``edtr_tpu/models/faster_rcnn.py``: the MobileNet variant
+the flagship detects with (``fasterrcnn_mobilenet_v3_large_fpn``,
+``bench.py``) and the v2 ResNet-50 variant of the COCO configs and the
+real-world demo (``fasterrcnn_resnet50_fpn_v2``). Transform (normalise,
+resize, pad), body (MobileNetV3, or ResNet-50's C2..C5), FPN (two levels,
+or four with a BatchNorm after every conv, and a stride-2 ``pool`` level),
+anchors (five sizes on each MobileNet level, one size a level on the v2),
+RPN head (one 3x3 conv, or two on the v2) and proposals, multi-scale
+RoIAlign, box head (two MLPs, or the v2's four conv + BatchNorm + ReLU and
+one fc), predictor and the detections' post-processing. As in JAX every shape is static: proposals
 and detections are padded tensors with validity masks and every top-k size
 is fixed, so no shape depends on the data. Parameter names are
 torchvision's (``backbone.body.features...``, ``backbone.fpn...``,
@@ -24,16 +29,15 @@ detached proposals and the sampled ones gathered first for the box head's
 loss. ``train=True`` runs the body's BatchNorms on batch statistics and
 updates their running ones, unless ``norm_frozen``. The sampler's uniform
 draws can be given (``sampler_uniforms``) or come from ``generator``.
+On the v2 ``train=True`` also runs the FPN's and the box head's
+BatchNorms on batch statistics: its factory never freezes a norm.
 :func:`detnet_trainable_mask` freezes the body's early stages as
 torchvision's ``trainable_layers`` does.
-
-Not ported yet: the ResNet50-FPN-v2 variant (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import math
-import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,7 +47,8 @@ from torch import nn
 
 from edtr_torch.device import resolve_device
 from edtr_torch.models.layers import Conv2d, Linear, calibrate_unit_rms_
-from edtr_torch.models.mobilenetv3 import MobileNetV3
+from edtr_torch.models.mobilenetv3 import BatchNorm2d, MobileNetV3
+from edtr_torch.models.resnet import ResNet
 from edtr_torch.ops import boxes as box_ops
 from edtr_torch.ops.roi_align import multiscale_roi_align
 
@@ -51,6 +56,7 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 ANCHOR_SIZES = (32, 64, 128, 256, 512)
 ASPECT_RATIOS = (0.5, 1.0, 2.0)
+BACKBONES = ("mobilenet_v3_large_fpn", "resnet50_fpn_v2")
 
 
 class RCNNTransform(nn.Module):
@@ -96,26 +102,37 @@ class RCNNTransform(nn.Module):
 class FeaturePyramidNetwork(nn.Module):
     """1x1 inner convs, top-down nearest upsample + add, 3x3 layer convs,
     and the extra ``pool`` level (torchvision's LastLevelMaxPool: kernel 1,
-    stride 2, a plain subsample); no norms."""
+    stride 2, a plain subsample). ``use_norm`` (the v2): each conv without
+    bias and followed by a BatchNorm (torch momentum 0.1, eps 1e-5; fp32,
+    cast back to the conv's dtype, as JAX's ``TorchBatchNorm``), at
+    ``inner_blocks.{i}.1`` / ``layer_blocks.{i}.1``."""
 
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_norm: bool = False):
         super().__init__()
-        self.inner_blocks = nn.ModuleList(
-            nn.Sequential(Conv2d(c, out_channels, 1, dtype=dtype)) for c in in_channels)
-        self.layer_blocks = nn.ModuleList(
-            nn.Sequential(Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype))
-            for _ in in_channels)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        inner = [blk(f) for blk, f in zip(self.inner_blocks, feats)]
+        def block(cin, k):
+            conv = Conv2d(cin, out_channels, k, padding=k // 2, bias=not use_norm, dtype=dtype)
+            norm = [BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)] if use_norm else []
+            return nn.Sequential(conv, *norm)
+
+        self.inner_blocks = nn.ModuleList(block(c, 1) for c in in_channels)
+        self.layer_blocks = nn.ModuleList(block(out_channels, 3) for _ in in_channels)
+
+    @staticmethod
+    def _run(blk: nn.Sequential, x: torch.Tensor, train: bool) -> torch.Tensor:
+        y = blk[0](x)
+        return blk[1](y, train).to(y.dtype) if len(blk) > 1 else y
+
+    def forward(self, feats: Sequence[torch.Tensor], train: bool = False) -> List[torch.Tensor]:
+        inner = [self._run(blk, f, train) for blk, f in zip(self.inner_blocks, feats)]
         results = [inner[-1]]
         for t in reversed(inner[:-1]):
             last = results[0]
             if last.shape[-2:] != t.shape[-2:]:  # JAX's nearest: half-pixel centres
                 last = F.interpolate(last, size=t.shape[-2:], mode="nearest-exact")
             results.insert(0, t + last)
-        outs = [blk(r) for blk, r in zip(self.layer_blocks, results)]
+        outs = [self._run(blk, r, train) for blk, r in zip(self.layer_blocks, results)]
         return outs + [outs[-1][:, :, ::2, ::2]]
 
 
@@ -146,13 +163,15 @@ def generate_anchors(feat_shapes: Sequence[Tuple[int, int]],
 
 
 class RPNHead(nn.Module):
-    """3x3 conv + relu (``conv.0.0``), then objectness and box deltas, both
-    fp32, per level as (B, A, H, W) and (B, 4A, H, W)."""
+    """``conv_depth`` 3x3 convs + relu (``conv.{d}.0``: one, or two on the
+    v2), then objectness and box deltas, both fp32, per level as (B, A, H,
+    W) and (B, 4A, H, W)."""
 
-    def __init__(self, channels: int, num_anchors: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, channels: int, num_anchors: int, dtype: Optional[torch.dtype] = None,
+                 conv_depth: int = 1):
         super().__init__()
-        self.conv = nn.Sequential(nn.Sequential(
-            Conv2d(channels, channels, 3, padding=1, dtype=dtype)))
+        self.conv = nn.Sequential(*(nn.Sequential(
+            Conv2d(channels, channels, 3, padding=1, dtype=dtype)) for _ in range(conv_depth)))
         self.cls_logits = Conv2d(channels, num_anchors, 1, dtype=dtype)
         self.bbox_pred = Conv2d(channels, num_anchors * 4, 1, dtype=dtype)
 
@@ -175,8 +194,26 @@ class TwoMLPHead(nn.Module):
         self.fc6 = Linear(in_features, representation_size, dtype=dtype)
         self.fc7 = Linear(representation_size, representation_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return torch.relu(self.fc7(torch.relu(self.fc6(x.flatten(1)))))
+
+
+class FastRCNNConvFCHead(nn.Sequential):
+    """The v2 box head (torchvision's ``FastRCNNConvFCHead`` on 256 x 7 x 7
+    RoIs): 4 x (conv3x3 without bias, BatchNorm, ReLU) at ``{i}.0`` /
+    ``{i}.1``, the flatten at 4 and the fc to 1024 at ``5``, then ReLU. The norms as the v2 FPN's; ``train``:
+    on batch statistics, their running ones updated."""
+
+    def __init__(self, dtype: Optional[torch.dtype] = None):
+        blocks = [nn.Sequential(Conv2d(256, 256, 3, padding=1, bias=False, dtype=dtype),
+                                BatchNorm2d(256, eps=1e-5, momentum=0.1)) for _ in range(4)]
+        super().__init__(*blocks, nn.Flatten(), Linear(256 * 7 * 7, 1024, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for blk in list(self)[:-2]:
+            y = blk[0](x)
+            x = torch.relu(blk[1](y, train).to(y.dtype))
+        return torch.relu(self[-1](x.flatten(1)))
 
 
 class FastRCNNPredictor(nn.Module):
@@ -255,10 +292,10 @@ def _nhwc_flat(t: torch.Tensor, last: int) -> torch.Tensor:
 
 
 class FasterRCNN(nn.Module):
-    """The MobileNetV3-Large-FPN detector. :meth:`forward` takes (B, 3, H, W)
-    images in [0, 1] and returns ``(detections, losses, feats)`` as JAX's
-    ``__call__`` does. The fields are JAX's (its ``box_pre_nms_top_n`` is
-    not ported)."""
+    """The detector, ``backbone_type`` one of :data:`BACKBONES`.
+    :meth:`forward` takes (B, 3, H, W) images in [0, 1] and returns
+    ``(detections, losses, feats)`` as JAX's ``__call__`` does. The fields
+    are JAX's (its ``box_pre_nms_top_n`` is not ported)."""
 
     def __init__(self, num_classes: int = 91, min_size: int = 800, max_size: int = 1333,
                  rpn_pre_nms_top_n_train: int = 2000, rpn_pre_nms_top_n_test: int = 1000,
@@ -272,8 +309,12 @@ class FasterRCNN(nn.Module):
                  box_positive_fraction: float = 0.25,
                  bbox_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0),
                  norm_frozen: bool = False,
+                 backbone_type: str = "mobilenet_v3_large_fpn",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if backbone_type not in BACKBONES:
+            raise ValueError(f"backbone_type {backbone_type!r}: one of {BACKBONES}")
+        self.backbone_type = backbone_type
         self.num_classes = num_classes
         self.rpn_pre_nms_top_n = dict(train=rpn_pre_nms_top_n_train,
                                       test=rpn_pre_nms_top_n_test)
@@ -294,17 +335,32 @@ class FasterRCNN(nn.Module):
         self.norm_frozen = norm_frozen
         self.dtype = dtype
         self.transform = RCNNTransform(min_size, max_size)
-        body = MobileNetV3(dtype=dtype)
-        self.stage_taps = body.stage_indices()[-2:]  # C4, C5: both at stride 32
-        channels = body.stage_channels()
-        fpn = FeaturePyramidNetwork([channels[i] for i in self.stage_taps], 256, dtype)
+        if backbone_type == "mobilenet_v3_large_fpn":
+            body = MobileNetV3(dtype=dtype)
+            self.stage_taps = body.stage_indices()[-2:]  # C4, C5: both at stride 32
+            channels = body.stage_channels()
+            fpn = FeaturePyramidNetwork([channels[i] for i in self.stage_taps], 256, dtype)
+            self.anchor_sizes = (ANCHOR_SIZES,) * 3
+            rpn_depth = 1
+            box_head = TwoMLPHead(256 * 7 * 7, 1024, dtype)
+        else:  # the v2: ResNet-50's C2..C5, 5 levels with one anchor size each
+            body = ResNet(type=50, num_classes=None, dtype=dtype)
+            self.stage_taps = [0, 1, 2, 3]
+            fpn = FeaturePyramidNetwork([256, 512, 1024, 2048], 256, dtype, use_norm=True)
+            self.anchor_sizes = tuple((s,) for s in ANCHOR_SIZES)
+            rpn_depth = 2
+            box_head = FastRCNNConvFCHead(dtype=dtype)
         self.backbone = nn.ModuleDict(dict(body=body, fpn=fpn))
-        self.num_anchors = len(ANCHOR_SIZES) * len(ASPECT_RATIOS)
-        self.rpn = nn.ModuleDict(dict(head=RPNHead(256, self.num_anchors, dtype)))
+        self.num_anchors = len(self.anchor_sizes[0]) * len(ASPECT_RATIOS)
+        self.rpn = nn.ModuleDict(dict(head=RPNHead(256, self.num_anchors, dtype, rpn_depth)))
         self.roi_heads = nn.ModuleDict(dict(
-            box_head=TwoMLPHead(256 * 7 * 7, 1024, dtype),
-            box_predictor=FastRCNNPredictor(1024, num_classes, dtype)))
+            box_head=box_head, box_predictor=FastRCNNPredictor(1024, num_classes, dtype)))
         self._anchors: Dict[tuple, List[torch.Tensor]] = {}
+
+    @property
+    def feature_names(self) -> Tuple[str, ...]:
+        """The FPN maps' names: '0'..'{L-1}' and 'pool'."""
+        return tuple(str(i) for i in range(len(self.stage_taps))) + ("pool",)
 
     def anchors(self, feat_shapes: Sequence[Tuple[int, int]],
                 strides: Sequence[Tuple[int, int]], device: torch.device
@@ -312,9 +368,8 @@ class FasterRCNN(nn.Module):
         """Each level's anchors on ``device``, made once per input shape."""
         key = (tuple(feat_shapes), tuple(strides), device)
         if key not in self._anchors:
-            n = len(feat_shapes)
             self._anchors[key] = [torch.from_numpy(a).to(device) for a in generate_anchors(
-                feat_shapes, strides, (ANCHOR_SIZES,) * n, (ASPECT_RATIOS,) * n)]
+                feat_shapes, strides, self.anchor_sizes, (ASPECT_RATIOS,) * len(feat_shapes))]
         return self._anchors[key]
 
     def proposals(self, objectness: Sequence[torch.Tensor],
@@ -357,20 +412,25 @@ class FasterRCNN(nn.Module):
 
     def _fpn(self, images: torch.Tensor, train_bn: bool = False) -> tuple:
         """(FPN maps, the resized and padded images, the resized (h, w)) of
-        (B, 3, H, W) images in [0, 1]; ``train_bn``: the body's norms on
-        batch statistics."""
+        (B, 3, H, W) images in [0, 1]; ``train_bn``: the body's and the
+        FPN's norms on batch statistics."""
         tfm = self.transform
         images_r, img_hw, _ = tfm.resize(tfm.normalize(images))
         images_r = images_r.to(self.dtype or images_r.dtype)
-        feats_all = self.backbone.body(images_r, train_bn)
-        return self.backbone.fpn([feats_all[i] for i in self.stage_taps]), images_r, img_hw
+        body = self.backbone.body
+        if self.backbone_type == "mobilenet_v3_large_fpn":
+            feats_all = body(images_r, train_bn)
+        else:
+            feats_all = body(images_r, normalize=False, features=True, train=train_bn)
+        taps = [feats_all[i] for i in self.stage_taps]
+        return self.backbone.fpn(taps, train_bn), images_r, img_hw
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The FPN maps ``'0'``, ``'1'`` and ``'pool'`` of (B, 3, H, W)
-        images in [0, 1], norms on running statistics: an inference
-        :meth:`forward`'s ``feats["features"]`` alone (the outputs JAX's
-        feature passes keep of a whole call)."""
-        return dict(zip(("0", "1", "pool"), self._fpn(images)[0]))
+        """The FPN maps (:attr:`feature_names`) of (B, 3, H, W) images in
+        [0, 1], norms on running statistics: an inference :meth:`forward`'s
+        ``feats["features"]`` alone (the outputs JAX's feature passes keep
+        of a whole call)."""
+        return dict(zip(self.feature_names, self._fpn(images)[0]))
 
     def forward(self, images: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None,
                 manual_proposals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -382,11 +442,12 @@ class FasterRCNN(nn.Module):
         ``detections``: ``boxes`` (B, D, 4) in input pixels, ``scores``,
         ``labels`` and ``valid`` (B, D), D = ``box_detections_per_img``,
         scores and labels 0 where not valid. ``feats``: the FPN maps
-        (``features`` '0', '1', 'pool'), per-level ``objectness`` and
+        (``features``, :attr:`feature_names`), per-level ``objectness`` and
         ``pred_bbox_deltas`` (NCHW), the ``proposals`` (B, P, 4) the box
         head pooled and their ``class_logits`` (B, P, num_classes).
         ``manual_proposals``: (boxes (B, P, 4), valid (B, P)) in the resized
-        image's pixels, pooled in place of the RPN's. As in JAX, ``feats``
+        image's pixels, pooled in place of the RPN's (with targets, the
+        training samples are drawn from them, as in JAX). As in JAX, ``feats``
         come back whatever ``return_feat`` says.
 
         ``targets``: ``boxes`` (B, G, 4) in input pixels, ``labels`` (B, G)
@@ -398,8 +459,9 @@ class FasterRCNN(nn.Module):
         uses). ``sampler_uniforms``: ``rpn`` (B, 2, anchors) and ``roi``
         (B, 2, P + G) uniforms in [0, 1), each pair (positives, negatives)
         of one image's :func:`balanced_sample`; else drawn from
-        ``generator``. ``train``: the body's norms on batch statistics,
-        their running ones updated (not under ``norm_frozen``)."""
+        ``generator``. ``train``: the norms (the body's; on the v2 the
+        FPN's and the box head's too) on batch statistics, their running
+        ones updated (not under ``norm_frozen``)."""
         training_mode = targets is not None
         train_bn = train and not self.norm_frozen
         b, _, orig_h, orig_w = images.shape
@@ -407,7 +469,7 @@ class FasterRCNN(nn.Module):
         objectness, pred_deltas = self.rpn.head(fpn_feats)
 
         # anchor strides: padded image size // grid size, per axis; the
-        # MobileNet taps give both maps at stride 32
+        # MobileNet taps give both maps at stride 32, the v2's strides 4-64
         pad_h, pad_w = images_r.shape[-2:]
         feat_shapes = [tuple(f.shape[-2:]) for f in fpn_feats]
         strides = [(pad_h // fh, pad_w // fw) for fh, fw in feat_shapes]
@@ -428,7 +490,8 @@ class FasterRCNN(nn.Module):
             gt_labels = targets["labels"].to(images.device)
             gt_valid = targets["valid"].to(images.device, torch.bool)
             anchors_cat = torch.cat(anchors)
-            n_cand = proposals.shape[1] + gt_boxes.shape[1]
+            n_cand = (proposals if manual_proposals is None
+                      else manual_proposals[0]).shape[1] + gt_boxes.shape[1]
             if sampler_uniforms is None:
                 sampler_uniforms = dict(
                     rpn=torch.rand((b, 2, anchors_cat.shape[0]), generator=generator,
@@ -436,24 +499,28 @@ class FasterRCNN(nn.Module):
                     roi=torch.rand((b, 2, n_cand), generator=generator, device=images.device))
             losses.update(self.rpn_loss(objectness, pred_deltas, anchors_cat, gt_boxes,
                                         gt_valid, sampler_uniforms["rpn"]))
-            proposals, prop_valid, box_labels, reg_targets = self.select_training_samples(
-                proposals, prop_valid, gt_boxes, gt_labels, gt_valid, sampler_uniforms["roi"])
+        # as JAX: manual proposals replace the RPN's before the training
+        # samples are drawn from them
         if manual_proposals is not None:
             proposals, prop_valid = manual_proposals
+        if training_mode:
+            proposals, prop_valid, box_labels, reg_targets = self.select_training_samples(
+                proposals, prop_valid, gt_boxes, gt_labels, gt_valid, sampler_uniforms["roi"])
 
         # RoIAlign scales inferred as 2^round(log2(feat / image)), as
         # MultiScaleRoIAlign does: both MobileNet maps give 1/32, so the
-        # level mapper sends every RoI to level '0', as in torchvision
-        pool_feats = fpn_feats[:2]
+        # level mapper sends every RoI to level '0', as in torchvision; the
+        # v2 pools from its four levels, 1/4..1/32
+        pool_feats = fpn_feats[:-1]
         scales = [2.0 ** round(math.log2(f.shape[-2] / img_hw[0])) for f in pool_feats]
         pooled = multiscale_roi_align(pool_feats, proposals, scales, 7, 2)
         n_p = proposals.shape[1]
-        rep = self.roi_heads.box_head(pooled.reshape(b * n_p, -1))
+        rep = self.roi_heads.box_head(pooled.reshape(b * n_p, *pooled.shape[2:]), train_bn)
         class_logits, box_deltas = self.roi_heads.box_predictor(rep)
         class_logits = class_logits.reshape(b, n_p, -1)
         box_deltas = box_deltas.reshape(b, n_p, -1)
 
-        feats = {"features": {"0": fpn_feats[0], "1": fpn_feats[1], "pool": fpn_feats[2]},
+        feats = {"features": dict(zip(self.feature_names, fpn_feats)),
                  "objectness": objectness, "pred_bbox_deltas": pred_deltas,
                  "proposals": proposals, "class_logits": class_logits}
         if training_mode:
@@ -590,11 +657,39 @@ def fasterrcnn_mobilenet_v3_large_fpn(weights=None, weights_backbone=None,
     return model.to(resolve_device(device)).eval()
 
 
+def fasterrcnn_resnet50_fpn_v2(weights=None, weights_backbone=None, num_classes: int = 91,
+                               dtype: Optional[torch.dtype] = None,
+                               device: Optional[torch.device | str] = None,
+                               **kwargs) -> FasterRCNN:
+    """The v2 detector (ResNet-50 body, FPN and box head with BatchNorm, a
+    two-conv RPN head), with random weights, on ``device`` (the card unless
+    the caller names another), as JAX's factory builds it. Its norms are
+    never frozen (``norm_frozen`` False unless passed), so it accepts
+    ``weights_backbone`` as JAX's factory does: neither loads anything by
+    that name (``configs/det/demo.yaml`` names it). Naming the whole
+    detector's ``weights`` raises: trained weights load through
+    ``model.load_state_dict(from_jax(variables, "fasterrcnn"))``. Other
+    keyword arguments set :class:`FasterRCNN`'s fields."""
+    del weights_backbone
+    if weights is not None:
+        raise ValueError("fasterrcnn_resnet50_fpn_v2 loads no weights by name; load them "
+                         "with edtr_torch.utils.convert.from_jax(variables, 'fasterrcnn')")
+    model = FasterRCNN(num_classes=num_classes, backbone_type="resnet50_fpn_v2", dtype=dtype,
+                       **kwargs)
+    return model.to(resolve_device(device)).eval()
+
+
+RESNET_STAGES = ("layer4", "layer3", "layer2", "layer1", "conv1")
+
+
 def detnet_trainable_mask(model: nn.Module, trainable_layers: int = 3) -> Dict[str, bool]:
-    """torchvision's backbone freezing (``trainable_layers`` of the
-    MobileNet's stages train), as JAX's ``detnet_trainable_mask``: the body's
-    ``features.i`` with ``i < stage_indices[num_stages - trainable_layers]``
-    (every one when 0) are frozen, everything else trains. Sets each
+    """torchvision's backbone freezing (``trainable_layers`` of the body's
+    stages train), as JAX's ``detnet_trainable_mask``. MobileNet: the
+    body's ``features.i`` with ``i < stage_indices[num_stages -
+    trainable_layers]`` (every one when 0) are frozen. ResNet-50 (the v2):
+    only the body's modules whose names start with one of
+    ``["layer4", "layer3", "layer2", "layer1", "conv1"][:trainable_layers]``
+    train (``bn1`` never). Everything outside the body trains. Sets each
     parameter's ``requires_grad`` and returns name -> trainable. Frozen
     stages' BatchNorm running statistics still update in train-mode calls,
     as torchvision's plain BatchNorm does. A net that is not a
@@ -604,12 +699,21 @@ def detnet_trainable_mask(model: nn.Module, trainable_layers: int = 3) -> Dict[s
         for p in model.parameters():
             p.requires_grad_(True)
         return {name: True for name, _ in model.named_parameters()}
-    si = model.backbone.body.stage_indices()
-    freeze_before = si[-1] + 1 if trainable_layers == 0 else si[len(si) - trainable_layers]
+    if model.backbone_type == "mobilenet_v3_large_fpn":
+        si = model.backbone.body.stage_indices()
+        freeze_before = si[-1] + 1 if trainable_layers == 0 else si[len(si) - trainable_layers]
+
+        def body_trainable(rest: str) -> bool:
+            return int(rest.split(".")[1]) >= freeze_before
+    else:
+        to_train = RESNET_STAGES[:trainable_layers]
+
+        def body_trainable(rest: str) -> bool:
+            return rest.split(".")[0].startswith(to_train)
     mask = {}
     for name, p in model.named_parameters():
-        m = re.match(r"backbone\.body\.features\.(\d+)\.", name)
-        mask[name] = m is None or int(m.group(1)) >= freeze_before
+        body = name.startswith("backbone.body.")
+        mask[name] = not body or body_trainable(name[len("backbone.body."):])
         p.requires_grad_(mask[name])
     return mask
 

@@ -264,17 +264,34 @@ class Conv2d(nn.Module):
 
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 two-pass statistics; eps 1e-5 (UNet) or 1e-6
-    (VAE, SpatialTransformer)."""
+    (VAE, SpatialTransformer).
+
+    The tiled VAE's GroupNorm sync (JAX's ``gn_stats`` / ``gn_moments``
+    collections; :func:`edtr_torch.utils.tiling.gn_sync` sets these): with
+    ``record`` set, each call keeps its input's own per-(B, G) ``(count,
+    sum, sumsq)`` in ``recorded``, the last call's (JAX's ``reduce_fn=
+    lambda a, b: b``), also while moments are injected; with ``moments``
+    set, ``(mean_g, var_g)`` normalise in place of the call's own
+    statistics. Either way the fold (:meth:`fold`) feeds the same affine
+    path, the conv kernels' included."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
         self.num_groups, self.eps = num_groups, eps
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
+        self.record = False
+        self.recorded: Optional[Tuple[float, torch.Tensor, torch.Tensor]] = None
+        self.moments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def fold(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, C) fp32 ``(mul, add)`` with ``x_f32 * mul + add`` = GN(x)."""
         mean_g, var_g = gn_stats(x, self.num_groups)
+        if self.record:
+            count = float(x[0].numel() // self.num_groups)
+            self.recorded = (count, mean_g * count, (var_g + mean_g.square()) * count)
+        if self.moments is not None:
+            mean_g, var_g = self.moments
         return fold_from_moments(mean_g, var_g, self.weight, self.bias, self.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

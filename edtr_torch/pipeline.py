@@ -12,7 +12,10 @@ Counterpart of ``edtr_tpu/pipeline.py`` (``EDTRPipeline.restore``) and of
 
 ``restore`` keeps the JAX layout: NHWC images in [0, 1], NHWC latents and
 noise. The stage methods (``pre_restore``, ``encode``, ``text``,
-``denoise``, ``decode``) are NCHW. The pipeline runs on CUDA unless it is built with
+``denoise``, ``decode``) are NCHW, and each takes the real-world demo's
+tiling (``utils/tiling.py``): SwinIR on Gaussian-blended tiles, the VAE on
+GroupNorm-synced tiles, the walk on latent tiles (``restore``'s
+``tiled_diffusion``). The pipeline runs on CUDA unless it is built with
 ``device="cpu"``; with no card and no explicit device it raises.
 
 The pipeline (and :func:`build_flagship`) takes ``fused_conv``, the conv
@@ -55,7 +58,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import inspect
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -72,6 +75,7 @@ from edtr_torch.models.layers import fused_swin as swin_config
 from edtr_torch.models.swinir import SwinIR
 from edtr_torch.models.unet import UNetModel
 from edtr_torch.utils.image import wavelet_reconstruction
+from edtr_torch.utils.tiling import make_tiled_fn, tiled_model_fn
 
 # the conv configuration chip_smoke.py measured faster end to end on the
 # card (interleaved restores: a clear majority of pairs and a win beyond
@@ -144,15 +148,22 @@ class EDTRPipeline(nn.Module):
 
     @torch.no_grad()
     @_in_config
-    def pre_restore(self, lq: torch.Tensor) -> torch.Tensor:
+    def pre_restore(self, lq: torch.Tensor,
+                    tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """SwinIR's pre-restoration, the identity for a pipeline without
-        one (a config that disables it)."""
-        return lq if self.swinir is None else self.swinir(lq)
+        one (a config that disables it); ``tile``: (size, stride) pixels of
+        Gaussian-blended SwinIR tiles."""
+        if self.swinir is None:
+            return lq
+        return self.swinir(lq) if tile is None else make_tiled_fn(self.swinir, *tile)(lq)
 
     @torch.no_grad()
     @_in_config
-    def encode(self, pre_res: torch.Tensor) -> torch.Tensor:
-        return self.cldm.vae_encode(pre_res * 2 - 1)
+    def encode(self, pre_res: torch.Tensor, tiled: bool = False,
+               tile_size: int = -1) -> torch.Tensor:
+        """The scaled posterior mode; ``tiled``: from GroupNorm-synced tiles
+        of ``tile_size`` pixels."""
+        return self.cldm.vae_encode(pre_res * 2 - 1, tiled=tiled, tile_size=tile_size)
 
     @torch.no_grad()
     @_in_config
@@ -165,31 +176,46 @@ class EDTRPipeline(nn.Module):
     @_in_config
     def denoise(self, z_pre: torch.Tensor, c_txt: torch.Tensor, noise: torch.Tensor,
                 step_noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """q_sample to ``start_timestep``, then the spaced walk; ``tile``:
+        (size, stride) of latent tiles for each eps forward
+        (:func:`~edtr_torch.utils.tiling.tiled_model_fn`)."""
         t = torch.full((z_pre.shape[0],), self.start_timestep, dtype=torch.long,
                        device=z_pre.device)
         z_t = self.diffusion.q_sample(z_pre, t, noise)
         cond = dict(c_txt=c_txt, c_img=z_pre)
-        return sample_loop(self.cldm, self.schedule, z_t, cond, step_noise, generator)
+        model_fn = self.cldm if tile is None else tiled_model_fn(self.cldm, *tile)
+        return sample_loop(model_fn, self.schedule, z_t, cond, step_noise, generator)
 
     @torch.no_grad()
     @_in_config
-    def decode(self, z: torch.Tensor, pre_res: torch.Tensor) -> torch.Tensor:
-        return wavelet_reconstruction((self.cldm.vae_decode(z) + 1) / 2, pre_res)
+    def decode(self, z: torch.Tensor, pre_res: torch.Tensor, tiled: bool = False,
+               tile_size: int = -1) -> torch.Tensor:
+        """Decode, then the wavelet fix; ``tiled``: from GroupNorm-synced
+        latent tiles of ``tile_size``."""
+        decoded = self.cldm.vae_decode(z, tiled=tiled, tile_size=tile_size)
+        return wavelet_reconstruction((decoded + 1) / 2, pre_res)
 
     @torch.no_grad()
     def restore(self, lq: torch.Tensor, c_txt: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
                 step_noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, tiled_diffusion: bool = False,
+                tile_size: int = -1, tile_stride: int = -1) -> Dict[str, torch.Tensor]:
         """Restore an NHWC [0, 1] batch.
 
         ``c_txt``: (B, 77, context_dim) text embedding; None computes the
         empty prompt's (:meth:`text`), as JAX's ``restore`` does. ``noise``: the
         q_sample draw, NHWC latent shape; ``step_noise``: (K,) + that shape,
         one per posterior step in walk order. Draws missing noise from
-        ``generator``. Returns NHWC ``restored``, ``pre_restored`` and ``z``.
+        ``generator``. ``tiled_diffusion``: every eps forward on latent
+        tiles of ``tile_size`` at ``tile_stride`` (latent pixels); a size
+        or stride <= 0 raises ``ValueError`` (JAX's defaults, -1, give no
+        tile there and a NaN image). Returns NHWC ``restored``,
+        ``pre_restored`` and ``z``.
         """
+        tile = (tile_size, tile_stride) if tiled_diffusion else None
         dev = self.device
         pre = self.pre_restore(_nchw(lq.to(dev, torch.float32)))
         z_pre = self.encode(pre)
@@ -201,7 +227,7 @@ class EDTRPipeline(nn.Module):
             noise = _nchw(noise.to(dev, z_pre.dtype))
         if step_noise is not None:
             step_noise = step_noise.to(dev, z_pre.dtype).permute(0, 1, 4, 2, 3)
-        z = self.denoise(z_pre, c_txt, noise, step_noise, generator)
+        z = self.denoise(z_pre, c_txt, noise, step_noise, generator, tile)
         restored = self.decode(z, pre)
         return dict(restored=_nhwc(restored), pre_restored=_nhwc(pre), z=_nhwc(z))
 

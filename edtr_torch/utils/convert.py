@@ -3,8 +3,9 @@
 The inverse of ``edtr_tpu/utils/convert.py``'s ``convert_ldm_unet``,
 ``convert_controlnet``, ``convert_autoencoder_kl``, ``convert_swinir``,
 ``convert_clip_text``, ``convert_mobilenetv3`` (the classifier too),
-``convert_fasterrcnn_mobilenet``, ``convert_resnet`` and
-``convert_deeplabv3_mobilenet`` (and DeepLabV3 on ResNet), written without
+``convert_fasterrcnn_mobilenet``, ``convert_fasterrcnn_resnet50_v2``,
+``convert_resnet``, ``convert_deeplabv3_mobilenet`` (and DeepLabV3 on
+ResNet) and ``convert_lpips`` (AlexNet and VGG16), written without
 importing them: a JAX tree (nested dicts of numpy arrays, flax
 names, HWIO conv kernels, (in, out) dense kernels) becomes a state dict
 under the reference LDM/SD or torchvision key names, which the port's
@@ -97,20 +98,36 @@ _RULES["deeplabv3"] = [
     (r"^aux_classifier/head/bn/", "aux_classifier/1/"),
     (r"^backbone/features_(\d+)/", r"backbone/\1/"),
 ] + _RESNET + _MOBILENET[1:] + _LEAF + _STATS
-# the body's rules run first: the RPN's names gain a "/conv/" of their own
-_RULES["fasterrcnn"] = [(r"^body/", "backbone/body/")] + _MOBILENET + [
+# the body's rules run first (MobileNet's or ResNet-50's): the RPN's names
+# gain a "/conv/" of their own; the v2's FPN norms sit at 1 after each conv,
+# its box head's convs and norms at {j}.0 / {j}.1 and its fc at 5
+_RULES["fasterrcnn"] = [(r"^body/", "backbone/body/")] + _MOBILENET + _RESNET + [
+    (r"^fpn/(inner|layer)_bn_(\d+)/", r"backbone/fpn/\1_blocks/\2/1/"),
     (r"^fpn/inner_(\d+)/", r"backbone/fpn/inner_blocks/\1/0/"),
     (r"^fpn/layer_(\d+)/", r"backbone/fpn/layer_blocks/\1/0/"),
     (r"^rpn_head/conv_(\d+)/", r"rpn/head/conv/\1/0/"),
     (r"^rpn_head/", "rpn/head/"),
+    (r"^box_head/conv_(\d)/", r"roi_heads/box_head/\1/0/"),
+    (r"^box_head/bn_(\d)/", r"roi_heads/box_head/\1/1/"),
+    (r"^box_head/fc/", "roi_heads/box_head/5/"),
     (r"^box_(head|predictor)/", r"roi_heads/box_\1/"),
 ] + _LEAF + _STATS
 # the models whose trees are full variables, {"params", "batch_stats"}
 _VARIABLES = ("mobilenetv3", "fasterrcnn", "resnet", "deeplabv3")
-# the box head's fc6 reads pooled RoIs (256, 7, 7) flattened channel-major
-# in the port (torchvision) and spatial-major in JAX
-_FC6 = "roi_heads.box_head.fc6.weight"
+# the box head's first fc (the MobileNet's fc6, the v2's 5) reads pooled
+# RoIs (256, 7, 7) flattened channel-major in the port (torchvision) and
+# spatial-major in JAX
+_FC6 = ("roi_heads.box_head.fc6.weight", "roi_heads.box_head.5.weight")
 _POOLED = (7, 7, 256)
+# the lpips package's towers: torchvision feature indices inside each
+# slice (``net.slice{s}.{i}``) of JAX's ``conv{ci}``, AlexNet's five and
+# VGG16's thirteen convs
+LPIPS_CONVS = {
+    "alex": ("slice1.0", "slice2.3", "slice3.6", "slice4.8", "slice5.10"),
+    "vgg": ("slice1.0", "slice1.2", "slice2.5", "slice2.7", "slice3.10", "slice3.12",
+            "slice3.14", "slice4.17", "slice4.19", "slice4.21", "slice5.24", "slice5.26",
+            "slice5.28"),
+}
 
 
 def _leaves(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -166,13 +183,32 @@ def pipeline_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _lpips_from_jax(tree: Tree, net: str) -> Dict[str, torch.Tensor]:
+    """The ``lpips`` package's keys of a JAX ``LPIPS`` tree (the inverse of
+    ``convert_lpips``): the tower's convs at ``net.slice{s}.{i}``, the 1x1
+    heads at ``lin{i}.model.1.weight`` (the fixed scaling layer has no
+    learned entry)."""
+    out = {}
+    for ci, loc in enumerate(LPIPS_CONVS[net]):
+        node = tree["tower"][f"conv{ci}"]
+        out[f"net.{loc}.weight"] = _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        out[f"net.{loc}.bias"] = _tensor(node["bias"])
+    for i in range(5):
+        out[f"lin{i}.model.1.weight"] = _tensor(
+            np.asarray(tree[f"lin{i}"]["kernel"]).transpose(3, 2, 0, 1))
+    return out
+
+
 def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``model`` ("unet", "controlnet", "vae",
-    "swinir", "clip", "mobilenetv3", "fasterrcnn", "resnet" or
-    "deeplabv3", on either backbone) from that model's ``edtr_tpu``
-    parameter tree (for the last four, its full variables)."""
+    "swinir", "clip", "mobilenetv3", "fasterrcnn" (either variant),
+    "resnet", "deeplabv3" (on either backbone), "lpips" or "lpips-vgg")
+    from that model's ``edtr_tpu`` parameter tree (for "mobilenetv3",
+    "fasterrcnn", "resnet" and "deeplabv3" its full variables)."""
     if model == "clip":
         return _clip_from_jax(tree)
+    if model in ("lpips", "lpips-vgg"):
+        return _lpips_from_jax(tree, "vgg" if model == "lpips-vgg" else "alex")
     rules = _RULES[model]
     leaves = _leaves(tree)
     if model in _VARIABLES:
@@ -186,9 +222,10 @@ def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
             # HWIO -> OIHW conv kernels, (in, out) -> (out, in) dense kernels
             value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
         out[key.replace("/", ".")] = _tensor(value)
-    if _FC6 in out:
-        w = out[_FC6]
-        out[_FC6] = w.reshape(-1, *_POOLED).permute(0, 3, 1, 2).reshape(w.shape).contiguous()
+    for fc in _FC6:
+        if fc in out:
+            w = out[fc]
+            out[fc] = w.reshape(-1, *_POOLED).permute(0, 3, 1, 2).reshape(w.shape).contiguous()
     return out
 
 

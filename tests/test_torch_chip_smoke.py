@@ -86,3 +86,40 @@ def test_recipe_launches_are_sums_of_the_passes():
 ])
 def test_gate_rule(kp, pf, kf, ok):
     assert chip_smoke.gate_rule(kp, pf, kf)[0] is ok
+
+
+@pytest.mark.parametrize("helper,args,want", [
+    ("eps_launches", (64, 64), chip_smoke.EPS_PASS),
+    ("encode_launches", (512, 512), chip_smoke.ENCODE_PASS),
+    ("decode_launches", (64, 64), chip_smoke.DECODE_PASS),
+    ("swinir_launches", (512, 512), chip_smoke.SWINIR_PASS),
+    # 768 x 1024: the 12288-token level goes to K4, 3072 to K1, 768 to K2;
+    # the 12 x 16 level takes the whole-image conv tier, as 8² does
+    ("eps_launches", (96, 128), {"flash_fwd": 7, "wholekv_fwd": 7, "whole_fwd": 7,
+                                 "gn_conv_band": 42, "gn_conv_whole": 22, "upsample_conv": 3}),
+    ("decode_launches", (96, 96), {"streamkv_fwd": 1, "gn_conv_band": 28, "upsample_conv": 3}),
+    ("encode_launches", (256, 256), {"gn_conv_band": 20}),  # 1024 tokens: JAX's XLA path
+])
+def test_pass_launch_helpers(helper, args, want):
+    """The per-pass launch helpers derive the pinned 512² passes from JAX's
+    dispatch, and the demo's other sizes."""
+    assert getattr(chip_smoke, helper)(*args) == want
+
+
+def test_demo_launches_are_tiles_times_passes():
+    """The untiled demo at 768 x 1024 is a 512² restore plus K4's 28; the
+    tiled one is each tile plan's tiles times the launches of a pass at
+    its tile: 6 SwinIR tiles, 12 + 20 encoder tiles, 6 latent tiles x 4
+    steps, 2 + 2 decoder tiles (6 detector tiles launch none)."""
+    untiled = chip_smoke.demo_launches(768, 1024, tiled=False)
+    restore = chip_smoke.demo_launches(512, 512, tiled=False)
+    assert untiled == dict(restore, flash_fwd=28)
+    assert restore == {k: v or 0 for k, v in chip_smoke.expected_launches(
+        (True, False, True)).items()}
+    tiles = chip_smoke.tile_counts(768, 1024)
+    assert tiles == dict(swinir=6, vae_encoder=(12, 20), latent=6, vae_decoder=(2, 2), detect=6)
+    want = chip_smoke.launch_sum(
+        (6, chip_smoke.SWINIR_PASS), (32, chip_smoke.encode_launches(256, 256)),
+        (24, chip_smoke.EPS_PASS), (4, chip_smoke.decode_launches(96, 96)))
+    assert chip_smoke.demo_launches(768, 1024, tiled=True) == want
+    assert want["flash_fwd"] == 0 and want["streamkv_fwd"] == 4 and want["wholekv_fwd"] == 168

@@ -11,13 +11,15 @@ CPU:
   configs the decoder's and the UNet's recompute;
 * a config without SwinIR pre-restores as the identity (the tiny
   flagship's dims on the CPU);
-* the cls/seg task nets instantiate through ``REGISTRY`` with JAX's
+* the cls/seg task nets and the ResNet50-FPN-v2 detector (the demo and
+  the COCO train configs) instantiate through ``REGISTRY`` with JAX's
   parameter set (by ``from_jax`` of JAX's tree); a target the port lacks
   raises ``NotPortedError`` naming it, and no path reaches ``edtr_tpu``;
 * ``make_beta_schedule`` (four schedules) and the configs' diffusion
   tables equal JAX's.
 """
 
+import functools
 import pathlib
 
 import jax
@@ -32,6 +34,7 @@ from edtr_tpu.diffusion import schedule as JSched
 from edtr_torch import config as TC
 from edtr_torch.diffusion import schedule as TSched
 from edtr_torch.models.deeplabv3 import DeepLabV3MobileNet
+from edtr_torch.models.faster_rcnn import FasterRCNN
 from edtr_torch.models.resnet import ResNet
 from edtr_torch.pipeline import build_flagship, build_pipeline_from_config, flagship_configs
 from edtr_torch.utils.convert import from_jax
@@ -122,10 +125,42 @@ def test_tasknets_instantiate_through_the_registry(path, node, cls, kind):
     assert _names_shapes(net) == want
 
 
+@functools.lru_cache(maxsize=1)
+def _jax_v2_names_shapes() -> dict:
+    """The parameter names and shapes of JAX's v2 detector from the demo
+    config, under the bridge's names (its transform shrunk: the shapes do
+    not depend on it)."""
+    cfg = JC.load_config(str(ROOT / "configs/det/demo.yaml"))
+    det = JC.instantiate_from_config(cfg.model.detnet).clone(min_size=64, max_size=128)
+    shapes = jax.eval_shape(lambda k: det.init({"params": k}, jnp.zeros((1, 64, 64, 3))),
+                            jax.random.PRNGKey(0))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    return {n: tuple(v.shape) for n, v in from_jax(zeros, "fasterrcnn").items()}
+
+
+@pytest.mark.parametrize("path,node", [
+    ("configs/det/demo.yaml", "detnet"),
+    ("configs/det/coco/train/001_edtr-s4-r50.yaml", "detnet"),
+    ("configs/det/coco/train/001_edtr-s4-r50.yaml", "teacher_detnet"),
+    ("configs/det/coco/train/101_edtr-s4-r50v2.yaml", "detnet"),
+    ("configs/det/coco/train/101_edtr-s4-r50v2.yaml", "teacher_detnet"),
+])
+def test_v2_detector_instantiates_through_the_registry(path, node):
+    """Every config naming ``fasterrcnn_resnet50_fpn_v2`` builds it (its
+    ``weights_backbone`` accepted, 91 classes, norms not frozen) with JAX's
+    parameter set."""
+    cfg = TC.load_config(str(ROOT / path))
+    assert cfg.model[node].target == "model.faster_rcnn.fasterrcnn_resnet50_fpn_v2"
+    net = TC.instantiate_from_config(cfg.model[node], dtype=torch.bfloat16, device="meta")
+    assert isinstance(net, FasterRCNN) and net.backbone_type == "resnet50_fpn_v2"
+    assert net.num_classes == 91 and not net.norm_frozen and net.dtype == torch.bfloat16
+    assert _names_shapes(net) == _jax_v2_names_shapes()
+
+
 @pytest.mark.parametrize("target", [
     "datasets.segmentation.PairedSegmentationDataset",
     "datasets.classification.DegradedClassificationDataset",
-    "model.faster_rcnn.fasterrcnn_resnet50_fpn_v2",
+    "model.edsr.EDSR",
     "model.scunet.SCUNet",
     "edtr_tpu.models.resnet.ResNet",
 ])

@@ -164,7 +164,9 @@ def test_port_imports_no_jax():
                 "edtr_torch.device", "edtr_torch.models.resnet",
                 "edtr_torch.models.deeplabv3", "edtr_torch.train.recipes",
                 "edtr_torch.train.tasks", "edtr_torch.config",
-                "edtr_torch.diffusion.schedule"):
+                "edtr_torch.diffusion.schedule", "edtr_torch.demo", "edtr_torch.models.lpips",
+                "edtr_torch.utils.tiling", "edtr_torch.utils.checkpoint",
+                "edtr_torch.utils.image"):
         assert mod in res.stdout
 
 

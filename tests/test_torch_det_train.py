@@ -18,7 +18,13 @@
   own fp32 gradients differ from its fp64 ones by up to ~5e-3 (JAX's fp32
   ones from the port's fp64 ones by as much), so each leaf holds to 3e-3
   plus twice the port's fp32-vs-fp64 error of that leaf.
-* ``detnet_trainable_mask`` against JAX's mask under the bridge's names.
+* ``detnet_trainable_mask`` against JAX's mask under the bridge's names,
+  the ResNet branch of the v2 too.
+* The ResNet50-FPN-v2's training call in train mode (every norm on batch
+  statistics), its box head on JAX's proposals on both sides: losses at
+  1e-4 relative, gradients and running statistics at 3e-3 / 1e-5 plus
+  twice the fp32 error of either side (the port's fp32 against its fp64,
+  JAX's fp32 against itself one ulp away).
 * ``task_apply_for("det")`` against ``runner._task_apply_for("det", ...)``
   on the tiny detector (one ``jax.jit`` of both): the summed loss and the
   four losses at 1e-4 relative, the running statistics at 1e-5, the FPN
@@ -42,12 +48,15 @@ from edtr_torch.models.mobilenetv3 import BatchNorm2d
 from edtr_torch.ops import boxes as TB
 from edtr_torch.train.tasks import task_apply_for
 from edtr_torch.utils.convert import from_jax
-from test_torch_detection import DET_BATCH, DET_IMAGE, _boxes, _detector, _t
+from test_torch_detection import (DET_BATCH, DET_IMAGE, _boxes, _detector, _detector_v2,
+                                  _jax_detect_v2, _port_detector_v2, _t)
 from torch_port_helpers import nchw, t2n
 
-# sampling keeps every candidate: 540 anchors at 128², 32 proposals + 4 GT
+# sampling keeps every candidate: 540 anchors at 128² (the v2: 4092), 32
+# proposals + 4 GT
 TRAIN_KNOBS = dict(rpn_batch_size_per_image=1024, rpn_positive_fraction=1.0,
                    box_batch_size_per_image=64, box_positive_fraction=1.0)
+TRAIN_KNOBS_V2 = dict(TRAIN_KNOBS, rpn_batch_size_per_image=4096)
 
 
 @pytest.fixture(autouse=True)
@@ -162,28 +171,59 @@ def _targets():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_train(train: bool):
-    """JAX's training call on the tiny detector: (losses, grads, new
-    batch_stats), one ``jax.jit``."""
-    det, variables, images = _detector()
-    det = det.clone(**TRAIN_KNOBS)
+def _jax_train_fn(train: bool, v2: bool = False):
+    """JAX's training call on the tiny detector (``v2``: the ResNet50-FPN-v2
+    one, the box head on :func:`_v2_proposals`), jitted once: images ->
+    ((loss, (losses, new batch_stats)), grads)."""
+    det, variables, _ = _detector_v2() if v2 else _detector()
+    det = det.clone(**(TRAIN_KNOBS_V2 if v2 else TRAIN_KNOBS))
     targets = {k: jnp.asarray(v) for k, v in _targets().items()}
+    manual = _v2_proposals() if v2 else None
 
-    def loss_fn(params):
+    def loss_fn(params, images):
         (_, losses, _), new = det.apply({"params": params,
                                          "batch_stats": variables["batch_stats"]},
                                         images, targets=targets, train=train,
-                                        mutable=["batch_stats"],
+                                        manual_proposals=manual, mutable=["batch_stats"],
                                         rngs={"sampler": jax.random.PRNGKey(3)})
         return sum(losses.values()), (losses, new["batch_stats"])
 
-    (_, (losses, stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        variables["params"])
+    fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    return lambda images: fn(variables["params"], images)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train(train: bool, v2: bool = False, ulp_noise: bool = False):
+    """(losses, grads, new batch_stats) of :func:`_jax_train_fn` on the
+    batch; ``ulp_noise``: each pixel moved by one fp32 ulp up or down (a
+    seeded sign), which reads how far JAX's own fp32 rounding moves the
+    gradients."""
+    images = (_detector_v2() if v2 else _detector())[2]
+    if ulp_noise:
+        sign = np.random.default_rng(46).choice([-1.0, 1.0], images.shape)
+        images = (images * (1 + 2.0 ** -23 * sign)).astype(np.float32)
+    (_, (losses, stats)), grads = _jax_train_fn(train, v2)(images)
     return losses, grads, stats
 
 
-def _port_train_detector():
+def _v2_proposals():
+    """JAX's inference proposals of the tiny v2 detector, all valid: the
+    box head's RoIs on both sides of the v2's training call. The RPN's
+    top-k and NMS on its train-mode (batch-statistics) scores would pick
+    RoIs 0.035 px apart on the two sides (the fp32 rounding of ResNet-50's
+    batch-statistics norms on random weights, ~1e-4 of the FPN maps on
+    either side), and the box losses move with them."""
+    props = np.array(_jax_detect_v2()[2]["proposals"])
+    return props, np.ones(props.shape[:2], bool)
+
+
+def _port_train_detector(v2: bool = False):
     """The port's tiny detector with the training knobs, JAX's weights."""
+    if v2:
+        port = _port_detector_v2(rpn_pre_nms_top_n_train=64, rpn_post_nms_top_n_train=32,
+                                 **TRAIN_KNOBS_V2)
+        port.load_state_dict(from_jax(_detector_v2()[1], "fasterrcnn"), strict=True)
+        return port
     _, variables, _ = _detector()
     port = TF.fasterrcnn_mobilenet_v3_large_fpn(
         num_classes=6, device="cpu", min_size=DET_IMAGE, max_size=DET_IMAGE * 2,
@@ -194,16 +234,20 @@ def _port_train_detector():
     return port
 
 
-def _port_train(train: bool, dtype=torch.float32):
+def _port_train(train: bool, dtype=torch.float32, v2: bool = False):
     """The port's training call on the same weights, images and targets:
     (model, losses), the gradients in the parameters' ``.grad``."""
     _, _, images = _detector()
-    port = _port_train_detector()
+    port = _port_train_detector(v2)
     port.to(dtype)
     targets = {k: _t(v) for k, v in _targets().items()}
     targets["boxes"] = targets["boxes"].to(dtype)
+    manual = None
+    if v2:
+        props, valid = _v2_proposals()
+        manual = (_t(props).to(dtype), _t(valid))
     _, losses, _ = port(nchw(images).to(dtype), targets=targets, train=train,
-                        generator=torch.Generator().manual_seed(0))
+                        manual_proposals=manual, generator=torch.Generator().manual_seed(0))
     sum(losses.values()).backward()
     return port, {k: v.detach() for k, v in losses.items()}
 
@@ -246,6 +290,73 @@ def test_tiny_detector_losses_gradients_and_stats_match_jax(train):
     moved = [n for n, v in from_jax(_detector()[1], "fasterrcnn").items()
              if n in stats and not torch.equal(buffers[n], v)]
     assert bool(moved) == train
+
+
+def test_tiny_v2_detector_losses_gradients_and_stats_match_jax():
+    """The v2's training call in train mode (its norms are never frozen:
+    body, FPN and box head on batch statistics, their running ones
+    updated), the box head on JAX's proposals on both sides
+    (:func:`_v2_proposals`): losses at 1e-4 relative, gradients at 3e-3
+    plus twice the fp32 error of each leaf (the larger of the port's fp32
+    against fp64 and JAX's fp32 against itself one ulp away), running
+    statistics at 1e-5 plus twice their fp32 error so read, every norm's
+    moved."""
+    want_l, want_g, want_s = _jax_train(True, v2=True)
+    port, losses = _port_train(True, v2=True)
+    assert set(losses) == set(want_l)
+    for k, v in losses.items():
+        np.testing.assert_allclose(float(v), float(want_l[k]), rtol=1e-4, err_msg=k)
+    want = from_jax({"params": want_g, "batch_stats": {}}, "fasterrcnn")
+    got = {n: p.grad for n, p in port.named_parameters()}
+    assert set(got) == set(want)
+    err = _leaf_errors(got, want)
+    # the fp32 error of each leaf, as either side rounds: the port's fp32
+    # against its fp64, and JAX's fp32 against itself on the batch moved by
+    # one ulp (body norms' leaves move ~5% so, the coarsest FPN level's
+    # ~1.5e-3, where the port's own rounding moves them ~1e-5)
+    p64, _ = _port_train(True, torch.float64, v2=True)
+    own = _leaf_errors(got, {n: p.grad for n, p in p64.named_parameters()})
+    jax_own = _leaf_errors(from_jax({"params": _jax_train(True, True, True)[1],
+                                     "batch_stats": {}}, "fasterrcnn"), want)
+    limit = {n: 3e-3 + 2 * max(own[n], jax_own[n]) for n in want}
+    bad = {n: (err[n], limit[n]) for n in want if err[n] > limit[n]}
+    print("v2 train-mode gradients: worst port vs JAX", max((e, n) for n, e in err.items()),
+          "worst port fp32 vs fp64", max((e, n) for n, e in own.items()),
+          "worst JAX vs JAX moved one ulp", max((e, n) for n, e in jax_own.items()))
+    assert not bad, bad
+    buffers, b64 = dict(port.named_buffers()), dict(p64.named_buffers())
+    stats = from_jax({"params": {}, "batch_stats": want_s}, "fasterrcnn")
+    stats_ulp = from_jax({"params": {}, "batch_stats": _jax_train(True, True, True)[2]},
+                         "fasterrcnn")
+    assert {n for n in stats if ".fpn." in n or ".box_head." in n}
+    for n, v in stats.items():  # 1e-5 plus twice either side's fp32 error, as above
+        fp32_err = np.maximum((buffers[n].double() - b64[n]).abs().numpy(),
+                              (stats_ulp[n] - v).abs().numpy())
+        np.testing.assert_array_less(np.abs(buffers[n].numpy() - v.numpy()),
+                                     1e-5 * (1 + np.abs(v.numpy())) + 2 * fp32_err + 1e-12,
+                                     err_msg=n)
+    before = from_jax(_detector_v2()[1], "fasterrcnn")
+    assert all(not torch.equal(buffers[n], before[n]) for n in stats if n.endswith("_var"))
+
+
+def test_v2_trainable_mask_matches_jax():
+    """The ResNet branch: ``["layer4", "layer3", "layer2", "layer1",
+    "conv1"][:trainable_layers]`` of the body train (``bn1`` never), the
+    FPN and the heads always; JAX's mask under the bridge's names."""
+    _, variables, _ = _detector_v2()
+    params = variables["params"]
+    port = _port_detector_v2()
+    for layers in (3, 0, 5):
+        jmask = JF.detnet_trainable_mask(params, "resnet50_fpn_v2", layers)
+        full = jax.tree.map(lambda m, p: np.full(np.shape(p), float(m), np.float32), jmask,
+                            params)
+        want = {n: bool(v.all()) for n, v in from_jax({"params": full, "batch_stats": {}},
+                                                     "fasterrcnn").items()}
+        got = TF.detnet_trainable_mask(port, layers)
+        assert got == want, layers
+        assert {n: p.requires_grad for n, p in port.named_parameters()} == got
+    frozen = {n.split(".")[2] for n, t in TF.detnet_trainable_mask(port).items() if not t}
+    assert frozen == {"conv1", "bn1", "layer1"}
 
 
 def test_norm_frozen_keeps_running_statistics():

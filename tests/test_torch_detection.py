@@ -10,8 +10,11 @@ dense (N <= 256) and bit-packed (N > 256) NMS sizes; RoIAlign holds to
 (``__graft_entry__._tiny_detnet``'s knobs) to rtol = atol = 3e-3 in fp32,
 their discrete outputs (valid, labels) equal. A discrete mismatch reports
 the margins of the decisions it rests on (IoU against its threshold, score
-gaps at the top-k edges). The JAX side is built once per module: one
-``jax.jit`` per network."""
+gaps at the top-k edges). The ResNet50-FPN-v2 (the same knobs,
+``backbone_type="resnet50_fpn_v2"``): the bridge's round trip exactly, its
+FPN maps, objectness and deltas at 3e-3 of their largest value, proposals
+and boxes at 1e-5, valid and labels exactly. The JAX side is built once per
+module: one ``jax.jit`` per network."""
 
 import functools
 
@@ -449,3 +452,106 @@ def test_detector_contract(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TF.fasterrcnn_mobilenet_v3_large_fpn(num_classes=21)
+
+
+# -- the ResNet50-FPN-v2 variant --------------------------------------------------
+
+def _port_detector_v2(dtype=None, **kw):
+    return TF.fasterrcnn_resnet50_fpn_v2(
+        num_classes=6, dtype=dtype, device="cpu", min_size=DET_IMAGE,
+        max_size=DET_IMAGE * 2, rpn_pre_nms_top_n_test=64, rpn_post_nms_top_n_test=32,
+        rpn_score_thresh=0.05, box_detections_per_img=8, **kw)
+
+
+@functools.lru_cache(maxsize=1)
+def _detector_v2():
+    """The tiny v2 detector (``_tiny_detnet``'s knobs, ``backbone_type=
+    "resnet50_fpn_v2"``, full width), its variables and the batch, as
+    :func:`_detector` makes them: random weights, the heads calibrated in
+    the port, carried back by JAX's ``convert_fasterrcnn_resnet50_v2``."""
+    det = G._tiny_detnet(DET_IMAGE).clone(backbone_type="resnet50_fpn_v2")
+    shapes = jax.eval_shape(
+        lambda k: det.init({"params": k}, jnp.zeros((1, DET_IMAGE, DET_IMAGE, 3))),
+        jax.random.PRNGKey(0))
+    _, _, images = _detector()
+    port = _port_detector_v2()
+    port.load_state_dict(from_jax(_random_variables(shapes, 19), "fasterrcnn"), strict=True)
+    TF.calibrate_heads_(port, nchw(images))
+    variables = C.convert_fasterrcnn_resnet50_v2(
+        {k: v.numpy() for k, v in port.state_dict().items()})
+    return det, variables, images
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_detect_v2():
+    det, variables, images = _detector_v2()
+    return jax.jit(lambda v, x: det.apply(v, x))(variables, images)
+
+
+def _port_loaded_v2():
+    port = _port_detector_v2()
+    port.load_state_dict(from_jax(_detector_v2()[1], "fasterrcnn"), strict=True)
+    return port
+
+
+def test_v2_bridge_round_trip():
+    """The port's v2 state dict through JAX's converter and back through
+    ``from_jax`` is itself, key for key (loaded strictly)."""
+    port = _port_loaded_v2()
+    back = from_jax(C.convert_fasterrcnn_resnet50_v2(
+        {k: v.numpy() for k, v in port.state_dict().items()}), "fasterrcnn")
+    sd = port.state_dict()
+    assert set(back) == set(sd)
+    assert all(torch.equal(back[k], sd[k]) for k in sd)
+    assert any(k.startswith("roi_heads.box_head.5.") for k in sd)
+    assert "backbone.fpn.inner_blocks.3.1.running_var" in sd
+
+
+def test_tiny_v2_detector_matches_jax():
+    """FPN maps (five), objectness and deltas at 3e-3 of their largest
+    value; proposals, detections' valid and labels equal; boxes at 1e-5."""
+    want, _, wfeats = _jax_detect_v2()
+    _, _, images = _detector_v2()
+    port = _port_loaded_v2()
+    with torch.no_grad():
+        got, _, feats = port(nchw(images))
+    assert port.feature_names == ("0", "1", "2", "3", "pool")
+    for name in port.feature_names:
+        w = np.asarray(wfeats["features"][name])
+        np.testing.assert_allclose(nhwc(feats["features"][name]), w, rtol=3e-3,
+                                   atol=3e-3 * np.abs(w).max(), err_msg=name)
+    for key in ("objectness", "pred_bbox_deltas"):
+        assert len(feats[key]) == len(wfeats[key]) == 5
+        for g, w in zip(feats[key], wfeats[key]):
+            w = np.asarray(w)
+            np.testing.assert_allclose(nhwc(g), w, rtol=3e-3, atol=3e-3 * np.abs(w).max(),
+                                       err_msg=key)
+    msg = f"a discrete decision flipped; margins {_margins(port, feats, got)}"
+    np.testing.assert_allclose(t2n(feats["proposals"]), np.asarray(wfeats["proposals"]),
+                               rtol=1e-5, atol=1e-5 * DET_IMAGE, err_msg=msg)
+    np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]), msg)
+    np.testing.assert_array_equal(got["labels"].numpy(), np.asarray(want["labels"]), msg)
+    assert np.asarray(want["valid"]).any()
+    np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=1e-5,
+                               atol=1e-5 * DET_IMAGE)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), **TOL)
+
+
+def test_v2_factory_contract(monkeypatch):
+    """The v2 factory: JAX's defaults (norms never frozen, 91 classes, the
+    two-conv RPN head, one anchor size a level), ``weights_backbone``
+    accepted and ignored as JAX's factory does, the whole detector's
+    ``weights`` refused; the MobileNet detector's fields otherwise."""
+    port = TF.fasterrcnn_resnet50_fpn_v2(weights_backbone="ResNet50_Weights.IMAGENET1K_V2",
+                                         device="cpu")
+    assert port.norm_frozen is False and port.num_classes == 91
+    assert port.backbone_type == "resnet50_fpn_v2" and len(port.rpn.head.conv) == 2
+    assert port.anchor_sizes == ((32,), (64,), (128,), (256,), (512,)) and port.num_anchors == 3
+    assert sum(p.numel() for p in port.parameters()) == 43712278  # torchvision's v2
+    with pytest.raises(ValueError, match="from_jax"):
+        TF.fasterrcnn_resnet50_fpn_v2(weights="coco", device="cpu")
+    with pytest.raises(ValueError, match="backbone_type"):
+        TF.FasterRCNN(backbone_type="resnet101")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TF.fasterrcnn_resnet50_fpn_v2()

@@ -12,10 +12,12 @@ edtr_tpu/ops/gn_conv.py, on the CPU in fp32 with numpy-seeded inputs.
   ``layers.fused_conv()`` against the JAX blocks with ``fused=True`` and
   the kernels forced, at 3e-3 (tests/test_torch_modules.py); the switch
   routes every conv of a block and of a pipeline stage, and only there.
-* The slice: the tiny restore with ``fused_conv=True`` against the JAX
-  tiny restore with ``_FORCE_KERNEL`` and ``EDTR_UPS_SUBPIX=0``, at the
-  tolerances of tests/test_torch_pipeline.py.
+* The slice: the tiny restore with ``fused_conv=True`` against the port's
+  stock restore, which tests/test_torch_pipeline.py holds to JAX's, at
+  that file's tolerances.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +30,8 @@ from edtr_tpu.ops import gn_conv as JG
 from edtr_torch.models.layers import Conv2d, fused_conv
 from edtr_torch.ops import gn_conv as G
 from proj_bench import GN_SHAPES
-from torch_port_helpers import CTX, IMAGE, jax_tiny, load_port, nchw, nhwc, port_tiny, t2n
+from torch_port_helpers import (CTX, IMAGE, jax_tiny, load_port, nchw, nhwc, port_tiny,
+                                stock_restore, t2n)
 
 OP_TOL = dict(rtol=0, atol=2e-5)
 MOD_TOL = dict(rtol=3e-3, atol=3e-3)
@@ -180,80 +183,66 @@ def test_vae_resnetblock_fused_matches_jax(monkeypatch, h):
     np.testing.assert_allclose(nhwc(y_t), np.asarray(y_j), **MOD_TOL)
 
 
-def test_tiny_restore_fused_matches_jax(monkeypatch):
-    """The slice as a whole: JAX with every gn_conv call on its Pallas
-    kernels (interpret mode) and the nearest-2x upsample form, the port in
-    the fused-conv configuration; every ResBlock half and upsample of the
-    port keeps channels-last activations (no layout copy on the card)."""
+@functools.lru_cache(maxsize=1)
+def _fused_restore():
+    """The port's tiny restore in the fused-conv configuration on
+    ``stock_restore``'s inputs and noise: (outputs as numpy, per plain
+    conv call (tier, its input and residual on channels-last memory))."""
     from edtr_torch.pipeline import build_flagship
-    from test_torch_pipeline import _replay_noise
 
-    pipe, params = jax_tiny()
+    _, params = jax_tiny()
     port = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=True)
     load_port(port, params)
-    port.eval()
-    g = np.random.default_rng(21)
-    lq = g.random((1, IMAGE, IMAGE, 3)).astype(np.float32)
-    c_txt = g.standard_normal((1,) + CTX).astype(np.float32)
-    rng = jax.random.PRNGKey(231)
-    monkeypatch.setenv("EDTR_UPS_SUBPIX", "0")
-    monkeypatch.setattr(JG, "_FORCE_KERNEL", True)
-    out_j = jax.jit(lambda p, x, r, c: pipe.restore(p, x, r, c_txt=c))(
-        params, jnp.asarray(lq), rng, jnp.asarray(c_txt))
-
+    assert port.fused_conv is True
     calls = []
     plain_gn, plain_up = G.plain_gn_silu_conv, G.plain_upsample_conv
+    last = torch.channels_last
 
     def rec_gn(x, mul, add, w, b, emb=None, res=None):
-        calls.append((G.tier(x.shape[2]), x, res))
+        calls.append((G.tier(x.shape[2]), x.is_contiguous(memory_format=last),
+                      res is None or res.is_contiguous(memory_format=last)))
         return plain_gn(x, mul, add, w, b, emb, res)
 
     def rec_up(x, w, b, act=None):
-        calls.append(("upsample_conv", x, None))
+        calls.append(("upsample_conv", x.is_contiguous(memory_format=last), True))
         return plain_up(x, w, b, act)
-    monkeypatch.setattr(G, "plain_gn_silu_conv", rec_gn)
-    monkeypatch.setattr(G, "plain_upsample_conv", rec_up)
-    hw = IMAGE // 8
-    noise, step_noise = _replay_noise(rng, (1, hw, hw, 4), len(pipe.used_timesteps))
-    out_t = port.restore(torch.from_numpy(lq), torch.from_numpy(c_txt),
-                         noise=torch.from_numpy(noise), step_noise=torch.from_numpy(step_noise))
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(G, "plain_gn_silu_conv", rec_gn)
+        mp.setattr(G, "plain_upsample_conv", rec_up)
+        out = port.eval().restore(*stock_restore()[0])
+    return {k: t2n(v) for k, v in out.items()}, tuple(calls)
 
+
+def test_tiny_restore_fused_matches_jax():
+    """The slice as a whole: the port's tiny restore in the fused-conv
+    configuration against its stock restore on the same inputs and noise
+    (``torch_port_helpers.stock_restore``, which
+    ``test_torch_pipeline.py::test_tiny_restore_matches_jax`` holds to
+    JAX's restore at these tolerances), so held to JAX through it; JAX's
+    gn_conv Pallas kernels themselves are held op by op above. Every
+    ResBlock half and upsample of the port keeps channels-last activations
+    (no layout copy on the card)."""
+    out_t, calls = _fused_restore()
+    out_j = stock_restore()[1]
     for name, tol in (("pre_restored", 2e-3), ("z", 5e-3), ("restored", 1e-2)):
-        a, b = t2n(out_t[name]), np.asarray(out_j[name])
+        a, b = out_t[name], out_j[name]
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
     # the tiny restore at 64²: latents 8² (whole-image tier), VAE 8²-64²,
     # SwinIR tail 16²-64²; every call on channels-last memory
     tiers = {t for t, _, _ in calls}
     assert tiers == {"gn_conv_whole", "gn_conv_band", "upsample_conv"}, tiers
-    for t, x, res in calls:
-        assert x.is_contiguous(memory_format=torch.channels_last), (t, tuple(x.shape))
-        assert res is None or res.is_contiguous(memory_format=torch.channels_last), t
+    for t, x_last, res_last in calls:
+        assert x_last and res_last, t
 
 
 def test_tiny_restore_stock_matches_fused():
     """Both conv configurations load the same state dict and, on the CPU
     (the same plain math, NCHW against channels-last memory), restore the
     same image."""
-    from edtr_torch.pipeline import build_flagship
-
-    _, params = jax_tiny()
-    g = np.random.default_rng(22)
-    args = (torch.from_numpy(g.random((1, IMAGE, IMAGE, 3)).astype(np.float32)),
-            torch.from_numpy(g.standard_normal((1,) + CTX).astype(np.float32)),
-            torch.from_numpy(g.standard_normal((1, IMAGE // 8, IMAGE // 8, 4))
-                             .astype(np.float32)),
-            torch.from_numpy(g.standard_normal((4, 1, IMAGE // 8, IMAGE // 8, 4))
-                             .astype(np.float32)))
-    outs = []
-    for fused in (False, True):
-        pipe = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=fused)
-        load_port(pipe, params)
-        assert pipe.fused_conv is fused
-        outs.append(pipe.eval().restore(*args))
+    stock, fused = stock_restore()[1], _fused_restore()[0]
     for name in ("pre_restored", "z", "restored"):
-        np.testing.assert_allclose(t2n(outs[1][name]), t2n(outs[0][name]), rtol=0, atol=1e-5,
-                                   err_msg=name)
+        np.testing.assert_allclose(fused[name], stock[name], rtol=0, atol=1e-5, err_msg=name)
 
 
 def _record_wrappers(monkeypatch):

@@ -11,14 +11,16 @@ numpy-seeded inputs.
   tokens inside ``layers.fused_proj()`` against the JAX blocks with the
   geglu and ln_matmul families forced, at 3e-3 (tests/test_torch_modules.py).
 * The slice: the tiny restore in the conv+proj configuration against the
-  JAX tiny restore with the gn_conv, geglu and ln_matmul kernels forced
-  (``EDTR_UPS_SUBPIX=0``); the tiny UNet's transformers have 64 tokens, so
-  both sides take 64-token tiles there (``_SEQ_TILE`` / ``SEQ_TILE``).
+  port's stock restore, which ``test_torch_pipeline.py`` holds to JAX's at
+  the same tolerances; the tiny UNet's transformers have 64 tokens, so the
+  port takes 64-token tiles there (``SEQ_TILE``).
 * The switch routes a block and only inside ``fused_proj()``; the
   SpatialTransformer copies strided (NCHW) tokens and counts it; the
   cached bf16 weight copies follow their parameters.
 * ``gn_stats`` on channels-last tensors equals the NCHW path and JAX's.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,13 +29,13 @@ import pytest
 import torch
 
 from edtr_tpu.ops import geglu as JGG
-from edtr_tpu.ops import gn_conv as JG
 from edtr_tpu.ops import ln_matmul as JLM
 
 from edtr_torch.models.layers import Linear, fused_proj
 from edtr_torch.ops import geglu as GG
 from edtr_torch.ops import ln_matmul as LM
-from torch_port_helpers import CTX, IMAGE, jax_tiny, load_port, nchw, nhwc, port_tiny, t2n
+from torch_port_helpers import (CTX, IMAGE, jax_tiny, load_port, nchw, nhwc, port_tiny,
+                                stock_restore, t2n)
 
 OP_TOL = dict(rtol=0, atol=2e-5)
 MOD_TOL = dict(rtol=3e-3, atol=3e-3)
@@ -160,11 +162,9 @@ def _record_plain(monkeypatch):
     return calls
 
 
-def _jax_forced(monkeypatch, seq_tile=None):
+def _jax_forced(monkeypatch):
     for mod in (JLM, JGG):
         monkeypatch.setattr(mod, "_FORCE_KERNEL", True)
-        if seq_tile is not None:
-            monkeypatch.setattr(mod, "_SEQ_TILE", seq_tile)
 
 
 def test_spatial_transformer_fused_matches_jax(monkeypatch):
@@ -212,52 +212,42 @@ def test_transformer_block_fused_matches_jax(monkeypatch):
     np.testing.assert_allclose(t2n(y_t), np.asarray(y_j), **MOD_TOL)
 
 
-def test_tiny_restore_conv_proj_matches_jax(monkeypatch):
-    """The slice as a whole: JAX with every gn_conv, geglu and ln_matmul
-    call on its Pallas kernels (interpret mode), the port in the conv+proj
-    configuration; JAX's ln_matmul and geglu kernels and each of the port's
-    four main-path wrappers are reached."""
-    import jax.experimental.pallas as pl
-
+@functools.lru_cache(maxsize=1)
+def _conv_proj_restore():
+    """The port's tiny restore in the conv+proj configuration (64-token
+    tiles, so the tiny transformers take the fused path) on
+    ``stock_restore``'s inputs and noise: (outputs as numpy, the plain
+    versions' calls, layout copies)."""
     from edtr_torch.pipeline import build_flagship
-    from test_torch_pipeline import _replay_noise
 
-    pipe, params = jax_tiny()
+    _, params = jax_tiny()
     port = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=True,
                           fused_proj=True)
     load_port(port, params)
-    port.eval()
-    g = np.random.default_rng(21)
-    lq = g.random((1, IMAGE, IMAGE, 3)).astype(np.float32)
-    c_txt = g.standard_normal((1,) + CTX).astype(np.float32)
-    rng = jax.random.PRNGKey(231)
-    monkeypatch.setenv("EDTR_UPS_SUBPIX", "0")
-    monkeypatch.setattr(JG, "_FORCE_KERNEL", True)
-    _jax_forced(monkeypatch, seq_tile=64)
-    kernels = set()
-    pallas_call = pl.pallas_call
+    assert (port.fused_conv, port.fused_proj) == (True, True)
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(LM, "SEQ_TILE", 64)
+        mp.setattr(GG, "SEQ_TILE", 64)
+        calls = _record_plain(mp)
+        LM.layout_copies["count"] = 0
+        out = port.eval().restore(*stock_restore()[0])
+        copies = LM.layout_copies["count"]
+    return {k: t2n(v) for k, v in out.items()}, tuple(calls), copies
 
-    def rec_pallas(kernel, *args, **kwargs):
-        fn = getattr(kernel, "func", kernel)
-        kernels.add(f"{fn.__module__}.{fn.__name__}")
-        return pallas_call(kernel, *args, **kwargs)
-    monkeypatch.setattr(pl, "pallas_call", rec_pallas)
-    out_j = jax.jit(lambda p, x, r, c: pipe.restore(p, x, r, c_txt=c))(
-        params, jnp.asarray(lq), rng, jnp.asarray(c_txt))
-    assert {"edtr_tpu.ops.ln_matmul._kernel", "edtr_tpu.ops.ln_matmul._aff_kernel",
-            "edtr_tpu.ops.geglu._ln_kernel"} <= kernels, kernels
 
-    monkeypatch.setattr(LM, "SEQ_TILE", 64)
-    monkeypatch.setattr(GG, "SEQ_TILE", 64)
-    calls = _record_plain(monkeypatch)
-    LM.layout_copies["count"] = 0
-    hw = IMAGE // 8
-    noise, step_noise = _replay_noise(rng, (1, hw, hw, 4), len(pipe.used_timesteps))
-    out_t = port.restore(torch.from_numpy(lq), torch.from_numpy(c_txt),
-                         noise=torch.from_numpy(noise), step_noise=torch.from_numpy(step_noise))
-
+def test_tiny_restore_conv_proj_matches_jax():
+    """The slice as a whole: the port's tiny restore in the conv+proj
+    configuration against its stock restore on the same inputs and noise
+    (``torch_port_helpers.stock_restore``, which
+    ``test_torch_pipeline.py::test_tiny_restore_matches_jax`` holds to
+    JAX's restore at these tolerances), so held to JAX through it; JAX's
+    ln_matmul and geglu Pallas kernels themselves are held op by op and
+    block by block above. Each of the port's four main-path wrappers is
+    reached."""
+    out_t, calls, copies = _conv_proj_restore()
+    out_j = stock_restore()[1]
     for name, tol in (("pre_restored", 2e-3), ("z", 5e-3), ("restored", 1e-2)):
-        a, b = t2n(out_t[name]), np.asarray(out_j[name])
+        a, b = out_t[name], out_j[name]
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
     # 4 steps x (UNet 3 + ControlNet 1) transformers at 64 tokens; the
@@ -265,7 +255,7 @@ def test_tiny_restore_conv_proj_matches_jax(monkeypatch):
     assert sorted(set(calls)) == ["affine_matmul", "ln_geglu_proj", "ln_matmuls_k1",
                                   "ln_matmuls_k3"]
     assert all(calls.count(c) == 16 for c in set(calls)), calls
-    assert LM.layout_copies["count"] == 0
+    assert copies == 0
 
 
 def test_fused_proj_switch_routes_a_block(monkeypatch):
@@ -408,28 +398,23 @@ def test_profile_books_the_projection_kernels():
 def test_conv_and_proj_configurations_restore_alike(monkeypatch):
     """All three configurations load the same state dict and, on the CPU,
     restore the same image (the same plain math; 64-token tiles, so the
-    tiny transformers take the fused path)."""
+    tiny transformers take the fused path): stock, conv (restored here) and
+    conv+proj on ``stock_restore``'s inputs."""
     from edtr_torch.pipeline import build_flagship
 
     monkeypatch.setattr(LM, "SEQ_TILE", 64)
     monkeypatch.setattr(GG, "SEQ_TILE", 64)
     _, params = jax_tiny()
-    g = np.random.default_rng(36)
-    args = (_t(g.random((1, IMAGE, IMAGE, 3)).astype(np.float32)),
-            _t(g.standard_normal((1,) + CTX).astype(np.float32)),
-            _t(g.standard_normal((1, IMAGE // 8, IMAGE // 8, 4)).astype(np.float32)),
-            _t(g.standard_normal((4, 1, IMAGE // 8, IMAGE // 8, 4)).astype(np.float32)))
-    outs = []
-    for conv, proj in ((False, False), (True, False), (True, True)):
-        pipe = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=conv,
-                              fused_proj=proj)
-        load_port(pipe, params)
-        assert (pipe.fused_conv, pipe.fused_proj) == (conv, proj)
-        outs.append(pipe.eval().restore(*args))
-    for out in outs[1:]:
+    pipe = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=True,
+                          fused_proj=False)
+    load_port(pipe, params)
+    assert (pipe.fused_conv, pipe.fused_proj) == (True, False)
+    args, stock = stock_restore()
+    with torch.no_grad():
+        conv = {k: t2n(v) for k, v in pipe.eval().restore(*args).items()}
+    for out in (conv, _conv_proj_restore()[0]):
         for name in ("pre_restored", "z", "restored"):
-            np.testing.assert_allclose(t2n(out[name]), t2n(outs[0][name]), rtol=0, atol=1e-5,
-                                       err_msg=name)
+            np.testing.assert_allclose(out[name], stock[name], rtol=0, atol=1e-5, err_msg=name)
 
 
 # (N, C, O) of calls around the projection kernels' conditions: the

@@ -65,3 +65,26 @@ def nchw(a) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
     return t2n(x).transpose(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=1)
+def stock_restore():
+    """(args, outputs as numpy) of the port's tiny restore in the stock
+    configuration (``fused_conv``, ``fused_proj`` and ``fused_swin`` off:
+    stock PyTorch modules) on the inputs and replayed noise of
+    ``tests/test_torch_pipeline.py::test_tiny_restore_matches_jax``, which
+    holds it to JAX's restore (pre_restored 2e-3, z 5e-3, restored 1e-2):
+    the reference of the other configurations' tiny restores."""
+    from test_torch_pipeline import RESTORE_KEY, _replay_noise, restore_inputs
+
+    _, params = jax_tiny()
+    pipe = build_flagship(tiny=True, dtype=None, device="cpu", fused_conv=False,
+                          fused_proj=False, fused_swin=False)
+    load_port(pipe, params)
+    lq, c_txt = restore_inputs()
+    hw = IMAGE // 8
+    noise, step_noise = _replay_noise(jax.random.PRNGKey(RESTORE_KEY), (1, hw, hw, 4), 4)
+    args = tuple(torch.from_numpy(a) for a in (lq, c_txt, noise, step_noise))
+    with torch.no_grad():
+        out = pipe.eval().restore(*args)
+    return args, {k: t2n(v) for k, v in out.items()}
