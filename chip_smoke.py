@@ -98,10 +98,13 @@ no result line):
    stock configuration, every kernel the run launched held against its
    plain version at its shapes (untimed), the stage split over
    :data:`TASK_ROUNDS` rounds and a trace (no host-to-device copy in
-   ``swinir`` or ``segment``);
+   ``swinir`` or ``segment``); the confusion matrix and IoU of its
+   argmax against seeded masks (``edtr_torch.utils.metrics``) on the card,
+   equal to the CPU's;
 12. restore then classify, the same from ``configs/cls/cub200/test/
    007_edtr-s4.yaml`` (ResNet-18, 200 classes) at the config's batch of 8:
-   the restore's kernels at bs-8 shapes;
+   the restore's kernels at bs-8 shapes; its top-1 and top-5 counts
+   against seeded labels on the card, equal to the CPU's;
 13. the full-width EDTR-s4 training step (``build_flagship(train=True)``,
    ``EDTRTrainState``, ``make_edtr_train_step``; the restore's pipeline is
    freed first) at 512², bs 2, bf16 compute, seeded weights, batch, t and
@@ -235,10 +238,42 @@ no result line):
    step, peak memory; the trainable tensors moved, ``conv1``, ``bn1`` and
    ``layer1`` bit-identical with their running statistics moved, the FPN's
    and box head's running statistics moved, the teacher unchanged;
-27. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+27. (run after phase 16's recipes but DiffBIR) the training data path of
+   ``configs/det/coco/train/100_swinir-pre-v2.yaml`` on a synthetic COCO
+   tree (``edtr_torch.data.synthetic``: 40 images of 480-640 px with
+   coloured boxes, only ``root`` overridden): its
+   ``DegradedDetectionDatasetCocov2``, ``make_dataloader`` (the config's
+   aspect-ratio groups and seed) and ``RealESRGANBatchTransform`` on the
+   card; one batch of the config's 32 loaded (host ms), ``prepare_batch``
+   timed (median of 3) and traced (busy ms, kernels, host-to-device
+   copies, no device-to-host copy), and run once under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no call in it may wait for
+   the card: no device-to-host copy, no synchronisation); the batch the steps take recorded
+   stage by stage and each stage recomputed on the CPU for its first 2
+   images on the card's inputs and draws (:data:`TOL_DATA_STAGE`; JPEG
+   blocks whose coefficients flip at a rounding tie left out; GT at 1e-6,
+   LQ equal but one-level flips at ties); GT and LQ finite in [0, 1], LQ
+   away from GT; USM's, a 21 x 21 blur's and the resize products' device
+   ms at bs 32; then 3 SwinIR-pre steps from the config (full width, 8 RSTB
+   x 6, C 180, AdamW) on that batch: the first counted (exact launches of
+   K6, K9, K10a, K10b), step ms, losses finite, peak memory, every kernel
+   held at its bs-32 shapes;
+28. (run after phase 12) the evaluation path: a synthetic VOC tree (8
+   images with XML annotations, ``ImageSets/Main``), degraded by
+   ``edtr_torch.data.val_data_generation.generate`` from
+   ``configs/det/voc2012/train/002_swinir-pre.yaml``'s dataset (seed 231),
+   loaded by ``configs/det/voc2012/test/007_edtr-s4.yaml``'s
+   ``PairedDetectionDataset``; each image padded to 512² by
+   ``list_to_batch``, restored by ``make_edtr_sample_fn`` on the config's
+   pipeline (the flagship's seeded weights) and detected by the config's
+   detector (seeded, calibrated on the first restored image), as JAX's
+   ``runner.edtr_eval`` composes them; the 8 counted (exact launches, 8
+   restores' counts); PSNR and the 12 COCO stats of ``CocoEvaluator`` over
+   ``gt_from_dataset`` (near 0 on random weights);
+29. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
    most of any counted path, restore+detect, the bs-8 restore+classify,
-   the training steps, the recipes and the demo paths among them), then
-   the result line.
+   the training steps, the recipes, the demo and the data paths among
+   them), then the result line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
 with each launch's kernel in it and times a call by CUDA events, naming it
@@ -258,6 +293,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -434,6 +470,34 @@ DET_V2_TRAIN_CONFIG = "configs/det/coco/train/001_edtr-s4-r50.yaml"
 # LPIPS on the card against the CPU on the same random weights and images
 TOL_LPIPS_REL = 1e-4
 LPIPS_IMAGES = (2, 3, 128, 160)
+# the data path: the Real-ESRGAN training data of this config on a
+# synthetic COCO tree (DATA_COCO_IMAGES images of DATA_COCO_SIDES px, the
+# last without annotations) through its dataset, loader and batch transform
+# at its batch of 32, feeding DATA_STEPS SwinIR-pre steps; the transform's
+# stages recomputed on the CPU for the first DATA_CPU_IMAGES images
+DATA_TRAIN_CONFIG = "configs/det/coco/train/100_swinir-pre-v2.yaml"
+DATA_COCO_IMAGES = 40
+DATA_COCO_SIDES = (480, 640)
+DATA_STEPS = 3
+DATA_TIMED = 3
+DATA_CPU_IMAGES = 2
+# the evaluation path: a synthetic VOC tree (DATA_VOC_IMAGES images),
+# degraded by val_data_generation from the first config's training
+# dataset, loaded by the second's val dataset, restored and detected
+DATA_GEN_CONFIG = "configs/det/voc2012/train/002_swinir-pre.yaml"
+DATA_EVAL_CONFIG = "configs/det/voc2012/test/007_edtr-s4.yaml"
+DATA_VOC_IMAGES = 8
+DATA_VOC_SIDES = (360, 500)
+# the transform's stages, card vs CPU on the card's inputs and draws (the
+# CPU tests hold the port's to JAX's at these): max abs per stage; a JPEG
+# stage outside the 8 x 8 blocks (16 x 16 for chroma) whose quantised
+# coefficients flip, at most DATA_FLIP_SHARE of them, each within
+# DATA_TIE of a rounding tie; LQ one 1/255 level apart at most
+# DATA_FLIP_SHARE of its pixels, each a tie of the last stage's output
+TOL_DATA_STAGE = {"filter2d": 1e-6, "resize": 1e-5, "gaussian": 1e-4, "poisson": 1e-4,
+                  "diff_jpeg": 1e-4}
+DATA_FLIP_SHARE = 1e-3
+DATA_TIE = 1e-4
 # conv wrapper -> (the TPU kernel it replaces, launches in one fused 512²
 # restore): 4 steps x (UNet 22 + ControlNet 10 ResBlocks) x 2 halves, of
 # them 4 x 22 at the 8² latent level (whole-image tier), plus the VAE's
@@ -2399,6 +2463,7 @@ def restore_task_phase(task: str, path: str, weights: dict, device) -> tuple:
     check(tuple(out["logits"].shape) == want_shape and out["logits"].dtype == torch.float32,
           f"{stage} logits {tuple(out['logits'].shape)} {out['logits'].dtype}")
     check(bool(torch.isfinite(out["logits"]).all()), f"{stage} logits finite")
+    metric = task_metric(task, out["logits"], device)
     with torch.no_grad():
         rel_net = rel_l2(task_logits(net, task, restored.clamp(0, 1)),
                          task_logits(net32, task, restored.clamp(0, 1)))
@@ -2440,7 +2505,7 @@ def restore_task_phase(task: str, path: str, weights: dict, device) -> tuple:
     res = dict(config=path, batch=bs, net=type(net).__name__, classes=classes,
                params=sum(p.numel() for p in net.parameters()), logits_moved_by_noise=moved,
                configuration=dict(zip(("fused_conv", "fused_proj", "fused_swin"), flags)),
-               rel_l2_bf16_vs_fp32=rel_net, restored_vs_stock_rel_l2=rel_stock,
+               rel_l2_bf16_vs_fp32=rel_net, restored_vs_stock_rel_l2=rel_stock, metric=metric,
                tol_rel_l2=TOL_TASK_REL, held=held, stage_ms=stage_ms,
                e2e_ms=statistics.median(e2e), e2e_runs_ms=e2e,
                ms_per_img=statistics.median(e2e) / bs,
@@ -2453,6 +2518,35 @@ def restore_task_phase(task: str, path: str, weights: dict, device) -> tuple:
           json.dumps({k: v for k, v in res.items() if k != "trace"}), flush=True)
     print(f"trace restore+{stage} of {TASK_TRACE_ITERS}:", json.dumps(trace), flush=True)
     return res, dict(launches=launches, shapes=shapes, copies=copies)
+
+
+def task_metric(task: str, logits: torch.Tensor, device) -> dict:
+    """The task's metric of ``logits`` against seeded targets
+    (:func:`task_target`) on the card, gated equal to the CPU's on the same
+    tensors: the confusion matrix, its IoU and mean IoU (seg); the top-1
+    and top-5 counts (cls)."""
+    from edtr_torch.utils import metrics as M
+
+    classes = TASK_NETS[task][1]
+    target = task_target(task, logits.shape[0], torch.Generator(device=device).manual_seed(31),
+                         device)
+    if task == "seg":
+        pred = logits.argmax(1)
+        mat = M.confusion_matrix(pred, target, classes)
+        mat_cpu = M.confusion_matrix(pred.cpu(), target.cpu(), classes)
+        iou, miou = M.compute_iou(mat)
+        iou_cpu, miou_cpu = M.compute_iou(mat_cpu)
+        check(mat.device == device and torch.equal(mat.cpu(), mat_cpu), "confusion matrix "
+                                                                        "card vs CPU")
+        check(torch.equal(iou.cpu(), iou_cpu) and miou == miou_cpu, "IoU card vs CPU")
+        res = dict(miou=miou, pixels=int(mat_cpu.sum()), classes_present=int((iou_cpu > 0).sum()))
+    else:
+        acc = [int(v) for v in M.topk_accuracy(logits, target, (1, 5))]
+        acc_cpu = [int(v) for v in M.topk_accuracy(logits.cpu(), target.cpu(), (1, 5))]
+        check(acc == acc_cpu, f"top-k card {acc} vs CPU {acc_cpu}")
+        res = dict(top1=acc[0], top5=acc[1], images=logits.shape[0])
+    print(f"{task} metric on the card (equal to the CPU's):", json.dumps(res), flush=True)
+    return res
 
 
 def task_target(task: str, batch: int, g: torch.Generator, device) -> torch.Tensor:
@@ -2941,6 +3035,369 @@ def lpips_phase(device) -> dict:
     print("lpips (alex, random weights, card vs CPU):", json.dumps(res), flush=True)
     check(rel <= TOL_LPIPS_REL, f"LPIPS card vs CPU: {rel} > {TOL_LPIPS_REL}")
     return res
+
+
+STAGE_FUNCTIONS = {"filter2d": "filter2d", "resize": "resize",
+                   "random_add_gaussian_noise_pt": "gaussian",
+                   "random_add_poisson_noise_pt": "poisson", "diff_jpeg": "diff_jpeg"}
+
+
+@contextlib.contextmanager
+def recorded_stages(n: int):
+    """Inside, each stage of ``edtr_torch.data.realesrgan``'s transform
+    records (stage, its input, its other arguments, its output), the
+    first ``n`` images of each on the host, the per-image arguments (blur
+    kernels, qualities, noise draws) sliced alike."""
+    from edtr_torch.data import realesrgan as RG
+
+    records = []
+
+    def first(v):  # a per-image tensor, or a dict of them
+        if isinstance(v, dict):
+            return {k: first(x) for k, x in v.items()}
+        return v[:n].cpu() if isinstance(v, torch.Tensor) else v
+
+    def per_image(name, args):
+        if name == "filter2d":  # a (B, K, K) stack or USM's one (K, K) kernel
+            return (first(args[0]) if args[0].ndim == 3 else args[0].cpu(),)
+        if name == "diff_jpeg":
+            return (first(args[0]) if isinstance(args[0], torch.Tensor) else args[0],)
+        return args  # resize: sizes and mode; noise: ranges and probabilities
+
+    def wrap(fn, name):
+        def stage(img, *args, **kw):
+            out = fn(img, *args, **kw)
+            records.append((name, first(img), per_image(name, args), first(kw),
+                            first(out)))
+            return out
+        return stage
+
+    saved = {attr: getattr(RG, attr) for attr in STAGE_FUNCTIONS}
+    for attr, name in STAGE_FUNCTIONS.items():
+        setattr(RG, attr, wrap(saved[attr], name))
+    try:
+        yield records
+    finally:
+        for attr, fn in saved.items():
+            setattr(RG, attr, fn)
+
+
+def jpeg_scaled(x: torch.Tensor, q: torch.Tensor) -> list:
+    """The DCT coefficients over their quantisation steps of each JPEG
+    component of an NCHW batch, (B, blocks, 8, 8), with the component's
+    width in blocks (``edtr_torch.data.diffjpeg``'s stages)."""
+    from edtr_torch.data import diffjpeg as DJ
+
+    h, w = x.shape[-2:]
+    ycc = DJ.rgb_to_ycbcr(F.pad(x, (0, (16 - w % 16) % 16, 0, (16 - h % 16) % 16)) * 255.0)
+    factor = DJ.quality_to_factor(q).to(x.device)
+    out = []
+    for comp, table in ((ycc[:, 0], "y"), (DJ._avg_pool_2x2(ycc[:, 1]), "c"),
+                        (DJ._avg_pool_2x2(ycc[:, 2]), "c")):
+        step = DJ._table(table, x.device)[None, None] * factor[:, None, None, None]
+        out.append(((DJ.block_dct(DJ._blockify(comp)) / step).cpu(), comp.shape[-1] // 8))
+    return out
+
+
+def jpeg_flips(x_card: torch.Tensor, x_cpu: torch.Tensor, q: torch.Tensor) -> tuple:
+    """(share of the blocks whose quantised coefficients differ between the
+    card and the CPU on one input, (B, H, W) pixels of those blocks, the
+    largest distance of a flipped coefficient from a rounding tie)."""
+    b, _, h, w = x_cpu.shape
+    mask = torch.zeros((b, h + 16, w + 16), dtype=torch.bool)
+    flipped = total = 0
+    worst = 0.0
+    for ci, ((sc, cw), (sh, _)) in enumerate(zip(jpeg_scaled(x_card, q.to(x_card.device)),
+                                                 jpeg_scaled(x_cpu, q.cpu()))):
+        flip = torch.round(sc) != torch.round(sh)
+        if bool(flip.any()):
+            worst = max(worst, float(((sh - sh.floor()) - 0.5).abs()[flip].max()))
+        blocks = flip.any(-1).any(-1)
+        flipped += int(blocks.sum())
+        total += blocks.numel()
+        px = 8 if ci == 0 else 16
+        for bi, nb in blocks.nonzero().tolist():
+            y0, x0 = (nb // cw) * px, (nb % cw) * px
+            mask[bi, y0:y0 + px, x0:x0 + px] = True
+    return flipped / total, mask[:, :h, :w], worst
+
+
+def transform_vs_cpu(records: list, device) -> dict:
+    """Each recorded stage of a card run recomputed on the CPU on its input
+    and arguments (the card's draws) and held at :data:`TOL_DATA_STAGE`."""
+    from edtr_torch.data import realesrgan as RG
+
+    fns = {name: getattr(RG, attr) for attr, name in STAGE_FUNCTIONS.items()}
+    worst, flips, tie = {}, 0.0, 0.0
+    last_cpu = None
+    for name, img, args, kw, out in records:
+        got = fns[name](img, *args, **kw)
+        err = (got - out).abs()
+        if name == "diff_jpeg":
+            share, mask, far = jpeg_flips(img.to(device), img, args[0])
+            flips, tie = max(flips, share), max(tie, far)
+            check(share <= DATA_FLIP_SHARE and far <= DATA_TIE,
+                  f"JPEG card vs CPU: {share} of the blocks flipped, {far} from a tie")
+            err = err.masked_fill(mask[:, None], 0)
+        e = float(err.max())
+        worst[name] = max(worst.get(name, 0.0), e)
+        check(e <= TOL_DATA_STAGE[name], f"transform stage {name} card vs CPU: {e}")
+        last_cpu = got
+    return dict(stages=len(records), max_abs_by_stage=worst, jpeg_flipped_block_share=flips,
+                jpeg_flip_tie_distance=tie, last_cpu=last_cpu)
+
+
+def lq_vs_cpu(lq_card: torch.Tensor, last_cpu: torch.Tensor) -> dict:
+    """The card's LQ (NCHW, first images) against the CPU's rounding of its
+    last stage: the same 1/255 levels but one-level flips at ties (the
+    card divides by 255 to within an ulp of the CPU)."""
+    v = torch.clamp(last_cpu * 255.0, 0, 255)
+    lq_card = lq_card.cpu()
+    level = torch.round(lq_card * 255.0)
+    flips = level != torch.round(v)
+    share = float(flips.float().mean())
+    tie = float(((v - v.floor()) - 0.5).abs()[flips].max()) if bool(flips.any()) else 0.0
+    check(share <= DATA_FLIP_SHARE, f"LQ card vs CPU: {share} of the pixels differ")
+    check(bool(((level - torch.round(v)).abs()[flips] == 1).all()), "LQ flips of one level")
+    check(tie <= 255 * TOL_DATA_STAGE["resize"], f"LQ flips {tie} from a tie")
+    ulp = float((lq_card - level / 255.0).abs().max())
+    check(ulp <= 2.0 ** -24, f"LQ {ulp} off its level")
+    return dict(lq_flipped_share=share, lq_flip_tie_distance=tie, lq_off_level=ulp)
+
+
+def data_train_phase(weights: dict, device, batch_size: int = None, gt_size: int = None
+                     ) -> dict:
+    """The Real-ESRGAN training data path into SwinIR-pre v2 steps (module
+    docstring, phase 27); ``batch_size`` and the dataset's ``gt_size`` the
+    config's unless given (a CPU rehearsal shrinks them)."""
+    import tempfile
+
+    from torch.profiler import record_function
+
+    from edtr_torch.config import instantiate_from_config, load_config
+    from edtr_torch.data import realesrgan as RG
+    from edtr_torch.data import synthetic
+    from edtr_torch.data.degradation import filter2d
+    from edtr_torch.profile_restore import trace_restores
+    from edtr_torch.train import harness as H
+    from edtr_torch.train import recipes as R
+
+    cfg = load_config(DATA_TRAIN_CONFIG)
+    tc = cfg.train
+    bs = batch_size or int(tc.batch_size)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.write_coco_tree(root, n=DATA_COCO_IMAGES, size_range=DATA_COCO_SIDES,
+                                  split="train", seed=27)
+        write_s = time.perf_counter() - t0
+        node = cfg.dataset.train.to_dict()
+        node["params"] = dict(node["params"], root=root,
+                              **(dict(gt_size=gt_size, out_size=gt_size) if gt_size else {}))
+        dataset = instantiate_from_config(node)
+        transform = instantiate_from_config(cfg.dataset.batch_transform, device=device)
+        check(type(transform).__module__ == "edtr_torch.data.realesrgan",
+              f"the config's transform builds {type(transform)}")
+        loader = H.make_dataloader(dataset, batch_size=bs, shuffle=True, num_workers=0,
+                                   aspect_ratio_group_factor=int(tc.aspect_ratio_group_factor),
+                                   seed=int(tc.seed))
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        load_ms = (time.perf_counter() - t0) * 1e3
+    check(len(batch[0]) == bs and len(dataset) == DATA_COCO_IMAGES - 1,
+          f"loader batch {len(batch[0])}, dataset {len(dataset)}")
+    print(f"data train: {DATA_TRAIN_CONFIG}, synthetic COCO tree of {DATA_COCO_IMAGES} images "
+          f"{DATA_COCO_SIDES} px written in {write_s:.1f} s, {type(dataset).__name__} of "
+          f"{len(dataset)}, a batch of {bs} loaded in {load_ms:.1f} ms (host, no workers)",
+          flush=True)
+
+    def prepare():
+        return H.prepare_batch(batch, IMAGE, batch_transform=transform)
+
+    prepare()  # the resize matrices, the tables and USM's kernel made on the card
+    times = [host_ms(prepare) for _ in range(DATA_TIMED)]
+
+    def traced():
+        with record_function("transform"):
+            prepare()
+
+    trace = trace_restores(traced, 1, ("transform",))
+    st = trace["stages"]["transform"]
+    check(st["dtoh_memcpy"] == 0, f"{st['dtoh_memcpy']} device-to-host copies in the transform")
+    # no device-to-host copy, and no other wait for the card: any
+    # synchronising call inside the transform raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prepare()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the batch the steps train on, its stages recorded and recomputed on the CPU
+    with recorded_stages(DATA_CPU_IMAGES) as records:
+        _, _, gt_b, lq_b, _, _, _ = prepare()
+    stages = transform_vs_cpu(records, device)
+    hq = torch.from_numpy(H.list_to_batch([np.asarray(g) for g in batch[0][:DATA_CPU_IMAGES]],
+                                          IMAGE)).permute(0, 3, 1, 2)
+    gt_err = float((transform.usm(hq.contiguous()) - gt_b[:DATA_CPU_IMAGES].permute(
+        0, 3, 1, 2).cpu()).abs().max())
+    check(gt_err <= TOL_DATA_STAGE["filter2d"], f"GT card vs CPU {gt_err}")
+    lq_check = lq_vs_cpu(lq_b[:DATA_CPU_IMAGES].permute(0, 3, 1, 2), stages.pop("last_cpu"))
+    for name, t in (("GT", gt_b), ("LQ", lq_b)):
+        check(t.device.type == device.type and tuple(t.shape) == (bs, IMAGE, IMAGE, 3),
+              f"{name} {t.device} {tuple(t.shape)}")
+        check(bool(torch.isfinite(t).all()) and float(t.min()) >= 0 and float(t.max()) <= 1,
+              f"{name} finite in [0, 1]")
+    lq_gt = float((lq_b - gt_b).abs().mean())
+    check(lq_gt > 1e-3, f"LQ equals GT ({lq_gt})")
+    # USM's two 51 x 51 filters and the resize products at this batch
+    g = torch.Generator(device=device).manual_seed(28)
+    x = torch.rand((bs, 3, IMAGE, IMAGE), generator=g, device=device)
+    k21 = torch.rand((bs, 21, 21), generator=g, device=device)
+    small = torch.rand((bs, 3, IMAGE // 4, IMAGE // 4), generator=g, device=device)
+    op_ms = dict(usm=device_ms(lambda: transform.usm(x), 3, what="usm"),
+                 filter2d_21=device_ms(lambda: filter2d(x, k21), 3, what="filter2d 21"),
+                 resize_down_bicubic=device_ms(lambda: RG.resize(x, IMAGE // 4, IMAGE // 4,
+                                                                 "bicubic"), 3,
+                                               what="resize down"),
+                 resize_back_bicubic=device_ms(lambda: RG.resize(small, IMAGE, IMAGE,
+                                                                 "bicubic"), 3,
+                                               what="resize back"))
+    del x, k21, small
+    res = dict(config=DATA_TRAIN_CONFIG, batch=bs, dataset=len(dataset), load_ms=load_ms,
+               transform_ms=statistics.median(times), transform_runs_ms=times,
+               transform_device_busy_ms=st["device_busy_ms"], transform_kernels=st["kernels"],
+               transform_htod_memcpy=st["htod_memcpy"], transform_dtoh_memcpy=st["dtoh_memcpy"],
+               transform_idle_share=st["idle_share"], card_vs_cpu=stages, gt_card_vs_cpu=gt_err,
+               **lq_check, lq_gt_mean_abs=lq_gt, op_device_ms=op_ms)
+    print(f"data train transform (bs {bs}, {IMAGE}²):", json.dumps(res), flush=True)
+
+    # SwinIR-pre v2 steps from the config on that batch
+    sw = recipe_swinir(cfg, weights, device)
+    state = R.SimpleTrainState.create(sw, R.cosine_tx("adamw", float(tc.learning_rate),
+                                                      int(tc.train_steps), weight_decay=0.0))
+    step = R.make_swinir_pre_train_step(sw)
+    batch_t = dict(lq=lq_b, gt=gt_b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = {}
+    first_ms = host_ms(lambda: out.update(step(state, batch_t)))
+    launches, shapes, _ = read_counts()
+    want = recipe_launches("swinir_pre")
+    check(launches == want, f"data train step launches {launches}, want {want}")
+    losses = [out["loss"].item()]
+    step_ms = [first_ms]
+    for _ in range(DATA_STEPS - 1):
+        step_ms.append(host_ms(lambda: out.update(step(state, batch_t))))
+        losses.append(out["loss"].item())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(v) for v in losses), f"data train losses {losses}")
+    held = hold_shapes(device, shapes)
+    check(set(held) == {k for k, n in launches.items() if n}, f"held {sorted(held)}")
+    res.update(steps=DATA_STEPS, step_ms=step_ms, losses=losses, peak_memory_gib=peak,
+               launches=launches, held=held)
+    print(f"data train: {DATA_STEPS} SwinIR-pre v2 steps at bs {bs}: step ms {step_ms}, "
+          f"losses {losses}, peak {peak:.2f} GiB, launches {launches}; kernels held at the "
+          f"bs-{bs} shapes: {json.dumps(held)}", flush=True)
+    del sw, state, step, batch_t, gt_b, lq_b
+    return res
+
+
+def data_eval_phase(weights: dict, device, gt_size: int = None, detector_kw: dict = None
+                    ) -> dict:
+    """The VOC evaluation path (module docstring, phase 28); the datasets'
+    ``gt_size`` the configs' unless given, ``detector_kw`` more keywords of
+    the detector (a CPU rehearsal shrinks both)."""
+    import os
+    import tempfile
+
+    import yaml
+
+    from edtr_torch.config import instantiate_from_config
+    from edtr_torch.data.coco import gt_from_dataset
+    from edtr_torch.data import synthetic
+    from edtr_torch.data.val_data_generation import generate
+    from edtr_torch.pipeline import FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT
+    from edtr_torch.train.edtr_step import make_edtr_sample_fn
+    from edtr_torch.train.harness import list_to_batch
+    from edtr_torch.utils.coco_eval import CocoEvaluator
+    from edtr_torch.utils.image import calculate_psnr
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.write_voc_tree(root, n=DATA_VOC_IMAGES, size_range=DATA_VOC_SIDES, seed=29)
+        with open(DATA_GEN_CONFIG) as f:
+            gen = yaml.safe_load(f)
+        gen["dataset"]["train"]["params"].update(
+            root=root, **(dict(gt_size=gt_size, out_size=gt_size) if gt_size else {}))
+        gen_path = os.path.join(root, "gen.yaml")
+        with open(gen_path, "w") as f:
+            yaml.safe_dump(gen, f)
+        out_dir = generate(gen_path, "det", seed=231)
+        gen_s = time.perf_counter() - t0
+        pairs = sorted(os.listdir(os.path.join(out_dir, "lq")))
+        check(len(pairs) == DATA_VOC_IMAGES, f"val_data_generation wrote {pairs}")
+        cfg, pipe = config_pipeline(DATA_EVAL_CONFIG, weights, device)
+        node = cfg.dataset.val.to_dict()
+        node["params"] = dict(node["params"], root=root,
+                              **(dict(gt_size=gt_size) if gt_size else {}))
+        dataset = instantiate_from_config(node)
+        items = [dataset[i] for i in range(len(dataset))]
+        gt_index = gt_from_dataset(dataset)
+    flags = (FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT)
+    check((pipe.fused_conv, pipe.fused_proj, pipe.fused_swin) == flags,
+          "the eval config's pipeline in the default configuration")
+    sample = make_edtr_sample_fn(pipe)
+    c_txt = pipe.text(1)
+    g = torch.Generator(device=device).manual_seed(30)
+
+    def restore(lq):
+        lq_b = torch.from_numpy(list_to_batch([lq], IMAGE)).to(device)
+        return sample(lq_b, c_txt, generator=g)
+
+    first = restore(items[0][1]).permute(0, 3, 1, 2).clamp(0, 1)
+    # the config's detector without its named ImageNet backbone (not in the
+    # repository; the port loads no weights by name): seeded, calibrated
+    node = cfg.model.detnet.to_dict()
+    params = {k: v for k, v in node["params"].items() if k not in ("weights", "weights_backbone")}
+    det, _ = detector_pair(device, first, lambda **kw: instantiate_from_config(
+        dict(node, params=params), **(detector_kw or {}), **kw))
+    with torch.no_grad():
+        det(first)
+    evaluator = CocoEvaluator(gt_index)
+    psnrs, found = [], 0
+    torch.cuda.synchronize()
+    # the main path: counts set to 0 just before the loop, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    for gt, lq, annot, _ in items:
+        h, w = gt.shape[:2]
+        restored = restore(lq)
+        gt_b = torch.from_numpy(list_to_batch([gt], IMAGE)).to(device)
+        psnrs.append(float(calculate_psnr(restored[:, :h, :w].permute(0, 3, 1, 2),
+                                          gt_b[:, :h, :w].permute(0, 3, 1, 2))[0]))
+        with torch.no_grad():
+            dets = det(restored.permute(0, 3, 1, 2).clamp(0, 1))[0]
+        valid = dets["valid"][0]
+        found += int(valid.sum())
+        evaluator.update({annot["image_id"]: dict(boxes=dets["boxes"][0][valid],
+                                                  scores=dets["scores"][0][valid],
+                                                  labels=dets["labels"][0][valid])})
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    launches, shapes, copies = read_counts()
+    want = {k: n * len(items) for k, n in expected_launches(flags).items()}
+    check(launches == want, f"data eval launches {launches}, want {want}")
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    stats = evaluator.summarize(verbose=False)
+    check(len(stats) == 12 and all(math.isfinite(v) and -1 <= v <= 1 for v in stats.values()),
+          f"COCO stats {stats}")
+    check(all(math.isfinite(p) for p in psnrs), f"PSNR {psnrs}")
+    res = dict(config=DATA_EVAL_CONFIG, generated_by=DATA_GEN_CONFIG, images=len(items),
+               generate_s=gen_s, ms_per_image=loop_ms / len(items), psnr=statistics.mean(psnrs),
+               detections=found, coco_stats=stats, launches=launches, layout_copies=copies)
+    print(f"data eval (VOC, restore+detect, {IMAGE}²):", json.dumps(res), flush=True)
+    del pipe, det
+    return dict(res, shapes=shapes)
 
 
 def demo_phases(weights: dict, device, counted: dict) -> dict:
@@ -3641,6 +4098,12 @@ def main() -> int:
         tasks[what], counted[what] = restore_task_phase(task, path, weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+    data = {"eval": data_eval_phase(weights, device)}
+    counted["data eval"] = dict(launches=data["eval"]["launches"],
+                                copies=data["eval"].pop("layout_copies"),
+                                shapes=data["eval"].pop("shapes"))
+    gc.collect()
+    torch.cuda.empty_cache()
     demo = demo_phases(weights, device, counted)
     train = train_phase(device)
     gc.collect()
@@ -3669,6 +4132,9 @@ def main() -> int:
         recipes[name] = phase(weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+    data["train"] = data_train_phase(weights, device)
+    gc.collect()
+    torch.cuda.empty_cache()
     recipes["diffbir"], diffbir_pipe = train_diffbir_phase(weights, device)
     recipes["sample_fn"] = sample_fn_phase(diffbir_pipe, device)
     swinir_pre_shapes = recipes["swinir_pre"].pop("shapes")
@@ -3693,7 +4159,10 @@ def main() -> int:
         row["launches_demo"] = counted["demo"]["launches"][name]
         row["launches_demo_tiled"] = counted["demo tiled"]["launches"][name]
         row["launches_train_step_detnet_v2"] = train_det_v2["launches"][name]
-        row["launches"] = max([row["launches"], train_det_v2["launches"][name]]
+        row["launches_data_train"] = data["train"]["launches"][name]
+        row["launches_data_eval"] = data["eval"]["launches"][name]
+        row["launches"] = max([row["launches"], train_det_v2["launches"][name],
+                               data["train"]["launches"][name]]
                               + [recipes[r]["launches"][name] for r in
                                  ("swinir_pre", "sr4ir", "task_swinir", "diffbir")])
         row["on_path"] = row["launches"] > 0  # K4: the demo's path
@@ -3707,6 +4176,8 @@ def main() -> int:
                       "cldm_eps": cldm, "gn_stats": norms,
                       "train": train, "train_detnet": train_det, "task_nets": tasks,
                       "demo": demo, "train_detnet_v2": train_det_v2,
+                      "data": {k: {kk: vv for kk, vv in v.items() if kk != "held"}
+                               for k, v in data.items()},
                       "recipes": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
                                   for k, v in recipes.items()},
                       "swinir_pre_shapes": [dict(key=list(k), launches=n) for k, n in

@@ -6,8 +6,8 @@ over a nested dict), :func:`load_config` (``yaml.safe_load``),
 :func:`get_obj_from_str` and :func:`instantiate_from_config`. The configs
 name the reference's targets (``model.resnet.ResNet``, ...); :data:`REGISTRY`
 maps each to the port's constructor, and ``edtr_torch.*`` paths resolve by
-import. A reference target the port does not have yet (the datasets, the
-unused restoration nets, the dead ``nsampler`` encoder) raises
+import. A reference target the port does not have yet (the unused
+restoration nets, the dead ``nsampler`` encoder) raises
 :class:`NotPortedError` naming it; any other path outside ``edtr_torch``
 raises too, so nothing resolves into the JAX package.
 """
@@ -106,18 +106,30 @@ REGISTRY: Dict[str, Optional[str]] = {
     "model.scunet.SCUNet": None,
     "model.skunet.SKUNet": None,
     "model.edsr.EDSR": None,
-    "datasets.classification.DegradedClassificationDataset": None,
-    "datasets.classification.PairedClassificationDataset": None,
-    "datasets.segmentation.DegradedSegmentationDataset": None,
-    "datasets.segmentation.PairedSegmentationDataset": None,
-    "datasets.detection.DegradedDetectionDataset": None,
-    "datasets.detection.PairedDetectionDataset": None,
-    "datasets.detection.RealworldDetectionDataset": None,
-    "datasets.detection_coco.DegradedDetectionDatasetCoco": None,
-    "datasets.detection_coco.PairedDetectionDatasetCoco": None,
-    "datasets.detection_cocov2.DegradedDetectionDatasetCocov2": None,
-    "datasets.detection_cocov2.RealESRGANBatchTransform": None,
-    "datasets.file_backend.HardDiskBackend": None,
+    "datasets.classification.DegradedClassificationDataset":
+        "edtr_torch.data.classification.DegradedClassificationDataset",
+    "datasets.classification.PairedClassificationDataset":
+        "edtr_torch.data.classification.PairedClassificationDataset",
+    "datasets.segmentation.DegradedSegmentationDataset":
+        "edtr_torch.data.segmentation.DegradedSegmentationDataset",
+    "datasets.segmentation.PairedSegmentationDataset":
+        "edtr_torch.data.segmentation.PairedSegmentationDataset",
+    "datasets.detection.DegradedDetectionDataset":
+        "edtr_torch.data.detection.DegradedDetectionDataset",
+    "datasets.detection.PairedDetectionDataset":
+        "edtr_torch.data.detection.PairedDetectionDataset",
+    "datasets.detection.RealworldDetectionDataset":
+        "edtr_torch.data.detection.RealworldDetectionDataset",
+    "datasets.detection_coco.DegradedDetectionDatasetCoco":
+        "edtr_torch.data.detection_coco.DegradedDetectionDatasetCoco",
+    "datasets.detection_coco.PairedDetectionDatasetCoco":
+        "edtr_torch.data.detection_coco.PairedDetectionDatasetCoco",
+    "datasets.detection_cocov2.DegradedDetectionDatasetCocov2":
+        "edtr_torch.data.detection_cocov2.DegradedDetectionDatasetCocov2",
+    "datasets.detection_cocov2.RealESRGANBatchTransform":
+        "edtr_torch.data.realesrgan.RealESRGANBatchTransform",
+    "datasets.file_backend.HardDiskBackend":
+        "edtr_torch.data.file_backend.HardDiskBackend",
 }
 
 

@@ -10,8 +10,9 @@ them :data:`RESTORE_DETECT_STAGES`, ``segment`` :data:`RESTORE_SEGMENT_STAGES`,
 :data:`TRAIN_STAGES`, a recipe step's :data:`RECIPE_STAGES`.
 :func:`summarise` reads the Chrome trace: per stage the host ms, the
 device-busy ms (union of kernel intervals), the idle share, the kernel
-count and the host-to-device copies (each one a stall of the host: a copy
-from pageable memory synchronises the stream); the device time by kernel
+count, the host-to-device copies (each one a stall of the host: a copy
+from pageable memory synchronises the stream) and the device-to-host
+ones; the device time by kernel
 family; and the top kernels by device time. ``chip_smoke.py`` prints it for
 the full-width 512² restore, restore and detection, segmentation or
 classification, and the training steps.
@@ -87,6 +88,7 @@ def summarise(trace: dict, stages: Sequence[str] = STAGES, runs: Optional[int] =
               and e.get("name") in stages]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    dtoh = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
     # host timestamp of the runtime call that launched each kernel
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
@@ -104,7 +106,8 @@ def summarise(trace: dict, stages: Sequence[str] = STAGES, runs: Optional[int] =
         per_stage[stage] = dict(host_ms=wall / n_runs, device_busy_ms=busy / n_runs,
                                 idle_share=1 - busy / wall if wall else None,
                                 kernels=len(ks) // n_runs,
-                                htod_memcpy=sum(issued(e) for e in htod) / n_runs)
+                                htod_memcpy=sum(issued(e) for e in htod) / n_runs,
+                                dtoh_memcpy=sum(issued(e) for e in dtoh) / n_runs)
     by_family, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for k in kernels:
         by_family[_family(k["name"])] += k["dur"] / 1e3 / n_runs

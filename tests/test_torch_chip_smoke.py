@@ -123,3 +123,78 @@ def test_demo_launches_are_tiles_times_passes():
         (24, chip_smoke.EPS_PASS), (4, chip_smoke.decode_launches(96, 96)))
     assert chip_smoke.demo_launches(768, 1024, tiled=True) == want
     assert want["flash_fwd"] == 0 and want["streamkv_fwd"] == 4 and want["wholekv_fwd"] == 168
+
+
+@pytest.fixture
+def rehearsal(monkeypatch):
+    """chip_smoke on the CPU at 64²: the card's clock, memory and trace calls
+    stubbed, every launch count 0 (the plain versions launch no kernel), the
+    tiny flagship with a 49408-token text tower for the configs' pipelines,
+    the configs' SwinIR in fp32."""
+    import torch
+
+    from edtr_torch.models.cldm import clip_from_cfg
+    from edtr_torch.models.layers import randomize_
+    from edtr_torch.pipeline import build_flagship, flagship_configs, swinir_from_config
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for name in ("synchronize", "reset_peak_memory_stats", "set_sync_debug_mode"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "IMAGE", 64)
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, iters, warmup=2, what="": (fn(), 0.0)[1])
+    zeros = {k: 0 for k in chip_smoke.read_counts()[0]}
+    monkeypatch.setattr(chip_smoke, "recipe_launches", lambda name: dict(zeros))
+    monkeypatch.setattr(chip_smoke, "expected_launches", lambda flags: dict(zeros))
+    monkeypatch.setattr(chip_smoke, "hold_shapes", lambda device, shapes: {})
+
+    def trace(chain, iters, stages):
+        chain()
+        return {"stages": {s: dict(host_ms=0.0, device_busy_ms=0.0, idle_share=None, kernels=0,
+                                   htod_memcpy=0, dtoh_memcpy=0) for s in stages}}
+    monkeypatch.setattr("edtr_torch.profile_restore.trace_restores", trace)
+    pipe = build_flagship(tiny=True, dtype=None, device="cpu")
+    clip = flagship_configs(tiny=True)["clip"]
+    pipe.cldm.clip = clip_from_cfg(dict(clip, text_cfg=dict(clip["text_cfg"], vocab_size=49408)))
+    randomize_(pipe, torch.Generator().manual_seed(0)).eval()
+
+    def config_pipeline(path, weights, device):
+        from edtr_torch.config import load_config
+
+        return load_config(path), pipe
+    monkeypatch.setattr(chip_smoke, "config_pipeline", config_pipeline)
+    monkeypatch.setattr(chip_smoke, "recipe_swinir",
+                        lambda cfg, weights, device: swinir_from_config(cfg.model.swinir,
+                                                                        device=device))
+
+    yield torch.device("cpu")
+    torch.set_num_threads(n)
+
+
+def test_data_train_phase_rehearses_on_the_cpu(rehearsal, monkeypatch):
+    """Phase 27 at bs 4 on a 9-image COCO tree: the loader's batch, the
+    transform's stages recomputed on a second CPU run at their tolerances,
+    GT/LQ in [0, 1], three SwinIR-pre steps with finite losses."""
+    monkeypatch.setattr(chip_smoke, "DATA_COCO_IMAGES", 9)
+    monkeypatch.setattr(chip_smoke, "DATA_COCO_SIDES", (80, 112))
+    res = chip_smoke.data_train_phase({}, rehearsal, batch_size=4, gt_size=64)
+    assert res["batch"] == 4 and res["dataset"] == 8 and res["steps"] == 3
+    assert res["transform_dtoh_memcpy"] == 0 and len(res["losses"]) == 3
+    assert res["card_vs_cpu"]["stages"] >= 8 and res["lq_gt_mean_abs"] > 1e-3
+    assert set(res["card_vs_cpu"]["max_abs_by_stage"]) >= {"filter2d", "resize", "diff_jpeg"}
+    assert set(res["op_device_ms"]) == {"usm", "filter2d_21", "resize_down_bicubic",
+                                        "resize_back_bicubic"}
+
+
+def test_data_eval_phase_rehearses_on_the_cpu(rehearsal, monkeypatch):
+    """Phase 28 on a 3-image VOC tree at 64²: generated pairs, restored and
+    detected, the 12 COCO stats."""
+    monkeypatch.setattr(chip_smoke, "DATA_VOC_IMAGES", 3)
+    monkeypatch.setattr(chip_smoke, "DATA_VOC_SIDES", (80, 112))
+    res = chip_smoke.data_eval_phase({}, rehearsal, gt_size=64,
+                                     detector_kw=dict(min_size=128, max_size=128))
+    assert res["images"] == 3 and len(res["coco_stats"]) == 12
+    assert all(-1 <= v <= 1 for v in res["coco_stats"].values())
+    assert res["launches"] == {k: 0 for k in res["launches"]}

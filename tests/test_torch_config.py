@@ -39,6 +39,15 @@ from edtr_torch.models.resnet import ResNet
 from edtr_torch.pipeline import build_flagship, build_pipeline_from_config, flagship_configs
 from edtr_torch.utils.convert import from_jax
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted(str(p.relative_to(ROOT)) for p in ROOT.glob("configs/**/*.yaml"))
 EDTR_S4 = [c for c in CONFIGS if c.endswith("007_edtr-s4.yaml")]
@@ -158,8 +167,8 @@ def test_v2_detector_instantiates_through_the_registry(path, node):
 
 
 @pytest.mark.parametrize("target", [
-    "datasets.segmentation.PairedSegmentationDataset",
-    "datasets.classification.DegradedClassificationDataset",
+    "model.bsrnet.RRDBNet",
+    "model.skunet.SKUNet",
     "model.edsr.EDSR",
     "model.scunet.SCUNet",
     "edtr_tpu.models.resnet.ResNet",
@@ -212,3 +221,62 @@ def test_config_diffusion_matches_jax():
     np.testing.assert_array_equal(got.sqrt_alphas_cumprod.numpy(),
                                   np.asarray(want.sqrt_alphas_cumprod))
     assert got.parameterization == want.parameterization == "eps"
+
+
+def _data_nodes():
+    """(config, node) of every dataset, transform and backend target the
+    configs name."""
+    out = []
+    for path in CONFIGS:
+        def walk(node):
+            if isinstance(node, dict):
+                if str(node.get("target", "")).startswith("datasets."):
+                    out.append((path, node))
+                for v in node.values():
+                    walk(v)
+        walk(yaml.safe_load((ROOT / path).read_text()))
+    return out
+
+
+DATA_TARGETS = sorted({n["target"] for _, n in _data_nodes()})
+
+
+@pytest.fixture(scope="module")
+def data_roots(tmp_path_factory):
+    """Synthetic stand-ins for the configs' roots."""
+    from edtr_torch.data import synthetic as S
+
+    base = tmp_path_factory.mktemp("roots")
+    coco = str(base / "COCO")
+    S.write_coco_tree(coco, n=3, split="train", seed=1)
+    S.write_coco_tree(coco, n=3, split="val", seed=2)
+    roots = {"datasets/source/VOC": S.write_voc_tree(str(base / "VOC"), n=3, seed=3),
+             "datasets/source/COCO": coco,
+             "datasets/source/CUB200/train": S.write_image_folder(str(base / "CUB"), seed=4),
+             "datasets/source/CUB200/val-deg": str(base / "CUBval"),
+             None: str(base / "real")}
+    for sub in ("gt", "lq"):
+        S.write_image_folder(str(base / "CUBval" / sub), seed=5)
+    S.write_image_folder(str(base / "realtmp"), n_classes=1, seed=6)
+    (base / "realtmp" / "000.class_0").rename(base / "real")
+    return roots
+
+
+@pytest.mark.parametrize("target", DATA_TARGETS)
+def test_data_targets_build_the_port_on_a_synthetic_root(target, data_roots):
+    """Every dataset, transform and backend node of ``configs/**`` builds the
+    port's class through ``REGISTRY`` with its params (the root replaced by
+    a synthetic tree); each dataset target's first node loads an item."""
+    nodes = [n for _, n in _data_nodes() if n["target"] == target]
+    assert nodes and TC.REGISTRY[target].startswith("edtr_torch.data.")
+    for i, node in enumerate(nodes):
+        params = dict(node.get("params") or {})
+        if "root" in params:
+            params["root"] = data_roots[params["root"]]
+        extra = {"device": "cpu"} if target.endswith("BatchTransform") else {}
+        obj = TC.instantiate_from_config(dict(target=target, params=params), **extra)
+        assert type(obj).__module__ == TC.REGISTRY[target].rsplit(".", 1)[0]
+        assert type(obj).__name__ == target.rsplit(".", 1)[1]
+        if i == 0 and ("Degraded" in target or "Realworld" in target):
+            item = obj[0]
+            assert isinstance(item[0], np.ndarray) and item[0].dtype == np.float32

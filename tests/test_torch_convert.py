@@ -18,6 +18,15 @@ from edtr_torch.pipeline import flagship_configs
 from edtr_torch.utils.convert import from_jax, strip_swinir_lanes
 from torch_port_helpers import IMAGE, jax_tiny, nchw, nhwc, port_tiny, random_tree
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 
 UNET_ARCH = dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2),
@@ -166,7 +175,15 @@ def test_port_imports_no_jax():
                 "edtr_torch.train.tasks", "edtr_torch.config",
                 "edtr_torch.diffusion.schedule", "edtr_torch.demo", "edtr_torch.models.lpips",
                 "edtr_torch.utils.tiling", "edtr_torch.utils.checkpoint",
-                "edtr_torch.utils.image"):
+                "edtr_torch.utils.image", "edtr_torch.data.file_backend",
+                "edtr_torch.data.augment", "edtr_torch.data.degradation",
+                "edtr_torch.data.diffjpeg", "edtr_torch.data.realesrgan",
+                "edtr_torch.data.voc", "edtr_torch.data.coco_mask", "edtr_torch.data.coco",
+                "edtr_torch.data.classification", "edtr_torch.data.segmentation",
+                "edtr_torch.data.detection", "edtr_torch.data.detection_coco",
+                "edtr_torch.data.detection_cocov2", "edtr_torch.data.val_data_generation",
+                "edtr_torch.data.synthetic", "edtr_torch.utils.metrics",
+                "edtr_torch.utils.coco_eval", "edtr_torch.train.harness"):
         assert mod in res.stdout
 
 

@@ -37,6 +37,15 @@ from edtr_torch.ops import roi_align as TR
 from edtr_torch.utils.convert import from_jax
 from torch_port_helpers import nchw, nhwc, t2n
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=3e-3, atol=3e-3)
 BOX_TOL = dict(rtol=1e-6, atol=1e-6)
 DET_IMAGE = 128  # the tiny detector's input (4x4 FPN maps at stride 32)

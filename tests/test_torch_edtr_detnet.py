@@ -40,7 +40,7 @@ from test_torch_det_train import TRAIN_KNOBS
 from test_torch_detection import DET_IMAGE, _detector
 from test_torch_pipeline import _replay_noise
 from test_torch_train_step import LAT, _port, _worst
-from torch_port_helpers import CTX, IMAGE, jax_tiny, nchw, t2n
+from torch_port_helpers import CTX, IMAGE, compiled_step, jax_tiny, nchw, t2n
 
 TOL = 3e-3
 DET_KW = dict(num_classes=6, device="cpu", min_size=DET_IMAGE, max_size=DET_IMAGE * 2,
@@ -121,10 +121,10 @@ def _jax_step():
     params = dict(params, detnet=student, teacher_detnet=teacher)
     state = JS.EDTRTrainState.create(pipe_j, jax.tree.map(jnp.array, params), train_steps=100,
                                      train_decoder=True)
-    step = JS.make_edtr_train_step(pipe_j, detnet=det)
+    step = JS.make_edtr_train_step(pipe_j, detnet=det, jit=False)
     batch = jax.tree.map(jnp.asarray, _batch(31, 2))
     rng = jax.random.PRNGKey(301)
-    state, metrics = step(state, batch, rng)
+    state, metrics = compiled_step(step, state, batch, rng)(state, batch, rng)
     return jax.tree.map(np.asarray, state.params), jax.tree.map(float, metrics), rng
 
 

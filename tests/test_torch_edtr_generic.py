@@ -44,7 +44,7 @@ from edtr_torch.train.tasks import task_apply_for
 from edtr_torch.utils.convert import from_jax
 from test_torch_tasknets import random_variables
 from test_torch_train_step import LAT, _port
-from torch_port_helpers import CTX, IMAGE, jax_tiny, nchw, t2n
+from torch_port_helpers import CTX, IMAGE, compiled_in_thread, jax_tiny, nchw, t2n
 
 TOL = 3e-3
 # task -> (JAX net, port factory, from_jax kind, target maker, weight_task, weight_fm)
@@ -105,24 +105,39 @@ def _carry_task_nets():
     return mock.patch.multiple(JS, split_trainable=split_trainable, merge_params=merge_params)
 
 
-@functools.lru_cache(maxsize=None)
+CASES = [(task, accum) for task in TASKS for accum in (1, 2)]
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_steps() -> dict:
+    """JAX's generic step once per case, traced one case after another and
+    compiled side by side (``compiled_in_thread``, XLA's default level);
+    case -> future of (updated params, metrics, rng)."""
+    pipe_j, params = jax_tiny()
+    futures = {}
+    for task, accum in CASES:
+        net, student, teacher = _task_variables(task)
+        _, _, _, _, w_task, w_fm = TASKS[task]
+        loss_fn, feats_fn = _task_apply_for(task, net)
+        state = JS.EDTRTrainState.create(pipe_j, jax.tree.map(jnp.array,
+                                                              dict(params, detnet=student)),
+                                         train_steps=100, train_decoder=True)
+        state = state.replace(params=jax.tree.map(jnp.array, dict(
+            params, tasknet=student, teacher_tasknet=teacher)))
+        batch = jax.tree.map(jnp.asarray, _batch(task, 2 * accum))
+        rng = jax.random.PRNGKey(401 + accum)
+        with _carry_task_nets():
+            step = JS.make_edtr_generic_train_step(pipe_j, feats_fn, loss_fn, weight_task=w_task,
+                                                   weight_fm=w_fm, jit=False, accum_steps=accum)
+            futures[(task, accum)] = compiled_in_thread(
+                step, state, batch, rng, options={}, post=lambda out, rng=rng: (
+                    jax.tree.map(np.asarray, out[0].params), jax.tree.map(float, out[1]), rng))
+    return futures
+
+
 def _jax_step(task: str, accum: int):
     """JAX's generic step once: (updated params, metrics, rng)."""
-    pipe_j, params = jax_tiny()
-    net, student, teacher = _task_variables(task)
-    _, _, _, _, w_task, w_fm = TASKS[task]
-    loss_fn, feats_fn = _task_apply_for(task, net)
-    state = JS.EDTRTrainState.create(pipe_j, jax.tree.map(jnp.array, dict(params, detnet=student)),
-                                     train_steps=100, train_decoder=True)
-    state = state.replace(params=jax.tree.map(jnp.array, dict(
-        params, tasknet=student, teacher_tasknet=teacher)))
-    batch = jax.tree.map(jnp.asarray, _batch(task, 2 * accum))
-    rng = jax.random.PRNGKey(401 + accum)
-    with _carry_task_nets():
-        step = JS.make_edtr_generic_train_step(pipe_j, feats_fn, loss_fn, weight_task=w_task,
-                                               weight_fm=w_fm, jit=False, accum_steps=accum)
-        state, metrics = jax.jit(step)(state, batch, rng)
-    return jax.tree.map(np.asarray, state.params), jax.tree.map(float, metrics), rng
+    return _jax_steps()[(task, accum)].result()
 
 
 def _walk(key, shape, steps):

@@ -18,6 +18,15 @@ from edtr_tpu.ops import flash_attention as JF
 from edtr_torch.ops import attention as A
 from edtr_torch.ops import flash_attention as F
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 # (BH, N, D) flat shapes and the JAX flat function each wrapper replaces

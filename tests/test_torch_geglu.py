@@ -27,6 +27,15 @@ from edtr_torch.ops import geglu as GG
 from edtr_torch.ops import ln_matmul as LM
 from torch_port_helpers import jax_tiny, port_tiny, t2n
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OP_TOL = dict(rtol=0, atol=2e-5)
 
 

@@ -37,6 +37,15 @@ from edtr_torch.ops import ln_matmul as LM
 from torch_port_helpers import (CTX, IMAGE, jax_tiny, load_port, nchw, nhwc, port_tiny,
                                 stock_restore, t2n)
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OP_TOL = dict(rtol=0, atol=2e-5)
 MOD_TOL = dict(rtol=3e-3, atol=3e-3)
 

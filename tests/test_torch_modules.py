@@ -12,6 +12,15 @@ import torch
 
 from torch_port_helpers import CTX, IMAGE, jax_tiny, nchw, nhwc, port_tiny, t2n
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=3e-3, atol=3e-3)
 
 

@@ -38,6 +38,15 @@ from edtr_torch.ops import ln_matmul as LM
 from edtr_torch.ops import swin_block as SB
 from edtr_torch.ops import window_attention as WA
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OP_TOL = 2e-5
 SWIN = dict(h=16, w=16, win=8)
 

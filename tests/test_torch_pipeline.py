@@ -11,9 +11,18 @@ configurations' tiny restores are held to) are both held."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from torch_port_helpers import CTX, IMAGE, jax_tiny, port_tiny, stock_restore, t2n
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _replay_noise(rng, latent_shape, steps):

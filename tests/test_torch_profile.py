@@ -78,6 +78,8 @@ def test_profile_books_the_swin_kernels_and_counts_host_copies():
     stages = summarise({"traceEvents": events})["stages"]
     assert {s: v["htod_memcpy"] for s, v in stages.items()} == {
         "swinir": 1, "vae_encode": 0, "text": 0, "scan": 1, "decode+wavelet": 0}
+    assert {s: v["dtoh_memcpy"] for s, v in stages.items()} == {
+        "swinir": 0, "vae_encode": 0, "text": 0, "scan": 1, "decode+wavelet": 0}
     assert stages["swinir"]["kernels"] == 1
 
 

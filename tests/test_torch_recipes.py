@@ -45,7 +45,7 @@ from edtr_torch.train import recipes as R
 from edtr_torch.train.tasks import task_apply_for
 from edtr_torch.utils.convert import from_jax
 from test_torch_tasknets import random_variables
-from torch_port_helpers import CTX, IMAGE, jax_tiny, load_port, nchw, t2n
+from torch_port_helpers import CTX, IMAGE, compiled_in_thread, jax_tiny, load_port, nchw, t2n
 
 SIDE = 64
 CLASSES = 10
@@ -192,8 +192,7 @@ def _snapshot(module) -> dict:
 VARIANTS = ("plain", "use_gt", "pre_restore")
 
 
-@functools.lru_cache(maxsize=1)
-def _jax_task():
+def _jax_task_start():
     """JAX's three task steps from one state, in one ``jax.jit``."""
     net, student, _ = _resnet_j()
     sw, sw_params = _swinir_j()
@@ -213,9 +212,9 @@ def _jax_task():
             out[k] = (new.variables, m)
         return out
 
-    out = jax.jit(run)(state, sw_params, jax.tree.map(jnp.asarray, _batch(SIDE)),
-                       jax.random.PRNGKey(33))
-    return jax.tree.map(np.asarray, out)
+    return compiled_in_thread(run, state, sw_params, jax.tree.map(jnp.asarray, _batch(SIDE)),
+                              jax.random.PRNGKey(33), post=lambda out: jax.tree.map(np.asarray,
+                                                                                   out))
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -237,15 +236,14 @@ def test_task_step_matches_jax(variant):
 
 # -- make_swinir_pre_train_step ----------------------------------------------------
 
-@functools.lru_cache(maxsize=1)
-def _jax_swinir_pre():
+def _jax_swinir_pre_start():
     sw, params = _swinir_j()
     state = JR.SimpleTrainState.create({"params": jax.tree.map(jnp.asarray, params)},
                                        JR.cosine_tx("adamw", LR_ADAMW, STEPS, weight_decay=0.0))
     step = JR.make_swinir_pre_train_step(sw, jit=False)
-    new, m = jax.jit(step)(state, jax.tree.map(jnp.asarray, _batch(SIDE)),
-                           jax.random.PRNGKey(34))
-    return jax.tree.map(np.asarray, (new.params, m))
+    return compiled_in_thread(step, state, jax.tree.map(jnp.asarray, _batch(SIDE)),
+                              jax.random.PRNGKey(34),
+                              post=lambda out: jax.tree.map(np.asarray, (out[0].params, out[1])))
 
 
 def test_swinir_pre_step_matches_jax():
@@ -261,8 +259,7 @@ def test_swinir_pre_step_matches_jax():
 
 # -- make_sr4ir_train_step ---------------------------------------------------------
 
-@functools.lru_cache(maxsize=1)
-def _jax_sr4ir():
+def _jax_sr4ir_start():
     sw, sw_params = _swinir_j()
     net, student, _ = _resnet_j()
     loss_fn, feats_fn = _task_apply_for("cls", net)
@@ -273,11 +270,12 @@ def _jax_sr4ir():
                                             JR.cosine_tx("sgd", LR_SGD, STEPS))
     step = JR.make_sr4ir_train_step(sw, feats_fn, loss_fn, jit=False)
     rng = jax.random.PRNGKey(35)
-    (sw_new, task_new), m = jax.jit(step)((sw_state, task_state),
-                                          jax.tree.map(jnp.asarray, _batch(SIDE)), rng)
     r_mask, _ = jax.random.split(rng)
     cells = jax.random.bernoulli(r_mask, 0.5, (2, 8, 8, 1)).astype(jnp.float32)
-    return jax.tree.map(np.asarray, (sw_new.params, task_new.variables, m, cells))
+    return compiled_in_thread(
+        step, (sw_state, task_state), jax.tree.map(jnp.asarray, _batch(SIDE)), rng,
+        post=lambda out: jax.tree.map(np.asarray, (out[0][0].params, out[0][1].variables,
+                                                   out[1], cells)))
 
 
 def test_sr4ir_step_matches_jax():
@@ -314,8 +312,7 @@ def _diffbir_batch(b: int = 2):
     return out
 
 
-@functools.lru_cache(maxsize=1)
-def _jax_diffbir():
+def _jax_diffbir_start():
     pipe_j, params = jax_tiny()
     net, student, teacher = _resnet_j(IMAGE)
     loss_fn, feats_fn = _task_apply_for("cls", net)
@@ -329,10 +326,36 @@ def _jax_diffbir():
     step = JR.make_diffbir_train_step(pipe_j, loss_fn, feats_fn, steps=DIFFBIR_STEPS,
                                       weight_fm=WEIGHT_FM, jit=False)
     rng = jax.random.PRNGKey(38)
-    (cldm_new, task_new, _), m = jax.jit(step)(
-        (cldm_state, task_state, jax.tree.map(jnp.asarray, teacher)),
-        jax.tree.map(jnp.asarray, _diffbir_batch()), rng)
-    return jax.tree.map(np.asarray, (cldm_new.params["controlnet"], task_new.variables, m)), rng
+    return compiled_in_thread(
+        step, (cldm_state, task_state, jax.tree.map(jnp.asarray, teacher)),
+        jax.tree.map(jnp.asarray, _diffbir_batch()), rng,
+        post=lambda out: (jax.tree.map(np.asarray, (out[0][0].params["controlnet"],
+                                                    out[0][1].variables, out[1])), rng))
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_references() -> dict:
+    """Every recipe's JAX step, traced one after another (the longest to
+    compile first) and compiled side by side (``compiled_in_thread``)."""
+    return {name: start() for name, start in (
+        ("diffbir", _jax_diffbir_start), ("sr4ir", _jax_sr4ir_start),
+        ("task", _jax_task_start), ("swinir_pre", _jax_swinir_pre_start))}
+
+
+def _jax_task():
+    return _jax_references()["task"].result()
+
+
+def _jax_swinir_pre():
+    return _jax_references()["swinir_pre"].result()
+
+
+def _jax_sr4ir():
+    return _jax_references()["sr4ir"].result()
+
+
+def _jax_diffbir():
+    return _jax_references()["diffbir"].result()
 
 
 def _diffbir_draws(rng, b: int = 2):

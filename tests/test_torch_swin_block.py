@@ -37,6 +37,15 @@ from edtr_torch.pipeline import flagship_configs
 from edtr_torch.utils.convert import from_jax
 from torch_port_helpers import IMAGE, jax_tiny, nchw, nhwc, port_tiny, t2n
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OP_TOL = dict(rtol=0, atol=2e-5)
 MOD_TOL = dict(rtol=3e-3, atol=3e-3)
 TINY = dict(dim=32, heads=2, win=4, hw=(IMAGE // 8, IMAGE // 8))  # tiny SwinIR blocks

@@ -41,7 +41,7 @@ from edtr_torch.ops import ln_matmul as LM
 from edtr_torch.pipeline import EDTRPipeline, flagship_configs
 from edtr_torch.train.edtr_step import EDTRTrainState, make_edtr_train_step, split_trainable
 from edtr_torch.utils.convert import from_jax
-from torch_port_helpers import CTX, IMAGE, jax_tiny, load_port, nchw
+from torch_port_helpers import CTX, IMAGE, compiled_step, jax_tiny, load_port, nchw
 
 LAT = IMAGE // 8
 B = 2
@@ -139,8 +139,8 @@ def test_loss_and_gradients_match_jax():
     pipe_j, params = jax_tiny()
     batch, (t, noise) = _batch(), _t_noise()
     trainable, frozen = JS.split_trainable(params, train_decoder=True)
-    loss_j, grads_j = jax.jit(jax.value_and_grad(_jax_loss(pipe_j, batch, t, noise)))(
-        trainable, frozen)
+    loss_j, grads_j = compiled_step(jax.value_and_grad(_jax_loss(pipe_j, batch, t, noise)),
+                                    trainable, frozen)(trainable, frozen)
     want = _port_names(grads_j)
 
     pipe = _port()
@@ -170,11 +170,12 @@ def test_two_steps_match_jax():
     batch = _batch(seed=21)
     state_j = JS.EDTRTrainState.create(pipe_j, jax.tree.map(jnp.array, params),
                                        train_steps=100, train_decoder=True)
-    step_j = JS.make_edtr_train_step(pipe_j)
+    step_j = JS.make_edtr_train_step(pipe_j, jit=False)
     pipe = _port()
     state = EDTRTrainState.create(pipe, train_steps=100, train_decoder=True)
     step = make_edtr_train_step(pipe)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    step_j = compiled_step(step_j, state_j, jb, jax.random.PRNGKey(100))
     for i in range(2):
         rng = jax.random.PRNGKey(100 + i)
         state_j, m_j = step_j(state_j, jb, rng)

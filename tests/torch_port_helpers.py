@@ -6,6 +6,7 @@ carried into the port through ``edtr_torch.utils.convert.pipeline_from_jax``."""
 from __future__ import annotations
 
 import functools
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,36 @@ from edtr_torch.utils.convert import pipeline_from_jax
 
 IMAGE = 64  # tiny flagship input size; latents are IMAGE // 8
 CTX = (77, 64)  # tiny text-embedding shape
+
+
+# XLA's cheap optimisation level for the JAX steps the tests compare against
+# (what ``jax_disable_most_optimizations`` sets, per compile): the step,
+# detector-step and recipe tests take 7.4 CPU minutes in place of 11.7 and
+# pass at their limits (it moved the generic step's losses by ~3e-7
+# relative). The generic step's unoptimised run costs more than its compile
+# saves (18.7 against 14.6 CPU minutes), so its test keeps XLA's default.
+STEP_COMPILE_OPTIONS = {"xla_backend_optimization_level": 0,
+                        "xla_llvm_disable_expensive_passes": True}
+
+
+def compiled_step(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` with :data:`STEP_COMPILE_OPTIONS`."""
+    return jax.jit(fn).lower(*args).compile(STEP_COMPILE_OPTIONS)
+
+
+@functools.lru_cache(maxsize=1)
+def _pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(4)
+
+
+def compiled_in_thread(fn, *args, post=lambda out: out,
+                       options=STEP_COMPILE_OPTIONS) -> Future:
+    """``post(jax.jit(fn)(*args))`` as a future: traced here (tracing holds
+    the interpreter lock), compiled with ``options`` and run in a worker
+    thread, so the XLA compiles of a module's JAX references overlap one
+    another and the tracing of the next."""
+    lowered = jax.jit(fn).lower(*args)
+    return _pool().submit(lambda: post(lowered.compile(options)(*args)))
 
 
 def random_tree(shapes, seed: int):
