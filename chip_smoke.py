@@ -31,10 +31,10 @@ no result line):
    once (launch counts set to 0 just before it, read just after, and held
    to their exact values; no layout copies in the fused ones), the fused
    outputs are held against the stock ones, then the stage times and
-   end-to-end ms/img of all four, in turns, 15 rounds, then 16 more of
+   end-to-end ms/img of all four, in turns, 9 rounds, then 8 more of
    fused and fused+proj alone (the pairs won: stock vs fused against
-   ``pipeline.FUSED_CONV_DEFAULT`` over 15 pairs, fused vs fused+proj
-   against ``FUSED_PROJ_DEFAULT`` over 31, and fused vs fused+swin over 15
+   ``pipeline.FUSED_CONV_DEFAULT`` over 9 pairs, fused vs fused+proj
+   against ``FUSED_PROJ_DEFAULT`` over 17, and fused vs fused+swin over 9
    on the ``swinir`` stage, the only one the switch changes, against
    ``FUSED_SWIN_DEFAULT``),
    and a ``torch.profiler`` trace of each (device-busy ms, idle share,
@@ -64,8 +64,8 @@ no result line):
 8. the GroupNorm statistics at every shape of the fused restore, in
    channels-last memory and on an NCHW copy: equal, and device ms of each;
    the text tower alone on the empty prompt: bf16 against fp32 on the same
-   weights, no port-kernel launch, host ms (median of 15), device-busy ms,
-   kernels and host-to-device copies from a trace of 3;
+   weights, no port-kernel launch, host ms (median of 9), device-busy ms,
+   kernels and host-to-device copies from a trace of 2;
 9. one full-width ControlLDM eps forward (on the empty prompt's embedding) through the flash kernels and
    through the plain attention (test hook), and fused and fused+proj
    against stock;
@@ -81,8 +81,8 @@ no result line):
    labels, boxes in the image); the bf16 detector against the fp32 one on
    the same image (FPN maps, objectness, deltas, class logits at the bf16
    run's proposals); the stage split swinir / vae_encode / text / scan /
-   decode+wavelet / detect over 15 rounds with the restore+detect ms/img,
-   and a trace of 3 (device-busy ms, idle share, kernels; no host-to-device
+   decode+wavelet / detect over 9 rounds with the restore+detect ms/img,
+   and a trace of 2 (device-busy ms, idle share, kernels; no host-to-device
    copy in the ``swinir`` and ``detect`` stages); one detect call at
    ``bench.py``'s batch of 8: ms and peak memory;
 11. restore then segment, built from ``configs/seg/voc2012/test/
@@ -117,7 +117,7 @@ no result line):
    one step counted
    (exact launches of every kernel, the remat recomputes and the backward
    kernels included; the shapes each kernel was launched with), loss and
-   gradients finite; 2 warm-up and 5 timed ``step(...)`` calls; peak
+   gradients finite; 2 warm-up and 3 timed ``step(...)`` calls; peak
    memory; a traced step, whose ranges (set inside the step) split it into
    forward+loss / backward / optimizer; then every trainable parameter
    moved and every frozen one bit-identical;
@@ -136,7 +136,7 @@ no result line):
    step's own gradients, and each of these for the plain path run again
    and computing in fp32 (the control).
    One step counted (exact launches ``TRAIN_LAUNCHES_DET``), its losses
-   finite; 2 warm-up and 5 timed steps; a traced step split into
+   finite; 2 warm-up and 3 timed steps; a traced step split into
    forward+loss / sample / backward / optimizer; peak memory; then the
    ControlNet, decoder and trainable detnet tensors moved, the frozen
    detnet stages bit-identical while their BatchNorm running statistics
@@ -153,7 +153,7 @@ no result line):
    path as phase 14 holds it (gated: the HLF's cotangent, the walk's
    image; printed: the rest and the fp32 control); one step
    counted (exact launches, those of the detector step), losses finite;
-   step ms (median of 5), a traced step's split, peak memory; the
+   step ms (median of 3), a traced step's split, peak memory; the
    ControlNet, decoder and task-net tensors moved, the student's running
    statistics moved, the teacher and the frozen pipeline bit-identical;
 16. the training recipes of ``configs/seg/voc2012/train`` (JAX's
@@ -188,10 +188,11 @@ no result line):
    the flagship's parameters, ``cast_frozen_bf16``, bs 2, student and
    teacher seg nets): ``p_losses`` at seeded t and noise on gt's posterior
    sample trains the ControlNet (its gradient gated as phase 16's), then
-   the 50-step walk from pure noise on 1 image, decode, wavelet fix, and
+   the 25-step walk from pure noise on 1 image (the recipe's 50 cut for
+   time), decode, wavelet fix, and
    the seg net's CE + feature matching on ``[restored ; gt[1:]]``; the
    walk's image, kernel vs plain and the fp32 control, reported; exact
-   launches (K1/K2 x 7 a walk step x 50, the K11 backward, K3 in the two
+   launches (K1/K2 x 7 a walk step x 25, the K11 backward, K3 in the two
    bs-2 encodes and the bs-1 decode);
 20. ``make_edtr_sample_fn``, the evaluation loops' entry point, on
    DiffBIR's pipeline at 512², bs 1: counted (the restore's launches),
@@ -270,10 +271,30 @@ no result line):
    ``runner.edtr_eval`` composes them; the 8 counted (exact launches, 8
    restores' counts); PSNR and the 12 COCO stats of ``CocoEvaluator`` over
    ``gt_from_dataset`` (near 0 on random weights);
-29. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+29. (run after phase 27) the entry points, in process through
+   ``edtr_torch.cli.main`` as ``python -m edtr_torch.cli`` runs them: a
+   synthetic VOC tree of 16 VOC-sized images (333-500 px), its val split
+   the first 4, and that split's det and seg pairs (``val_data_generation``
+   on the config's degradation); copies of the flagship det
+   train and test configs (``007_edtr-s4``) and the seg SwinIR test config,
+   only the dataset roots, the experiment directories, ``accum_steps: 8``
+   (the train config's global batch of 16 as 8 microbatches of 2) and the
+   test copy's ``resume_*`` (the training run's ``_last.pt`` files)
+   changed, each change printed, ``sd_path`` left pointing at no file, so
+   the weights are seeded. ``det train_edtr --debug``: 2 steps, each
+   logged, saved (the four submodules and the whole train state), a grid
+   and a 2-image restore+detect validation; a resumed run (``resume_state``,
+   ``train_steps: 3``): the train state loaded back bit for bit, one step;
+   ``det test_edtr --debug --save-img --calc-fd``: 4 images, PSNR, the COCO
+   stats, the feature distance, 4 PNGs, image 0's detections equal to a
+   direct restore + detect on the same input and generator; ``seg
+   test_swinir --debug``: 2 images at full width. Each run counted (exact
+   launches, :func:`runner_launches`), its wall seconds, peak GiB and the
+   bytes it wrote; the directory removed;
+30. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
    most of any counted path, restore+detect, the bs-8 restore+classify,
-   the training steps, the recipes, the demo and the data paths among
-   them), then the result line.
+   the training steps, the recipes, the demo, the data paths and the
+   runner's runs among them), then the result line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
 with each launch's kernel in it and times a call by CUDA events, naming it
@@ -377,7 +398,7 @@ WALK_LAUNCHES = {"wholekv_fwd": 28, "whole_fwd": 28, "streamkv_fwd": 1,
 TRAIN_LAUNCHES_DET = {name: n + WALK_LAUNCHES.get(name, 0)
                       for name, n in TRAIN_LAUNCHES.items()}
 TRAIN_WARMUP = 2
-TRAIN_TIMED = 5
+TRAIN_TIMED = 3
 # the detector step's seeded targets: up to DET_BOXES boxes an image, sides
 # DET_SIDES pixels, inside the 512² image, VOC's 20 classes, one slot
 # padded at least
@@ -417,7 +438,8 @@ RECIPE_BATCH = 2
 # (their median), a traced one
 RECIPE_TIMED = 3
 # DiffBIR's walk from pure noise: make_diffbir_train_step's (and JAX's) 50
-DIFFBIR_STEPS = 50
+# cut to 25 for the run's time (its launches scale with it)
+DIFFBIR_STEPS = 25
 # the gradient gates where the control shows bf16 itself (plain path, bf16
 # vs fp32) farther than TOL_GRAD_REL from fp32: the kernel path no farther
 # from fp32 than this many times the plain path (fixed before the first
@@ -488,6 +510,21 @@ DATA_GEN_CONFIG = "configs/det/voc2012/train/002_swinir-pre.yaml"
 DATA_EVAL_CONFIG = "configs/det/voc2012/test/007_edtr-s4.yaml"
 DATA_VOC_IMAGES = 8
 DATA_VOC_SIDES = (360, 500)
+# the runner (``python -m edtr_torch.cli``): the flagship det train and test
+# configs and the seg SwinIR test config on a synthetic VOC tree of
+# RUNNER_VOC_IMAGES VOC-sized images (at least the train config's global
+# batch of 16, which RUNNER_ACCUM microbatches of 2 carry on one card)
+RUNNER_TRAIN_CONFIG = "configs/det/voc2012/train/007_edtr-s4.yaml"
+RUNNER_TEST_CONFIG = "configs/det/voc2012/test/007_edtr-s4.yaml"
+RUNNER_SEG_CONFIG = "configs/seg/voc2012/test/004_swinir-sr4ir.yaml"
+RUNNER_SEG_GEN_CONFIG = "configs/seg/voc2012/train/002_swinir-pre.yaml"
+RUNNER_VOC_IMAGES = 16
+RUNNER_VOC_SIDES = (333, 500)
+# the tree's val split (the first images): what the runs validate and test
+RUNNER_VAL_IMAGES = 4
+RUNNER_ACCUM = 8
+# --debug: 2 steps, 2 validation images a step, 4 test images, 2 seg images
+RUNNER_DEBUG = dict(steps=2, val=2, test=4, seg=2)
 # the transform's stages, card vs CPU on the card's inputs and draws (the
 # CPU tests hold the port's to JAX's at these): max abs per stage; a JPEG
 # stage outside the 8 x 8 blocks (16 x 16 for chroma) whose quantised
@@ -639,13 +676,14 @@ TASK_NOISE = 0.1
 IMAGE = 512
 # restores per configuration in the interleaved timing (single host times
 # of one configuration spread over 300-550 ms on the card's machine), and
-# traced; 21 and 41 until the demo phases came, cut to keep the whole run
-# near 750 s (the verdicts' sign test needs 12 of 15 and 21 of 31)
-TIME_ITERS = 15
-TRACE_ITERS = 3
+# traced; 21 and 41 until the demo phases came, 15 and 31 until the runner
+# phase came, cut to keep the whole run within its limit on a slow host
+# (the verdicts' sign test needs 8 of 9 and 13 of 17)
+TIME_ITERS = 9
+TRACE_ITERS = 2
 # fused vs fused+proj pairs: the projection switch's verdict has read both
-# ways at 21 pairs, so these two configurations run 16 more rounds alone
-PROJ_PAIRS = 31
+# ways at 21 pairs, so these two configurations run 8 more rounds alone
+PROJ_PAIRS = 17
 # a configuration wins end to end beyond the ~5% drift between runs
 # (edtr_tpu/ops/dispatch.py) only if it also wins a clear majority of the
 # interleaved pairs: a one-sided sign test at this level
@@ -1671,7 +1709,7 @@ def text_phase(pipe, device) -> dict:
     restore's ``text`` stage: the empty prompt's embedding in bf16 against
     an fp32 tower on the same weights, the port's kernels it launches
     (none: its biased 77-token attention and its GEMMs are stock, as JAX
-    leaves them to XLA), host ms (median of 15) and a trace of 3
+    leaves them to XLA), host ms (median of 9) and a trace of 2
     (device-busy ms, kernels, host-to-device copies)."""
     from torch.profiler import record_function
 
@@ -3400,6 +3438,274 @@ def data_eval_phase(weights: dict, device, gt_size: int = None, detector_kw: dic
     return dict(res, shapes=shapes)
 
 
+def runner_launches(run: str, seg_sizes=()) -> dict:
+    """The exact launches of each runner run (module docstring, phase 29):
+    ``train`` 2 steps of RUNNER_ACCUM bs-2 microbatches (each the detector
+    step's ``TRAIN_LAUNCHES_DET``), a step's grid (a bs-4 restore and its
+    pre-restore) and 2 validation restores; ``resume`` one step; ``test``
+    4 restores; ``seg_swinir`` a SwinIR pass at each image's size."""
+    from edtr_torch.pipeline import FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT
+
+    restore = expected_launches((FUSED_CONV_DEFAULT, FUSED_PROJ_DEFAULT, FUSED_SWIN_DEFAULT))
+    steps, val, test = RUNNER_DEBUG["steps"], RUNNER_DEBUG["val"], RUNNER_DEBUG["test"]
+    return {"train": lambda: launch_sum((steps * RUNNER_ACCUM, TRAIN_LAUNCHES_DET),
+                                        (steps * (1 + val), restore), (steps, SWINIR_PASS)),
+            "resume": lambda: launch_sum((RUNNER_ACCUM, TRAIN_LAUNCHES_DET)),
+            "test": lambda: launch_sum((test, restore)),
+            "seg_swinir": lambda: launch_sum(*[swinir_launches(h, w) for h, w in seg_sizes]),
+            }[run]()
+
+
+def _same_state(a, b) -> bool:
+    """Nested state dicts equal, tensors bit for bit (on the host)."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.detach().cpu(), b.detach().cpu()))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_state(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _config_copy(src: str, dst: str, changes: dict) -> str:
+    """``src`` (a repo config) written to ``dst`` with ``changes`` ({section:
+    {key: value}} for ``train``/``test``/``val``, {"dataset": root} for every
+    dataset root), each printed."""
+    import yaml
+
+    with open(src) as f:
+        cfg = yaml.safe_load(f)
+    for section, items in changes.items():
+        if section == "dataset":
+            for name, node in cfg["dataset"].items():
+                if isinstance(node, dict) and "params" in node:
+                    print(f"  {src}: dataset.{name}.params.root: "
+                          f"{node['params']['root']!r} -> {items!r}", flush=True)
+                    node["params"]["root"] = items
+            continue
+        for key, value in items.items():
+            print(f"  {src}: {section}.{key}: {cfg[section].get(key, '(absent)')!r} -> "
+                  f"{value!r}", flush=True)
+            cfg[section][key] = value
+    with open(dst, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return dst
+
+
+def runner_run(name: str, argv: list, exp_dirs: tuple, want: dict) -> dict:
+    """``cli.main(argv)`` with every launch count set to 0 just before it and
+    read just after, held to ``want``; its wall seconds, peak GiB and the
+    bytes its experiment directories gained."""
+    from edtr_torch import cli
+
+    before = sum(_dir_bytes(d) for d in exp_dirs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _, copies = read_counts()
+    check(launches == want, f"runner {name}: launches {launches}, want {want}")
+    res = dict(argv=" ".join(argv[:2] + [a for a in argv[2:] if a.startswith("--")]),
+               wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               bytes_written=sum(_dir_bytes(d) for d in exp_dirs) - before,
+               launches=launches, layout_copies=copies)
+    print(f"runner {name}: {wall:.1f} s, peak {res['peak_gib']:.2f} GiB, "
+          f"{res['bytes_written'] / 1e9:.2f} GB written", flush=True)
+    return dict(res, out=out)
+
+
+def runner_phase(device, n_images: int = RUNNER_VOC_IMAGES, sides: tuple = RUNNER_VOC_SIDES,
+                 edit=None) -> dict:
+    """Phase 29 (module docstring): the entry points of ``python -m
+    edtr_torch.cli`` from the flagship det configs and the seg SwinIR test
+    config on a synthetic VOC tree; ``edit(cfg_path)`` rewrites each config
+    copy further (a CPU rehearsal shrinks the models and images)."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from edtr_torch.config import instantiate_from_config, load_config
+    from edtr_torch.data import synthetic
+    from edtr_torch.data.val_data_generation import generate
+    from edtr_torch.train import runner as RUN
+    from edtr_torch.train.harness import list_to_batch
+    from edtr_torch.utils import checkpoint as ckpt
+
+    edit = edit or (lambda path: path)
+    tmp = tempfile.mkdtemp(prefix="edtr_runner_")
+    res = {}
+    try:
+        root = os.path.join(tmp, "voc")
+        t0 = time.perf_counter()
+        synthetic.write_voc_tree(root, n=n_images, size_range=sides, seed=41)
+        base = os.path.join(root, "VOCdevkit", "VOC2012", "ImageSets")
+        names = [f"2012_{i:06d}" for i in range(RUNNER_VAL_IMAGES)]
+        for sub in ("Main", "Segmentation"):
+            with open(os.path.join(base, sub, "val.txt"), "w") as f:
+                f.write("\n".join(names) + "\n")
+        for src, task in ((DATA_GEN_CONFIG, "det"), (RUNNER_SEG_GEN_CONFIG, "seg")):
+            # the val pairs of the val split alone, from the config's degradation
+            path = _config_copy(src, os.path.join(tmp, f"gen_{task}.yaml"), {"dataset": root})
+            with open(path) as f:
+                gen = yaml.safe_load(f)
+            gen["dataset"]["train"]["params"]["image_set"] = "val"
+            with open(path, "w") as f:
+                yaml.safe_dump(gen, f)
+            generate(edit(path), task, seed=231)
+        res["data_s"] = time.perf_counter() - t0
+        exp, exp_test, exp_seg = (os.path.join(tmp, n) for n in ("exp", "exp_test", "exp_seg"))
+        ck = os.path.join(exp, "checkpoints")
+        print("runner configs (copies; the changes):", flush=True)
+        train_cfg = edit(_config_copy(RUNNER_TRAIN_CONFIG, os.path.join(tmp, "train.yaml"),
+                                      {"dataset": root, "train": dict(
+                                          exp_dir=exp, accum_steps=RUNNER_ACCUM)}))
+        resume_cfg = edit(_config_copy(train_cfg, os.path.join(tmp, "resume.yaml"), {
+            "train": dict(resume_state=True, train_steps=RUNNER_DEBUG["steps"] + 1)}))
+        last = {k: os.path.join(ck, f"{part}_last.pt") for k, part in (
+            ("resume_cldm", "controlnet"), ("resume_swinir", "swinir"),
+            ("resume_decoder", "decoder"), ("resume_detnet", "detnet"),
+            ("resume_teacher_detnet", "detnet"))}
+        test_cfg = edit(_config_copy(RUNNER_TEST_CONFIG, os.path.join(tmp, "test.yaml"),
+                                     {"dataset": root, "test": dict(exp_dir=exp_test, **last)}))
+        seg_cfg = edit(_config_copy(RUNNER_SEG_CONFIG, os.path.join(tmp, "seg.yaml"),
+                                    {"dataset": root, "test": dict(exp_dir=exp_seg)}))
+
+        # det train_edtr --debug: 2 steps, each logged, saved, a grid, validated
+        run = runner_run("train", ["det", "train_edtr", "--config", train_cfg, "--debug"],
+                         (exp,), runner_launches("train"))
+        state = run.pop("out")
+        check(state.step == RUNNER_DEBUG["steps"], f"train_edtr took {state.step} steps")
+        del state
+        want = {f"{p}_{t}.pt" for p in ("controlnet", "decoder", "detnet", "swinir")
+                for t in ("1", "2", "last")} | {"trainstate_last.pt"}
+        check(set(os.listdir(ck)) == want, f"checkpoints {sorted(os.listdir(ck))}")
+        with open(os.path.join(exp, "logs", "scalars.jsonl")) as f:
+            scalars = [_json.loads(line) for line in f]
+        losses = [r for r in scalars if r["tag"].startswith("train/")]
+        check(len({r["step"] for r in losses}) == RUNNER_DEBUG["steps"]
+              and all(math.isfinite(r["value"]) for r in losses), f"train scalars {losses}")
+        log = open(os.path.join(exp, "run.log")).read()
+        check(all(f"val @ step {i + 1}:" in log for i in range(RUNNER_DEBUG["steps"])),
+              "a val line at every step")
+        grids = sorted(os.listdir(os.path.join(exp, "images")))
+        check(grids == [f"step_{i + 1:07d}.png" for i in range(RUNNER_DEBUG["steps"])],
+              f"grids {grids}")
+        run["losses"] = {r["tag"][len("train/"):]: r["value"] for r in losses
+                         if r["step"] == RUNNER_DEBUG["steps"]}
+        run["val"] = [{k: v["value"] for k, v in ((r["tag"][4:], r) for r in scalars
+                                                   if r["tag"].startswith("val/")
+                                                   and r["step"] == i + 1)}
+                      for i in range(RUNNER_DEBUG["steps"])]
+        run["checkpoint_bytes"] = {n: os.path.getsize(os.path.join(ck, n)) for n in sorted(want)
+                                   if n.endswith("_last.pt")}
+        res["train"] = run
+
+        # the resumed run: the saved train state loads back bit for bit, one step
+        restored = {}
+        real_restore = ckpt.restore_checkpoint
+
+        def restore_and_compare(path, state):
+            real_restore(path, state)
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            parts = ckpt._stateful(state)
+            restored["differ"] = [n for n, p in parts.items()
+                                  if not _same_state(p.state_dict(), saved[n])]
+            restored["parts"] = sorted(parts)
+            restored["step"] = (state.step, saved["step"])
+
+        ckpt.restore_checkpoint = restore_and_compare
+        try:
+            run = runner_run("resume", ["det", "train_edtr", "--config", resume_cfg], (exp,),
+                             runner_launches("resume"))
+        finally:
+            ckpt.restore_checkpoint = real_restore
+        state = run.pop("out")
+        check(restored.get("differ") == [] and restored["step"] == (2, 2),
+              f"resume: {restored}")
+        check(state.step == RUNNER_DEBUG["steps"] + 1, f"resumed run ended at {state.step}")
+        check(len(restored["parts"]) == 7, f"train state parts {restored['parts']}")
+        run["restored_bit_identical"] = restored["parts"]
+        del state
+        res["resume"] = run
+
+        # det test_edtr --debug --save-img --calc-fd; image 0 against a direct call
+        seen = {}
+        real_sample, real_det = RUN.make_edtr_sample_fn, RUN.det_eval_fn
+
+        def sample_spy(pipe):
+            seen["pipe"] = pipe
+            return real_sample(pipe)
+
+        def det_spy(det, images):
+            out = real_det(det, images)
+            seen.setdefault("dets", []).append({k: v.clone() for k, v in out.items()})
+            seen["det"] = det
+            return out
+
+        RUN.make_edtr_sample_fn, RUN.det_eval_fn = sample_spy, det_spy
+        try:
+            run = runner_run("test", ["det", "test_edtr", "--config", test_cfg, "--debug",
+                                      "--save-img", "--calc-fd"], (exp_test,),
+                             runner_launches("test"))
+        finally:
+            RUN.make_edtr_sample_fn, RUN.det_eval_fn = real_sample, real_det
+        stats = run.pop("out")
+        check(math.isfinite(stats["psnr"]) and math.isfinite(stats["feature_distance"])
+              and -1 <= stats["AP"] <= 1, f"test stats {stats}")
+        pngs = sorted(os.listdir(os.path.join(exp_test, "images")))
+        check(pngs == [f"{i:05d}.png" for i in range(RUNNER_DEBUG["test"])], f"pngs {pngs}")
+        check(len(seen["dets"]) == RUNNER_DEBUG["test"], "a detection call an image")
+        cfg = load_config(test_cfg)
+        gt, lq, _, _ = instantiate_from_config(cfg.dataset.val)[0]
+        pipe = seen.pop("pipe")
+        with torch.no_grad():
+            c_txt = pipe.cldm.encode_text([cfg.test.get("default_prompt", "")])
+        g = torch.Generator(device=device).manual_seed(231)
+        lq_b = torch.from_numpy(list_to_batch([lq], RUN.IMG_SIZE)).to(device)
+        direct = real_det(seen.pop("det"), pipe.restore(lq_b, c_txt, generator=g)["restored"])
+        first = seen.pop("dets")[0]
+        check(all(torch.equal(first[k], direct[k]) for k in ("boxes", "scores", "labels",
+                                                               "valid")),
+              "test_edtr's image 0 detections equal restore + detect called directly")
+        del pipe
+        run.update(stats={k: stats[k] for k in ("psnr", "AP", "AP50", "feature_distance")},
+                   detections_image0=int(first["valid"].sum()), image0_equal_direct=True)
+        res["test"] = run
+
+        # seg test_swinir --debug: the restore-then-segment loop at full width
+        seg_ds = instantiate_from_config(load_config(seg_cfg).dataset.val)
+        sizes = [seg_ds[i][0].shape[:2] for i in range(RUNNER_DEBUG["seg"])]
+        run = runner_run("seg_swinir", ["seg", "test_swinir", "--config", seg_cfg, "--debug"],
+                         (exp_seg,), runner_launches("seg_swinir", sizes))
+        stats = run.pop("out")
+        check(math.isfinite(stats["psnr"]) and math.isfinite(stats["miou"]),
+              f"seg stats {stats}")
+        run.update(stats=stats, image_sizes=[list(s) for s in sizes])
+        res["seg_swinir"] = run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("runner:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                                 if isinstance(v, dict) else v for k, v in res.items()}),
+          flush=True)
+    return res
+
+
 def demo_phases(weights: dict, device, counted: dict) -> dict:
     """Phases 22-25 on the demo config's pipeline (the flagship's weights):
     restore then detect with the v2, the untiled and the all-tiled demo
@@ -4058,6 +4364,18 @@ def train_shape_phase(device, shapes: dict, proj_shapes: dict) -> dict:
     return held
 
 
+PHASE_S: dict = {}
+
+
+def phase_end(name: str, t0: float) -> float:
+    """Records and prints the seconds since ``t0`` under ``name`` (the
+    output's ``phase_s``); returns the time now."""
+    now = time.perf_counter()
+    PHASE_S[name] = now - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4071,10 +4389,14 @@ def main() -> int:
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
+    t = time.perf_counter()
     build()
+    t = phase_end("build", t)
     rows = kernel_phase(device)
     bwd_rows = bwd_kernel_phase(device)
+    t = phase_end("flash kernels", t)
     pipe, counted, timing = restore_phase(device)
+    t = phase_end("restore", t)
     k5 = {k: n for k, n in counted["fused"]["shapes"]["conv"].items() if k[0] != "upsample_conv"}
     check(k5 == proj_bench.GN_SHAPES, f"the restore's K5 shapes {k5}, pinned "
                                       f"{proj_bench.GN_SHAPES} (proj_bench.py)")
@@ -4084,10 +4406,13 @@ def main() -> int:
     check(pre == proj_bench.SWIN_SHAPES, f"the restore's swin_pre shapes {pre}, pinned "
                                          f"{proj_bench.SWIN_SHAPES} (proj_bench.py)")
     swin_rows = swin_kernel_phase(device, counted["fused+swin"]["shapes"]["swin"])
+    t = phase_end("conv, proj, swin kernels", t)
     norms = norm_phase(pipe, device)
     text = text_phase(pipe, device)
     cldm = cldm_phase(pipe, device)
+    t = phase_end("norms, text, cldm", t)
     detect, counted["restore+detect"] = detect_phase(pipe, device)
+    t = phase_end("restore+detect", t)
     weights = host_weights(pipe)
     del pipe  # the config-built pipelines and the training one take its place
     gc.collect()
@@ -4098,18 +4423,23 @@ def main() -> int:
         tasks[what], counted[what] = restore_task_phase(task, path, weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+        t = phase_end(what, t)
     data = {"eval": data_eval_phase(weights, device)}
     counted["data eval"] = dict(launches=data["eval"]["launches"],
                                 copies=data["eval"].pop("layout_copies"),
                                 shapes=data["eval"].pop("shapes"))
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase_end("data eval", t)
     demo = demo_phases(weights, device, counted)
+    t = phase_end("demo", t)
     train = train_phase(device)
+    t = phase_end("train step", t)
     gc.collect()
     torch.cuda.empty_cache()
     train_pipe = train.pop("pipe")
     train_det = train_det_phase(train_pipe, device)
+    t = phase_end("train step detnet", t)
     del train_pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -4122,9 +4452,11 @@ def main() -> int:
         tasks[f"train_{task}"] = train_task_phase(task, path, weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+        t = phase_end(f"train step {task}", t)
     train_det_v2 = train_det_v2_phase(weights, device)
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase_end("train step detnet v2", t)
     # the recipes, on the same seeded weights
     recipes = {}
     for name, phase in (("swinir_pre", train_swinir_pre_phase), ("sr4ir", train_sr4ir_phase),
@@ -4132,10 +4464,17 @@ def main() -> int:
         recipes[name] = phase(weights, device)
         gc.collect()
         torch.cuda.empty_cache()
+        t = phase_end(f"recipe {name}", t)
     data["train"] = data_train_phase(weights, device)
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase_end("data train", t)
+    runner = runner_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = phase_end("runner", t)
     recipes["diffbir"], diffbir_pipe = train_diffbir_phase(weights, device)
+    t = phase_end("recipe diffbir", t)
     recipes["sample_fn"] = sample_fn_phase(diffbir_pipe, device)
     swinir_pre_shapes = recipes["swinir_pre"].pop("shapes")
     del diffbir_pipe
@@ -4143,6 +4482,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train["held_at_step_shapes"] = train_shape_phase(device, train.pop("shapes"),
                                                      train.pop("shapes_fused_proj"))
+    t = phase_end("sample fn, step shapes", t)
 
     all_rows = {**rows, **bwd_rows, **conv_rows, **proj_rows, **swin_rows}
     for name, row in all_rows.items():  # from the path that runs it most
@@ -4161,8 +4501,11 @@ def main() -> int:
         row["launches_train_step_detnet_v2"] = train_det_v2["launches"][name]
         row["launches_data_train"] = data["train"]["launches"][name]
         row["launches_data_eval"] = data["eval"]["launches"][name]
+        for run in ("train", "resume", "test", "seg_swinir"):
+            row[f"launches_runner_{run}"] = runner[run]["launches"][name]
         row["launches"] = max([row["launches"], train_det_v2["launches"][name],
                                data["train"]["launches"][name]]
+                              + [runner[r]["launches"][name] for r in runner if r != "data_s"]
                               + [recipes[r]["launches"][name] for r in
                                  ("swinir_pre", "sr4ir", "task_swinir", "diffbir")])
         row["on_path"] = row["launches"] > 0  # K4: the demo's path
@@ -4178,11 +4521,13 @@ def main() -> int:
                       "demo": demo, "train_detnet_v2": train_det_v2,
                       "data": {k: {kk: vv for kk, vv in v.items() if kk != "held"}
                                for k, v in data.items()},
+                      "runner": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                                 if isinstance(v, dict) else v for k, v in runner.items()},
                       "recipes": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
                                   for k, v in recipes.items()},
                       "swinir_pre_shapes": [dict(key=list(k), launches=n) for k, n in
                                             sorted(swinir_pre_shapes["swin"].items(), key=str)],
-                      "device_ms_traces": TRACE_STATS,
+                      "device_ms_traces": TRACE_STATS, "phase_s": PHASE_S,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},
                       "conv_shapes": [dict(key=list(k), launches=n) for k, n in

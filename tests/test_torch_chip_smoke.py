@@ -3,7 +3,11 @@ with the call's own kernel count times the calls traced
 (``trace_accepted``), and the shapes ``proj_bench.py`` times K3 and K10b at
 are the restore's and the step's."""
 
+import sys
+
+import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 import proj_bench
@@ -198,3 +202,43 @@ def test_data_eval_phase_rehearses_on_the_cpu(rehearsal, monkeypatch):
     assert res["images"] == 3 and len(res["coco_stats"]) == 12
     assert all(-1 <= v <= 1 for v in res["coco_stats"].values())
     assert res["launches"] == {k: 0 for k in res["launches"]}
+
+
+def test_runner_phase_rehearses_on_the_cpu(rehearsal, monkeypatch):
+    """Phase 29 at the tiny widths on an 8-image VOC tree at 64², the batch
+    2 as 2 microbatches, no loader workers (forking this multi-threaded
+    test process could hang them; the card's run forks its config's 16):
+    the four CLI runs, the resumed train state bit-identical and one step,
+    image 0's detections equal to a direct restore + detect, the files and
+    stats checked."""
+    import yaml
+
+    from edtr_torch.train import runner
+    from test_torch_runner import shrink
+
+    monkeypatch.setattr(runner, "DTYPE", None)
+    monkeypatch.setattr(runner, "IMG_SIZE", 64)
+    monkeypatch.setattr(runner, "resolve_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "runner_launches",
+                        lambda run, sizes=(): {k: 0 for k in chip_smoke.read_counts()[0]})
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
+    def edit(path):
+        with open(path) as f:
+            cfg = shrink(yaml.safe_load(f))
+        if "train" in cfg:
+            cfg["train"].update(batch_size=2, num_workers=0)
+            if "accum_steps" in cfg["train"]:
+                cfg["train"]["accum_steps"] = 2
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    res = chip_smoke.runner_phase(rehearsal, n_images=8, sides=(72, 96), edit=edit)
+    assert set(res) == {"data_s", "train", "resume", "test", "seg_swinir"}
+    assert res["resume"]["restored_bit_identical"] == sorted(
+        ["pipe", "detnet", "teacher_detnet", "tx_edtr", "tx_detnet", "schedule",
+         "schedule_detnet"])
+    assert res["test"]["image0_equal_direct"] and len(res["train"]["val"]) == 2
+    assert res["train"]["bytes_written"] > res["resume"]["bytes_written"] >= 0
+    assert all(np.isfinite(v) for v in res["train"]["losses"].values())

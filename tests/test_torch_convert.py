@@ -143,9 +143,9 @@ def test_stripped_tree_restores_like_the_padded_jax_net():
 
 
 def test_port_imports_no_jax():
-    """edtr_torch (every module) and chip_smoke.py load no jax, flax or
-    edtr_tpu: the port runs on a card host without them."""
-    banned = ("jax", "flax", "edtr_tpu")
+    """edtr_torch (every module) and chip_smoke.py load no jax, flax, optax
+    or edtr_tpu: the port runs on a card host without them."""
+    banned = ("jax", "flax", "optax", "edtr_tpu")
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
@@ -183,7 +183,10 @@ def test_port_imports_no_jax():
                 "edtr_torch.data.detection", "edtr_torch.data.detection_coco",
                 "edtr_torch.data.detection_cocov2", "edtr_torch.data.val_data_generation",
                 "edtr_torch.data.synthetic", "edtr_torch.utils.metrics",
-                "edtr_torch.utils.coco_eval", "edtr_torch.train.harness"):
+                "edtr_torch.utils.coco_eval", "edtr_torch.train.harness",
+                "edtr_torch.train.runner", "edtr_torch.train.valhooks", "edtr_torch.cli",
+                "edtr_torch.utils.logging_utils", "edtr_torch.utils.profiling",
+                "edtr_torch.utils.benchtime", "edtr_torch.data.preprocess"):
         assert mod in res.stdout
 
 

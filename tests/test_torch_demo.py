@@ -75,10 +75,12 @@ def _jax_restore(tiled: bool) -> np.ndarray:
     image, c_txt, noise, _ = _inputs()
     opts = TILED if tiled else {}
     cldm = pipe.cldm
-    pre = pipe.pre_restore(params, jnp.asarray(image))
-    z_pre = cldm.vae_encode(params, pre * 2 - 1, sample=False,
-                            tiled=opts.get("vae_encoder_tiled", False),
-                            tile_size=opts.get("vae_encoder_tile_size", -1))
+    # each step jitted: one compile each, where op-by-op dispatch compiles
+    # every primitive on its own (the SwinIR and the encoder ~5x slower)
+    pre = jax.jit(pipe.pre_restore)(params, jnp.asarray(image))
+    z_pre = jax.jit(lambda p, x: cldm.vae_encode(
+        p, x, sample=False, tiled=opts.get("vae_encoder_tiled", False),
+        tile_size=opts.get("vae_encoder_tile_size", -1)))(params, pre * 2 - 1)
     t = jnp.full((1,), pipe.start_timestep, jnp.int32)
     z_t = pipe.diffusion.q_sample(z_pre, t, jnp.asarray(noise))
 
@@ -92,9 +94,13 @@ def _jax_restore(tiled: bool) -> np.ndarray:
                            jax.random.PRNGKey(51))
 
     z = jax.jit(walk)(params, z_t, z_pre)
-    decoded = (cldm.vae_decode(params, z, tiled=opts.get("vae_decoder_tiled", False),
-                               tile_size=opts.get("vae_decoder_tile_size", -1)) + 1) / 2
-    return np.asarray(wavelet_reconstruction(decoded, pre))
+
+    def decode(p, z, pre):
+        decoded = (cldm.vae_decode(p, z, tiled=opts.get("vae_decoder_tiled", False),
+                                   tile_size=opts.get("vae_decoder_tile_size", -1)) + 1) / 2
+        return wavelet_reconstruction(decoded, pre)
+
+    return np.asarray(jax.jit(decode)(params, z, pre))
 
 
 @functools.lru_cache(maxsize=1)

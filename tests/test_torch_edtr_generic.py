@@ -44,7 +44,8 @@ from edtr_torch.train.tasks import task_apply_for
 from edtr_torch.utils.convert import from_jax
 from test_torch_tasknets import random_variables
 from test_torch_train_step import LAT, _port
-from torch_port_helpers import CTX, IMAGE, compiled_in_thread, jax_tiny, nchw, t2n
+from torch_port_helpers import (CTX, GENERIC_COMPILE_OPTIONS, IMAGE, compiled_in_thread,
+                                jax_tiny, nchw, t2n)
 
 TOL = 3e-3
 # task -> (JAX net, port factory, from_jax kind, target maker, weight_task, weight_fm)
@@ -111,7 +112,7 @@ CASES = [(task, accum) for task in TASKS for accum in (1, 2)]
 @functools.lru_cache(maxsize=1)
 def _jax_steps() -> dict:
     """JAX's generic step once per case, traced one case after another and
-    compiled side by side (``compiled_in_thread``, XLA's default level);
+    compiled side by side (``compiled_in_thread``, XLA's level 1);
     case -> future of (updated params, metrics, rng)."""
     pipe_j, params = jax_tiny()
     futures = {}
@@ -130,7 +131,8 @@ def _jax_steps() -> dict:
             step = JS.make_edtr_generic_train_step(pipe_j, feats_fn, loss_fn, weight_task=w_task,
                                                    weight_fm=w_fm, jit=False, accum_steps=accum)
             futures[(task, accum)] = compiled_in_thread(
-                step, state, batch, rng, options={}, post=lambda out, rng=rng: (
+                step, state, batch, rng, options=GENERIC_COMPILE_OPTIONS,
+                post=lambda out, rng=rng: (
                     jax.tree.map(np.asarray, out[0].params), jax.tree.map(float, out[1]), rng))
     return futures
 

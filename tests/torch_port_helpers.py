@@ -29,6 +29,12 @@ CTX = (77, 64)  # tiny text-embedding shape
 # saves (18.7 against 14.6 CPU minutes), so its test keeps XLA's default.
 STEP_COMPILE_OPTIONS = {"xla_backend_optimization_level": 0,
                         "xla_llvm_disable_expensive_passes": True}
+# the generic step (a whole ResNet-18 or DeepLabV3 beside the tiny flagship)
+# runs too long unoptimised: level 0 took it to 61.7 s of compile and 350.7
+# of run CPU (seg, accum 2), XLA's default level 150.0 and 19.0, level 1
+# 123.4 and 23.3 (cls, accum 1: 81.1 + 3.6 against 68.4 + 3.2); losses 1e-7
+# relative apart
+GENERIC_COMPILE_OPTIONS = {"xla_backend_optimization_level": 1}
 
 
 def compiled_step(fn, *args):
