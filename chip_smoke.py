@@ -290,11 +290,37 @@ no result line):
    direct restore + detect on the same input and generator; ``seg
    test_swinir --debug``: 2 images at full width. Each run counted (exact
    launches, :func:`runner_launches`), its wall seconds, peak GiB and the
-   bytes it wrote; the directory removed;
-30. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
+   bytes it wrote; the directory removed. The training run is in a process
+   group of one (NCCL), joined from the launch contract's ``EDTR_*``
+   variables: the gradient average before each update (2 a step) and
+   rank 0's saves run on the card;
+30. (``edtr_torch.parallel``) two processes on the one card
+   (``chip_smoke.py --parallel-rank``, over gloo: NCCL takes one rank a
+   card) run phase 16's SwinIR-pre step on the seeded weights at a global
+   bs 4, 2 a rank: exact launches per rank, the loss (the ranks' mean)
+   within 1e-3 and the averaged gradients within 5e-2 relative L2 of
+   this process's step on the global batch, the ranks' gradients
+   bit-identical, step ms (median of 3) and peak GiB per rank; the
+   flagship's UNet at full width under tensor parallelism's plan on a (1,
+   1) mesh of an NCCL group of one: one forward and backward launches the
+   kernels the unsharded UNet launches (K5, K6, K8a/b, K7b, K1/K2 and
+   their backward) with the same output and gradients; the flagship's
+   tensor-parallel and FSDP bytes a device at 2 and 4. One card cannot
+   measure scaling over cards;
+31. the restoration nets no config trains, seeded, fp32 at the
+   reference's widths: RRDBNet x4 (128² -> 512²), EDSR x2 (256² ->
+   512²), SCUNet and SKUNet at 512², each card against CPU at a smaller
+   input (relative L2 <= 1e-3), timed (median of 5) with its peak GiB,
+   no kernel launched; the classical x4 SwinIR (pixel-shuffle tail, bf16)
+   on a 128² input under ``fused_swin``: 36 launches each of K10a, K9 and
+   K10b (exact), its output against the stock path's (5e-2), each kernel
+   held against its plain version at its 256-window shapes (two calls
+   bit-identical), both paths timed;
+32. a ``{"kernels": [...]}`` line with every ported kernel (launches: the
    most of any counted path, restore+detect, the bs-8 restore+classify,
-   the training steps, the recipes, the demo, the data paths and the
-   runner's runs among them), then the result line.
+   the training steps, the recipes, the demo, the data paths, the
+   runner's runs, a parallel rank's step and the classical SwinIR among
+   them), then the result line.
 
 Every device time comes from :func:`device_ms`, which takes a trace only
 with each launch's kernel in it and times a call by CUDA events, naming it
@@ -674,6 +700,38 @@ TOL_TASK_REL = 5e-2
 TOL_TASK_MOVES = 1e-2
 TASK_NOISE = 0.1
 IMAGE = 512
+# phase 30: the SwinIR-pre recipe step over two processes on the one card,
+# over gloo (NCCL takes one rank a card), at a global bs 4 (2 a rank), held
+# against one process's step on the global batch; a rank's time limit
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT = 300
+PARALLEL_TIMED = 3
+TOL_PARALLEL_LOSS = 1e-3
+# phase 30's tensor parallelism: the flagship's UNet at full width, bf16,
+# its plan's weights DTensors on a (1, 1) mesh of a process group of one
+# (NCCL), one forward and backward on a 64² latent under the conv and
+# projection kernels' configuration, against the same UNet unsharded: the
+# same launches, the same output and gradients (gathered weights and the
+# ranks' heads feed the kernels the same values)
+TP_LATENT = 64
+TOL_TP_REL = 1e-6
+# phase 31: the restoration nets no config trains, at the reference's
+# widths: (factory, its kwargs, the full input side timed, the input side
+# held card fp32 vs CPU fp32); their output times the input's side
+RESTORATION_NETS = {
+    "rrdbnet_x4": ("edtr_torch.models.bsrnet.RRDBNet", dict(sf=4), 128, 32),
+    "edsr_x2": ("edtr_torch.models.edsr.EDSR", dict(scale=2), 256, 32),
+    "scunet": ("edtr_torch.models.scunet.SCUNet", dict(), 512, 64),
+    "skunet": ("edtr_torch.models.skunet.SKUNet", dict(), 512, 64),
+}
+NET_TIMED = 5
+TOL_NET_REL = 1e-3
+# phase 31's classical x4 SwinIR (SwinIR's published classical SR model:
+# pixel-shuffle tail, no unshuffle; bf16, its blocks through K10a/K9/K10b)
+# on a 128² input: 256 windows a block, shapes no other phase runs
+CLASSICAL_SWINIR = dict(embed_dim=180, depths=(6,) * 6, num_heads=(6,) * 6, window_size=8,
+                        mlp_ratio=2, sf=4, upsampler="pixelshuffle", unshuffle=False)
+CLASSICAL_LR = 128
 # restores per configuration in the interleaved timing (single host times
 # of one configuration spread over 300-550 ms on the card's machine), and
 # traced; 21 and 41 until the demo phases came, 15 and 31 until the runner
@@ -3543,6 +3601,7 @@ def runner_phase(device, n_images: int = RUNNER_VOC_IMAGES, sides: tuple = RUNNE
     from edtr_torch.config import instantiate_from_config, load_config
     from edtr_torch.data import synthetic
     from edtr_torch.data.val_data_generation import generate
+    from edtr_torch.train import edtr_step as STEP
     from edtr_torch.train import runner as RUN
     from edtr_torch.train.harness import list_to_batch
     from edtr_torch.utils import checkpoint as ckpt
@@ -3586,9 +3645,28 @@ def runner_phase(device, n_images: int = RUNNER_VOC_IMAGES, sides: tuple = RUNNE
         seg_cfg = edit(_config_copy(RUNNER_SEG_CONFIG, os.path.join(tmp, "seg.yaml"),
                                     {"dataset": root, "test": dict(exp_dir=exp_seg)}))
 
-        # det train_edtr --debug: 2 steps, each logged, saved, a grid, validated
-        run = runner_run("train", ["det", "train_edtr", "--config", train_cfg, "--debug"],
-                         (exp,), runner_launches("train"))
+        # det train_edtr --debug: 2 steps, each logged, saved, a grid,
+        # validated; in a process group of one joined from the launch
+        # contract's EDTR_* variables (NCCL on the card): the gradient
+        # average before each of a step's two updates, rank 0's saves
+        os.environ.update(EDTR_COORDINATOR=f"localhost:{free_port()}", EDTR_NUM_PROCESSES="1",
+                          EDTR_PROCESS_ID="0")
+        averaged = []
+        real_average = STEP.average_gradients
+        STEP.average_gradients = lambda params: averaged.append(real_average(params))
+        try:
+            run = runner_run("train", ["det", "train_edtr", "--config", train_cfg, "--debug"],
+                             (exp,), runner_launches("train"))
+        finally:
+            STEP.average_gradients = real_average
+        dist = torch.distributed
+        group = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                     gradient_averages=len(averaged))
+        print(f"runner train: process group {group}", flush=True)
+        check(group == dict(backend="nccl" if device.type == "cuda" else "gloo", world=1,
+                            gradient_averages=2 * RUNNER_DEBUG["steps"]),
+              f"runner train: process group {group}")
+        run["process_group"] = group
         state = run.pop("out")
         check(state.step == RUNNER_DEBUG["steps"], f"train_edtr took {state.step} steps")
         del state
@@ -3700,6 +3778,10 @@ def runner_phase(device, n_images: int = RUNNER_VOC_IMAGES, sides: tuple = RUNNE
         res["seg_swinir"] = run
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for var in ("EDTR_COORDINATOR", "EDTR_NUM_PROCESSES", "EDTR_PROCESS_ID"):
+            os.environ.pop(var, None)
     print("runner:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                  if isinstance(v, dict) else v for k, v in res.items()}),
           flush=True)
@@ -4367,6 +4449,326 @@ def train_shape_phase(device, shapes: dict, proj_shapes: dict) -> dict:
 PHASE_S: dict = {}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def swinir_pre_parts(weights: dict, device) -> tuple:
+    """(SwinIR, its train state, step, the seeded global batch) of the
+    SwinIR-pre recipe at phase 16's batch, on ``weights`` (the SwinIR's
+    state dict)."""
+    from edtr_torch.config import load_config
+    from edtr_torch.pipeline import swinir_from_config
+    from edtr_torch.train import recipes as R
+
+    cfg = load_config(SWINIR_PRE_CONFIG)
+    sw = swinir_from_config(cfg.model.swinir, dtype=torch.bfloat16, device=device)
+    sw.load_state_dict(weights, strict=True)
+    state = R.SimpleTrainState.create(sw, R.cosine_tx(
+        "adamw", float(cfg.train.learning_rate), int(cfg.train.train_steps), weight_decay=0.0))
+    batch = image_batch(torch.Generator(device=device).manual_seed(20), SWINIR_PRE_BATCH, device)
+    return sw, state, R.make_swinir_pre_train_step(sw), batch
+
+
+def parallel_rank(rank: int, port: str, tmp: str, device=None) -> None:
+    """One rank of phase 30 (``chip_smoke.py --parallel-rank RANK PORT
+    DIR``): the process group joined from the ``EDTR_*`` variables over
+    gloo, the step on this rank's rows of the global batch, counted, its
+    averaged gradients, then :data:`PARALLEL_TIMED` steps timed; results to
+    ``DIR/rank{RANK}.pt``."""
+    import os
+
+    from edtr_torch.parallel.distributed import (barrier, maybe_initialize_distributed,
+                                                 mean_over_ranks)
+
+    os.environ.update(EDTR_COORDINATOR=f"localhost:{port}",
+                      EDTR_NUM_PROCESSES=str(PARALLEL_RANKS), EDTR_PROCESS_ID=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    device = device or torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    check(maybe_initialize_distributed(backend="gloo"), "two ranks")
+    sw, state, step, batch = swinir_pre_parts(
+        torch.load(os.path.join(tmp, "swinir.pt"), weights_only=True), device)
+    m = SWINIR_PRE_BATCH // PARALLEL_RANKS
+    local = {k: v[rank * m:(rank + 1) * m] for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    metrics = step(state, local)
+    torch.cuda.synchronize()
+    launches = read_counts()[0]
+    grads = {n: p.grad.float().cpu() for n, p in sw.named_parameters()}
+    loss = mean_over_ranks(metrics)["loss"]
+    barrier()
+    runs = []
+    for _ in range(PARALLEL_TIMED):
+        barrier()
+        runs.append(host_ms(lambda: step(state, local)))
+    torch.save(dict(loss=loss, local_loss=float(metrics["loss"]), grads=grads,
+                    launches=launches, step_ms=statistics.median(runs), step_runs_ms=runs,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30),
+               os.path.join(tmp, f"rank{rank}.pt"))
+    barrier()
+    torch.distributed.destroy_process_group()
+
+
+def tp_card_check(device) -> dict:
+    """Phase 30's tensor-parallel check (:data:`TP_LATENT`): the UNet's
+    launches, output and gradients, unsharded and under ``shard_params``
+    over an NCCL group of one joined from the ``EDTR_*`` variables."""
+    import os
+
+    from torch.distributed.tensor import DTensor
+
+    from edtr_torch.models.layers import fused_conv, fused_proj, randomize_
+    from edtr_torch.models.unet import UNetModel
+    from edtr_torch.parallel.distributed import maybe_initialize_distributed
+    from edtr_torch.parallel.mesh import make_mesh
+    from edtr_torch.parallel.tp import shard_params
+    from edtr_torch.pipeline import flagship_configs
+
+    cfg = flagship_configs()["unet"]
+    with torch.device(device):
+        unet = UNetModel(dtype=torch.bfloat16, **cfg)
+    randomize_(unet, torch.Generator(device=device).manual_seed(36))
+    g = torch.Generator(device=device).manual_seed(37)
+    x = torch.randn((1, 4, TP_LATENT, TP_LATENT), generator=g, device=device)
+    t = torch.tensor([200], device=device)
+    c = torch.randn((1, 77, cfg["context_dim"]), generator=g, device=device)
+
+    def run() -> tuple:
+        unet.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with fused_conv(), fused_proj():
+            y = unet(x, t, c)
+            y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()[0]
+        grads = {n: p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad
+                 for n, p in unet.named_parameters()}
+        return y.detach(), grads, launches, ms
+
+    os.environ.update(EDTR_COORDINATOR=f"localhost:{free_port()}", EDTR_NUM_PROCESSES="1",
+                      EDTR_PROCESS_ID="0")
+    try:
+        maybe_initialize_distributed()
+        backend = torch.distributed.get_backend()
+        y, grads, launches, ms = run()
+        shard_params(unet, make_mesh(1, 1))
+        sharded = sum(isinstance(p, DTensor) for p in unet.parameters())
+        y_tp, grads_tp, launches_tp, ms_tp = run()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for var in ("EDTR_COORDINATOR", "EDTR_NUM_PROCESSES", "EDTR_PROCESS_ID"):
+            os.environ.pop(var, None)
+    names = sorted(grads)
+    out_rel, grad_rel = rel_l2(y_tp, y), rel_l2_over(grads_tp, grads, names)
+    on = sorted(k for k, n in launches.items() if n)
+    row = dict(backend=backend, latent=TP_LATENT, sharded_params=sharded, launches=launches,
+               out_rel_l2=out_rel, grad_rel_l2=grad_rel, fwd_bwd_ms=ms, tp_fwd_bwd_ms=ms_tp,
+               bit_identical=bool(torch.equal(y_tp, y)) and all(
+                   torch.equal(grads_tp[n], grads[n]) for n in names))
+    print(f"parallel tp: the flagship UNet, {sharded} weights split on a (1, 1) mesh "
+          f"({backend}), launches {on} as unsharded: {launches_tp == launches}, output rel L2 "
+          f"{out_rel:.2e}, gradients {grad_rel:.2e} (tol {TOL_TP_REL}), bit-identical: "
+          f"{row['bit_identical']}; forward+backward {ms:.1f} ms unsharded, {ms_tp:.1f} ms "
+          f"sharded (host, one run each)", flush=True)
+    check(backend == "nccl", f"tp: backend {backend}")
+    check(sharded > 0 and launches_tp == launches, f"tp launches {launches_tp}, unsharded "
+                                                   f"{launches}")
+    families = ({"upsample_conv", "ln_matmuls", "affine_matmul", "ln_geglu_proj"},
+                {"gn_conv_whole", "gn_conv_band"}, {"wholekv_fwd", "whole_fwd", "flash_fwd"},
+                {"whole_bwd", "flash_bwd_dq"})
+    check(families[0] <= set(on) and all(set(f) & set(on) for f in families[1:]),
+          f"tp: kernels launched {on}")
+    check(out_rel <= TOL_TP_REL and grad_rel <= TOL_TP_REL,
+          f"tp: output rel L2 {out_rel}, gradients {grad_rel}")
+    del unet, grads, grads_tp
+    return row
+
+
+def parallel_phase(weights: dict, device) -> dict:
+    """Phase 30 (module docstring): two processes on the card run the
+    SwinIR-pre step over gloo, held against this process's step on the
+    global batch; the flagship's TP and FSDP bytes a device."""
+    import os
+    import shutil
+    import tempfile
+
+    from edtr_torch.parallel import fsdp as PF
+    from edtr_torch.parallel import tp as PT
+    from edtr_torch.pipeline import build_flagship
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="edtr_parallel_")
+    res = {}
+    try:
+        sw_weights = {n[len("swinir."):]: v.cpu() for n, v in weights.items()
+                      if n.startswith("swinir.")}
+        torch.save(sw_weights, os.path.join(tmp, "swinir.pt"))
+        port = str(free_port())
+        procs = [subprocess.Popen([sys.executable, __file__, "--parallel-rank", str(r), port, tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(PARALLEL_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            print(f"parallel rank {r} (exit {p.returncode}):\n{log[-3000:]}", flush=True)
+            check(p.returncode == 0, f"parallel rank {r} exited {p.returncode}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                 for r in range(PARALLEL_RANKS)]
+        ranks_s = time.perf_counter() - t0
+
+        sw, state, step, batch = swinir_pre_parts(sw_weights, device)
+        metrics = step(state, batch)
+        ref_loss = float(metrics["loss"])
+        ref = {n: p.grad.float().cpu() for n, p in sw.named_parameters()}
+        del sw, state
+        names = sorted(ref)
+        loss_rel = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
+        grad_rel = rel_l2_over(ranks[0]["grads"], ref, names)
+        same = all(torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in names)
+        want = recipe_launches("swinir_pre")
+        print(f"parallel swinir-pre: 2 ranks x bs {SWINIR_PRE_BATCH // PARALLEL_RANKS} vs one "
+              f"process at bs {SWINIR_PRE_BATCH}: loss {ranks[0]['loss']:.6f} vs {ref_loss:.6f} "
+              f"(rel {loss_rel:.2e}, tol {TOL_PARALLEL_LOSS}), gradients rel L2 {grad_rel:.2e} "
+              f"(tol {TOL_GRAD_REL}), the ranks' averaged gradients bit-identical: {same}",
+              flush=True)
+        check(loss_rel <= TOL_PARALLEL_LOSS, f"parallel loss rel {loss_rel}")
+        check(grad_rel <= TOL_GRAD_REL, f"parallel gradients rel L2 {grad_rel}")
+        check(same, "the ranks' averaged gradients differ")
+        for r, rk in enumerate(ranks):
+            check(rk["launches"] == want, f"parallel rank {r} launches {rk['launches']}, "
+                                          f"want {want}")
+        res.update(ranks=PARALLEL_RANKS, backend="gloo", global_batch=SWINIR_PRE_BATCH,
+                   loss=ranks[0]["loss"], loss_one_process=ref_loss, loss_rel=loss_rel,
+                   grad_rel_l2=grad_rel, ranks_bit_identical=same,
+                   step_ms=[rk["step_ms"] for rk in ranks],
+                   step_runs_ms=[rk["step_runs_ms"] for rk in ranks],
+                   peak_gib=[rk["peak_gib"] for rk in ranks], launches=ranks[0]["launches"],
+                   ranks_s=ranks_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["tp"] = tp_card_check(device)
+    flagship = build_flagship(device="meta")
+    res["flagship_param_bytes"] = {
+        f"{kind}_{n}": list(fn(flagship, {axis: n}))
+        for kind, fn, axis in (("tp", PT.tp_param_bytes, "model"),
+                               ("fsdp", PF.fsdp_param_bytes, "data")) for n in (2, 4)}
+    print("parallel:", json.dumps({k: v for k, v in res.items() if k != "launches"}), flush=True)
+    return res
+
+
+def restoration_nets_phase(device) -> dict:
+    """Phase 31 (module docstring): each net of :data:`RESTORATION_NETS`
+    with seeded weights, card fp32 against CPU fp32 at its small input,
+    timed at its full one; the classical x4 SwinIR."""
+    import copy
+    import importlib
+
+    from edtr_torch.models.layers import randomize_
+
+    res = {}
+    for name, (target, kw, side, small) in RESTORATION_NETS.items():
+        module, cls = target.rsplit(".", 1)
+        net = randomize_(getattr(importlib.import_module(module), cls)(**kw),
+                         torch.Generator().manual_seed(31)).eval()
+        g = torch.Generator().manual_seed(32)
+        x_small = torch.rand((1, 3, small, small), generator=g)
+        card = copy.deepcopy(net).to(device)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            y_cpu = net(x_small)
+            cpu_s = time.perf_counter() - t0
+            y_card = card(x_small.to(device)).float().cpu()
+            err = rel_l2(y_card, y_cpu)
+            x = torch.rand((1, 3, side, side), generator=g).to(device)
+            zero_counts()
+            card(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            y = card(x)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in read_counts()[0].items() if n}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs = [host_ms(lambda: card(x)) for _ in range(NET_TIMED)]
+        scale = y.shape[-1] // side
+        row = dict(input=[side, side], output=list(y.shape[-2:]), params=sum(
+            p.numel() for p in net.parameters()), card_vs_cpu_rel_l2=err, cpu_input=small,
+            cpu_s=cpu_s, ms=statistics.median(runs), runs_ms=runs, peak_gib=peak,
+            kernel_launches=launches)
+        print(f"restoration net {name}: {side}² -> {y.shape[-2]}x{y.shape[-1]}, "
+              f"{row['ms']:.2f} ms (median of {NET_TIMED}, fp32), peak {peak:.2f} GiB, card vs "
+              f"CPU at {small}² rel L2 {err:.2e} (tol {TOL_NET_REL})", flush=True)
+        check(err <= TOL_NET_REL, f"{name}: card vs CPU rel L2 {err}")
+        check(bool(torch.isfinite(y).all()) and y.shape[-2] == side * scale
+              and scale == kw.get("sf", kw.get("scale", 1)), f"{name}: output {tuple(y.shape)}")
+        check(not launches, f"{name} launched {launches}: no kernel is on its path")
+        res[name] = row
+        del net, card, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["classical_swinir_x4"] = classical_swinir(device)
+    return res
+
+
+def classical_swinir(device) -> dict:
+    """The classical x4 SwinIR (:data:`CLASSICAL_SWINIR`), seeded, bf16, on a
+    :data:`CLASSICAL_LR`² input: under ``fused_swin`` each of its 36 blocks
+    is one K10a, K9 and K10b launch (exact), its output against the stock
+    path's, every kernel held against its plain version at the shapes it
+    ran (two calls bit-identical), both paths timed."""
+    from edtr_torch.models.layers import fused_swin, randomize_
+    from edtr_torch.models.swinir import SwinIR
+
+    with torch.device(device):
+        sw = SwinIR(dtype=torch.bfloat16, **CLASSICAL_SWINIR)
+    randomize_(sw, torch.Generator(device=device).manual_seed(33)).eval()
+    x = torch.rand((1, 3, CLASSICAL_LR, CLASSICAL_LR),
+                   generator=torch.Generator(device=device).manual_seed(34), device=device)
+    blocks = sum(CLASSICAL_SWINIR["depths"])
+    with torch.no_grad():
+        with fused_swin():
+            sw(x)
+            zero_counts()
+            y = sw(x)
+            torch.cuda.synchronize()
+            launches, shapes, _ = read_counts()
+            fused = [host_ms(lambda: sw(x)) for _ in range(NET_TIMED)]
+        y_stock = sw(x)
+        stock = [host_ms(lambda: sw(x)) for _ in range(NET_TIMED)]
+    want = {k: 0 for k in launches}
+    want.update(window_attention=blocks, swin_pre=blocks, swin_post=blocks)
+    check(launches == want, f"classical SwinIR launches {launches}, want {want}")
+    err = rel_l2(y, y_stock)
+    check(err <= TOL_FUSED_REL and tuple(y.shape) == (1, 3, 4 * CLASSICAL_LR, 4 * CLASSICAL_LR),
+          f"classical SwinIR fused vs stock rel L2 {err}, output {tuple(y.shape)}")
+    held = hold_shapes(device, shapes)
+    check(set(held) == {"window_attention", "swin_pre", "swin_post"}, f"held {sorted(held)}")
+    row = dict(input=[CLASSICAL_LR, CLASSICAL_LR], output=list(y.shape[-2:]), launches=launches,
+               fused_vs_stock_rel_l2=err, held=held, fused_ms=statistics.median(fused),
+               stock_ms=statistics.median(stock),
+               shapes=[dict(key=list(k), launches=n) for k, n in
+                       sorted(shapes["swin"].items(), key=str)])
+    print("classical SwinIR x4:", json.dumps(row), flush=True)
+    return row
+
+
 def phase_end(name: str, t0: float) -> float:
     """Records and prints the seconds since ``t0`` under ``name`` (the
     output's ``phase_s``); returns the time now."""
@@ -4380,6 +4782,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of phase 30
+        parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     # the plain versions are compared in fp32 where they compute in fp32:
     # TF32 (cuDNN's default for convolutions) would add ~1e-3 relative error
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4473,6 +4878,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = phase_end("runner", t)
+    parallel = parallel_phase(weights, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = phase_end("parallel", t)
+    nets = restoration_nets_phase(device)
+    t = phase_end("restoration nets", t)
     recipes["diffbir"], diffbir_pipe = train_diffbir_phase(weights, device)
     t = phase_end("recipe diffbir", t)
     recipes["sample_fn"] = sample_fn_phase(diffbir_pipe, device)
@@ -4503,9 +4914,13 @@ def main() -> int:
         row["launches_data_eval"] = data["eval"]["launches"][name]
         for run in ("train", "resume", "test", "seg_swinir"):
             row[f"launches_runner_{run}"] = runner[run]["launches"][name]
+        row["launches_parallel_swinir_pre_rank"] = parallel["launches"][name]
+        row["launches_classical_swinir"] = nets["classical_swinir_x4"]["launches"][name]
         row["launches"] = max([row["launches"], train_det_v2["launches"][name],
                                data["train"]["launches"][name]]
                               + [runner[r]["launches"][name] for r in runner if r != "data_s"]
+                              + [row["launches_parallel_swinir_pre_rank"],
+                                 row["launches_classical_swinir"]]
                               + [recipes[r]["launches"][name] for r in
                                  ("swinir_pre", "sr4ir", "task_swinir", "diffbir")])
         row["on_path"] = row["launches"] > 0  # K4: the demo's path
@@ -4527,6 +4942,10 @@ def main() -> int:
                                   for k, v in recipes.items()},
                       "swinir_pre_shapes": [dict(key=list(k), launches=n) for k, n in
                                             sorted(swinir_pre_shapes["swin"].items(), key=str)],
+                      "parallel": {k: v for k, v in parallel.items() if k != "launches"},
+                      "restoration_nets": {k: {kk: vv for kk, vv in v.items()
+                                               if kk not in ("launches", "shapes")}
+                                           for k, v in nets.items()},
                       "device_ms_traces": TRACE_STATS, "phase_s": PHASE_S,
                       "launches": {cfg: c["launches"] for cfg, c in counted.items()},
                       "layout_copies": {cfg: c["copies"] for cfg, c in counted.items()},

@@ -5,11 +5,10 @@ Counterpart of ``edtr_tpu/config.py``: :class:`Config` (attribute access
 over a nested dict), :func:`load_config` (``yaml.safe_load``),
 :func:`get_obj_from_str` and :func:`instantiate_from_config`. The configs
 name the reference's targets (``model.resnet.ResNet``, ...); :data:`REGISTRY`
-maps each to the port's constructor, and ``edtr_torch.*`` paths resolve by
-import. A reference target the port does not have yet (the unused
-restoration nets, the dead ``nsampler`` encoder) raises
-:class:`NotPortedError` naming it; any other path outside ``edtr_torch``
-raises too, so nothing resolves into the JAX package.
+maps each to the port's constructor (every one JAX's registry maps), and
+``edtr_torch.*`` paths resolve by import. Any other path raises
+:class:`NotPortedError` naming it, so nothing resolves into the JAX
+package.
 """
 
 from __future__ import annotations
@@ -88,8 +87,8 @@ class NotPortedError(NotImplementedError):
     """A config target with no counterpart in the port yet."""
 
 
-# reference target -> the port's constructor (None: not ported yet)
-REGISTRY: Dict[str, Optional[str]] = {
+# reference target -> the port's constructor
+REGISTRY: Dict[str, str] = {
     "model.cldm.ControlLDM": "edtr_torch.models.cldm.ControlLDM",
     "model.gaussian_diffusion.Diffusion": "edtr_torch.diffusion.schedule.create_diffusion",
     "model.swinir.SwinIR": "edtr_torch.models.swinir.SwinIR",
@@ -101,11 +100,11 @@ REGISTRY: Dict[str, Optional[str]] = {
     "model.deeplabv3.deeplabv3_resnet50": "edtr_torch.models.deeplabv3.deeplabv3_resnet50",
     "model.faster_rcnn.fasterrcnn_resnet50_fpn_v2":
         "edtr_torch.models.faster_rcnn.fasterrcnn_resnet50_fpn_v2",
-    "model.vae.Encoder": None,
-    "model.bsrnet.RRDBNet": None,
-    "model.scunet.SCUNet": None,
-    "model.skunet.SKUNet": None,
-    "model.edsr.EDSR": None,
+    "model.vae.Encoder": "edtr_torch.models.vae.create_encoder",
+    "model.bsrnet.RRDBNet": "edtr_torch.models.bsrnet.RRDBNet",
+    "model.scunet.SCUNet": "edtr_torch.models.scunet.SCUNet",
+    "model.skunet.SKUNet": "edtr_torch.models.skunet.SKUNet",
+    "model.edsr.EDSR": "edtr_torch.models.edsr.EDSR",
     "datasets.classification.DegradedClassificationDataset":
         "edtr_torch.data.classification.DegradedClassificationDataset",
     "datasets.classification.PairedClassificationDataset":
@@ -137,8 +136,6 @@ def get_obj_from_str(string: str, reload: bool = False) -> Any:
     """The object a target names: a reference target through
     :data:`REGISTRY`, or an ``edtr_torch.*`` dotted path."""
     if string in REGISTRY:
-        if REGISTRY[string] is None:
-            raise NotPortedError(f"config target {string!r} is not yet ported to edtr_torch")
         string = REGISTRY[string]
     elif not string.startswith("edtr_torch."):
         raise NotPortedError(f"config target {string!r} names nothing in edtr_torch")

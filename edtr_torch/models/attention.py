@@ -33,9 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from edtr_torch.models.layers import (DerivedWeight, GroupNorm32, LayerNorm, Linear,
-                                      concat_weights, fused_proj_on)
+                                      concat_weights, fused_proj_on, whole)
 from edtr_torch.ops import geglu, ln_matmul
 from edtr_torch.ops.attention import dot_product_attention
+from edtr_torch.parallel import tp
+from edtr_torch.parallel.mesh import is_sharded
 
 
 def proj_route(x: torch.Tensor, takes, *dims: int) -> bool:
@@ -73,33 +75,51 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 pre_norm: Optional[LayerNorm] = None) -> torch.Tensor:
-        if pre_norm is not None and fused_proj_on() and ln_matmul.supported(x.shape[1]):
+        lins = (self.to_q, self.to_k, self.to_v)
+        out_proj = self.to_out[0]
+        heads = (tp.split_attention_heads(self.heads, [m.weight for m in lins + (out_proj,)])
+                 if is_sharded(self.to_q.weight) else 0)
+        fused = pre_norm is not None and fused_proj_on() and ln_matmul.supported(x.shape[1])
+        if pre_norm is not None and not fused:
+            x = pre_norm(x)
+        norm = None if not fused else (pre_norm.weight, pre_norm.bias)
+        group = None
+        if heads:
+            # tensor parallelism over a model dim that divides the heads
+            # (edtr_torch/parallel/tp.py): this rank's heads, the gradients
+            # of the inputs (and of a fused norm) summed over the ranks
+            group = out_proj.weight.device_mesh.get_group()
+            x = tp.to_model_region(x, group)
+            context = None if context is None else tp.to_model_region(context, group)
+            norm = None if norm is None else tuple(tp.to_model_region(p, group) for p in norm)
+            ws = [m.weight.to_local() for m in lins]
+        else:
+            heads, ws = self.heads, [whole(m.weight) for m in lins]
+        if fused:
             xc = x.to(self.to_q.dtype or x.dtype)
-            norm = (pre_norm.weight, pre_norm.bias)
-            ws = ((self.to_q.weight, self.to_k.weight, self.to_v.weight) if context is None
-                  else (self.to_q.weight,))
+            sel = ws if context is None else ws[:1]
             _, n, c = xc.shape
-            if not proj_route(xc, ln_matmul.ln_matmuls_takes, n, c, ws[0].shape[0]):
-                outs = ln_matmul.plain_ln_matmuls(xc, *norm, ws, pre_norm.eps)
+            if not proj_route(xc, ln_matmul.ln_matmuls_takes, n, c, sel[0].shape[0]):
+                outs = ln_matmul.plain_ln_matmuls(xc, *norm, sel, pre_norm.eps)
             else:
                 wp = (self.qkv_weight(xc.dtype) if context is None
                       else self.to_q.packed_weight(xc.dtype))
-                outs = ln_matmul.ln_matmuls(xc, *norm, ws, pre_norm.eps, w_packed=wp)
-            q, k, v = outs if context is None else (*outs, self.to_k(context),
-                                                    self.to_v(context))
+                outs = ln_matmul.ln_matmuls(xc, *norm, sel, pre_norm.eps, w_packed=wp)
+            q, k, v = outs if context is None else (*outs, self.to_k(context, ws[1]),
+                                                    self.to_v(context, ws[2]))
         else:
-            if pre_norm is not None:
-                x = pre_norm(x)
             ctx = x if context is None else context
-            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+            q, k, v = self.to_q(x, ws[0]), self.to_k(ctx, ws[1]), self.to_v(ctx, ws[2])
         b, n, _ = q.shape
-        m = k.shape[1]
-        out = dot_product_attention(
-            q.reshape(b, n, self.heads, self.dim_head),
-            k.reshape(b, m, self.heads, self.dim_head),
-            v.reshape(b, m, self.heads, self.dim_head),
-            scale=self.dim_head ** -0.5)
-        return self.to_out(out.reshape(b, n, self.heads * self.dim_head))
+        m, d = k.shape[1], self.dim_head
+        out = dot_product_attention(q.reshape(b, n, heads, d), k.reshape(b, m, heads, d),
+                                    v.reshape(b, m, heads, d), scale=d ** -0.5)
+        out = out.reshape(b, n, heads * d)
+        if group is None:
+            return self.to_out(out)
+        # the row-split output projection: the ranks' partial sums added
+        y = tp.from_model_region(out_proj(out, out_proj.weight.to_local()), group)
+        return y + out_proj.bias.to(y.dtype)
 
 
 class GEGLU(nn.Module):
@@ -131,20 +151,19 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor, pre_norm: Optional[LayerNorm] = None) -> torch.Tensor:
         if fused_proj_on() and geglu.supported(x.shape[1], x.shape[2], self.inner):
             proj = self.net[0].proj
+            w = whole(proj.weight)
             xc = x.to(proj.dtype or x.dtype)
             if not proj_route(xc, geglu.geglu_takes, xc.shape[1], xc.shape[2], self.inner):
                 if pre_norm is not None:
-                    h = geglu.plain_ln_geglu_proj(xc, pre_norm.weight, pre_norm.bias,
-                                                  proj.weight, proj.bias, pre_norm.eps)
+                    h = geglu.plain_ln_geglu_proj(xc, pre_norm.weight, pre_norm.bias, w,
+                                                  proj.bias, pre_norm.eps)
                 else:
-                    h = geglu.plain_geglu_proj(xc, proj.weight, proj.bias)
+                    h = geglu.plain_geglu_proj(xc, w, proj.bias)
             elif pre_norm is not None:
-                h = geglu.ln_geglu_proj(xc, pre_norm.weight, pre_norm.bias, proj.weight,
-                                        proj.bias, pre_norm.eps,
-                                        w_packed=proj.packed_weight(xc.dtype))
+                h = geglu.ln_geglu_proj(xc, pre_norm.weight, pre_norm.bias, w, proj.bias,
+                                        pre_norm.eps, w_packed=proj.packed_weight(xc.dtype))
             else:
-                h = geglu.geglu_proj(xc, proj.weight, proj.bias,
-                                     w_packed=proj.packed_weight(xc.dtype))
+                h = geglu.geglu_proj(xc, w, proj.bias, w_packed=proj.packed_weight(xc.dtype))
             return self.net[2](h)
         if pre_norm is not None:
             x = pre_norm(x)

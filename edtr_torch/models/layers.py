@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from edtr_torch.ops import attention as attention_ops
 from edtr_torch.ops import gn_conv, swin_block
 from edtr_torch.ops._norms import fold_from_moments, gn_stats, ln_f32
+from edtr_torch.parallel.mesh import DTensor, is_sharded
 
 _fused_conv = False
 _fused_proj = False
@@ -144,8 +145,13 @@ class DerivedWeight:
 
     def get(self, params: Sequence[torch.Tensor], dtype: torch.dtype,
             make: Callable[[Sequence[torch.Tensor], torch.dtype], torch.Tensor]
-            ) -> torch.Tensor:
-        """``make(params, dtype)``, from the cache while no param changed."""
+            ) -> Optional[torch.Tensor]:
+        """``make(params, dtype)``, from the cache while no param changed;
+        None where tensor parallelism shards one of them (a DTensor): the
+        kernel's wrapper then makes it from the gathered weight
+        (:func:`whole`) per call."""
+        if any(is_sharded(p) for p in params):
+            return None
         key = tuple((p.data_ptr(), p._version, p.device, p.dtype) for p in params) + (dtype,)
         if self.key != key:
             with torch.no_grad():
@@ -191,6 +197,14 @@ def _pad_linear(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
     return swin_block.pad_weight(ws[0], dtype)
 
 
+def whole(w: torch.Tensor) -> torch.Tensor:
+    """A weight as one local tensor: gathered (differentiably) where tensor
+    parallelism stores it sharded, as a DTensor
+    (``edtr_torch/parallel/tp.py``), else ``w`` itself. Activations stay
+    local tensors throughout."""
+    return w.full_tensor() if type(w) is DTensor else w
+
+
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -215,10 +229,15 @@ class Linear(nn.Module):
         qkv weight; kept as :meth:`packed_weight` is."""
         return self._padded.get((self.weight,), dtype, _pad_linear)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = _compute_dtype(self.dtype, x, self.weight)
-        y = F.linear(x.to(dt), self.weight.to(dt))
-        if self.bias is not None:
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x @ W.T + b``, W the stored weight (gathered where it is
+        sharded). ``weight``: a local tensor in place of W and no bias
+        (this rank's rows or columns under tensor parallelism: the caller
+        adds the bias once the ranks' outputs are summed)."""
+        w = whole(self.weight) if weight is None else weight
+        dt = _compute_dtype(self.dtype, x, w)
+        y = F.linear(x.to(dt), w.to(dt))
+        if self.bias is not None and weight is None:
             y = y + self.bias.to(dt)
         return y
 
@@ -255,7 +274,7 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
-        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+        y = F.conv2d(x.to(dt), whole(self.weight).to(dt), None, self.stride, self.padding,
                      self.dilation, self.groups)
         if self.bias is not None:
             y = y + self.bias.to(dt)[:, None, None]
@@ -317,7 +336,8 @@ def conv_route(x: torch.Tensor, conv: Conv2d, upsample: bool = False) -> bool:
     the CPU, where the wrapper is the plain version; elsewhere only where
     the kernel takes the call (``gn_conv.gn_conv_takes`` /
     ``upsample_conv_takes``), else the plain version, as JAX takes ``_ref``
-    where no kernel plan exists."""
+    where no kernel plan exists. A weight that tensor parallelism shards
+    goes to the wrapper gathered (:func:`whole`)."""
     if x.device.type == "cpu":
         return True
     takes = gn_conv.upsample_conv_takes if upsample else gn_conv.gn_conv_takes
@@ -334,9 +354,9 @@ def norm_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: Conv2d,
     where it takes the call (:func:`conv_route`)."""
     mul, add = norm.fold(x)
     if _fused_conv and conv_route(x, conv):
-        return gn_conv.gn_silu_conv(x, mul, add, conv.weight, conv.bias, emb, res,
+        return gn_conv.gn_silu_conv(x, mul, add, whole(conv.weight), conv.bias, emb, res,
                                     w_packed=conv.packed_weight(x.dtype))
-    return gn_conv.plain_gn_silu_conv(x, mul, add, conv.weight, conv.bias, emb, res)
+    return gn_conv.plain_gn_silu_conv(x, mul, add, whole(conv.weight), conv.bias, emb, res)
 
 
 def upsample_conv3x3(x: torch.Tensor, conv: Conv2d,
@@ -345,9 +365,9 @@ def upsample_conv3x3(x: torch.Tensor, conv: Conv2d,
     "lrelu"); under :func:`fused_conv`, one kernel where it takes the call
     (:func:`conv_route`)."""
     if _fused_conv and conv_route(x, conv, upsample=True):
-        return gn_conv.upsample_conv(x, conv.weight, conv.bias, act,
+        return gn_conv.upsample_conv(x, whole(conv.weight), conv.bias, act,
                                      w_packed=conv.folded_weight(x.dtype))
-    return gn_conv.plain_upsample_conv(x, conv.weight, conv.bias, act)
+    return gn_conv.plain_upsample_conv(x, whole(conv.weight), conv.bias, act)
 
 
 def to_conv_layout(x: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ from torch import nn
 
 from edtr_torch.device import resolve_device
 from edtr_torch.models.layers import Conv2d, Linear
+from edtr_torch.parallel.distributed import batch_moments
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -111,7 +112,10 @@ class BatchNorm2d(nn.Module):
     FrozenBatchNorm2d, and eval mode). ``train=True``: the batch's mean
     and biased variance over (B, H, W), and the running statistics updated
     in place, ``new = (1 - m) old + m batch`` with the unbiased variance
-    (Bessel's n / (n - 1)), as ``nn.BatchNorm2d`` writes them."""
+    (Bessel's n / (n - 1)), as ``nn.BatchNorm2d`` writes them; in a
+    process group of several ranks the batch is every rank's
+    (``parallel.distributed.batch_moments``), as GSPMD reduces JAX's over
+    ``data``."""
 
     def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
@@ -124,9 +128,7 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
-            n = xf.numel() // xf.shape[1]
+            mean, var, n = batch_moments(xf)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_((1 - m) * self.running_mean.float() + m * mean)

@@ -1,11 +1,13 @@
-"""SwinIR pre-restoration network of the EDTR flagship (NCHW in and out).
+"""SwinIR, the pre-restoration network of the EDTR flagship (NCHW in and out).
 
-Counterpart of ``edtr_tpu/models/swinir.py`` in its EDTR form: reflect pad
+Counterpart of ``edtr_tpu/models/swinir.py``. EDTR's form: reflect pad
 to the window multiple, pixel-unshuffle x``sf`` before ``conv_first``, RSTB
 groups of shifted-window blocks over (B, N, C) tokens, then the
 ``nearest+conv`` tail (three nearest-2x + conv3x3 + LeakyReLU 0.2; inside a
 ``layers.fused_conv`` block, each one launch of the port's upsample-conv
-kernel on channels-last activations). Stock, a block is the module path of
+kernel on channels-last activations). JAX's other forms are here too
+(:class:`SwinIR`): the classical ``pixelshuffle`` tail, the residual
+denoise form, no unshuffle, other ``in_chans`` and ``img_range``. Stock, a block is the module path of
 JAX's ``SwinTransformerBlock`` with the plain window attention of
 ``edtr_torch/ops/window_attention.py`` (JAX's ``_xla_reference``, its
 default). Inside a ``layers.fused_swin`` block it is JAX's fused branch:
@@ -24,9 +26,10 @@ The port is unpadded (C = 180, head dim 30): the JAX flagship's
 ``lane_pad`` is a TPU lane artefact; a lane-padded JAX tree loads through
 ``edtr_torch.utils.convert.strip_swinir_lanes``.
 
-Parameter names are the reference state-dict keys (``conv_first.1``,
-``patch_embed.norm``, ``layers.{i}.residual_group.blocks.{j}.attn.qkv``,
-``conv_before_upsample.0``, ``conv_up1``), read by
+Parameter names are the reference state-dict keys (``conv_first.1`` or
+``conv_first``, ``patch_embed.norm``,
+``layers.{i}.residual_group.blocks.{j}.attn.qkv``,
+``conv_before_upsample.0``, ``conv_up1``, ``upsample.{0,2,4}``), read by
 ``edtr_tpu/utils/convert.py:convert_swinir``. The reference's
 ``relative_position_index`` and ``attn_mask`` buffers are computed, not
 stored.
@@ -259,59 +262,110 @@ class _PatchEmbed(nn.Module):
 
 
 class SwinIR(nn.Module):
-    """EDTR's SwinIR: RGB in and out, ``img_range=1``, ``unshuffle=True``,
-    ``upsampler="nearest+conv"``, ``resi_connection="1conv"``,
-    ``patch_norm=True``."""
+    """SwinIR under the reference constructor's arguments (JAX's
+    ``SwinIR`` fields; ``img_size``, ``patch_size``, ``qkv_bias``,
+    ``qk_scale``, the dropouts, ``ape``, ``use_checkpoint``, the keys and
+    the optimiser settings are accepted and inert, as in JAX). The
+    defaults are EDTR's variant (``unshuffle`` by ``sf``,
+    ``upsampler="nearest+conv"``), where JAX's ``unshuffle`` defaults to
+    False. ``upsampler``: ``"nearest+conv"``, ``"pixelshuffle"`` (``sf``
+    2, 4 or 8: conv + pixel shuffle x2 stages, the reference's
+    ``upsample.{0,2,4}``) or anything else for the residual denoise form
+    (the output added to the input, no upsampling). Without ``unshuffle``
+    the input pads to the window only and ``conv_first`` reads it as it
+    is. ``in_chans`` other than 3 takes no RGB mean; ``img_range`` scales
+    the input's deviation from it. ``resi_connection`` must be "1conv", as
+    JAX asserts."""
 
     def __init__(self, embed_dim: int = 180, depths: Sequence[int] = (6,) * 8,
                  num_heads: Sequence[int] = (6,) * 8, window_size: int = 8,
-                 mlp_ratio: float = 2.0, sf: int = 8, dtype: Optional[torch.dtype] = None):
+                 mlp_ratio: float = 2.0, sf: int = 8, dtype: Optional[torch.dtype] = None,
+                 in_chans: int = 3, img_range: float = 1.0, upsampler: str = "nearest+conv",
+                 resi_connection: str = "1conv", unshuffle: bool = True,
+                 unshuffle_scale: Optional[int] = None, patch_norm: bool = True,
+                 img_size: int = 64, patch_size: int = 1, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1, ape: bool = False,
+                 use_checkpoint: bool = False, hq_key: str = "jpg", lq_key: str = "hint",
+                 learning_rate: Optional[float] = None, weight_decay: Optional[float] = None):
         super().__init__()
+        if resi_connection != "1conv":
+            raise NotImplementedError(f"SwinIR resi_connection={resi_connection!r}: only "
+                                      "'1conv' (JAX asserts the same)")
         self.dtype, self.window_size, self.sf = dtype, window_size, sf
-        in_chans, num_feat = 3, 64
-        self.conv_first = nn.Sequential(
-            nn.PixelUnshuffle(sf),
-            Conv2d(in_chans * sf * sf, embed_dim, 3, padding=1, dtype=dtype))
-        self.patch_embed = _PatchEmbed(embed_dim)
+        self.img_range, self.upsampler, self.unshuffle = img_range, upsampler, unshuffle
+        self.unshuffle_scale = unshuffle_scale or sf
+        num_feat = 64
+        if unshuffle:  # JAX unshuffles by sf (and pads by unshuffle_scale)
+            self.conv_first = nn.Sequential(
+                nn.PixelUnshuffle(sf),
+                Conv2d(in_chans * sf * sf, embed_dim, 3, padding=1, dtype=dtype))
+        else:
+            self.conv_first = Conv2d(in_chans, embed_dim, 3, padding=1, dtype=dtype)
+        self.patch_embed = _PatchEmbed(embed_dim) if patch_norm else None
         self.layers = nn.ModuleList(
             RSTB(embed_dim, d, h, window_size, mlp_ratio, dtype)
             for d, h in zip(depths, num_heads))
         self.norm = LayerNorm(embed_dim)
         self.conv_after_body = Conv2d(embed_dim, embed_dim, 3, padding=1, dtype=dtype)
-        self.conv_before_upsample = nn.Sequential(
-            Conv2d(embed_dim, num_feat, 3, padding=1, dtype=dtype))
-        self.conv_up1 = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
-        if sf >= 4:
-            self.conv_up2 = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
-        if sf == 8:
-            self.conv_up3 = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
-        self.conv_hr = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
-        self.conv_last = Conv2d(num_feat, in_chans, 3, padding=1, dtype=dtype)
-        self.register_buffer("mean", torch.tensor(RGB_MEAN).reshape(1, 3, 1, 1),
-                             persistent=False)
+        if upsampler in ("nearest+conv", "pixelshuffle"):
+            self.conv_before_upsample = nn.Sequential(
+                Conv2d(embed_dim, num_feat, 3, padding=1, dtype=dtype))
+        if upsampler == "nearest+conv":
+            self.conv_up1 = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
+            if sf >= 4:
+                self.conv_up2 = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
+            if sf == 8:
+                self.conv_up3 = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
+            self.conv_hr = Conv2d(num_feat, num_feat, 3, padding=1, dtype=dtype)
+        elif upsampler == "pixelshuffle":
+            stages = []
+            for _ in range({2: 1, 4: 2, 8: 3}[sf]):
+                stages += [Conv2d(num_feat, 4 * num_feat, 3, padding=1, dtype=dtype),
+                           nn.PixelShuffle(2)]
+            self.upsample = nn.Sequential(*stages)
+        self.conv_last = Conv2d(num_feat if upsampler in ("nearest+conv", "pixelshuffle")
+                                else embed_dim, in_chans, 3, padding=1, dtype=dtype)
+        mean = RGB_MEAN if in_chans == 3 else (0.0,)
+        self.register_buffer("mean", torch.tensor(mean).reshape(1, -1, 1, 1), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, H, W) in [0, 1] -> (B, 3, H, W) fp32."""
+        """(B, in_chans, H, W) -> (B, in_chans, H * sf, W * sf) fp32 (the
+        unshuffling form: (B, in_chans, H, W), padded to its multiple)."""
         H, W = x.shape[-2:]
-        mult = self.window_size * self.sf
+        mult = self.window_size * (self.unshuffle_scale if self.unshuffle else 1)
         ph, pw = (mult - H % mult) % mult, (mult - W % mult) % mult
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
-        x = (x - self.mean).to(self.dtype or x.dtype)
+        x = x - self.mean
+        if self.img_range != 1:
+            x = x * self.img_range
+        x = x.to(self.dtype or x.dtype)
 
         feat = self.conv_first(x)
         b, c, h, w = feat.shape
-        t = self.patch_embed.norm(feat.flatten(2).transpose(1, 2))
+        t = feat.flatten(2).transpose(1, 2)
+        if self.patch_embed is not None:
+            t = self.patch_embed.norm(t)
         for layer in self.layers:
             t = layer(t, (h, w))
         t = self.norm(t)
         feat = feat + self.conv_after_body(t.transpose(1, 2).reshape(b, c, h, w))
 
-        feat = F.leaky_relu(self.conv_before_upsample[0](feat), 0.01)
-        feat = to_conv_layout(feat)
-        for name in ("conv_up1", "conv_up2", "conv_up3"):
-            if hasattr(self, name):
-                feat = upsample_conv3x3(feat, getattr(self, name), "lrelu")
-        feat = F.leaky_relu(self.conv_hr(feat), 0.2)
-        out = self.conv_last(feat).float() + self.mean
+        if self.upsampler == "nearest+conv":
+            feat = F.leaky_relu(self.conv_before_upsample[0](feat), 0.01)
+            feat = to_conv_layout(feat)
+            for name in ("conv_up1", "conv_up2", "conv_up3"):
+                if hasattr(self, name):
+                    feat = upsample_conv3x3(feat, getattr(self, name), "lrelu")
+            out = self.conv_last(F.leaky_relu(self.conv_hr(feat), 0.2))
+        elif self.upsampler == "pixelshuffle":
+            feat = F.leaky_relu(self.conv_before_upsample[0](feat), 0.01)
+            out = self.conv_last(self.upsample(feat))
+        else:
+            out = x + self.conv_last(feat)
+        out = out.float()
+        if self.img_range != 1:
+            out = out / self.img_range
+        out = out + self.mean
         return out[:, :, :H * self.sf, :W * self.sf]

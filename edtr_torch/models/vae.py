@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from edtr_torch.device import resolve_device
 from edtr_torch.models.distributions import DiagonalGaussianDistribution
 from edtr_torch.models.layers import (Conv2d, GroupNorm32, norm_silu_conv, remat,
                                       to_conv_layout, upsample_conv3x3)
@@ -212,3 +213,19 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))
+
+
+# the fields of JAX's ``Encoder`` that ``create_encoder`` keeps
+ENCODER_FIELDS = ("ch", "ch_mult", "num_res_blocks", "z_channels", "double_z", "dtype")
+
+
+def create_encoder(device: Optional[torch.device | str] = None, **kwargs: Any) -> Encoder:
+    """JAX's ``create_encoder``, the factory of ``target: model.vae.Encoder``
+    (the ``nsampler`` node of the cls test configs, which nothing runs):
+    an :class:`Encoder` of the entries of :data:`ENCODER_FIELDS` (the
+    reference's other ddconfig keys dropped; ``in_channels`` 3, as JAX's
+    module reads RGB), on ``device`` (the card unless named)."""
+    kw = {k: tuple(v) if k == "ch_mult" else v for k, v in kwargs.items()
+          if k in ENCODER_FIELDS}
+    with torch.device(resolve_device(device)):
+        return Encoder(**kw)

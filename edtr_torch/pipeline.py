@@ -66,7 +66,6 @@ from torch import nn
 from edtr_torch.device import resolve_device
 from edtr_torch.diffusion.sampler import SpacedSampler, sample_loop
 from edtr_torch.diffusion.schedule import Diffusion
-from edtr_torch.config import NotPortedError
 from edtr_torch.models.cldm import ControlLDM
 from edtr_torch.models.controlnet import ControlNet
 from edtr_torch.models.layers import fused_conv as conv_config
@@ -293,21 +292,9 @@ def build_flagship(tiny: bool = False, dtype: Optional[torch.dtype] = torch.bflo
                         fused_swin=fused_swin)
 
 
-# the SwinIR variant the port builds (``models/swinir.py``); a config
-# asking for another raises
-_SWINIR_FIXED = dict(in_chans=3, img_range=1.0, upsampler="nearest+conv",
-                     resi_connection="1conv", unshuffle=True)
-_SWINIR_ARGS = ("embed_dim", "depths", "num_heads", "window_size", "mlp_ratio", "sf")
-
-
 def _swinir_from_config(params: Dict[str, Any], dtype: Optional[torch.dtype]) -> SwinIR:
-    for key, want in _SWINIR_FIXED.items():
-        if params.get(key, want) != want:
-            raise NotPortedError(f"SwinIR {key}={params[key]!r}: the port builds {key}={want!r}")
-    if params.get("unshuffle_scale", params.get("sf")) != params.get("sf"):
-        raise NotPortedError("SwinIR: the port unshuffles by sf")
-    return SwinIR(dtype=dtype, **{k: tuple(params[k]) if isinstance(params[k], list)
-                                  else params[k] for k in _SWINIR_ARGS if k in params})
+    return SwinIR(dtype=dtype, **{k: tuple(v) if isinstance(v, list) else v
+                                  for k, v in params.items()})
 
 
 def swinir_from_config(node, dtype: Optional[torch.dtype] = None,

@@ -24,7 +24,8 @@ and ``make_edtr_generic_train_step``):
   SGD (lr 5e-3, momentum 0.9, weight decay 1e-4, cosine to 1e-7) over the
   task-net parameters (a detector's: those ``detnet_trainable_mask`` leaves
   trainable; a classification or segmentation net's: all). Under no grad
-  the first ``bs2 = max(bs // 2, 1)`` images are noised to
+  the first ``bs2 = max(bs // 2, 1)`` images (of the global batch in a
+  process group: :func:`restored_rows`) are noised to
   ``start_timestep``, walked down by the sampler and decoded (the
   ``sample`` range); the task net then trains on ``[restored ;
   gt[bs2:]]`` with the batch's target (norms on batch statistics, their
@@ -46,6 +47,20 @@ before its one update, and the task net's running statistics update
 microbatch by microbatch (JAX's global-batch semantics on one card). The
 step runs its forwards and backwards inside ``pipe.configuration()``, so
 the recomputes of ``use_checkpoint`` see the kernels their forward ran.
+
+Over several processes (``edtr_torch.parallel``) each rank steps on its
+own rows, and global microbatch k is the ranks' k-th microbatches, rank
+0's first (with one microbatch: rank 0's rows, then rank 1's, JAX's global
+batch). Each half averages its gradients over the ranks before its
+update, the task nets' train-mode BatchNorms reduce their statistics over
+them, the task-net half restores the first half of each global
+microbatch (:func:`restored_rows`), and the draws a rank makes are its
+rows of the global microbatch's (:func:`parallel.distributed.rank_rows`),
+drawn from a ``generator`` seeded alike on every rank. So the update is
+the one-process update on the global batch laid out microbatch by
+microbatch, but for a detector's sampler uniforms, which each rank draws
+for its own images (their shapes follow its proposals), from a generator
+forked from the shared one per microbatch.
 
 Every random draw can be given: t and noise of the EDTR half, and per
 microbatch of the task-net half the q_sample noise, the walk's step noises
@@ -72,6 +87,7 @@ from torch.profiler import record_function
 
 from edtr_torch.models.faster_rcnn import detnet_trainable_mask
 from edtr_torch.models.layers import remat
+from edtr_torch.parallel.distributed import average_gradients, process_rank, rank_rows
 # the step's phases, each under a ``record_function`` range of this name
 # (``edtr_torch.profile_restore`` reads them from a trace)
 from edtr_torch.train.common import TRAIN_STAGES as STAGES
@@ -301,12 +317,15 @@ class EDTRTrainStep:
     def draw(self, z_pre: torch.Tensor, generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(t, noise) for a microbatch: t from ``used_timesteps``, noise like
-        ``z_pre``, both from ``generator``."""
-        idx = torch.randint(0, len(self.used_ts), (z_pre.shape[0],), generator=generator,
+        ``z_pre``, both from ``generator``; in a process group this rank's
+        rows of the global microbatch's draws."""
+        m, world = z_pre.shape[0], process_rank()[1]
+        idx = torch.randint(0, len(self.used_ts), (world * m,), generator=generator,
                             device=z_pre.device)
-        noise = torch.randn(z_pre.shape, generator=generator, device=z_pre.device,
-                            dtype=z_pre.dtype)
-        return self.used_ts[idx], noise
+        noise = torch.randn((world * m,) + tuple(z_pre.shape[1:]), generator=generator,
+                            device=z_pre.device, dtype=z_pre.dtype)
+        rows = rank_rows(m)
+        return self.used_ts[idx[rows]], noise[rows]
 
     def restored(self, shared: Tuple[torch.Tensor, ...], t: torch.Tensor,
                  noise: torch.Tensor) -> torch.Tensor:
@@ -385,33 +404,47 @@ class EDTRTrainStep:
     def task_draw(self, shared: Tuple[torch.Tensor, ...], generator: Optional[torch.Generator]
                   = None) -> Dict[str, object]:
         """The task-net half's draws for a microbatch: ``noise`` (bs2, 4, h,
-        w) of the q_sample and ``step_noise`` (K, bs2, 4, h, w) of the walk
-        (a detector draws its sampler's uniforms from ``generator`` unless
-        the dict gives them as ``uniforms``)."""
-        z = shared[2][:max(shared[2].shape[0] // 2, 1)]
-        k = len(self.pipe.used_timesteps)
-        noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
-        step_noise = torch.randn((k,) + tuple(z.shape), generator=generator, device=z.device,
-                                 dtype=z.dtype)
-        return dict(noise=noise, step_noise=step_noise)
+        w) of the q_sample and ``step_noise`` (K, bs2, 4, h, w) of the walk,
+        bs2 = :func:`restored_rows`, from ``generator`` (in a process group
+        this rank's rows of the global microbatch's draws), and with a
+        ``generator`` the ``sampler_generator`` that a detector draws its
+        sampler's uniforms from: seeded from ``generator`` and the rank."""
+        z = shared[2]
+        m, (rank, world) = z.shape[0], process_rank()
+        bs2, k = max(world * m // 2, 1), len(self.pipe.used_timesteps)
+        noise = torch.randn((bs2,) + tuple(z.shape[1:]), generator=generator, device=z.device,
+                            dtype=z.dtype)
+        step_noise = torch.randn((k, bs2) + tuple(z.shape[1:]), generator=generator,
+                                 device=z.device, dtype=z.dtype)
+        mine = slice(rank * m, rank * m + restored_rows(m))
+        draws = dict(noise=noise[mine], step_noise=step_noise[:, mine])
+        if generator is not None:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=generator.device))
+            draws["sampler_generator"] = torch.Generator(generator.device).manual_seed(
+                seed + rank)
+        return draws
 
     def task_loss(self, shared: Tuple[torch.Tensor, ...], target, draws: Dict[str, object],
                   generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """JAX's ``detnet_loss`` / generic ``task_loss`` for a microbatch at
         given draws: the walk and decode under no grad (the ``sample``
-        range), then the task net's loss on ``[restored ; gt[bs2:]]`` with
-        ``target`` (:meth:`TaskHalf.loss`, the ``forward+loss`` range).
-        Returns (loss, metrics)."""
+        range) of its first :func:`restored_rows`, then the task net's loss
+        on ``[restored ; gt[bs2:]]`` with ``target`` (:meth:`TaskHalf.loss`,
+        the ``forward+loss`` range). Returns (loss, metrics)."""
         pipe = self.pipe
         gt, pre_res, z_pre, c_txt = shared
-        bs2 = max(gt.shape[0] // 2, 1)
-        with record_function(STAGES[1]):
-            z = pipe.denoise(z_pre[:bs2], c_txt[:bs2], draws["noise"], draws["step_noise"],
-                             generator)
-            res = pipe.decode(z, pre_res[:bs2])
+        bs2 = restored_rows(gt.shape[0])
+        images = gt[bs2:]
+        if bs2:
+            with record_function(STAGES[1]):
+                z = pipe.denoise(z_pre[:bs2], c_txt[:bs2], draws["noise"], draws["step_noise"],
+                                 generator)
+                images = torch.cat([pipe.decode(z, pre_res[:bs2]), images])
         with record_function(STAGES[0]):
-            return self.task.loss(torch.cat([res, gt[bs2:]]), gt, target, draws, generator)
+            return self.task.loss(images, gt, target, draws,
+                                  draws.get("sampler_generator", generator))
 
     def task_grads(self, state: EDTRTrainState, batch: Batch,
                    shared: Sequence[Tuple[torch.Tensor, ...]],
@@ -444,7 +477,10 @@ class EDTRTrainStep:
                  ) -> Dict[str, torch.Tensor]:
         """One update: :meth:`grads`, AdamW and its schedule (under the
         ``optimizer`` range); with a task net then :meth:`task_grads` on
-        the updated ControlNet, SGD and its schedule. The shared
+        the updated ControlNet, SGD and its schedule. In a process group
+        each half's gradients are averaged over the ranks before its update
+        (``parallel.distributed.average_gradients``), and the metrics are
+        this rank's. The shared
         activations are made once per microbatch for both halves. Returns
         ``{"loss_hlf": ...}`` and the task half's metrics (means over the
         microbatches): a detector's ``loss_det``, ``loss_fm`` and its four
@@ -456,15 +492,30 @@ class EDTRTrainStep:
         loss, shared = self._edtr_half(state, batch, t, noise, generator)
         metrics = {"loss_hlf": loss}
         with record_function(STAGES[3]):
+            average_gradients(_params(state.tx_edtr))
             state.tx_edtr.step()
             state.schedule.step()
         if self.task is not None:
             metrics.update(self.task_grads(state, batch, shared, task_draws, generator))
             with record_function(STAGES[3]):
+                average_gradients(_params(state.tx_detnet))
                 state.tx_detnet.step()
                 state.schedule_detnet.step()
         state.step += 1
         return metrics
+
+
+def restored_rows(m: int) -> int:
+    """How many of a microbatch's ``m`` rows the task-net half restores:
+    JAX's bs2 = max(G // 2, 1) of the global microbatch of G = world·m
+    rows, of which rank r holds rows r·m .. (r+1)·m (the first ranks
+    restore, the last train on gt); max(m // 2, 1) in one process."""
+    rank, world = process_rank()
+    return min(max(max(world * m // 2, 1) - rank * m, 0), m)
+
+
+def _params(tx: torch.optim.Optimizer) -> List[torch.Tensor]:
+    return [p for group in tx.param_groups for p in group["params"]]
 
 
 def _slice(v, sl: slice):

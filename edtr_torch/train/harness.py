@@ -22,9 +22,11 @@ from __future__ import annotations
 import bisect
 import itertools
 from collections import defaultdict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+from edtr_torch.parallel.distributed import process_rank
 
 MAX_GT = 100
 
@@ -256,16 +258,6 @@ def make_dataloader(
         num_workers=num_workers,
         collate_fn=collate,
     )
-
-
-def process_rank() -> Tuple[int, int]:
-    """(index, count) of this process in ``torch.distributed``; (0, 1)
-    without a process group."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 class _TorchWrap:

@@ -44,6 +44,7 @@ from torch.profiler import record_function
 from edtr_torch.models.faster_rcnn import detnet_trainable_mask
 from edtr_torch.models.layers import fused_conv as conv_config
 from edtr_torch.models.layers import fused_swin as swin_config
+from edtr_torch.parallel.distributed import average_gradients
 from edtr_torch.pipeline import FUSED_CONV_DEFAULT, FUSED_SWIN_DEFAULT
 from edtr_torch.train.common import RECIPE_STAGES as STAGES
 from edtr_torch.train.common import cosine_schedule, no_param_grads, split_trainable
@@ -123,7 +124,11 @@ class SimpleTrainState:
         return cls(module=module, tx=opt, schedule=schedule)
 
     def apply_gradients(self) -> None:
-        """One update from the gradients in ``.grad``, then the schedule."""
+        """One update from the gradients in ``.grad`` (averaged over the
+        ranks first in a process group: ``parallel.distributed.
+        average_gradients``, every recipe's data parallelism), then the
+        schedule."""
+        average_gradients(p for group in self.tx.param_groups for p in group["params"])
         self.tx.step()
         self.schedule.step()
         self.step += 1

@@ -25,9 +25,15 @@ How the port differs, and why:
   ``train.seed`` (the loops) or ``seed`` (the evaluations): the same
   distributions as JAX's key splits, not their values. Seeded inits derive
   a second seed by :func:`fold_in` where JAX folds its key.
-* Everything runs on the card unless the caller names ``device``; a run
-  over several processes raises ``NotPortedError`` (it needs
-  ``edtr_torch.parallel``).
+* Everything runs on the card unless the caller names ``device``. Over
+  several processes (``edtr_torch.parallel.distributed``'s launch
+  contract) each rank trains on its loader shard and its card (the EDTR
+  loops' steps on its rows of the global draws, :func:`_rank_generator`),
+  every loop's steps average their gradients over the ranks (JAX's
+  ``task_train``, ``edtr_train_task`` and ``diffbir_train`` take no mesh,
+  so their processes would each update their own weights: ROADMAP Queue
+  3), rank 0 alone writes the checkpoints (after a barrier), the image
+  grids and the logs, and the logged metrics are the ranks' mean.
 * JAX's runner raises ``KeyError`` on two detection paths (the oracle and
   LQ test configs, which have no ``cldm``, passed to ``edtr_eval``; ``task
   ="det"`` in the restore-then-task evaluations); the port raises
@@ -51,6 +57,7 @@ from torch import nn
 from edtr_torch.config import Config, NotPortedError, instantiate_from_config, load_config
 from edtr_torch.device import resolve_device
 from edtr_torch.models.layers import randomize_
+from edtr_torch.parallel.distributed import barrier, mean_over_ranks, process_rank
 from edtr_torch.pipeline import build_pipeline_from_config, swinir_from_config
 from edtr_torch.train import recipes as R
 from edtr_torch.train import valhooks as V
@@ -176,6 +183,40 @@ def _loader(cfg: Config, train_cfg: Config, group: bool = False):
         seed=train_cfg.get("seed", 231))
 
 
+def _train_environment(cfg_path: str, seed: Optional[int], device):
+    """(device, config, ``prepare_environment``'s 5-tuple) of a training
+    loop: the device resolved once ``prepare_environment`` has joined the
+    process group the environment names, so that an unnamed device is this
+    rank's card."""
+    cfg = load_config(cfg_path)
+    env = prepare_environment(cfg, cfg_path, seed, device)
+    return resolve_device(device), cfg, env
+
+
+def _rank_generator(device, seed: int) -> torch.Generator:
+    """A recipe loop's generator: ``seed`` on rank 0 (and in one process), a
+    seed folded from it and the rank on the others, so that the ranks draw
+    independent noise for their rows (a run over several processes equals
+    a one-process run in distribution). The EDTR loops' steps draw from
+    ``seed`` on every rank instead, each rank its rows of the global draws
+    (``edtr_step``), and their image grids from :func:`_grid_generator`."""
+    rank = process_rank()[0]
+    return torch.Generator(device=device).manual_seed(fold_in(seed, rank) if rank else seed)
+
+
+def _grid_generator(device, seed: int) -> torch.Generator:
+    """The generator of an EDTR loop's image grids, which rank 0 alone
+    draws: apart from the step's, which every rank keeps in step."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, 2))
+
+
+def _writes_after_barrier() -> bool:
+    """Whether this process writes the checkpoints: rank 0, once every rank
+    has reached the save."""
+    barrier()
+    return process_rank()[0] == 0
+
+
 def _epochs(loader, max_steps: int, start: int = 0):
     """``(step, batch)`` from ``start + 1`` to ``max_steps``, epoch after
     epoch; an epoch with no batch raises ``ValueError``."""
@@ -212,7 +253,7 @@ class _Schedule:
 
 
 def _log_metrics(logger, writer, step: int, metrics: Dict[str, Any], suffix: str = "") -> None:
-    values = {k: float(v) for k, v in metrics.items()}
+    values = mean_over_ranks(metrics)
     logger(f"step {step}: " + " ".join(f"{k}={v:.4f}" for k, v in values.items()) + suffix)
     if writer:
         for k, v in values.items():
@@ -293,10 +334,8 @@ def edtr_train(cfg_path: str, debug: bool = False, seed: Optional[int] = None,
     scalars, every ``ckpt_every`` the submodules and the whole train state,
     every ``image_every`` a grid of gt / lq / pre_restored / restored, every
     ``val.val_every`` a restore-then-detect COCO validation."""
-    device = resolve_device(device)
-    cfg = load_config(cfg_path)
-    exp_dir, ckpt_dir, img_dir, logger, writer = prepare_environment(cfg, cfg_path, seed,
-                                                                     device)
+    device, cfg, (exp_dir, ckpt_dir, img_dir, logger, writer) = _train_environment(
+        cfg_path, seed, device)
     train_cfg = cfg["train"]
     train_seed = train_cfg.get("seed", 231)
 
@@ -335,7 +374,8 @@ def edtr_train(cfg_path: str, debug: bool = False, seed: Optional[int] = None,
         ckpt.restore_checkpoint(state_path, state)
         logger(f"resumed full train state at step {state.step}")
 
-    gen = torch.Generator(device=device).manual_seed(train_seed)
+    gen, grid_gen = (torch.Generator(device=device).manual_seed(train_seed),
+                     _grid_generator(device, train_seed))
     start, t0 = state.step, time.time()
     for global_step, batch in _epochs(loader, sched.max_steps, state.step):
         gt, lq, targets, bs = _det_batch(batch, batch_transform, device)
@@ -344,7 +384,7 @@ def edtr_train(cfg_path: str, debug: bool = False, seed: Optional[int] = None,
         if sched.fires(sched.log_every, global_step):
             _log_metrics(logger, writer, global_step, metrics,
                          f" ({(time.time() - t0) / (global_step - start):.2f}s/step)")
-        if sched.fires(sched.ckpt_every, global_step):
+        if sched.fires(sched.ckpt_every, global_step) and _writes_after_barrier():
             save = dict(controlnet=pipe.cldm.controlnet, decoder=pipe.cldm.vae.decoder,
                         detnet=detnet)
             if pipe.swinir is not None:
@@ -352,9 +392,9 @@ def edtr_train(cfg_path: str, debug: bool = False, seed: Optional[int] = None,
             ckpt.save_submodules(ckpt_dir, save, step=global_step)
             ckpt.save_checkpoint(state_path, state)
             logger(f"checkpoints saved at step {global_step}")
-        if sched.fires(sched.image_every, global_step):
+        if sched.fires(sched.image_every, global_step) and process_rank()[0] == 0:
             k = min(4, bs)
-            restored = sample_fn(lq[:k], dev_batch["c_txt"][:k], generator=gen)
+            restored = sample_fn(lq[:k], dev_batch["c_txt"][:k], generator=grid_gen)
             path = V.save_image_grid(img_dir, global_step, dict(
                 gt=gt[:k], lq=lq[:k], pre_restored=_pre_restore(pipe, lq[:k]),
                 restored=restored))
@@ -380,10 +420,8 @@ def task_train(cfg_path: str, task: str, recipe: str = "task", debug: bool = Fal
     the task net by SGD, weight decay 1e-6 for seg and 1e-4 otherwise, a
     detector's frozen stages masked. Returns the state (a pair for
     SR4IR)."""
-    device = resolve_device(device)
-    cfg = load_config(cfg_path)
-    exp_dir, ckpt_dir, img_dir, logger, writer = prepare_environment(cfg, cfg_path, seed,
-                                                                     device)
+    device, cfg, (exp_dir, ckpt_dir, img_dir, logger, writer) = _train_environment(
+        cfg_path, seed, device)
     train_cfg = cfg["train"]
     train_seed = train_cfg.get("seed", 231)
     net_key = NET_KEYS[task]
@@ -438,7 +476,7 @@ def task_train(cfg_path: str, task: str, recipe: str = "task", debug: bool = Fal
     eval_net = {"sr4ir": lambda: state[1].module, "swinir-pre": lambda: None}.get(
         recipe, lambda: state.module)
 
-    gen = torch.Generator(device=device).manual_seed(train_seed)
+    gen = _rank_generator(device, train_seed)
     for global_step, batch in _epochs(loader, sched.max_steps):
         if task == "det":
             gt, lq, target, bs = _det_batch(batch, batch_transform, device)
@@ -447,7 +485,7 @@ def task_train(cfg_path: str, task: str, recipe: str = "task", debug: bool = Fal
         metrics = step_fn(state, dict(gt=gt, lq=lq, target=target), generator=gen)
         if sched.fires(sched.log_every, global_step):
             _log_metrics(logger, writer, global_step, metrics)
-        if sched.fires(sched.ckpt_every, global_step):
+        if sched.fires(sched.ckpt_every, global_step) and _writes_after_barrier():
             if recipe == "sr4ir":
                 save = {"swinir": swinir, net_key: net}
             elif recipe == "swinir-pre":
@@ -455,7 +493,7 @@ def task_train(cfg_path: str, task: str, recipe: str = "task", debug: bool = Fal
             else:
                 save = {net_key: net}
             ckpt.save_submodules(ckpt_dir, save, global_step)
-        if sched.fires(sched.image_every, global_step):
+        if sched.fires(sched.image_every, global_step) and process_rank()[0] == 0:
             k = min(4, gt.shape[0])
             rows = dict(gt=gt[:k], lq=lq[:k])
             if restore is not None:
@@ -508,10 +546,8 @@ def edtr_train_task(cfg_path: str, task: str, debug: bool = False,
     checkpoints the ControlNet, the decoder and the task net."""
     if task not in ("cls", "seg"):
         raise ValueError(f"task {task!r}: cls or seg")
-    device = resolve_device(device)
-    cfg = load_config(cfg_path)
-    exp_dir, ckpt_dir, img_dir, logger, writer = prepare_environment(cfg, cfg_path, seed,
-                                                                     device)
+    device, cfg, (exp_dir, ckpt_dir, img_dir, logger, writer) = _train_environment(
+        cfg_path, seed, device)
     train_cfg = cfg["train"]
     pipe = build_edtr_models(cfg, device=device)
     net_key, student, teacher = _task_nets(cfg, task, train_cfg.get("seed", 231), device)
@@ -538,20 +574,22 @@ def edtr_train_task(cfg_path: str, task: str, debug: bool = False,
     c_txt_one = _text(pipe, train_cfg)
     sched = _Schedule(cfg, train_cfg, debug, train_cfg.get("train_steps", 10000), 10000)
     val_ds = _val_dataset(cfg)
-    gen = torch.Generator(device=device).manual_seed(train_cfg.get("seed", 231))
+    train_seed = train_cfg.get("seed", 231)
+    gen, grid_gen = (torch.Generator(device=device).manual_seed(train_seed),
+                     _grid_generator(device, train_seed))
     for global_step, batch in _epochs(loader, sched.max_steps):
         gt, lq, target, bs = _task_batch(batch, device)
         dev_batch = dict(gt=gt, lq=lq, target=target, c_txt=c_txt_one.expand(bs, -1, -1))
         metrics = step_fn(state, dev_batch, generator=gen)
         if sched.fires(sched.log_every, global_step):
             _log_metrics(logger, writer, global_step, metrics)
-        if sched.fires(sched.ckpt_every, global_step):
+        if sched.fires(sched.ckpt_every, global_step) and _writes_after_barrier():
             ckpt.save_submodules(ckpt_dir, {"controlnet": pipe.cldm.controlnet,
                                             "decoder": pipe.cldm.vae.decoder,
                                             net_key: student}, global_step)
-        if sched.fires(sched.image_every, global_step):
+        if sched.fires(sched.image_every, global_step) and process_rank()[0] == 0:
             k = min(4, bs)
-            restored = sample_fn(lq[:k], dev_batch["c_txt"][:k], generator=gen)
+            restored = sample_fn(lq[:k], dev_batch["c_txt"][:k], generator=grid_gen)
             path = V.save_image_grid(img_dir, global_step, dict(
                 gt=gt[:k], lq=lq[:k], pre_restored=_pre_restore(pipe, lq[:k]),
                 restored=restored))
@@ -701,10 +739,8 @@ def diffbir_train(cfg_path: str, task: str, debug: bool = False, seed: Optional[
     restorations (50) with ``weight_ce`` and ``weight_fm`` against a frozen
     teacher; checkpoints the ControlNet and the task net. Returns
     (ControlNet state, task state, teacher)."""
-    device = resolve_device(device)
-    cfg = load_config(cfg_path)
-    exp_dir, ckpt_dir, img_dir, logger, writer = prepare_environment(cfg, cfg_path, seed,
-                                                                     device)
+    device, cfg, (exp_dir, ckpt_dir, img_dir, logger, writer) = _train_environment(
+        cfg_path, seed, device)
     train_cfg = cfg["train"]
     pipe = build_edtr_models(cfg, device=device)
     net_key, net, teacher = _task_nets(cfg, task, train_cfg.get("seed", 231), device)
@@ -728,7 +764,7 @@ def diffbir_train(cfg_path: str, task: str, debug: bool = False, seed: Optional[
     val_ds = _val_dataset(cfg)
     restore = _diffbir_restore(pipe, train_cfg.get("sample_steps", 50), c_txt_one)
     state = (cldm_state, task_state, teacher)
-    gen = torch.Generator(device=device).manual_seed(train_cfg.get("seed", 231))
+    gen = _rank_generator(device, train_cfg.get("seed", 231))
     for global_step, batch in _epochs(loader, sched.max_steps):
         if task == "det":
             gt, lq, target, bs = _det_batch(batch, batch_transform, device)
@@ -738,10 +774,10 @@ def diffbir_train(cfg_path: str, task: str, debug: bool = False, seed: Optional[
                                       c_txt=c_txt_one.expand(bs, -1, -1)), generator=gen)
         if sched.fires(sched.log_every, global_step):
             _log_metrics(logger, writer, global_step, metrics)
-        if sched.fires(sched.ckpt_every, global_step):
+        if sched.fires(sched.ckpt_every, global_step) and _writes_after_barrier():
             ckpt.save_submodules(ckpt_dir, {"controlnet": pipe.cldm.controlnet, net_key: net},
                                  global_step)
-        if sched.fires(sched.image_every, global_step):
+        if sched.fires(sched.image_every, global_step) and process_rank()[0] == 0:
             k = min(4, bs)
             path = V.save_image_grid(img_dir, global_step, dict(
                 gt=gt[:k], lq=lq[:k], restored=restore(lq[:k], gen)))

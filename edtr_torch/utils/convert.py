@@ -70,7 +70,10 @@ _RULES = {
         (r"^layers_(\d+)/blocks_(\d+)/", r"layers/\1/residual_group/blocks/\2/"),
         (r"^layers_(\d+)/", r"layers/\1/"),
         (r"^conv_before_upsample_0/", "conv_before_upsample/0/"),
+        (r"^upsample_(\d+)/", r"upsample/\1/"),
     ] + _LEAF,
+    "rrdbnet": [(r"^conv_first_1/", "conv_first/1/"),
+                (r"^RRDB_trunk_(\d+)/", r"RRDB_trunk/\1/")] + _LEAF,
 }
 _RULES["controlnet"] = _RULES["unet"]
 _MOBILENET = [
@@ -80,6 +83,10 @@ _MOBILENET = [
     (r"/bn/", "/1/"),
 ]
 _STATS = [(r"/mean$", "/running_mean"), (r"/var$", "/running_var")]
+# SKUNet: the reference wraps a down's selective conv in ``maxpool_conv.1``
+# and an up's in ``conv``, and its selector's fc in a Sequential
+_RULES["skunet"] = [(r"^(down[23])/", r"\1/maxpool_conv/1/"), (r"^(up[12])/", r"\1/conv/"),
+                    (r"/selector/fc/", "/selector/fc/0/")] + _LEAF + _STATS
 _RULES["mobilenetv3"] = _MOBILENET + [(r"^classifier_(\d)/", r"classifier/\1/")] + _LEAF + _STATS
 _RESNET = [(r"(^|/)layer(\d)_(\d+)/", r"\1layer\2/\3/"), (r"/downsample_(\d)/", r"/downsample/\1/")]
 _RULES["resnet"] = _RESNET + _LEAF + _STATS
@@ -113,7 +120,7 @@ _RULES["fasterrcnn"] = [(r"^body/", "backbone/body/")] + _MOBILENET + _RESNET + 
     (r"^box_(head|predictor)/", r"roi_heads/box_\1/"),
 ] + _LEAF + _STATS
 # the models whose trees are full variables, {"params", "batch_stats"}
-_VARIABLES = ("mobilenetv3", "fasterrcnn", "resnet", "deeplabv3")
+_VARIABLES = ("mobilenetv3", "fasterrcnn", "resnet", "deeplabv3", "skunet")
 # the box head's first fc (the MobileNet's fc6, the v2's 5) reads pooled
 # RoIs (256, 7, 7) flattened channel-major in the port (torchvision) and
 # spatial-major in JAX
@@ -199,29 +206,123 @@ def _lpips_from_jax(tree: Tree, net: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _edsr_from_jax(tree: Tree, unshuffle: bool) -> Dict[str, torch.Tensor]:
+    """The reference EDSR keys of a JAX ``EDSR`` tree (the inverse of
+    ``convert_edsr``): ``head.{0,1}``, ``body.{i}.body.{0,2}``, the body
+    conv at ``body.{n}``, the upsampler's convs at ``tail.0.{2j}``,
+    ``tail.1``."""
+    n = sum(k.startswith("body_") and k != "body_conv" for k in tree)
+    names = {"head": "head.1" if unshuffle else "head.0", "body_conv": f"body.{n}",
+             "tail": "tail.1"}
+    for i in range(n):
+        names[f"body_{i}/conv1"] = f"body.{i}.body.0"
+        names[f"body_{i}/conv2"] = f"body.{i}.body.2"
+    names.update({k: f"tail.0.{2 * int(k[3:])}" for k in tree if k.startswith("up_")})
+    out = {}
+    for path, value in _leaves(tree):
+        node, leaf = path.rsplit("/", 1)
+        if leaf == "kernel":
+            out[f"{names[node]}.weight"] = _tensor(value.transpose(3, 2, 0, 1))
+        else:
+            out[f"{names[node]}.bias"] = _tensor(value)
+    return out
+
+
+def _scunet_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
+    """The reference SCUNet keys of a JAX ``SCUNet`` tree (the inverse of
+    ``convert_scunet``): a down's pool conv after its ``n`` blocks, an up's
+    transposed conv first (its blocks from 1), ``m_head.0`` /
+    ``m_tail.0``; the transposed convs back to IOHW, flipped."""
+    counts: Dict[str, int] = {}
+    for k in tree:
+        m = re.match(r"^(m_\w+?)_(\d+)$", k)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    out = {}
+    for path, value in _leaves(tree):
+        top, rest = path.split("/", 1)
+        m = re.match(r"^(m_\w+?)_(\d+)$", top)
+        if top in ("m_head", "m_tail"):
+            key = f"{top}/0/{rest}"
+        elif top.endswith("_pool"):
+            stage = top[:-len("_pool")]
+            key = f"{stage}/{counts.get(stage, 0)}/{rest}"
+        elif top.endswith("_t"):
+            key = f"{top[:-2]}/0/{rest}"
+        else:
+            stage, i = m.group(1), int(m.group(2))
+            key = f"{stage}/{i + 1 if stage.startswith('m_up') else i}/{rest}"
+        key = re.sub(r"/(conv_block|mlp)_(\d)/", r"/\1/\2/", key)
+        key = re.sub(r"/(kernel|scale)$", "/weight", key)
+        if path.endswith("/kernel") and value.ndim == 4:
+            value = (np.ascontiguousarray(value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+                     if top.endswith("_t") else value.transpose(3, 2, 0, 1))
+        elif path.endswith("/kernel"):
+            value = value.T
+        out[key.replace("/", ".")] = _tensor(value)
+    return out
+
+
+def _selector_perm(n: int, sa: int = 4) -> np.ndarray:
+    """``convert_skunet``'s index map of a selector's flattened 4x4 map:
+    JAX's spatial-major index ``s * C + c`` -> the channel-major
+    ``c * sa² + s`` of the reference (and the port)."""
+    m = np.arange(n)
+    return (m % (n // (sa * sa))) * sa * sa + m // (n // (sa * sa))
+
+
+def _skunet_unpermute(out: Dict[str, torch.Tensor]) -> None:
+    """The selectors' fc rows and att_conv columns and biases back to the
+    channel-major order of the reference's ``view(b, -1)``."""
+    for key, w in list(out.items()):
+        if ".selector." in key:
+            unp = torch.empty_like(w)
+            if ".selector.fc." in key:  # its input columns
+                unp[:, _selector_perm(w.shape[1])] = w
+            else:  # the att_convs' output rows and biases
+                unp[_selector_perm(w.shape[0])] = w
+            out[key] = unp
+
+
+def port_key(path: str, model: str) -> str:
+    """The port's state-dict key of a '/'-joined ``edtr_tpu`` parameter path
+    of ``model`` (a model :func:`from_jax` converts by renaming rules:
+    "unet", "controlnet", "vae", "swinir", the task nets, "rrdbnet",
+    "skunet")."""
+    for pattern, repl in _RULES[model]:
+        path = re.sub(pattern, repl, path)
+    return path.replace("/", ".")
+
+
 def from_jax(tree: Tree, model: str) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``model`` ("unet", "controlnet", "vae",
-    "swinir", "clip", "mobilenetv3", "fasterrcnn" (either variant),
-    "resnet", "deeplabv3" (on either backbone), "lpips" or "lpips-vgg")
-    from that model's ``edtr_tpu`` parameter tree (for "mobilenetv3",
-    "fasterrcnn", "resnet" and "deeplabv3" its full variables)."""
+    "encoder" (a VAE encoder alone: the ``nsampler``), "swinir", "clip",
+    "mobilenetv3", "fasterrcnn" (either variant), "resnet", "deeplabv3" (on
+    either backbone), "lpips" or "lpips-vgg", "rrdbnet", "edsr" or
+    "edsr-unshuffle", "scunet", "skunet") from that model's ``edtr_tpu``
+    parameter tree (for "mobilenetv3", "fasterrcnn", "resnet",
+    "deeplabv3" and "skunet" its full variables)."""
     if model == "clip":
         return _clip_from_jax(tree)
     if model in ("lpips", "lpips-vgg"):
         return _lpips_from_jax(tree, "vgg" if model == "lpips-vgg" else "alex")
-    rules = _RULES[model]
+    if model in ("edsr", "edsr-unshuffle"):
+        return _edsr_from_jax(tree, model == "edsr-unshuffle")
+    if model == "scunet":
+        return _scunet_from_jax(tree)
+    if model == "encoder":
+        return {k[len("encoder."):]: v for k, v in from_jax({"encoder": tree}, "vae").items()}
     leaves = _leaves(tree)
     if model in _VARIABLES:
         leaves = itertools.chain(_leaves(tree["params"]), _leaves(tree["batch_stats"]))
     out = {}
     for path, value in leaves:
-        key = path
-        for pattern, repl in rules:
-            key = re.sub(pattern, repl, key)
         if path.endswith("/kernel"):
             # HWIO -> OIHW conv kernels, (in, out) -> (out, in) dense kernels
             value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
-        out[key.replace("/", ".")] = _tensor(value)
+        out[port_key(path, model)] = _tensor(value)
+    if model == "skunet":
+        _skunet_unpermute(out)
     for fc in _FC6:
         if fc in out:
             w = out[fc]

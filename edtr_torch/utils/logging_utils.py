@@ -8,10 +8,8 @@ Counterpart of ``edtr_tpu/utils/logging_utils.py``:
   only where ``torch.utils.tensorboard`` imports;
 * :func:`copy_opt_file`: the config archived under JAX's header;
 * :func:`set_seed`: ``random``, numpy and torch;
-* :func:`prepare_environment`: the experiment's directories, seed, logger,
-  writer and config archive, JAX's 5-tuple. One process only: the runner's
-  multi-process paths wait for ``edtr_torch.parallel``, so an environment
-  that asks for more processes raises :class:`NotPortedError`.
+* :func:`prepare_environment`: the process group, the experiment's
+  directories, seed, logger, writer and config archive, JAX's 5-tuple.
 """
 
 from __future__ import annotations
@@ -28,17 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from edtr_torch.config import NotPortedError
-
-# the environment variables that ask for more than one process: torchrun's
-# and the JAX package's launchers'
-WORLD_SIZE_VARS = ("WORLD_SIZE", "EDTR_NUM_PROCESSES", "JAX_NUM_PROCESSES")
+from edtr_torch.device import resolve_device
+from edtr_torch.parallel.distributed import maybe_initialize_distributed, process_rank
 
 
 def rank() -> int:
     """This process's rank in ``torch.distributed``, 0 without a group."""
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    return process_rank()[0]
 
 
 class Logger:
@@ -134,28 +128,17 @@ def set_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def world_size() -> int:
-    """The processes this run is asked to span: the process group's size,
-    else the largest of :data:`WORLD_SIZE_VARS`, else 1."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return max([int(os.environ.get(v, "1") or 1) for v in WORLD_SIZE_VARS])
-
-
 def prepare_environment(cfg, cfg_path: Optional[str] = None, seed: Optional[int] = None,
                         device: Optional[torch.device] = None):
-    """JAX's ``prepare_environment``: ``exp_dir`` (``train.exp_dir``, else
-    the config's), its ``checkpoints`` and ``images``, the seed (``seed``,
-    else ``train.seed``, else 231), the logger, the rank-0 writer under
-    ``logs``, the config archived; the first line names ``device``'s card
-    (where JAX names the TPU). Returns (exp_dir, ckpt_dir, img_dir, logger,
-    writer). Raises :class:`NotPortedError` when the environment asks for
-    more than one process (:func:`world_size`)."""
-    n = world_size()
-    if n > 1:
-        raise NotPortedError(f"a run over {n} processes needs edtr_torch.parallel, which is "
-                             "not ported yet; run one process")
+    """JAX's ``prepare_environment``: the process group the environment
+    names joined (``parallel.distributed.maybe_initialize_distributed``),
+    ``exp_dir`` (``train.exp_dir``, else the config's), its ``checkpoints``
+    and ``images``, the seed (``seed``, else ``train.seed``, else 231), the
+    logger, the rank-0 writer under ``logs``, the config archived by rank
+    0; the first line names ``device``'s card (where JAX names the TPU; by
+    default this rank's card, else the CPU) and the processes. Returns
+    (exp_dir, ckpt_dir, img_dir, logger, writer)."""
+    maybe_initialize_distributed()
     train_cfg = cfg.get("train", cfg)
     exp_dir = train_cfg.get("exp_dir", "experiments/run")
     ckpt_dir = os.path.join(exp_dir, "checkpoints")
@@ -165,10 +148,14 @@ def prepare_environment(cfg, cfg_path: Optional[str] = None, seed: Optional[int]
     set_seed(seed if seed is not None else train_cfg.get("seed", 231))
     logger = Logger(exp_dir)
     writer = ScalarWriter(os.path.join(exp_dir, "logs")) if logger.is_main else None
-    if cfg_path:
+    if cfg_path and logger.is_main:
         copy_opt_file(cfg_path, exp_dir)
     precision = train_cfg.get("precision", "bf16")
+    if device is None and torch.cuda.is_available():
+        device = resolve_device()  # the card the group gave this rank
     device = torch.device(device or "cpu")
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else f"the {device.type}"
-    logger(f"experiment dir: {exp_dir} (precision: {precision} on {where})")
+    n = process_rank()[1]
+    logger(f"experiment dir: {exp_dir} (precision: {precision} on {where}"
+           + (f", {n} processes)" if n > 1 else ")"))
     return exp_dir, ckpt_dir, img_dir, logger, writer

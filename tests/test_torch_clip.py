@@ -32,7 +32,7 @@ from edtr_torch.models.clip import CLIPTextEncoder
 from edtr_torch.pipeline import build_flagship
 from edtr_torch.utils.convert import from_jax
 from test_torch_pipeline import _replay_noise
-from torch_port_helpers import IMAGE, load_port, random_tree, t2n
+from torch_port_helpers import IMAGE, cheap_jit, load_port, random_tree, t2n
 
 TINY = dict(vocab_size=512, width=64, heads=4, layers=2)
 TOL_REL = 3e-3
@@ -101,7 +101,7 @@ def test_tower_matches_jax(penultimate, dtype):
     net, params = _tower(penultimate)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else None
     ids = np.random.default_rng(3).integers(0, 512, (2, 77)).astype(np.int32)
-    want = jax.jit(lambda p, t: JCLIP(**TINY, penultimate=penultimate, dtype=jdt).apply(
+    want = cheap_jit(lambda p, t: JCLIP(**TINY, penultimate=penultimate, dtype=jdt).apply(
         {"params": p}, t))(params, ids)
     port = CLIPTextEncoder(**TINY, penultimate=penultimate,
                            dtype=getattr(torch, dtype) if jdt else None)
@@ -161,7 +161,7 @@ def test_restore_without_c_txt_matches_jax():
     pipe, params, port = _restore_pair()
     lq = np.random.default_rng(22).random((2, IMAGE, IMAGE, 3)).astype(np.float32)
     rng = jax.random.PRNGKey(232)
-    out_j = jax.jit(lambda p, x, r: pipe.restore(p, x, r))(params, jnp.asarray(lq), rng)
+    out_j = cheap_jit(lambda p, x, r: pipe.restore(p, x, r))(params, jnp.asarray(lq), rng)
     hw = IMAGE // 8
     noise, step_noise = _replay_noise(rng, (2, hw, hw, 4), len(pipe.used_timesteps))
     args = dict(noise=torch.from_numpy(noise), step_noise=torch.from_numpy(step_noise))

@@ -186,7 +186,11 @@ def test_port_imports_no_jax():
                 "edtr_torch.utils.coco_eval", "edtr_torch.train.harness",
                 "edtr_torch.train.runner", "edtr_torch.train.valhooks", "edtr_torch.cli",
                 "edtr_torch.utils.logging_utils", "edtr_torch.utils.profiling",
-                "edtr_torch.utils.benchtime", "edtr_torch.data.preprocess"):
+                "edtr_torch.utils.benchtime", "edtr_torch.data.preprocess",
+                "edtr_torch.parallel.distributed", "edtr_torch.parallel.mesh",
+                "edtr_torch.parallel.tp", "edtr_torch.parallel.fsdp",
+                "edtr_torch.models.bsrnet", "edtr_torch.models.edsr",
+                "edtr_torch.models.scunet", "edtr_torch.models.skunet"):
         assert mod in res.stdout
 
 

@@ -34,7 +34,7 @@ from edtr_torch.models import faster_rcnn as TF
 from edtr_torch.pipeline import build_flagship
 from edtr_torch.utils.checkpoint import load_combined
 from test_torch_detection import _detector_v2, _port_loaded_v2
-from torch_port_helpers import CTX, jax_tiny, nchw, nhwc, port_tiny, t2n
+from torch_port_helpers import CTX, cheap_jit, jax_tiny, nchw, nhwc, port_tiny, t2n
 
 H, W = 128, 192
 # 2 encoder tiles in each of its passes, 2 decoder tiles in each, 2 latent
@@ -66,19 +66,27 @@ def _inputs():
     return image, c_txt, noise, np.stack(step_noise)
 
 
+@functools.lru_cache(maxsize=1)
+def _jax_pre_restore():
+    """JAX's pre-restored image (SwinIR, untiled in both cases), jitted and
+    run once for the untiled and the tiled restore."""
+    pipe, params = jax_tiny()
+    return cheap_jit(pipe.pre_restore)(params, jnp.asarray(_inputs()[0]))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_restore(tiled: bool) -> np.ndarray:
     """``demo.py``'s restore steps on JAX's tiny pipeline: pre-restore,
     encode (the mode), q_sample, the walk (its model on latent tiles when
     ``tiled``), decode, the wavelet fix."""
     pipe, params = jax_tiny()
-    image, c_txt, noise, _ = _inputs()
+    _, c_txt, noise, _ = _inputs()
     opts = TILED if tiled else {}
     cldm = pipe.cldm
     # each step jitted: one compile each, where op-by-op dispatch compiles
     # every primitive on its own (the SwinIR and the encoder ~5x slower)
-    pre = jax.jit(pipe.pre_restore)(params, jnp.asarray(image))
-    z_pre = jax.jit(lambda p, x: cldm.vae_encode(
+    pre = _jax_pre_restore()
+    z_pre = cheap_jit(lambda p, x: cldm.vae_encode(
         p, x, sample=False, tiled=opts.get("vae_encoder_tiled", False),
         tile_size=opts.get("vae_encoder_tile_size", -1)))(params, pre * 2 - 1)
     t = jnp.full((1,), pipe.start_timestep, jnp.int32)
@@ -93,14 +101,14 @@ def _jax_restore(tiled: bool) -> np.ndarray:
                                                               c_img=c_img),
                            jax.random.PRNGKey(51))
 
-    z = jax.jit(walk)(params, z_t, z_pre)
+    z = cheap_jit(walk)(params, z_t, z_pre)
 
     def decode(p, z, pre):
         decoded = (cldm.vae_decode(p, z, tiled=opts.get("vae_decoder_tiled", False),
                                    tile_size=opts.get("vae_decoder_tile_size", -1)) + 1) / 2
         return wavelet_reconstruction(decoded, pre)
 
-    return np.asarray(jax.jit(decode)(params, z, pre))
+    return np.asarray(cheap_jit(decode)(params, z, pre))
 
 
 @functools.lru_cache(maxsize=1)
@@ -133,7 +141,7 @@ def _jax_detect(res: np.ndarray, detection_type: str, floor: float) -> dict:
     """``demo.py``'s detection steps on ``res`` (1, H, W, 3), JAX's tiny v2;
     ``floor``: the tile detections' score floor."""
     det, variables, _ = _detector_v2()
-    fn = jax.jit(lambda im: det.apply(variables, im)[0])
+    fn = cheap_jit(lambda im: det.apply(variables, im)[0])
     res = jnp.asarray(res)
     if detection_type == "resize":
         s = 512 / max(res.shape[1:3])

@@ -50,7 +50,7 @@ from edtr_torch.train.tasks import task_apply_for
 from edtr_torch.utils.convert import from_jax
 from test_torch_detection import (DET_BATCH, DET_IMAGE, _boxes, _detector, _detector_v2,
                                   _jax_detect_v2, _port_detector_v2, _t)
-from torch_port_helpers import nchw, t2n
+from torch_port_helpers import cheap_jit, nchw, t2n
 
 # sampling keeps every candidate: 540 anchors at 128² (the v2: 4092), 32
 # proposals + 4 GT
@@ -188,7 +188,7 @@ def _jax_train_fn(train: bool, v2: bool = False):
                                         rngs={"sampler": jax.random.PRNGKey(3)})
         return sum(losses.values()), (losses, new["batch_stats"])
 
-    fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    fn = cheap_jit(jax.value_and_grad(loss_fn, has_aux=True))
     return lambda images: fn(variables["params"], images)
 
 
@@ -403,7 +403,7 @@ def _jax_task_det():
         loss, (losses, new) = loss_fn(params, extra, images, targets, jax.random.PRNGKey(3))
         return loss, losses, new["batch_stats"], feats_fn(params, extra, images)
 
-    return jax.tree.map(np.asarray, jax.jit(run)(variables["params"]))
+    return jax.tree.map(np.asarray, cheap_jit(run)(variables["params"]))
 
 
 def test_task_apply_for_det_matches_runner():

@@ -35,7 +35,7 @@ from edtr_torch.models.mobilenetv3 import MobileNetV3
 from edtr_torch.ops import boxes as TB
 from edtr_torch.ops import roi_align as TR
 from edtr_torch.utils.convert import from_jax
-from torch_port_helpers import nchw, nhwc, t2n
+from torch_port_helpers import cheap_jit, nchw, nhwc, t2n
 
 
 @pytest.fixture(autouse=True)
@@ -111,7 +111,7 @@ def _tied_rows(seed, rows, n, dup):
 def test_top_k_by_score_equal_on_ties(n, k):
     _, scores, valid = _tied_rows(2, 3, n, 0)
     idx, iv = TB.top_k_by_score(_t(scores), k, _t(valid))
-    j_idx, j_iv = jax.jit(jax.vmap(lambda s, v: JB.top_k_by_score(s, k, v)))(scores, valid)
+    j_idx, j_iv = cheap_jit(jax.vmap(lambda s, v: JB.top_k_by_score(s, k, v)))(scores, valid)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
     np.testing.assert_array_equal(iv.numpy(), np.asarray(j_iv))
     j_idx, _ = JB.top_k_by_score(scores[0], k)  # no validity mask
@@ -129,10 +129,10 @@ def test_nms_mask_equal_on_ties_duplicates_and_invalid(n, thr):
     TB.host_syncs.update(calls=0, syncs=0)
     keep = TB.nms_mask(_t(boxes), _t(scores), thr, _t(valid)).numpy()
     assert TB.host_syncs["calls"] == 1 and TB.host_syncs["syncs"] >= 1
-    want = jax.jit(jax.vmap(lambda b, s, v: JB.nms_mask(b, s, thr, v)))(boxes, scores, valid)
+    want = cheap_jit(jax.vmap(lambda b, s, v: JB.nms_mask(b, s, thr, v)))(boxes, scores, valid)
     np.testing.assert_array_equal(keep, np.asarray(want))
     assert not (keep & ~valid).any() and (keep.sum(1) < valid.sum(1)).all()
-    want = jax.jit(lambda b, s: JB.nms_mask(b, s, thr))(boxes[0], scores[0])  # no mask
+    want = cheap_jit(lambda b, s: JB.nms_mask(b, s, thr))(boxes[0], scores[0])  # no mask
     np.testing.assert_array_equal(TB.nms_mask(_t(boxes[0]), _t(scores[0]), thr).numpy(),
                                   np.asarray(want))
 
@@ -168,7 +168,7 @@ def test_roi_align(dtype):
     feat = rng.standard_normal((2, 12, 10, 16)).astype(np.float32)  # NHWC
     rois = np.stack([_rois(rng, 30, 80.0) for _ in range(2)])
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    want = jax.jit(jax.vmap(lambda f, r: JR.roi_align(f, r, 1 / 8, 7, 2)))(
+    want = cheap_jit(jax.vmap(lambda f, r: JR.roi_align(f, r, 1 / 8, 7, 2)))(
         jnp.asarray(feat, jdt), rois)
     want = np.asarray(want.astype(jnp.float32))  # (B, N, S, S, C)
     got = TR.roi_align(nchw(feat).to(getattr(torch, dtype)), _t(rois), 1 / 8, 7, 2)
@@ -253,8 +253,8 @@ def _detector():
 @functools.lru_cache(maxsize=1)
 def _jax_detect():
     det, variables, images = _detector()
-    fn = jax.jit(lambda v, x, mp: det.apply(v, x, manual_proposals=mp))
-    plain = jax.jit(lambda v, x: det.apply(v, x))
+    fn = cheap_jit(lambda v, x, mp: det.apply(v, x, manual_proposals=mp))
+    plain = cheap_jit(lambda v, x: det.apply(v, x))
     return plain(variables, images), fn
 
 
@@ -277,7 +277,7 @@ def test_mobilenetv3_features_full_width(dtype):
     shapes = jax.eval_shape(lambda k: net.init(k, jnp.zeros((1, 64, 64, 3)), features=True),
                             jax.random.PRNGKey(0))
     variables = _random_variables(shapes, 11)
-    want = jax.jit(lambda v, x: net.apply(v, x, features=True))(variables, x)
+    want = cheap_jit(lambda v, x: net.apply(v, x, features=True))(variables, x)
     port = MobileNetV3(dtype=getattr(torch, dtype) if jdt else None)
     port.load_state_dict(from_jax(variables, "mobilenetv3"), strict=True)
     assert port.stage_indices() == net.stage_indices() == [0, 2, 4, 7, 13, 16]
@@ -494,7 +494,7 @@ def _detector_v2():
 @functools.lru_cache(maxsize=1)
 def _jax_detect_v2():
     det, variables, images = _detector_v2()
-    return jax.jit(lambda v, x: det.apply(v, x))(variables, images)
+    return cheap_jit(lambda v, x: det.apply(v, x))(variables, images)
 
 
 def _port_loaded_v2():

@@ -174,11 +174,15 @@ def test_logging_outputs_equal_jax(tmp_path, monkeypatch):
 
 
 def test_prepare_environment_refuses_many_processes(monkeypatch, tmp_path):
-    from edtr_torch.config import Config, NotPortedError
+    """An environment that asks for 4 processes and names no rendezvous
+    (no coordinator, no ``MASTER_ADDR``) is refused; with one, the process
+    group is joined (``tests/test_torch_parallel.py``)."""
+    from edtr_torch.config import Config
     from edtr_torch.utils.logging_utils import prepare_environment
 
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotPortedError, match="4 processes"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="4 processes"):
         prepare_environment(Config({"train": {"exp_dir": str(tmp_path)}}))
 
 

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import CTX, IMAGE, jax_tiny, port_tiny, stock_restore, t2n
+from torch_port_helpers import CTX, IMAGE, cheap_jit, jax_tiny, port_tiny, stock_restore, t2n
 
 
 @pytest.fixture(autouse=True)
@@ -52,7 +52,7 @@ def test_tiny_restore_matches_jax():
     lq, c_txt = restore_inputs()
     rng = jax.random.PRNGKey(RESTORE_KEY)
 
-    out_j = jax.jit(lambda p, x, r, c: pipe.restore(p, x, r, c_txt=c))(
+    out_j = cheap_jit(lambda p, x, r, c: pipe.restore(p, x, r, c_txt=c))(
         params, jnp.asarray(lq), rng, jnp.asarray(c_txt))
     hw = IMAGE // 8
     noise, step_noise = _replay_noise(rng, (1, hw, hw, 4), len(pipe.used_timesteps))

@@ -41,7 +41,7 @@ from edtr_torch.ops import ln_matmul as LM
 from edtr_torch.pipeline import EDTRPipeline, flagship_configs
 from edtr_torch.train.edtr_step import EDTRTrainState, make_edtr_train_step, split_trainable
 from edtr_torch.utils.convert import from_jax
-from torch_port_helpers import CTX, IMAGE, compiled_step, jax_tiny, load_port, nchw
+from torch_port_helpers import CTX, IMAGE, cheap_jit, compiled_step, jax_tiny, load_port, nchw
 
 LAT = IMAGE // 8
 B = 2
@@ -191,7 +191,7 @@ def test_optimizer_matches_optax():
     state_j = JS.EDTRTrainState.create(pipe_j, params, train_steps=10, train_decoder=True)
     trainable, _ = JS.split_trainable(params, train_decoder=True)
     opt_j = state_j.tx_edtr.init(trainable)
-    update = jax.jit(state_j.tx_edtr.update)
+    update = cheap_jit(state_j.tx_edtr.update)
     pipe = _port()
     state = EDTRTrainState.create(pipe, train_steps=10, train_decoder=True)
     named = dict(pipe.named_parameters())
